@@ -1,0 +1,56 @@
+"""Keypoint detection (port of mapmerge_tpu/ops/keypoints).
+
+Only SIFT is ported; Harris3D raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from mapmerge_tpu.core.enums import Keypoint
+from mapmerge_torch.core.cloud import PointCloud
+
+
+@dataclasses.dataclass(frozen=True)
+class Keypoints:
+    """Fixed-capacity keypoint set with detector responses
+    (mapmerge_tpu/ops/keypoints/harris.py:34)."""
+
+    xyz: torch.Tensor  # (K, 3) float32
+    response: torch.Tensor  # (K,) float32
+    mask: torch.Tensor  # (K,) bool
+    #: above-threshold detections beyond `max_keypoints` that the top-k cut
+    #: dropped; surfaced as a warning by estimate_maps_transforms
+    truncated: torch.Tensor
+
+
+def detect_keypoints(
+    cloud: PointCloud,
+    kind: Keypoint,
+    threshold: float,
+    resolution: float,
+    max_keypoints: int,
+    tile: int = 1024,
+    sift_octaves: int = 3,
+    sift_scales_per_octave: int = 3,
+    engine: str = "auto",
+) -> Keypoints:
+    """SIFT(min_scale=resolution, octaves, scales, min_contrast=threshold)."""
+    if kind != Keypoint.SIFT:
+        raise NotImplementedError(
+            f"keypoint type {kind} is not ported to mapmerge_torch (SIFT only)"
+        )
+    from mapmerge_torch.ops.keypoints.sift import detect_keypoints_sift
+
+    return detect_keypoints_sift(
+        cloud,
+        min_scale=resolution,
+        octaves=sift_octaves,
+        scales_per_octave=sift_scales_per_octave,
+        min_contrast=threshold,
+        max_keypoints=max_keypoints,
+        tile=tile,
+        engine=engine,
+    )

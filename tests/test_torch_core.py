@@ -1,0 +1,257 @@
+"""mapmerge_torch core parity: clouds, transforms, the numpy scene generator,
+the constants shared with the reference, the not-ported configurations, and
+the rule that the port never imports jax."""
+
+import ast
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mapmerge_tpu.core import transforms as jtf
+from mapmerge_tpu.core.cloud import pad_cloud as j_pad, stack_clouds as j_stack
+from mapmerge_torch.core import transforms as ttf
+from mapmerge_torch.core.cloud import FAR, pad_cloud as t_pad, stack_clouds as t_stack
+from mapmerge_torch.testing import scene as tscene
+
+from synthetic import make_scene, overlapping_views, rotation_z, se3
+from torch_parity import both_clouds, t
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+#: the framework-free reference modules the port may import
+ALLOWED_REFERENCE = {
+    "mapmerge_tpu.core.params",
+    "mapmerge_tpu.core.enums",
+    "mapmerge_tpu.graph.merge_graph",
+    "mapmerge_tpu.graph.pose_graph",
+}
+
+
+def _random_rigid(rng, n):
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    r = np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+        2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+        2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y),
+    ], axis=1).reshape(n, 3, 3)
+    return r.astype(np.float32), rng.normal(size=(n, 3)).astype(np.float32)
+
+
+class TestCloud:
+    def test_from_numpy_matches_reference(self, rng):
+        xyz = rng.normal(size=(50, 3)).astype(np.float32)
+        rgb = rng.random((50, 3)).astype(np.float32)
+        jc, tc = both_clouds(xyz, rgb, capacity=64)
+        for name in ("xyz", "rgb", "mask"):
+            np.testing.assert_array_equal(
+                getattr(tc, name).numpy(), np.asarray(getattr(jc, name))
+            )
+        assert tc.capacity == jc.capacity == 64
+        assert int(tc.count) == 50
+        for a, b in zip(tc.to_numpy(), jc.to_arrays()):
+            np.testing.assert_array_equal(a, b)
+
+    def test_park_pad_stack_match_reference(self, rng):
+        xyz = rng.normal(size=(30, 3)).astype(np.float32)
+        jc, tc = both_clouds(xyz, rng.random((30, 3)), capacity=30)
+        mask = rng.random(30) > 0.3
+        jc = type(jc)(xyz=jc.xyz, rgb=jc.rgb, mask=jnp.asarray(mask))
+        tc = type(tc)(xyz=tc.xyz, rgb=tc.rgb, mask=torch.from_numpy(mask))
+        jp, tp = jc.park_invalid(), tc.park_invalid()
+        np.testing.assert_array_equal(tp.xyz.numpy(), np.asarray(jp.xyz))
+        np.testing.assert_array_equal(tp.rgb.numpy(), np.asarray(jp.rgb))
+        assert float(tp.xyz[~torch.from_numpy(mask)].min()) == FAR
+        jq, tq = j_pad(jp, 40), t_pad(tp, 40)
+        np.testing.assert_array_equal(tq.xyz.numpy(), np.asarray(jq.xyz))
+        np.testing.assert_array_equal(tq.mask.numpy(), np.asarray(jq.mask))
+        with pytest.raises(ValueError):
+            t_pad(tp, 10)
+        js, ts = j_stack([jp, jq]), t_stack([tp, tq])
+        assert ts.xyz.shape == (2, 40, 3)
+        np.testing.assert_array_equal(ts.xyz.numpy(), np.asarray(js.xyz))
+        np.testing.assert_array_equal(ts.mask.numpy(), np.asarray(js.mask))
+
+
+class TestTransforms:
+    def test_compose_apply_match_reference(self, rng):
+        r, tr = _random_rigid(rng, 4)
+        pts = rng.normal(size=(4, 20, 3)).astype(np.float32)
+        jt = jtf.from_rotation_translation(jnp.asarray(r), jnp.asarray(tr))
+        tt = ttf.from_rotation_translation(t(r), t(tr))
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+        np.testing.assert_allclose(
+            ttf.apply(tt, t(pts)).numpy(), np.asarray(jtf.apply(jt, jnp.asarray(pts))),
+            rtol=1e-6, atol=1e-6,
+        )
+        np.testing.assert_allclose(
+            ttf.compose(tt[0], tt[1]).numpy(), np.asarray(jtf.compose(jt[0], jt[1])),
+            rtol=1e-6, atol=1e-6,
+        )
+        # the identity and zero conventions
+        np.testing.assert_array_equal(ttf.identity().numpy(), np.asarray(jtf.identity()))
+        np.testing.assert_array_equal(ttf.zero().numpy(), np.asarray(jtf.zero()))
+
+    def test_geodesic_and_translation_error_match_reference(self, rng):
+        r, tr = _random_rigid(rng, 6)
+        a = ttf.from_rotation_translation(t(r[:3]), t(tr[:3]))
+        b = ttf.from_rotation_translation(t(r[3:]), t(tr[3:]))
+        ja, jb = jnp.asarray(a.numpy()), jnp.asarray(b.numpy())
+        # float32 arccos near 1: 1e-3 deg absolute
+        np.testing.assert_allclose(
+            ttf.rotation_geodesic_deg(a, b).numpy(),
+            np.asarray(jtf.rotation_geodesic_deg(ja, jb)), atol=1e-3,
+        )
+        np.testing.assert_allclose(
+            ttf.translation_error(a, b).numpy(),
+            np.asarray(jtf.translation_error(ja, jb)), rtol=1e-6,
+        )
+        rot, trans = ttf.pose_error(a[0].numpy(), a[0].numpy())
+        assert rot < 1e-2 and trans == 0.0
+
+
+class TestScene:
+    """mapmerge_torch/testing/scene.py makes the same RNG calls as
+    tests/synthetic.py: its arrays must be bit-identical."""
+
+    @pytest.mark.parametrize(
+        "boxes,extent,density,angle,shift",
+        [
+            (6, 8.0, 60.0, 0.4, [1.5, -0.7, 0.2]),  # the slice test's scene
+            (20, 16.0, 220.0, 0.35, [1.2, -0.5, 0.15]),  # bench.py config #1
+        ],
+    )
+    def test_bit_identical_to_synthetic(self, boxes, extent, density, angle, shift):
+        ref = make_scene(np.random.default_rng(7), n_boxes=boxes, extent=extent,
+                         density=density)
+        got = tscene.make_scene(np.random.default_rng(7), n_boxes=boxes,
+                                extent=extent, density=density)
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        truth = se3(rotation_z(angle), shift)
+        np.testing.assert_array_equal(tscene.se3(tscene.rotation_z(angle), shift), truth)
+        ja, jb = overlapping_views(np.random.default_rng(3), *ref, truth, overlap=0.6)
+        ta, tb, cap = tscene.overlapping_views(
+            np.random.default_rng(3), *got, truth, overlap=0.6
+        )
+        assert cap == ja.capacity == jb.capacity
+        for (txyz, trgb), jc in ((ta, ja), (tb, jb)):
+            jxyz, jrgb = jc.to_arrays()
+            np.testing.assert_array_equal(txyz, jxyz)
+            np.testing.assert_array_equal(trgb, jrgb)
+
+    def test_config1_scene_matches_bench(self):
+        (a_xyz, _), (b_xyz, _), cap, truth = tscene.config1_scene()
+        assert (a_xyz.shape[0], b_xyz.shape[0]) == (55425, 62499)  # golden
+        assert cap == 62499
+        np.testing.assert_array_equal(
+            truth, se3(rotation_z(0.35), [1.2, -0.5, 0.15])
+        )
+
+
+def _imports(path: pathlib.Path) -> set[str]:
+    """Every module a file imports, at any depth of its code."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names.add(node.module)
+            names.update(f"{node.module}.{a.name}" for a in node.names)
+    return names
+
+
+def _module_file(name: str) -> pathlib.Path | None:
+    base = ROOT.joinpath(*name.split("."))
+    for cand in (base.with_suffix(".py"), base / "__init__.py"):
+        if cand.exists():
+            return cand
+    return None
+
+
+class TestNoJax:
+    def test_port_imports_no_jax(self):
+        """AST scan: no module of mapmerge_torch (nor chip_smoke.py) imports
+        jax, and every mapmerge_tpu import is a framework-free module of the
+        allowlist, whose own imports reach no jax either."""
+        smoke = ROOT / "chip_smoke.py"
+        files = sorted((ROOT / "mapmerge_torch").rglob("*.py")) + [smoke]
+        assert len(files) > 20
+        # the smoke script reaches the reference only through the port
+        assert not any(n.startswith("mapmerge_tpu") for n in _imports(smoke))
+        reference = set()
+        for path in files:
+            for name in _imports(path):
+                assert name.split(".")[0] != "jax", f"{path}: imports {name}"
+                if name.startswith("mapmerge_tpu"):
+                    if _module_file(name) is not None:
+                        reference.add(name)
+        assert reference and reference <= ALLOWED_REFERENCE, reference
+        # the allowlisted modules, and what they import in turn
+        seen, todo = set(), list(reference)
+        while todo:
+            name = todo.pop()
+            if name in seen:
+                continue
+            seen.add(name)
+            for dep in _imports(_module_file(name)):
+                assert dep.split(".")[0] != "jax", f"{name} imports {dep}"
+                if dep.startswith("mapmerge_tpu") and _module_file(dep):
+                    todo.append(dep)
+        assert "mapmerge_tpu.native" in seen  # merge_graph's native solver
+
+    def test_constants_match_reference(self):
+        from mapmerge_tpu.ops import neighbors as jn
+        from mapmerge_tpu.pipeline import registration as jr
+        from mapmerge_torch.ops import neighbors as tn
+        from mapmerge_torch.pipeline import registration as tr
+
+        assert (tn.BIG, tn.GRID_AUTO_THRESHOLD, tn.GRID_NN_THRESHOLD) == (
+            jn.BIG, jn.GRID_AUTO_THRESHOLD, jn.GRID_NN_THRESHOLD,
+        )
+        assert (
+            tr.AMBIGUITY_MIN_COVERAGE, tr.AMBIGUITY_MIN_PURITY,
+            tr.AMBIGUITY_MIN_SUPPORT,
+        ) == (
+            jr.AMBIGUITY_MIN_COVERAGE, jr.AMBIGUITY_MIN_PURITY,
+            jr.AMBIGUITY_MIN_SUPPORT,
+        )
+
+
+class TestOutsideTheSlice:
+    """Configurations the port does not cover raise NotImplementedError,
+    naming what is missing, instead of taking another path."""
+
+    def test_grid_engine(self):
+        from mapmerge_torch.ops import neighbors as tn
+
+        q = torch.zeros((4, 3))
+        with pytest.raises(NotImplementedError, match="cell-grid"):
+            tn.radius_count(q, q, 1.0, engine="grid")
+        with pytest.raises(NotImplementedError, match="cell-grid"):
+            tn.check_dense("auto", tn.GRID_AUTO_THRESHOLD)
+        with pytest.raises(NotImplementedError, match="cell-grid"):
+            tn.check_dense("auto", tn.GRID_NN_THRESHOLD, tn.GRID_NN_THRESHOLD)
+        tn.check_dense("auto", tn.GRID_NN_THRESHOLD - 1, tn.GRID_NN_THRESHOLD)
+        tn.check_dense("dense", tn.GRID_AUTO_THRESHOLD)
+
+    def test_keypoint_descriptor_and_method(self):
+        from mapmerge_tpu.core.enums import Descriptor, Keypoint
+        from mapmerge_torch.ops.descriptors import compute_descriptors
+        from mapmerge_torch.ops.keypoints import detect_keypoints
+        from mapmerge_torch.pipeline.registration import estimate_transform
+        from torch_parity import SLICE_PARAMS
+
+        _, tc = both_clouds(np.zeros((4, 3), np.float32))
+        with pytest.raises(NotImplementedError, match="HARRIS"):
+            detect_keypoints(tc, Keypoint.HARRIS, 1.0, 0.1, 8)
+        with pytest.raises(NotImplementedError, match="PFH"):
+            compute_descriptors(tc, None, None, Descriptor.PFH, 0.8)
+        with pytest.raises(NotImplementedError, match="SAC_IA"):
+            estimate_transform(
+                None, None, SLICE_PARAMS.replace(estimation_method="SAC_IA")
+            )
