@@ -12,9 +12,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      card: reset the kernels' launch counts, run once, require every kernel
      to have launched; gate the poses against the ground truth and against
      golden/config1.json at 1 deg / 0.1 m; time 5 warm repetitions; run
-     compose_maps at the output resolution.
-The line before the last is a JSON object of the kernels; the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+     compose_maps at the output resolution;
+  4b. the repeat check: every warm repetition gives transforms bitwise equal
+     to the first run's, and compose_maps run twice gives the same points;
+  5. the reference's default operating point at config #1's size
+     (bench_configs.config1_pfh: SIFT + PFH-125): the 1 deg / 0.1 m gate,
+     nn launches, 5 warm repetitions, peak memory, the repeat check, and the
+     PFH descriptor stage against FPFH's on the same inputs;
+  6. the registry sweep on the descriptor-parity scene of
+     tests/test_oracle_parity.py:81-135 (Harris keypoints): PFHRGB, SHOT and
+     SC3D under MATCHING, FPFH and RSD under SAC_IA, each gated at 1.5 deg /
+     0.15 m, with the descriptors' width and normalisation checked, the
+     launches required and one warm call timed.
+Each path runs with the launch counts reset just before it and read just
+after. The line before the last is a JSON object of the kernels (launches
+from config #1's run); the last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -245,12 +258,7 @@ def run_main_path(dev, kernels) -> dict:
     require(rot < 1.0 and trans < 0.1, "pose gate against truth failed")
     require(g_rot < 1.0 and g_trans < 0.1, "pose gate against golden failed")
 
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        estimate_maps_transforms(clouds, params, seed=0)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    walls = warm_runs(clouds, params, out, "config #1")
     log(f"estimate_maps_transforms wall s (5 warm reps): median "
         f"{statistics.median(walls)}, min {min(walls)}, max {max(walls)}")
 
@@ -261,7 +269,221 @@ def run_main_path(dev, kernels) -> dict:
         "compose_maps gave no finite points",
     )
     log(f"compose_maps at {params.output_resolution} m: {n_merged} points")
+    again = int(compose_maps(clouds, out, params.output_resolution).mask.sum())
+    require(again == n_merged, f"compose_maps gave {n_merged} then {again} points")
+    log("repeat check (config #1): 5 warm runs bitwise equal to the first; "
+        f"compose_maps {n_merged} points twice")
     return launches
+
+
+def warm_runs(clouds, params, first, label: str, reps: int = 5) -> list[float]:
+    """Wall seconds of `reps` warm estimate_maps_transforms calls, each
+    required to give transforms bitwise equal to `first` unless that is
+    None (SHOT's and SC3D's fractional scatter-adds may round otherwise
+    from run to run)."""
+    from mapmerge_torch.pipeline.merging import estimate_maps_transforms
+
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = estimate_maps_transforms(clouds, params, seed=0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        require(
+            first is None
+            or len(out) == len(first)
+            and all(np.array_equal(a, b) for a, b in zip(out, first)),
+            f"{label}: a repeat run gave other transforms than the first",
+        )
+    return walls
+
+
+def drive(label: str, clouds, params, kernels, truth, rot_gate, trans_gate):
+    """One estimate_maps_transforms call with the launch counts reset just
+    before and read just after; the relative pose gated against `truth`.
+    Returns (transforms, launches, wall s, pose error)."""
+    from mapmerge_torch.core import transforms as tf
+    from mapmerge_torch.pipeline.merging import estimate_maps_transforms
+
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = estimate_maps_transforms(clouds, params, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    require(len(out) == 2 and all(
+        t.shape == (4, 4) and np.isfinite(t).all() for t in out
+    ), f"{label}: transforms are not two finite 4x4 matrices")
+    rot, trans = tf.pose_error(rel_pose(out), truth)
+    log(f"{label}: {wall:.3f} s, launches {launches}, pose vs truth "
+        f"{rot} deg, {trans} m")
+    require(rot < rot_gate and trans < trans_gate,
+            f"{label}: pose gate {rot_gate} deg / {trans_gate} m failed")
+    require(launches["nearest_neighbor"] > 0,
+            f"{label}: kernel nearest_neighbor was not launched")
+    return out, launches, wall, (rot, trans)
+
+
+def stage_ms(fn, reps: int = 5) -> float:
+    """Median host ms of `fn` between two synchronisations, after a warm-up
+    (how PERF.md's stage profile times a stage)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def run_default_operating_point(dev, kernels) -> None:
+    """bench_configs.config1_pfh: config #1 with the reference's default
+    descriptor, PFH-125."""
+    from mapmerge_torch.core.cloud import PointCloud, pad_cloud
+    from mapmerge_torch.ops.descriptors import compute_descriptors
+    from mapmerge_torch.ops.downsample import voxel_downsample
+    from mapmerge_torch.ops.keypoints import detect_keypoints
+    from mapmerge_torch.ops.normals import compute_surface_normals
+    from mapmerge_torch.ops.outliers import remove_outliers
+    from mapmerge_torch.pipeline.merging import compose_maps
+    from mapmerge_torch.testing.scene import config1_scene
+
+    va, vb, cap, truth = config1_scene()
+    clouds = [
+        PointCloud.from_numpy(*va, capacity=cap, device=dev),
+        PointCloud.from_numpy(*vb, capacity=cap, device=dev),
+    ]
+    params = config1_params().replace(descriptor_type="PFH")
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, launches, first_s, _ = drive(
+        "config1_pfh", clouds, params, kernels, truth, 1.0, 0.1
+    )
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    walls = warm_runs(clouds, params, out, "config1_pfh")
+    log(f"config1_pfh wall s (5 warm reps): median {statistics.median(walls)}"
+        f", min {min(walls)}, max {max(walls)}; first run {first_s:.3f} s; "
+        f"peak device memory {peak_gib:.2f} GiB")
+    n1 = int(compose_maps(clouds, out, params.output_resolution).mask.sum())
+    n2 = int(compose_maps(clouds, out, params.output_resolution).mask.sum())
+    require(n1 == n2 and n1 > 0, f"config1_pfh: compose_maps {n1} then {n2}")
+    log(f"repeat check (config1_pfh): 5 warm runs bitwise equal to the first;"
+        f" compose_maps {n1} points twice")
+
+    # the descriptor stage alone, PFH against FPFH on the same inputs, both
+    # clouds summed (the stage profile's method)
+    r = params.descriptor_radius
+    stage = {"PFH": 0.0, "FPFH": 0.0}
+    for c in clouds:
+        c = voxel_downsample(pad_cloud(c, cap), params.resolution,
+                             out_capacity=min(cap, params.max_points))
+        c = remove_outliers(c, r, params.outliers_min_neighbours,
+                            tile=params.neighbor_tile)
+        nrm = compute_surface_normals(c, params.normal_radius,
+                                      tile=params.neighbor_tile)
+        kp = detect_keypoints(
+            c, nrm, params.keypoint_type, params.keypoint_threshold,
+            params.normal_radius, params.resolution, params.max_keypoints,
+            tile=params.neighbor_tile,
+        )
+        for kind in stage:
+            stage[kind] += stage_ms(lambda: compute_descriptors(
+                c, nrm, kp, kind, r, max_neighbors=params.max_neighbors,
+                tile=params.neighbor_tile,
+            ))
+    log(f"descriptor stage ms per merge (median of 5, 2 clouds, "
+        f"{params.max_keypoints} keypoints x {params.max_neighbors} "
+        f"neighbours): PFH {stage['PFH']:.3f}, FPFH {stage['FPFH']:.3f}")
+
+
+def check_descriptor_rows(label: str, kind: str, data, valid) -> None:
+    """Width and normalisation of the valid rows: histogram blocks sum to
+    100, or to 0 where no pair counted (FPFH 3 x 11, PFH 125, PFHRGB
+    2 x 125), SHOT and SC3D rows have unit L2 norm, RSD radii lie in
+    [0, 0.2]."""
+    from mapmerge_torch.ops.descriptors import descriptor_kind_from_dim
+
+    require(descriptor_kind_from_dim(data.shape[1]).value == kind,
+            f"{label}: descriptor width {data.shape[1]}")
+    rows = data[valid]
+    require(rows.shape[0] > 5 and bool(torch.isfinite(rows).all()),
+            f"{label}: {rows.shape[0]} valid descriptors")
+    block = {"FPFH": 11, "PFH": 125, "PFHRGB": 125}.get(kind)
+    if block is not None:
+        sums = rows.reshape(rows.shape[0], -1, block).sum(-1)
+        require(bool((((sums - 100.0).abs() < 1e-2) | (sums == 0)).all()),
+                f"{label}: histogram blocks do not sum to 100")
+    elif kind in ("SHOT", "SC3D"):
+        norms = rows.norm(dim=-1)
+        require(bool(((norms - 1.0).abs() < 1e-4).all()),
+                f"{label}: rows are not unit length")
+    else:
+        require(bool(((rows >= 0) & (rows <= 0.2 + 1e-6)).all()),
+                f"{label}: RSD radii outside [0, 0.2]")
+
+
+def sweep_params(desc: str, method: str):
+    """tests/test_oracle_parity.py:105-135 (strict parity, Harris keypoints
+    at threshold 1.0)."""
+    from mapmerge_torch.pipeline.merging import MergeParams
+
+    common = dict(
+        keypoint_type="HARRIS", keypoint_threshold=1.0, descriptor_type=desc,
+        refine_transform=True, max_points=16384, max_keypoints=256,
+        max_neighbors=48, neighbor_tile=512,
+    )
+    if method == "MATCHING":
+        return MergeParams.strict_parity(
+            max_iterations=80, ransac_hypotheses=512, **common
+        )
+    return MergeParams.strict_parity(
+        estimation_method="SAC_IA", max_iterations=500,
+        sacia_hypotheses=4096, **common
+    )
+
+
+SWEEP = (
+    ("PFHRGB", "MATCHING"), ("SHOT", "MATCHING"), ("SC3D", "MATCHING"),
+    ("FPFH", "SAC_IA"), ("RSD", "SAC_IA"),
+)
+
+
+def run_registry_sweep(dev, kernels) -> None:
+    from mapmerge_torch.core.cloud import PointCloud, pad_cloud
+    from mapmerge_torch.pipeline.features import extract_features
+    from mapmerge_torch.testing.scene import (
+        make_scene, overlapping_views, rotation_z, se3,
+    )
+
+    xyz, rgb = make_scene(
+        np.random.default_rng(7), n_boxes=12, extent=8.0, density=90.0
+    )
+    truth = se3(rotation_z(0.4), [1.5, -0.7, 0.2])
+    va, vb, cap = overlapping_views(
+        np.random.default_rng(3), xyz, rgb, truth, overlap=0.6
+    )
+    clouds = [
+        PointCloud.from_numpy(*va, capacity=cap, device=dev),
+        PointCloud.from_numpy(*vb, capacity=cap, device=dev),
+    ]
+    log(f"registry sweep: views of {va[0].shape[0]} and {vb[0].shape[0]} "
+        f"points, capacity {cap}")
+    for desc, method in SWEEP:
+        label = f"{desc}+{method}"
+        params = sweep_params(desc, method)
+        out, launches, _, _ = drive(
+            label, clouds, params, kernels, truth, 1.5, 0.15
+        )
+        if desc == "FPFH":
+            require(launches["spfh"] > 0, f"{label}: spfh was not launched")
+        for c in clouds:
+            f = extract_features(pad_cloud(c, cap), params)
+            check_descriptor_rows(label, desc, f.descriptors.data,
+                                  f.descriptors.valid)
+        wall = warm_runs(clouds, params, None, label, reps=1)[0]
+        log(f"{label}: warm call {wall:.3f} s, descriptors well formed")
 
 
 def main() -> int:
@@ -293,6 +515,8 @@ def main() -> int:
     stats = {"nearest_neighbor": check_nn(dev, nn), "spfh": check_spfh(dev, spfh)}
     kernels = (nn.KERNEL, spfh.KERNEL)
     launches = run_main_path(dev, kernels)
+    run_default_operating_point(dev, kernels)
+    run_registry_sweep(dev, kernels)
 
     print(card)
     print(json.dumps({"kernels": [

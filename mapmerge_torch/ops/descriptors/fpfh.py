@@ -15,9 +15,9 @@ import torch
 
 from mapmerge_torch.core.cloud import PointCloud
 from mapmerge_torch.kernels import spfh as spfh_kernel
-from mapmerge_torch.ops.descriptors.base import Descriptors
+from mapmerge_torch.ops.descriptors.base import Descriptors, keypoint_neighborhoods
 from mapmerge_torch.ops.keypoints import Keypoints
-from mapmerge_torch.ops.neighbors import check_dense, radius_neighbors
+from mapmerge_torch.ops.neighbors import check_dense
 from mapmerge_torch.ops.normals import SurfaceNormals
 
 _BINS = 11
@@ -55,22 +55,18 @@ def compute_fpfh(
 ) -> Descriptors:
     """FPFH-33 at each keypoint over the cloud surface."""
     check_dense(engine, cloud.capacity)
-    p_ok = cloud.mask & normals.valid
-    idx, d2, nmask, _ = radius_neighbors(
-        keypoints.xyz, cloud.xyz, radius, max_neighbors, p_mask=p_ok,
-        tile=tile, engine=engine,
-    )  # (K, M) keypoint neighbourhoods
+    idx, d2, nmask = keypoint_neighborhoods(
+        cloud, normals, keypoints, radius, max_neighbors, tile, engine
+    )
     # SPFH only at the gathered neighbour points (PCL computeSPFHSignatures);
     # duplicates are recomputed
-    gi = idx.to(torch.int64)
     spfh, spfh_ok = _spfh_dense(
-        cloud.xyz[gi], normals.normals[gi], p_ok[gi] & nmask, cloud, normals,
-        radius,
+        cloud.xyz[idx], normals.normals[idx], nmask, cloud, normals, radius,
     )
 
     dist = torch.sqrt(d2.clamp_min(0.0))
     w = torch.where(
-        nmask & spfh_ok & (dist > 1e-9) & keypoints.mask[:, None],
+        nmask & spfh_ok & (dist > 1e-9),
         torch.reciprocal(dist.clamp_min(1e-9)),
         0.0,
     )  # (K, M)

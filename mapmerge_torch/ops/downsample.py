@@ -26,6 +26,43 @@ def _lexsort(kx: torch.Tensor, ky: torch.Tensor, kz: torch.Tensor):
     return order[torch.argsort(kx[order], stable=True)]
 
 
+def _segment_sums(
+    vals: torch.Tensor,
+    boundary: torch.Tensor,
+    seg_ids: torch.Tensor,
+    cap: int,
+    live: torch.Tensor,
+) -> torch.Tensor:
+    """(cap, C) sums of the contiguous segments of `vals` (N, C) that
+    `boundary` (N,) starts; segment ids at or past `cap` are dropped. Rows
+    outside `live` must be zero; they do not set the depth of the scan (the
+    masked rows form one long segment at the end of the key order).
+
+    A segmented inclusive scan by doubling: step k adds the running sum
+    2^k rows back when that row lies in the same segment, so every segment
+    adds its rows in one fixed order and the sums are the same bits on
+    every run (a CUDA index_add_ adds by float atomics, in an order that
+    varies from run to run). The last row of each segment holds its sum."""
+    n = vals.shape[0]
+    dev = vals.device
+    rows = torch.arange(n, device=dev)
+    start = torch.cummax(torch.where(boundary, rows, 0), dim=0).values
+    pos = rows - start  # rank of each row inside its segment
+    longest = int(torch.where(live, pos, 0).max()) + 1 if n else 0
+    scan, step = vals, 1
+    while step < longest:
+        back = torch.nn.functional.pad(scan[:-step], (0, 0, step, 0))
+        scan = scan + torch.where((pos >= step)[:, None], back, 0.0)
+        step *= 2
+    last = torch.ones((n,), dtype=torch.bool, device=dev)
+    last[:-1] = boundary[1:]
+    # each kept segment's last row writes its own slot once; every other row
+    # goes to the scrap slot `cap`
+    sums = torch.zeros((cap + 1, vals.shape[1]), dtype=vals.dtype, device=dev)
+    sums[torch.where(last, seg_ids, cap)] = scan
+    return sums[:cap]
+
+
 def voxel_downsample(
     cloud: PointCloud,
     resolution: float,
@@ -34,9 +71,9 @@ def voxel_downsample(
 ) -> PointCloud | tuple[PointCloud, torch.Tensor]:
     """One centroid per occupied `resolution`-cube; see the module docstring.
 
-    Segment sums use index_add_, whose order of additions on CUDA varies from
-    run to run (atomics): centroids agree with the reference to float
-    tolerance, not bit for bit."""
+    Segment sums add in one fixed order (`_segment_sums`), so a cloud gives
+    the same centroids bit for bit on every run; they agree with the
+    reference's scatter-add to float tolerance."""
     n = cloud.capacity
     cap = out_capacity or n
     inv = float(torch.tensor(1.0 / resolution, dtype=torch.float32))
@@ -61,12 +98,10 @@ def voxel_downsample(
     overflow = seg >= cap
     seg_ids = torch.where(overflow, cap, seg).to(torch.int64)  # cap = scrap
 
-    # one index_add_ over the 7 channels [w, x*w, y*w, z*w, r*w, g*w, b*w];
-    # masked rows carry w = 0 (and their FAR coordinates * 0 = 0)
+    # the 7 channels [w, x*w, y*w, z*w, r*w, g*w, b*w]; masked rows carry
+    # w = 0 (and their FAR coordinates * 0 = 0)
     vals = torch.cat([w[:, None], xyz * w[:, None], rgb * w[:, None]], dim=1)
-    sums = torch.zeros((cap + 1, 7), dtype=torch.float32, device=dev)
-    sums.index_add_(0, seg_ids, vals)
-    sums = sums[:cap]
+    sums = _segment_sums(vals, boundary, seg_ids, cap, live=w > 0)
     wsum = sums[:, 0]
     denom = wsum.clamp_min(1.0)[:, None]
 

@@ -1,6 +1,5 @@
-"""Keypoint detection (port of mapmerge_tpu/ops/keypoints).
-
-Only SIFT is ported; Harris3D raises NotImplementedError.
+"""Keypoint detection (port of mapmerge_tpu/ops/keypoints): the
+reference's switch between SIFT (`sift.py`) and Harris3D (`harris.py`).
 """
 
 from __future__ import annotations
@@ -11,6 +10,7 @@ import torch
 
 from mapmerge_tpu.core.enums import Keypoint
 from mapmerge_torch.core.cloud import PointCloud
+from mapmerge_torch.ops.normals import SurfaceNormals
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,8 +28,10 @@ class Keypoints:
 
 def detect_keypoints(
     cloud: PointCloud,
+    normals: SurfaceNormals,
     kind: Keypoint,
     threshold: float,
+    radius: float,
     resolution: float,
     max_keypoints: int,
     tile: int = 1024,
@@ -37,20 +39,27 @@ def detect_keypoints(
     sift_scales_per_octave: int = 3,
     engine: str = "auto",
 ) -> Keypoints:
-    """SIFT(min_scale=resolution, octaves, scales, min_contrast=threshold)."""
-    if kind != Keypoint.SIFT:
-        raise NotImplementedError(
-            f"keypoint type {kind} is not ported to mapmerge_torch (SIFT only)"
-        )
-    from mapmerge_torch.ops.keypoints.sift import detect_keypoints_sift
+    """The reference switch (features.cpp:85-97): SIFT(min_scale=resolution,
+    octaves, scales, min_contrast=threshold) or HARRIS(threshold, radius)
+    with non-max suppression and refinement."""
+    if kind == Keypoint.HARRIS:
+        from mapmerge_torch.ops.keypoints.harris import detect_keypoints_harris
 
-    return detect_keypoints_sift(
-        cloud,
-        min_scale=resolution,
-        octaves=sift_octaves,
-        scales_per_octave=sift_scales_per_octave,
-        min_contrast=threshold,
-        max_keypoints=max_keypoints,
-        tile=tile,
-        engine=engine,
-    )
+        return detect_keypoints_harris(
+            cloud, normals, threshold=threshold, radius=radius,
+            max_keypoints=max_keypoints, tile=tile, engine=engine,
+        )
+    if kind == Keypoint.SIFT:
+        from mapmerge_torch.ops.keypoints.sift import detect_keypoints_sift
+
+        return detect_keypoints_sift(
+            cloud,
+            min_scale=resolution,
+            octaves=sift_octaves,
+            scales_per_octave=sift_scales_per_octave,
+            min_contrast=threshold,
+            max_keypoints=max_keypoints,
+            tile=tile,
+            engine=engine,
+        )
+    raise ValueError(f"unknown keypoint type: {kind}")

@@ -3,7 +3,9 @@
 Every neighborhood query is an exact dense distance computation, tiled over
 the query axis so only a (tile, P) slab exists at a time. Squared distances
 are taken on inputs centred on the valid mean of p (see `sq_dists`). Exact
-1-NN goes through the hand-written kernel (kernels/nn.py).
+1-NN goes through the hand-written kernel (kernels/nn.py). Every reduction
+here sums in a fixed order (matmuls and dense reductions, no atomics), so a
+query repeats bit for bit on one card.
 
 Only the dense engine is ported. The cell-grid engine of the reference
 (ops/grid.py) raises NotImplementedError: explicitly requested, or chosen by
@@ -45,7 +47,7 @@ def _center(q: torch.Tensor, p: torch.Tensor, p_mask: torch.Tensor | None):
 
 
 def sq_dists(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """(Q, 3) x (P, 3) -> (Q, P) squared distances, by the direct
+    """(..., Q, 3) x (P, 3) -> (..., Q, P) squared distances, by the direct
     expansion sum_c (q_c - p_c)^2.
 
     The reference uses the identity |q|^2 + |p|^2 - 2 q.p. PyTorch's matmul
@@ -54,9 +56,9 @@ def sq_dists(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     exactly 0; FPFH's zero-distance self-hit test (dist > 1e-9) then weights
     the self SPFH by ~1e3. The direct expansion is exact for coincident
     points and at least as accurate elsewhere."""
-    d2 = torch.zeros((q.shape[0], p.shape[0]), dtype=q.dtype, device=q.device)
+    d2 = torch.zeros(q.shape[:-1] + (p.shape[0],), dtype=q.dtype, device=q.device)
     for c in range(3):
-        dc = q[:, c : c + 1] - p[None, :, c]
+        dc = q[..., c : c + 1] - p[:, c]
         d2 += dc * dc
     return d2
 
@@ -157,6 +159,43 @@ def nearest_neighbor(
         None if p_mask is None else p_mask.contiguous(),
     )
     return idx, d2, 0
+
+
+def radius_reduce(
+    q: torch.Tensor,
+    p: torch.Tensor,
+    radius: float,
+    values: torch.Tensor,
+    p_mask: torch.Tensor | None = None,
+    tile: int = 1024,
+    reduce: str = "sum",
+    engine: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Reduce `values` (P, C) over each query's radius neighborhood:
+    (count (Q,) int32, sums or maxes (Q, C), overflow = 0).
+
+    "sum" is one matmul of the {0,1} within-radius matrix per tile; "max"
+    masks out-of-radius values with -BIG (a query with no neighbour gets
+    -BIG)."""
+    if reduce not in ("sum", "max"):
+        raise ValueError(f"unknown reduce: {reduce}")
+    check_dense(engine, p.shape[0])
+    qc, pc = _center(q, p, p_mask)
+    r2 = _f32(radius * radius)
+
+    def tile_fn(q_slab):
+        within = sq_dists(q_slab, pc) <= r2
+        if p_mask is not None:
+            within = within & p_mask[None, :]
+        count = within.sum(dim=-1).to(torch.int32)
+        if reduce == "sum":
+            out = within.to(torch.float32) @ values
+        else:
+            out = torch.where(within[:, :, None], values[None], -BIG).amax(dim=1)
+        return count, out
+
+    count, out = tiled_query(qc, tile_fn, tile)
+    return count, out, 0
 
 
 def neighbor_moments(

@@ -57,8 +57,10 @@ def extract_features(cloud: PointCloud, params: MergeParams) -> CloudFeatures:
     )
     keypoints = detect_keypoints(
         resized,
+        normals,
         params.keypoint_type,
         threshold=params.keypoint_threshold,
+        radius=params.normal_radius,  # map_merging.cpp:233
         resolution=params.resolution,
         max_keypoints=params.max_keypoints,
         tile=params.neighbor_tile,

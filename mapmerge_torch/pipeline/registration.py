@@ -1,8 +1,8 @@
 """Pairwise transform estimation (port of mapmerge_tpu/pipeline/registration.py).
 
-The reference's estimateTransform (matching.cpp:223-257) for the MATCHING
-method: reciprocal k-NN matching, RANSAC + SVD, optional ICP refinement,
-and the transformScore confidence. SAC_IA is not ported.
+The reference's estimateTransform (matching.cpp:223-257): an initial pose by
+MATCHING (reciprocal k-NN matching, then RANSAC + SVD) or by SAC_IA, then
+optional ICP refinement and the transformScore confidence.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from mapmerge_torch.core import transforms as tf
 from mapmerge_torch.ops.icp import icp_refine
 from mapmerge_torch.ops.matching import find_correspondences
 from mapmerge_torch.ops.ransac import ransac_transform
+from mapmerge_torch.ops.sacia import sacia_transform
 from mapmerge_torch.ops.score import confidence as confidence_fn
 from mapmerge_torch.ops.score import transform_score
 from mapmerge_torch.pipeline.features import CloudFeatures
@@ -63,32 +64,50 @@ def estimate_transform(
     params: MergeParams,
     generator: torch.Generator | None = None,
     samples: torch.Tensor | None = None,
+    pick: torch.Tensor | None = None,
 ) -> PairEstimate:
-    """Reference matching.cpp:223-257. RANSAC draws its hypotheses from
-    `generator`, or takes `samples` (H, 3) when given."""
-    if params.estimation_method != EstimationMethod.MATCHING:
-        raise NotImplementedError(
-            f"estimation method {params.estimation_method} is not ported to "
-            "mapmerge_torch (MATCHING only)"
+    """Reference matching.cpp:223-257. RANSAC or SAC-IA draws from
+    `generator`, or takes `samples` (H, 3) (and SAC-IA's `pick` (H, 3))
+    when given."""
+    if params.estimation_method == EstimationMethod.MATCHING:
+        corr = find_correspondences(
+            source.descriptors.data,
+            target.descriptors.data,
+            k=params.matching_k,
+            source_valid=source.descriptors.valid & source.keypoints.mask,
+            target_valid=target.descriptors.valid & target.keypoints.mask,
         )
-    corr = find_correspondences(
-        source.descriptors.data,
-        target.descriptors.data,
-        k=params.matching_k,
-        source_valid=source.descriptors.valid & source.keypoints.mask,
-        target_valid=target.descriptors.valid & target.keypoints.mask,
-    )
-    res = ransac_transform(
-        source.keypoints.xyz,
-        target.keypoints.xyz,
-        corr,
-        inlier_threshold=params.inlier_threshold,
-        num_hypotheses=params.ransac_hypotheses,
-        generator=generator,
-        samples=samples,
-    )
-    transform, ok, inliers = res.transform, res.ok, res.inlier_count
-    support = inliers / corr.valid.sum().clamp_min(1)
+        res = ransac_transform(
+            source.keypoints.xyz,
+            target.keypoints.xyz,
+            corr,
+            inlier_threshold=params.inlier_threshold,
+            num_hypotheses=params.ransac_hypotheses,
+            generator=generator,
+            samples=samples,
+        )
+        transform, ok, inliers = res.transform, res.ok, res.inlier_count
+        purity = res.consensus_purity
+        support = inliers / corr.valid.sum().clamp_min(1)
+    elif params.estimation_method == EstimationMethod.SAC_IA:
+        # the reference's SAC_IA branch reports no consensus evidence
+        # (registration.py:127), so a SAC_IA pair is never ambiguous: a
+        # known fault of the reference, ported as is
+        purity = support = torch.ones((), device=source.cloud.device)
+        transform, ok, inliers = sacia_transform(
+            source.keypoints,
+            source.descriptors,
+            target.keypoints,
+            target.descriptors,
+            min_sample_distance=params.inlier_threshold,
+            max_correspondence_distance=params.max_correspondence_distance,
+            num_iterations=params.sacia_hypotheses,
+            generator=generator,
+            samples=samples,
+            pick=pick,
+        )
+    else:
+        raise ValueError(f"unknown estimation method: {params.estimation_method}")
 
     if params.refine_transform:
         refined, icp_ok = icp_refine(
@@ -120,6 +139,6 @@ def estimate_transform(
         confidence=conf.to(torch.float32),
         inlier_count=inliers,
         coverage=torch.where(ok, coverage, 0.0).to(torch.float32),
-        consensus_purity=res.consensus_purity,
+        consensus_purity=purity.to(torch.float32),
         support=torch.where(ok, support, 1.0).to(torch.float32),
     )

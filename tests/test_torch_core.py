@@ -240,18 +240,52 @@ class TestOutsideTheSlice:
         tn.check_dense("dense", tn.GRID_AUTO_THRESHOLD)
 
     def test_keypoint_descriptor_and_method(self):
+        """HARRIS, PFH and SAC_IA dispatch now; the same calls on the
+        cell-grid engine raise naming it."""
         from mapmerge_tpu.core.enums import Descriptor, Keypoint
         from mapmerge_torch.ops.descriptors import compute_descriptors
         from mapmerge_torch.ops.keypoints import detect_keypoints
+        from mapmerge_torch.ops.normals import compute_surface_normals
+        from mapmerge_torch.pipeline.features import extract_features
         from mapmerge_torch.pipeline.registration import estimate_transform
         from torch_parity import SLICE_PARAMS
 
-        _, tc = both_clouds(np.zeros((4, 3), np.float32))
-        with pytest.raises(NotImplementedError, match="HARRIS"):
-            detect_keypoints(tc, Keypoint.HARRIS, 1.0, 0.1, 8)
-        with pytest.raises(NotImplementedError, match="PFH"):
-            compute_descriptors(tc, None, None, Descriptor.PFH, 0.8)
-        with pytest.raises(NotImplementedError, match="SAC_IA"):
-            estimate_transform(
-                None, None, SLICE_PARAMS.replace(estimation_method="SAC_IA")
+        rng = np.random.default_rng(1)
+        xyz = (rng.random((300, 3)) * 2).astype(np.float32)
+        xyz[:100, 2] = 0.0  # a floor and two walls meet in corners
+        xyz[100:200, 0] = 0.0
+        xyz[200:, 1] = 0.0
+        _, tc = both_clouds(xyz, rng.random((300, 3)))
+        nrm = compute_surface_normals(tc, 0.6)
+
+        def harris(engine):
+            return detect_keypoints(
+                tc, nrm, Keypoint.HARRIS, 0.0, 0.6, 0.1, 8, engine=engine
             )
+
+        def pfh(engine):
+            return compute_descriptors(
+                tc, nrm, kp, Descriptor.PFH, 0.8, engine=engine
+            )
+
+        kp = harris("dense")
+        assert kp.mask.any()
+        desc = pfh("dense")
+        assert desc.data.shape == (8, 125) and desc.valid.any()
+        params = SLICE_PARAMS.replace(
+            keypoint_type="HARRIS", keypoint_threshold=0.0,
+            descriptor_type="PFH", estimation_method="SAC_IA",
+            sacia_hypotheses=64, max_keypoints=16, refine_transform=False,
+        )
+        feats = extract_features(tc, params.replace(neighbor_engine="dense"))
+        est = estimate_transform(
+            feats, feats, params, generator=torch.Generator().manual_seed(0)
+        )
+        assert est.transform.shape == (4, 4) and float(est.support) == 1.0
+        for call in (
+            lambda: harris("grid"),
+            lambda: pfh("grid"),
+            lambda: extract_features(tc, params.replace(neighbor_engine="grid")),
+        ):
+            with pytest.raises(NotImplementedError, match="cell-grid"):
+                call()

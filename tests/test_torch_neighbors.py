@@ -119,6 +119,39 @@ class TestDenseEngine:
             tcov.numpy()[ok], np.asarray(jcov)[ok], atol=1e-4
         )
 
+    @pytest.mark.parametrize("reduce", ["sum", "max"])
+    def test_radius_reduce(self, rng, reduce):
+        """Counts and maxes exactly and sums to rtol 1e-5 (positive values:
+        the two matmuls add in other orders), on queries clear of the
+        radius; a query with no neighbour gets -BIG under "max"."""
+        p, mask = _cloud(rng, 600)
+        q = np.concatenate([p[:150], [[50.0, 50.0, 50.0]]]).astype(np.float32)
+        values = rng.random((600, 5)).astype(np.float32)
+        r = 0.7
+        jc, jo, _ = jn.radius_reduce(
+            jnp.asarray(q), jnp.asarray(p), r, jnp.asarray(values),
+            p_mask=jnp.asarray(mask), tile=64, reduce=reduce,
+        )
+        tc, to, over = tn.radius_reduce(
+            t(q), t(p), r, t(values), p_mask=t(mask), tile=64, reduce=reduce
+        )
+        assert over == 0 and tc.dtype == torch.int32 and to.shape == (151, 5)
+        ok = _boundary_free(q, p, mask, r)
+        assert ok.mean() > 0.9 and ok[-1]
+        np.testing.assert_array_equal(tc.numpy()[ok], np.asarray(jc)[ok])
+        if reduce == "sum":
+            np.testing.assert_allclose(
+                to.numpy()[ok], np.asarray(jo)[ok], rtol=1e-5, atol=1e-6
+            )
+            assert not to[-1].any()
+        else:
+            np.testing.assert_array_equal(to.numpy()[ok], np.asarray(jo)[ok])
+            assert (to[-1] == -tn.BIG).all()
+        with pytest.raises(ValueError, match="reduce"):
+            tn.radius_reduce(t(q), t(p), r, t(values), reduce="mean")
+        with pytest.raises(NotImplementedError, match="cell-grid"):
+            tn.radius_reduce(t(q), t(p), r, t(values), engine="grid")
+
     def test_nearest_neighbor_matches_reference_xla_path(self, rng):
         """The port's 1-NN (kernel A's semantics: direct expansion) against
         the reference's CPU path (centred matmul identity): indices equal off

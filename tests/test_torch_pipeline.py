@@ -1,6 +1,8 @@
 """The slice as a whole: estimate_maps_transforms + compose_maps of the port
 against mapmerge_tpu's on the small SIFT+FPFH scene, against the ground
-truth, and the reference's contracts for empty, single and failed inputs.
+truth, and the reference's contracts for empty, single and failed inputs;
+then the other operating points on the same scene: HARRIS+FPFH, SIFT+PFH
+and the reference's defaults, `MergeParams()` with no overrides.
 
 Gate (tests/test_oracle_parity.py:37-64): the relative pose within 1 deg /
 0.1 m of the reference pipeline's and of the ground truth. RANSAC draws
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from mapmerge_tpu.core.cloud import PointCloud as JaxCloud
+from mapmerge_tpu.core.params import MergeParams
 from mapmerge_tpu.pipeline.merging import compose_maps as j_compose
 from mapmerge_tpu.pipeline.merging import estimate_maps_transforms as j_estimate
 from mapmerge_torch.core import transforms as ttf
@@ -83,6 +86,39 @@ class TestSlice:
         c = torch.rand(4, generator=pair_generator(0, 1, "cpu"))
         d = torch.rand(4, generator=pair_generator(1, 0, "cpu"))
         assert torch.equal(a, b) and not torch.equal(a, c) and not torch.equal(a, d)
+
+
+#: the operating points beside the slice's SIFT+FPFH
+OPERATING_POINTS = {
+    # tests/test_oracle_parity.py:38-64
+    "harris_fpfh": MergeParams.strict_parity(
+        keypoint_type="HARRIS", keypoint_threshold=5.0, descriptor_type="FPFH",
+        refine_transform=True, max_iterations=50, max_points=16384,
+        max_keypoints=256, max_neighbors=48, ransac_hypotheses=512,
+        neighbor_tile=512,
+    ),
+    "sift_pfh": SLICE_PARAMS.replace(descriptor_type="PFH"),
+    # SIFT + PFH-125 + MATCHING at the reference's caps (K 1024, M 64)
+    "defaults": MergeParams(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OPERATING_POINTS))
+def test_operating_point_matches_reference_and_truth(scene, name):
+    """The relative pose within 1 deg / 0.1 m of the reference pipeline's
+    and of the truth; where the reference fails (a zero matrix), the port
+    fails too."""
+    jax_clouds, torch_clouds, truth = scene
+    params = OPERATING_POINTS[name]
+    ours = t_estimate(torch_clouds, params, seed=0)
+    theirs = j_estimate(jax_clouds, params, seed=0)
+    assert len(ours) == len(theirs) == 2
+    assert [t.any() for t in ours] == [bool(np.asarray(t).any()) for t in theirs]
+    assert ours[1].any(), "registration failed"
+    rot, trans = ttf.pose_error(rel_pose(ours), rel_pose(theirs))
+    assert rot < 1.0 and trans < 0.1, (rot, trans)
+    rot, trans = ttf.pose_error(rel_pose(ours), truth)
+    assert rot < 1.0 and trans < 0.1, (rot, trans)
 
 
 class TestContracts:

@@ -12,7 +12,7 @@ from mapmerge_tpu.ops.eigh3 import eigvalsh3 as j_eigvals
 from mapmerge_tpu.ops.eigh3 import smallest_eigenpair3 as j_eigpair
 from mapmerge_tpu.ops.normals import compute_surface_normals as j_normals
 from mapmerge_tpu.ops.outliers import remove_outliers as j_outliers
-from mapmerge_torch.ops.downsample import _lexsort
+from mapmerge_torch.ops.downsample import _lexsort, _segment_sums
 from mapmerge_torch.ops.downsample import voxel_downsample as t_voxel
 from mapmerge_torch.ops.eigh3 import eigvalsh3 as t_eigvals
 from mapmerge_torch.ops.eigh3 import smallest_eigenpair3 as t_eigpair
@@ -68,6 +68,31 @@ class TestVoxelDownsample:
         np.testing.assert_allclose(
             to.xyz.numpy(), np.asarray(jo.xyz), rtol=1e-6, atol=1e-6
         )
+
+
+    @pytest.mark.parametrize("cap", [400, 150])
+    def test_segment_sums_fixed_order(self, rng, cap):
+        """The segmented doubling scan against float64 sums, on segments of
+        1 to 300 rows (9 doubling steps): rtol 1e-6 (each row takes part in
+        at most log2(300) additions). Segments at or past `cap` are
+        dropped; a zero tail outside `live` sums to zero."""
+        lengths = np.concatenate([rng.integers(1, 8, 300), [300, 257, 1]])
+        seg = np.repeat(np.arange(len(lengths)), lengths)
+        n = seg.size
+        vals = rng.random((n + 500, 4)).astype(np.float32)
+        vals[n:] = 0.0  # a dead tail: one long segment of zeros
+        seg = np.concatenate([seg, np.full(500, len(lengths))])
+        boundary = np.ones(n + 500, bool)
+        boundary[1:] = seg[1:] != seg[:-1]
+        seg_ids = np.minimum(seg, cap)
+        got = _segment_sums(
+            t(vals), t(boundary), t(seg_ids).long(), cap,
+            live=t(np.arange(n + 500) < n),
+        ).numpy()
+        want = np.zeros((cap + 1, 4))
+        np.add.at(want, seg_ids, vals.astype(np.float64))
+        assert got.shape == (cap, 4)
+        np.testing.assert_allclose(got, want[:cap], rtol=1e-6)
 
 
 class TestOutliers:
