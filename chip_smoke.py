@@ -20,18 +20,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      nn launches, 5 warm repetitions, peak memory, the repeat check, and the
      PFH descriptor stage against FPFH's on the same inputs;
   6. the registry sweep on the descriptor-parity scene of
-     tests/test_oracle_parity.py:81-135 (Harris keypoints): PFHRGB, SHOT and
-     SC3D under MATCHING, FPFH and RSD under SAC_IA, each gated at 1.5 deg /
-     0.15 m, with the descriptors' width and normalisation checked, the
-     launches required and one warm call timed.
+     tests/test_oracle_parity.py:81-135 (Harris keypoints): PFH, PFHRGB,
+     SHOT and SC3D under MATCHING, FPFH and RSD under SAC_IA, each gated at
+     1.5 deg / 0.15 m, with the descriptors' width and normalisation
+     checked, the launches required, and 3 warm calls timed and required to
+     repeat the first run bit for bit (SHOT and SC3D excepted: their
+     fractional scatter-adds may round otherwise from run to run).
 Each path runs with the launch counts reset just before it and read just
-after. The line before the last is a JSON object of the kernels (launches
-from config #1's run); the last line is {"ok": true, "device": {...}}.
+after. On every path each kernel it launched is then held against its plain
+version on the inputs of its first launch in that run (the path's own
+shapes, ragged edges included). The line before the last is a JSON object
+of the kernels (launches from config #1's run); the last line is
+{"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -83,32 +89,41 @@ def card_line() -> str:
     return out[torch.cuda.current_device()]
 
 
-def check_nn(dev, nn) -> dict:
-    """Kernel A against nearest_neighbor_ref: Q = P = 32768 with a mask,
-    then the tie and all-masked cases.
+def _nn_compare(name, nn, q, p, mask=None):
+    """Kernel A against nearest_neighbor_ref on the same inputs.
 
     Tolerance: d2 within 1e-6 relative (both round every operation alike,
     so 0 is expected); an index may differ only where the two candidates'
-    squared distances agree within that tolerance (a tie)."""
+    squared distances agree within that tolerance (a tie). Returns
+    (max |d2 err|, index mismatches at ties)."""
+    idx_k, d2_k = nn.nearest_neighbor(q, p, mask)
+    idx_r, d2_r = nn.nearest_neighbor_ref(q, p, mask)
+    torch.cuda.synchronize()
+    n = q.shape[0]
+    require(idx_k.shape == (n,) and d2_k.shape == (n,), f"{name}: shapes")
+    err = (d2_k - d2_r).abs()
+    tol = 1e-6 * d2_r.abs().clamp_min(1.0)
+    require(bool((err <= tol).all()), f"{name}: d2 off by {float(err.max())}")
+    diff = idx_k != idx_r
+    if bool(diff.any()):
+        pen = torch.zeros(p.shape[0], device=p.device)
+        if mask is not None:
+            pen = torch.where(mask, 0.0, 1e12)
+        cand_k = ((q - p[idx_k.long()]) ** 2).sum(-1) + pen[idx_k.long()]
+        cand_r = ((q - p[idx_r.long()]) ** 2).sum(-1) + pen[idx_r.long()]
+        gap = (cand_k - cand_r).abs()[diff]
+        require(bool((gap <= tol[diff]).all()), f"{name}: index differs off a tie")
+    return float(err.max()), int(diff.sum())
+
+
+def check_nn(dev, nn) -> dict:
+    """Kernel A against nearest_neighbor_ref: Q = P = 32768 with a mask,
+    then the tie and all-masked cases (tolerance: _nn_compare)."""
     g = torch.Generator(device=dev).manual_seed(11)
     q = torch.rand((NN_Q, 3), generator=g, device=dev) * 16.0
     p = torch.rand((NN_P, 3), generator=g, device=dev) * 16.0
     mask = torch.rand((NN_P,), generator=g, device=dev) > 0.2
-    idx_k, d2_k = nn.nearest_neighbor(q, p, mask)
-    idx_r, d2_r = nn.nearest_neighbor_ref(q, p, mask)
-    torch.cuda.synchronize()
-    require(idx_k.shape == (NN_Q,) and d2_k.shape == (NN_Q,), "nn: shapes")
-    err = (d2_k - d2_r).abs()
-    tol = 1e-6 * d2_r.abs().clamp_min(1.0)
-    require(bool((err <= tol).all()), f"nn: d2 off by {float(err.max())}")
-    diff = idx_k != idx_r
-    if bool(diff.any()):
-        pen = torch.where(mask, 0.0, 1e12)
-        cand_k = ((q - p[idx_k.long()]) ** 2).sum(-1) + pen[idx_k.long()]
-        cand_r = ((q - p[idx_r.long()]) ** 2).sum(-1) + pen[idx_r.long()]
-        gap = (cand_k - cand_r).abs()[diff]
-        require(bool((gap <= tol[diff]).all()), "nn: index differs off a tie")
-    n_tie_mismatch = int(diff.sum())
+    err, n_tie_mismatch = _nn_compare("nn", nn, q, p, mask)
 
     # ties: every target equidistant -> the first index, across tiles
     qt = torch.zeros((256, 3), device=dev)
@@ -122,11 +137,11 @@ def check_nn(dev, nn) -> dict:
     ms = time_ms(lambda: nn.nearest_neighbor(q, p, mask))
     plain_ms = time_ms(lambda: nn.nearest_neighbor_ref(q, p, mask))
     log(
-        f"kernel nearest_neighbor Q=P={NN_Q}: max|d2 err| {float(err.max())}"
+        f"kernel nearest_neighbor Q=P={NN_Q}: max|d2 err| {err}"
         f", idx mismatches at ties {n_tie_mismatch}, tie/all-masked ok; "
         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
     )
-    return {"max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "tie_mismatches": n_tie_mismatch}
 
 
@@ -191,6 +206,61 @@ def check_spfh(dev, spfh) -> dict:
     return {"max_abs_err": max(err, err_cell), "ms": ms, "plain_ms": plain_ms}
 
 
+@contextlib.contextmanager
+def first_launch_inputs(nn, spfh):
+    """Record clones of the arguments of each kernel wrapper's first call
+    while a path runs. The wrappers still launch and count as before; the
+    callers (ops/neighbors.py, ops/descriptors/fpfh.py) look them up on
+    their modules at call time, so they see the recording ones."""
+    seen: dict[str, tuple] = {}
+    saved = {}
+
+    def record(mod, attr, name):
+        fn = saved[(mod, attr)] = getattr(mod, attr)
+
+        def wrapper(*args, **kwargs):
+            if name not in seen:
+                seen[name] = (
+                    [a.clone() if torch.is_tensor(a) else a for a in args],
+                    dict(kwargs),
+                )
+            return fn(*args, **kwargs)
+
+        setattr(mod, attr, wrapper)
+
+    record(nn, "nearest_neighbor", "nearest_neighbor")
+    record(spfh, "spfh_tile", "spfh")
+    try:
+        yield seen
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+
+
+def hold_on_path_inputs(label: str, seen: dict, nn, spfh) -> None:
+    """Each kernel a path launched against its plain version on the inputs
+    of its first launch there, with check_nn's and check_spfh's
+    tolerances. These launches come after the path's counts were read."""
+    parts = []
+    if "nearest_neighbor" in seen:
+        args, _ = seen["nearest_neighbor"]
+        err, ties = _nn_compare(f"{label} nn", nn, *args)
+        parts.append(f"nn Q={args[0].shape[0]} P={args[1].shape[0]}: "
+                     f"max|d2 err| {err}, idx mismatches at ties {ties}")
+    if "spfh" in seen:
+        args, kwargs = seen["spfh"]
+        err, n_bad = _spfh_compare(
+            f"{label} spfh", spfh.spfh_tile(*args, **kwargs),
+            spfh.spfh_ref(*args, **kwargs),
+        )
+        b, cq, _ = args[0].shape
+        bc, m, _ = args[2].shape
+        parts.append(f"spfh {b}x{cq} queries x {bc}x{m} candidates: "
+                     f"max|hist err| {err}, rows off {n_bad}")
+    require(parts, f"{label}: no kernel input was recorded")
+    log(f"{label}: kernels on the path's own inputs: " + "; ".join(parts))
+
+
 def config1_params():
     from mapmerge_torch.pipeline.merging import MergeParams
 
@@ -230,19 +300,23 @@ def run_main_path(dev, kernels) -> dict:
     log(f"config #1: views of {va[0].shape[0]} and {vb[0].shape[0]} points, "
         f"capacity {cap}")
 
-    for k in kernels:
-        k.launches = 0
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    out = estimate_maps_transforms(clouds, params, seed=0)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
+    from mapmerge_torch.kernels import nn, spfh
+
+    with first_launch_inputs(nn, spfh) as seen:
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = estimate_maps_transforms(clouds, params, seed=0)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"main path run: {first_s:.3f} s, launches {launches}, "
         f"peak device memory {peak_gib:.2f} GiB")
     for name, n in launches.items():
         require(n > 0, f"kernel {name} was not launched by the main path")
+    hold_on_path_inputs("config #1", seen, nn, spfh)
 
     require(len(out) == 2 and all(
         t.shape == (4, 4) and np.isfinite(t).all() for t in out
@@ -300,18 +374,21 @@ def warm_runs(clouds, params, first, label: str, reps: int = 5) -> list[float]:
 
 def drive(label: str, clouds, params, kernels, truth, rot_gate, trans_gate):
     """One estimate_maps_transforms call with the launch counts reset just
-    before and read just after; the relative pose gated against `truth`.
+    before and read just after; the relative pose gated against `truth`,
+    the kernels held against their plain versions on the run's own inputs.
     Returns (transforms, launches, wall s, pose error)."""
     from mapmerge_torch.core import transforms as tf
+    from mapmerge_torch.kernels import nn, spfh
     from mapmerge_torch.pipeline.merging import estimate_maps_transforms
 
-    for k in kernels:
-        k.launches = 0
-    t0 = time.perf_counter()
-    out = estimate_maps_transforms(clouds, params, seed=0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
+    with first_launch_inputs(nn, spfh) as seen:
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = estimate_maps_transforms(clouds, params, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
     require(len(out) == 2 and all(
         t.shape == (4, 4) and np.isfinite(t).all() for t in out
     ), f"{label}: transforms are not two finite 4x4 matrices")
@@ -322,6 +399,7 @@ def drive(label: str, clouds, params, kernels, truth, rot_gate, trans_gate):
             f"{label}: pose gate {rot_gate} deg / {trans_gate} m failed")
     require(launches["nearest_neighbor"] > 0,
             f"{label}: kernel nearest_neighbor was not launched")
+    hold_on_path_inputs(label, seen, nn, spfh)
     return out, launches, wall, (rot, trans)
 
 
@@ -445,9 +523,11 @@ def sweep_params(desc: str, method: str):
 
 
 SWEEP = (
-    ("PFHRGB", "MATCHING"), ("SHOT", "MATCHING"), ("SC3D", "MATCHING"),
-    ("FPFH", "SAC_IA"), ("RSD", "SAC_IA"),
+    ("PFH", "MATCHING"), ("PFHRGB", "MATCHING"), ("SHOT", "MATCHING"),
+    ("SC3D", "MATCHING"), ("FPFH", "SAC_IA"), ("RSD", "SAC_IA"),
 )
+#: fractional scatter-adds: not required to repeat bit for bit
+UNREPEATABLE = ("SHOT", "SC3D")
 
 
 def run_registry_sweep(dev, kernels) -> None:
@@ -482,8 +562,12 @@ def run_registry_sweep(dev, kernels) -> None:
             f = extract_features(pad_cloud(c, cap), params)
             check_descriptor_rows(label, desc, f.descriptors.data,
                                   f.descriptors.valid)
-        wall = warm_runs(clouds, params, None, label, reps=1)[0]
-        log(f"{label}: warm call {wall:.3f} s, descriptors well formed")
+        first = None if desc in UNREPEATABLE else out
+        walls = warm_runs(clouds, params, first, label, reps=3)
+        log(f"{label}: warm call s (3 reps): median {statistics.median(walls)}"
+            f", min {min(walls)}, max {max(walls)}; descriptors well formed; "
+            + ("repeats not required (fractional scatter-adds)" if first is None
+               else "3 warm runs bitwise equal to the first"))
 
 
 def main() -> int:

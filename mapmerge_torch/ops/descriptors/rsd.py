@@ -5,8 +5,9 @@ pcl::RSDEstimation -> PrincipalRadiiRSD: from d(alpha) ~= 2 r sin(alpha/2)
 between a neighbour's distance d and the angle alpha between its normal and
 the keypoint's, the neighbours are binned by angle; the least distance per
 bin gives a radius estimate, and the extremes over the occupied bins give
-(r_min, r_max), clamped at `plane_radius` (near-parallel normals: locally
-planar). A keypoint with no occupied bin gets `plane_radius` for both.
+(r_min, r_max), clamped at PCL's default plane radius of 0.2 m
+(near-parallel normals: locally planar). A keypoint with no occupied bin
+gets that radius for both.
 """
 
 from __future__ import annotations
@@ -33,7 +34,6 @@ def compute_rsd(
     radius: float,
     max_neighbors: int = 64,
     tile: int = 1024,
-    plane_radius: float = _PLANE_RADIUS,
     engine: str = "auto",
 ) -> Descriptors:
     """(r_min, r_max) at each keypoint; valid with at least 3 neighbours."""
@@ -60,14 +60,14 @@ def compute_rsd(
     centers = (bins.to(torch.float32) + 0.5) / five * half_pi
     two = torch.tensor(2.0, device=dev)
     r_est = dmin / (2.0 * torch.sin(centers / two)).clamp_min(1e-6)[None, :]
-    r_est = r_est.clamp(0.0, plane_radius)
+    r_est = r_est.clamp(0.0, _PLANE_RADIUS)
 
-    # nanmin / nanmax over the occupied bins, plane_radius where none is
+    # nanmin / nanmax over the occupied bins, the plane radius where none is
     any_bin = bin_has.any(dim=-1)
     r_min = torch.where(bin_has, r_est, torch.inf).amin(dim=-1)
     r_max = torch.where(bin_has, r_est, -torch.inf).amax(dim=-1)
-    r_min = torch.where(any_bin, r_min, plane_radius)
-    r_max = torch.where(any_bin, r_max, plane_radius)
+    r_min = torch.where(any_bin, r_min, _PLANE_RADIUS)
+    r_max = torch.where(any_bin, r_max, _PLANE_RADIUS)
 
     valid = keypoints.mask & (nmask.sum(dim=-1) >= 3)
     data = torch.stack([r_min, r_max], dim=-1)

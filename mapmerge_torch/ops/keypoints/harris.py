@@ -19,6 +19,7 @@ from mapmerge_torch.ops.normals import SurfaceNormals
 from mapmerge_torch.ops.rigid import _det3
 
 _HARRIS_K = 0.04
+_REFINE_ITERS = 3  # HarrisKeypoint3D refine on (features.cpp:64-83)
 
 
 def _outer(normals: SurfaceNormals) -> torch.Tensor:
@@ -95,8 +96,6 @@ def detect_keypoints_harris(
     threshold: float,
     radius: float,
     max_keypoints: int,
-    refine: bool = True,
-    refine_iters: int = 3,
     tile: int = 1024,
     engine: str = "auto",
 ) -> Keypoints:
@@ -118,9 +117,8 @@ def detect_keypoints_harris(
     top_scores, top_idx = torch.topk(score, k)
     kp_mask = top_scores > -BIG / 2
     kp_xyz = cloud.xyz[top_idx]
-    if refine:
-        for _ in range(refine_iters):
-            kp_xyz = _refine_step(kp_xyz, cloud, normals, radius, tile, engine)
+    for _ in range(_REFINE_ITERS):
+        kp_xyz = _refine_step(kp_xyz, cloud, normals, radius, tile, engine)
     return Keypoints(
         xyz=torch.where(kp_mask[:, None], kp_xyz, FAR),
         response=torch.where(kp_mask, top_scores, 0.0),
