@@ -29,10 +29,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 Each path runs with the launch counts reset just before it and read just
 after. On every path each kernel it launched is then held against its plain
 version on the inputs of its first launch in that run (the path's own
-shapes, ragged edges included). The line before the last is a JSON object
-of the kernels (launches from config #1's run); the last line is
-{"ok": true, "device": {...}}.
-Imports nothing of JAX.
+shapes, ragged edges included) and timed there (CUDA events, warm, median),
+beside its bound: the larger of the bytes it must move over 3.35 TB/s and
+the float32 operations these inputs need over 67 TFLOP/s (H100 SXM data
+sheet). The line before the last is a JSON object of the kernels: launches,
+times and bound on config #1's own inputs, and the same for every path and
+for the synthetic shapes; the last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX and nothing of mapmerge_tpu, and checks at its end
+that no such module was loaded.
 """
 
 from __future__ import annotations
@@ -53,6 +57,17 @@ ROOT = Path(__file__).resolve().parent
 SPFH_B, SPFH_CQ, SPFH_M = 512, 48, 32768
 NN_Q = NN_P = 32768
 DESC_R2 = 0.8 * 0.8
+#: H100 SXM data sheet: float32 outside the tensor cores, HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
+#: float32 operations of one nn (query, target) pair: 3 subtractions, 3
+#: products, 2 sums and the penalty add
+NN_PAIR_OPS = 9
+#: float32 operations of one counted SPFH pair (csrc/spfh.cu): the distance
+#: 8, square root and radius product 2, unit vector 3, the two cosines 10,
+#: v = d x u 9, its norm and scaling 9, w = u x v 9, alpha 5, theta's two
+#: dots and atan2 11, three bin indices 12 (special functions count 1)
+SPFH_PAIR_OPS = 78
 
 
 def require(cond, msg: str) -> None:
@@ -65,9 +80,11 @@ def log(*args):
     print(*args, flush=True)
 
 
-def time_ms(fn, reps: int = 5) -> float:
-    """Median device time of `fn` in ms over `reps` runs, after a warm-up."""
-    fn()
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of `fn` in ms over `reps` runs, each between two
+    CUDA events, after `warmup` runs."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -87,6 +104,31 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[torch.cuda.current_device()]
+
+
+def _bound(n_bytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the float32 rate, whichever is larger."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nn_bound(q, p) -> dict:
+    """Each query and target read once (12 B, the mask 1 B), idx and d2
+    written once; every (query, target) pair costs NN_PAIR_OPS."""
+    nq, np_ = q.shape[0], p.shape[0]
+    return _bound(nq * 12 + np_ * 13 + nq * 8, nq * np_ * NN_PAIR_OPS)
+
+
+def spfh_bound(args, pairs: int) -> dict:
+    """Queries (24 B) and candidates (24 B + ok) read once, rows of 33
+    bins and a count written once; SPFH_PAIR_OPS for each pair these
+    inputs count (the data decides how many lie within the radius)."""
+    q_xyz, cand_xyz = args[0], args[2]
+    rows = q_xyz.shape[0] * q_xyz.shape[1]
+    cands = cand_xyz.shape[0] * cand_xyz.shape[1]
+    return _bound(rows * 24 + cands * 25 + rows * 34 * 4, pairs * SPFH_PAIR_OPS)
 
 
 def _nn_compare(name, nn, q, p, mask=None):
@@ -135,14 +177,15 @@ def check_nn(dev, nn) -> dict:
     require(bool((dm >= 1e11).all()), "nn: all-masked case")
 
     ms = time_ms(lambda: nn.nearest_neighbor(q, p, mask))
-    plain_ms = time_ms(lambda: nn.nearest_neighbor_ref(q, p, mask))
+    plain_ms = time_ms(lambda: nn.nearest_neighbor_ref(q, p, mask), reps=5)
+    bound = nn_bound(q, p)
     log(
         f"kernel nearest_neighbor Q=P={NN_Q}: max|d2 err| {err}"
         f", idx mismatches at ties {n_tie_mismatch}, tie/all-masked ok; "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+        f"kernel {ms} ms, plain {plain_ms} ms, bound {bound['bound_ms']} ms"
     )
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "tie_mismatches": n_tie_mismatch}
+    return {"shape": f"Q={NN_Q} P={NN_P}", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, **bound}
 
 
 def _spfh_inputs(g, dev, b, cq, bc, m):
@@ -195,15 +238,18 @@ def check_spfh(dev, spfh) -> dict:
         "spfh per-cell", spfh.spfh_tile(*cell, r2=1.0), spfh.spfh_ref(*cell, r2=1.0)
     )
 
-    ms = time_ms(lambda: spfh.spfh_tile(*args, r2=DESC_R2), reps=3)
-    plain_ms = time_ms(lambda: spfh.spfh_ref(*args, r2=DESC_R2), reps=3)
+    ms = time_ms(lambda: spfh.spfh_tile(*args, r2=DESC_R2))
+    plain_ms = time_ms(lambda: spfh.spfh_ref(*args, r2=DESC_R2), reps=3, warmup=1)
+    bound = spfh_bound(args, int(ref[1].sum()))
     log(
         f"kernel spfh {SPFH_B * SPFH_CQ} x {SPFH_M} (shared, mean "
-        f"{mean_pairs:.1f} pairs/query): max|hist err| {err}, rows off {n_bad}"
+        f"{mean_pairs} pairs/query): max|hist err| {err}, rows off {n_bad}"
         f"; per-cell 4x40x300: max err {err_cell}, rows off {bad_cell}; "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+        f"kernel {ms} ms, plain {plain_ms} ms, bound {bound['bound_ms']} ms"
     )
-    return {"max_abs_err": max(err, err_cell), "ms": ms, "plain_ms": plain_ms}
+    return {"shape": f"{SPFH_B}x{SPFH_CQ} x {SPFH_M}",
+            "max_abs_err": max(err, err_cell), "ms": ms, "plain_ms": plain_ms,
+            **bound}
 
 
 @contextlib.contextmanager
@@ -237,28 +283,53 @@ def first_launch_inputs(nn, spfh):
             setattr(mod, attr, fn)
 
 
-def hold_on_path_inputs(label: str, seen: dict, nn, spfh) -> None:
+#: per path, per kernel: shape, max error, times and bound on the path's
+#: own first-launch inputs (hold_on_path_inputs)
+PATH_STATS: dict[str, dict] = {}
+
+
+def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
+                        plain: bool = False) -> None:
     """Each kernel a path launched against its plain version on the inputs
     of its first launch there, with check_nn's and check_spfh's
-    tolerances. These launches come after the path's counts were read."""
-    parts = []
+    tolerances, then timed on them (CUDA events, warm, median; the plain
+    version too where `plain`). These launches come after the path's
+    counts were read."""
+    stats = PATH_STATS[label] = {}
     if "nearest_neighbor" in seen:
         args, _ = seen["nearest_neighbor"]
         err, ties = _nn_compare(f"{label} nn", nn, *args)
-        parts.append(f"nn Q={args[0].shape[0]} P={args[1].shape[0]}: "
-                     f"max|d2 err| {err}, idx mismatches at ties {ties}")
+        st = stats["nearest_neighbor"] = {
+            "shape": f"Q={args[0].shape[0]} P={args[1].shape[0]}",
+            "launches": launches["nearest_neighbor"], "max_abs_err": err,
+            "tie_mismatches": ties,
+            "ms": time_ms(lambda: nn.nearest_neighbor(*args)),
+            **nn_bound(args[0], args[1]),
+        }
+        if plain:
+            st["plain_ms"] = time_ms(lambda: nn.nearest_neighbor_ref(*args), reps=5)
     if "spfh" in seen:
         args, kwargs = seen["spfh"]
+        ref = spfh.spfh_ref(*args, **kwargs)
         err, n_bad = _spfh_compare(
-            f"{label} spfh", spfh.spfh_tile(*args, **kwargs),
-            spfh.spfh_ref(*args, **kwargs),
+            f"{label} spfh", spfh.spfh_tile(*args, **kwargs), ref
         )
         b, cq, _ = args[0].shape
         bc, m, _ = args[2].shape
-        parts.append(f"spfh {b}x{cq} queries x {bc}x{m} candidates: "
-                     f"max|hist err| {err}, rows off {n_bad}")
-    require(parts, f"{label}: no kernel input was recorded")
-    log(f"{label}: kernels on the path's own inputs: " + "; ".join(parts))
+        counted = ref[1][ref[1] > 0]
+        st = stats["spfh"] = {
+            "shape": f"{b}x{cq} x {bc}x{m}", "launches": launches["spfh"],
+            "max_abs_err": err, "rows_off": n_bad,
+            "pairs_per_query": float(ref[1].mean()),
+            "pairs_per_counted_query": float(counted.mean()) if counted.numel() else 0.0,
+            "ms": time_ms(lambda: spfh.spfh_tile(*args, **kwargs)),
+            **spfh_bound(args, int(ref[1].sum())),
+        }
+        if plain:
+            st["plain_ms"] = time_ms(lambda: spfh.spfh_ref(*args, **kwargs),
+                                     reps=3, warmup=1)
+    require(stats, f"{label}: no kernel input was recorded")
+    log(f"{label}: kernels on the path's own inputs: {json.dumps(stats)}")
 
 
 def config1_params():
@@ -316,7 +387,7 @@ def run_main_path(dev, kernels) -> dict:
         f"peak device memory {peak_gib:.2f} GiB")
     for name, n in launches.items():
         require(n > 0, f"kernel {name} was not launched by the main path")
-    hold_on_path_inputs("config #1", seen, nn, spfh)
+    hold_on_path_inputs("config #1", seen, nn, spfh, launches, plain=True)
 
     require(len(out) == 2 and all(
         t.shape == (4, 4) and np.isfinite(t).all() for t in out
@@ -399,7 +470,7 @@ def drive(label: str, clouds, params, kernels, truth, rot_gate, trans_gate):
             f"{label}: pose gate {rot_gate} deg / {trans_gate} m failed")
     require(launches["nearest_neighbor"] > 0,
             f"{label}: kernel nearest_neighbor was not launched")
-    hold_on_path_inputs(label, seen, nn, spfh)
+    hold_on_path_inputs(label, seen, nn, spfh, launches)
     return out, launches, wall, (rot, trans)
 
 
@@ -570,6 +641,29 @@ def run_registry_sweep(dev, kernels) -> None:
                else "3 warm runs bitwise equal to the first"))
 
 
+def kernel_entry(k, launches: dict, stats: dict) -> dict:
+    """A kernel's entry of the line before the last: its numbers on config
+    #1's own inputs (the main path), then per path and on the synthetic
+    shapes. No single PyTorch call computes either kernel's function
+    (torch.cdist gives neither the masked argmin nor its tie order; nothing
+    in PyTorch bins Darboux features), so library_ms is null."""
+    main = PATH_STATS["config #1"][k.name]
+    errs = [stats[k.name]["max_abs_err"]] + [
+        ps[k.name]["max_abs_err"] for ps in PATH_STATS.values() if k.name in ps
+    ]
+    return {
+        "name": k.name, "route": k.route, "source": k.source,
+        "replaces": k.replaces, "launches": launches[k.name],
+        "max_abs_err": max(errs), "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "shape": main["shape"],
+        "paths": {label: ps[k.name] for label, ps in PATH_STATS.items()
+                  if k.name in ps},
+        "synthetic": stats[k.name],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs a GPU")
@@ -591,10 +685,11 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()
     log(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
-        f"({build.library_path().name})")
-    report = build.library_path().with_suffix(".log")
-    if report.exists():
-        log(report.read_text().strip())
+        f"({', '.join(build.library_path(s).name for s in build.SOURCES)})")
+    for source in build.SOURCES:
+        report = build.library_path(source).with_suffix(".log")
+        if report.exists():
+            log(report.read_text().strip())
 
     stats = {"nearest_neighbor": check_nn(dev, nn), "spfh": check_spfh(dev, spfh)}
     kernels = (nn.KERNEL, spfh.KERNEL)
@@ -602,16 +697,12 @@ def main() -> int:
     run_default_operating_point(dev, kernels)
     run_registry_sweep(dev, kernels)
 
+    loaded = sorted(m for m in sys.modules
+                    if m.startswith("jax") or m.startswith("mapmerge_tpu"))
+    require(not loaded, f"modules of JAX or mapmerge_tpu were loaded: {loaded}")
+
     print(card)
-    print(json.dumps({"kernels": [
-        {
-            "name": k.name, "route": k.route, "source": k.source,
-            "replaces": k.replaces, "launches": launches[k.name],
-            "max_abs_err": stats[k.name]["max_abs_err"],
-            "ms": stats[k.name]["ms"], "plain_ms": stats[k.name]["plain_ms"],
-        }
-        for k in kernels
-    ]}))
+    print(json.dumps({"kernels": [kernel_entry(k, launches, stats) for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

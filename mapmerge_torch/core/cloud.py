@@ -13,6 +13,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mapmerge_torch.core.device import resolve
+
 #: parked coordinate for invalid points; squared distances stay finite in f32
 FAR = 1.0e8
 
@@ -57,9 +59,11 @@ class PointCloud:
         xyz: np.ndarray,
         rgb: Optional[np.ndarray] = None,
         capacity: Optional[int] = None,
-        device="cpu",
+        device=None,
     ) -> "PointCloud":
-        """Padded cloud from host arrays of shape (n, 3)."""
+        """Padded cloud from host arrays of shape (n, 3), on `device` (the
+        current CUDA device when None; raises if there is none)."""
+        device = resolve(device)
         xyz = np.asarray(xyz, dtype=np.float32).reshape(-1, 3)
         n = xyz.shape[0]
         if rgb is None:

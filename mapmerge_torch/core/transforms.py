@@ -9,13 +9,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-
-def identity(device="cpu") -> torch.Tensor:
-    return torch.eye(4, dtype=torch.float32, device=device)
+from mapmerge_torch.core.device import resolve
 
 
-def zero(device="cpu") -> torch.Tensor:
-    return torch.zeros((4, 4), dtype=torch.float32, device=device)
+def identity(device=None) -> torch.Tensor:
+    """On `device`, the current CUDA device when None."""
+    return torch.eye(4, dtype=torch.float32, device=resolve(device))
+
+
+def zero(device=None) -> torch.Tensor:
+    """On `device`, the current CUDA device when None."""
+    return torch.zeros((4, 4), dtype=torch.float32, device=resolve(device))
 
 
 def from_rotation_translation(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

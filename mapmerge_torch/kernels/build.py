@@ -1,10 +1,11 @@
 """Build, load and guard the hand-written CUDA kernels of `csrc/`.
 
-The sources are compiled with nvcc for sm_90a into one shared library with a
-plain C interface, loaded with ctypes. The build runs at first use, into
-`build/mapmerge_torch/` beside the package (listed in .gitignore), and is
-keyed on a hash of the sources and flags, so a fresh checkout builds them on
-its first kernel launch and a changed source is rebuilt.
+Each source is compiled with nvcc for sm_90a into its own shared library
+with a plain C interface, loaded with ctypes; the nvcc processes of all
+sources run at once. The build runs at first use, into
+`build/mapmerge_torch/` beside the package (listed in .gitignore), and each
+library is keyed on a hash of its source and the flags, so a fresh checkout
+builds them on its first kernel launch and a changed source is rebuilt.
 """
 
 from __future__ import annotations
@@ -16,12 +17,12 @@ import os
 import shutil
 import subprocess
 import threading
+import types
 from pathlib import Path
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("nn.cu", "spfh.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mapmerge_torch"
 #: -fmad=false: no FMA contraction, so the kernels round every product and
 #: sum as the plain PyTorch versions do (see the notes in csrc/)
@@ -29,9 +30,24 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
 )
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: source -> {C function: argument types}; every function returns the CUDA
+#: error code of its launches
+SOURCES = {
+    "nn.cu": {
+        "mm_nearest_neighbor": [_vp, _ci, _vp, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _vp],
+    },
+    "spfh.cu": {
+        "mm_spfh_shared": [
+            _vp, _vp, _ci, _ci, _vp, _vp, _vp, _ci, _cf, _cf, _cf, _vp, _vp, _vp,
+            _vp, _vp,
+        ],
+        "mm_spfh_cell": [_vp, _vp, _ci, _ci, _vp, _vp, _vp, _ci, _cf, _vp, _vp, _vp],
+    },
+}
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_lib: types.SimpleNamespace | None = None
 
 
 @dataclasses.dataclass
@@ -59,53 +75,58 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path() -> Path:
+def library_path(source: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libmapmerge_kernels_{h.hexdigest()[:16]}.so"
+    h.update((CSRC / source).read_bytes())
+    return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists.
+def build() -> dict[str, Path]:
+    """Compile every source whose library does not exist yet, all at once.
 
     The compiler's report (-Xptxas -v: registers, shared memory, spills per
-    kernel) is kept beside the library as `<name>.log`."""
-    path = library_path()
-    if path.exists():
-        return path
+    kernel) is kept beside each library as `<name>.log`."""
+    paths = {s: library_path(s) for s in SOURCES}
+    todo = {s: p for s, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-        *(str(CSRC / s) for s in SOURCES),
-    ]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {res.returncode}:\n{res.stderr}"
-        )
-    path.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, path)  # atomic: another process never loads a partial file
-    return path
+    nvcc = _nvcc()
+    procs = {}
+    for source, path in todo.items():
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC / source)]
+        procs[source] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    failed = []
+    for source, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{source}: nvcc exit code {proc.returncode}:\n{out}")
+            continue
+        path = todo[source]
+        path.with_suffix(".log").write_text(out)
+        os.replace(tmp, path)  # atomic: another process never loads a partial file
+    if failed:
+        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+    return paths
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+def load() -> types.SimpleNamespace:
+    """The kernels' C functions, as attributes, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.mm_nearest_neighbor.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp]
-            lib.mm_nearest_neighbor.restype = ci
-            lib.mm_spfh.argtypes = [
-                vp, vp, ci, ci, vp, vp, vp, ci, ctypes.c_longlong,
-                ctypes.c_float, vp, vp, vp,
-            ]
-            lib.mm_spfh.restype = ci
-            _lib = lib
+            fns = {}
+            for source, path in build().items():
+                lib = ctypes.CDLL(str(path))
+                for name, argtypes in SOURCES[source].items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = _ci
+                    fns[name] = fn
+            _lib = types.SimpleNamespace(**fns)
     return _lib
 
 

@@ -6,10 +6,13 @@ Replaces the Pallas TPU kernel mapmerge_tpu/pallas/nn.py
 expansion (no centring, no matmul), add BIG to the squared distance of masked
 targets, and resolve ties to the first occurrence. The kernel rounds each
 operation as the plain version does, so the two agree bit for bit; see the
-source note in csrc/nn.cu for what bounds the kernel on the card.
+source note in csrc/nn.cu for what bounds the kernel on the card and how
+its grid splits the targets.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -19,6 +22,13 @@ from mapmerge_torch.kernels import build
 BIG = 1.0e12
 #: elements per (Q, chunk) distance plane of the plain version
 _PLANE = 1 << 22
+#: queries per block of the kernel (csrc/nn.cu: kQueries)
+_BLOCK_QUERIES = 512
+#: blocks per SM the target splits aim at: many short blocks keep the
+#: tail of the grid short (16 measured fastest of 4-32 at 32768^2, PERF.md)
+_BLOCKS_PER_SM = 16
+#: fewest targets per split
+_MIN_SPLIT = 256
 
 KERNEL = build.Kernel(
     name="nearest_neighbor",
@@ -50,16 +60,33 @@ def nearest_neighbor(
     d2 = torch.empty((nq,), dtype=torch.float32, device=dev)
     if nq == 0:
         return idx, d2
+    splits = _splits(nq, np_, _sm_count(dev.index))
+    part_idx = torch.empty((splits, nq), dtype=torch.int32, device=dev)
+    part_d2 = torch.empty((splits, nq), dtype=torch.float32, device=dev)
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.mm_nearest_neighbor(
             q.data_ptr(), nq, p.data_ptr(),
-            None if p_mask is None else p_mask.data_ptr(), np_,
+            None if p_mask is None else p_mask.data_ptr(), np_, splits,
+            part_idx.data_ptr(), part_d2.data_ptr(),
             idx.data_ptr(), d2.data_ptr(), build.stream_handle(dev),
         )
     KERNEL.launches += 1
     build.check_launch(KERNEL, err)
     return idx, d2
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _splits(nq: int, np_: int, sms: int) -> int:
+    """Target splits for about _BLOCKS_PER_SM blocks per SM, each split
+    at least _MIN_SPLIT targets."""
+    tiles = -(-nq // _BLOCK_QUERIES)
+    want = -(-_BLOCKS_PER_SM * sms // tiles)
+    return max(1, min(want, -(-np_ // _MIN_SPLIT), 65535))
 
 
 def nearest_neighbor_ref(

@@ -10,9 +10,20 @@ floor-and-clip binning. See csrc/spfh.cu for what bounds the kernel.
 Candidates come with a leading dimension Bc in {1, B}: Bc = 1 is the
 shared-candidate mode of the dense FPFH sweep (every query sees the same
 cloud); Bc = B is the per-cell mode of the grid engine.
+
+In shared mode the launch first bins the ok candidates by cell on the
+card (csrc/spfh.cu: count, scan, scatter): cells of edge r (1 + 1e-3),
+their integer coordinates hashed into a table of 2^15 buckets (no host read
+of the cloud's extent), the candidates gathered by bucket. The sweep then
+reads only the buckets of the 27 cells around each query. The 1e-3 margin
+keeps an in-radius pair in neighbouring cells despite the rounding of
+x / cell, for coordinates within about 4,000 cells of the origin (3 km at
+r = 0.8 m); a collision only adds candidates that fail the radius test.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -23,6 +34,15 @@ _BINS = 11
 _PI = 3.141592653589793
 #: pairs per (rows, M) plane of the plain version
 _PLANE = 1 << 22
+#: hash buckets of the shared sweep's cells (csrc/spfh.cu: kTable)
+_TABLE = 1 << 15
+#: cell edge over the radius
+_CELL_MARGIN = 1.0 + 1e-3
+#: most queries a block of the shared sweep takes (csrc/spfh.cu: kGroupMax)
+_GROUP_MAX = 64
+#: squared-radius margin of the kernel's first distance test; a pair whose
+#: rounded sqrt passes r2 has d2 <= r2 (1 + 2.4e-7)
+_R2_MARGIN = 1.0 + 1e-5
 
 KERNEL = build.Kernel(
     name="spfh",
@@ -60,20 +80,34 @@ def spfh_tile(
         raise ValueError(f"spfh_tile: candidate batch {bc} is neither 1 nor {b}")
     hist = torch.empty((b, cq, 3 * _BINS), dtype=f32, device=dev)
     total = torch.empty((b, cq), dtype=f32, device=dev)
-    # shared candidates: all B*Cq queries form one batch over one cloud
-    rows, batches, stride = (b * cq, 1, 0) if bc == 1 else (cq, b, m)
-    if rows >= 128 * 65535 or max(m, b * cq) >= 2**31 // 3:
+    if cq >= 128 * 65535 or max(bc * m, b * cq) >= 2**31 // 3:
         raise ValueError(f"spfh_tile: unsupported sizes B={b} Cq={cq} M={m}")
-    if rows == 0 or batches == 0:
+    if b * cq == 0:
         return hist, total
     lib = build.load()
+    stream = build.stream_handle(dev)
     with torch.cuda.device(dev):
-        err = lib.mm_spfh(
-            q_xyz.data_ptr(), q_nrm.data_ptr(), rows, batches,
-            cand_xyz.data_ptr(), cand_nrm.data_ptr(), cand_ok.data_ptr(), m,
-            stride, float(r2), hist.data_ptr(), total.data_ptr(),
-            build.stream_handle(dev),
-        )
+        if bc == 1:
+            # one group of rows per block: one keypoint's neighbours where
+            # Cq holds them, all within r of the keypoint
+            group = -(-cq // -(-cq // _GROUP_MAX))
+            # bucket counts, starts, cursors and each candidate's bucket;
+            # the candidates gathered by bucket
+            ints = torch.empty((3 * _TABLE + 1 + m,), dtype=torch.int32, device=dev)
+            gathered = torch.empty((2, m, 4), dtype=f32, device=dev)
+            err = lib.mm_spfh_shared(
+                q_xyz.data_ptr(), q_nrm.data_ptr(), b * cq, group,
+                cand_xyz.data_ptr(), cand_nrm.data_ptr(), cand_ok.data_ptr(),
+                m, math.sqrt(r2) * _CELL_MARGIN, float(r2),
+                float(r2) * _R2_MARGIN, ints.data_ptr(), gathered.data_ptr(),
+                hist.data_ptr(), total.data_ptr(), stream,
+            )
+        else:
+            err = lib.mm_spfh_cell(
+                q_xyz.data_ptr(), q_nrm.data_ptr(), cq, b,
+                cand_xyz.data_ptr(), cand_nrm.data_ptr(), cand_ok.data_ptr(),
+                m, float(r2), hist.data_ptr(), total.data_ptr(), stream,
+            )
     KERNEL.launches += 1
     build.check_launch(KERNEL, err)
     return hist, total

@@ -10,8 +10,8 @@ from __future__ import annotations
 
 from typing import Callable
 
-from mapmerge_tpu.core.enums import DESCRIPTOR_DIMS, Descriptor
 from mapmerge_torch.core.cloud import PointCloud
+from mapmerge_torch.core.enums import DESCRIPTOR_DIMS, Descriptor
 from mapmerge_torch.ops.descriptors.base import Descriptors
 from mapmerge_torch.ops.descriptors.fpfh import compute_fpfh
 from mapmerge_torch.ops.descriptors.pfh import compute_pfh, compute_pfhrgb

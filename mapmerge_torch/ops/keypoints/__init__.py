@@ -8,8 +8,8 @@ import dataclasses
 
 import torch
 
-from mapmerge_tpu.core.enums import Keypoint
 from mapmerge_torch.core.cloud import PointCloud
+from mapmerge_torch.core.enums import Keypoint
 from mapmerge_torch.ops.normals import SurfaceNormals
 
 

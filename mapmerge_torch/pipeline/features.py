@@ -14,8 +14,8 @@ import dataclasses
 
 import torch
 
-from mapmerge_tpu.core.params import MergeParams
 from mapmerge_torch.core.cloud import PointCloud
+from mapmerge_torch.core.params import MergeParams
 from mapmerge_torch.ops.descriptors import Descriptors, compute_descriptors
 from mapmerge_torch.ops.downsample import voxel_downsample
 from mapmerge_torch.ops.keypoints import Keypoints, detect_keypoints

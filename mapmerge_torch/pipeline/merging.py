@@ -6,9 +6,8 @@ matrix; pairs are registered only where both keypoint sets are non-empty;
 compose skips zero transforms and re-voxelizes at the output resolution.
 
 The clouds and pairs run as plain Python loops on the clouds' device, then
-one host graph solve (mapmerge_tpu.graph, framework-free numpy).
-`MergeParams` is the reference's own (framework-free) dataclass, importable
-from here so that a caller of the port needs no `mapmerge_tpu` import.
+one host graph solve (`mapmerge_torch.graph`, numpy). `MergeParams` is
+importable from here.
 """
 
 from __future__ import annotations
@@ -19,13 +18,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from mapmerge_tpu.core.params import MergeParams
-from mapmerge_tpu.graph.merge_graph import (
+from mapmerge_torch.core import transforms as tf
+from mapmerge_torch.core.cloud import PointCloud, pad_cloud
+from mapmerge_torch.core.params import MergeParams
+from mapmerge_torch.graph.merge_graph import (
     TransformEstimate,
     compute_global_transforms,
 )
-from mapmerge_torch.core import transforms as tf
-from mapmerge_torch.core.cloud import PointCloud, pad_cloud
+from mapmerge_torch.graph.pose_graph import refine_global_transforms
 from mapmerge_torch.ops.downsample import voxel_downsample
 from mapmerge_torch.pipeline.features import extract_features
 from mapmerge_torch.pipeline.registration import estimate_transform
@@ -137,8 +137,6 @@ def _solve_graph(estimates, params: MergeParams) -> list[np.ndarray]:
     """MST chaining (reference semantics) + optional all-edge relaxation."""
     global_t = compute_global_transforms(estimates, params.confidence_threshold)
     if params.global_refinement:
-        from mapmerge_tpu.graph.pose_graph import refine_global_transforms
-
         global_t = refine_global_transforms(
             estimates, global_t, params.confidence_threshold
         )

@@ -11,9 +11,9 @@ import dataclasses
 
 import torch
 
-from mapmerge_tpu.core.enums import EstimationMethod
-from mapmerge_tpu.core.params import MergeParams
 from mapmerge_torch.core import transforms as tf
+from mapmerge_torch.core.enums import EstimationMethod
+from mapmerge_torch.core.params import MergeParams
 from mapmerge_torch.ops.icp import icp_refine
 from mapmerge_torch.ops.matching import find_correspondences
 from mapmerge_torch.ops.ransac import ransac_transform

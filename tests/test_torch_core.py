@@ -20,13 +20,6 @@ from synthetic import make_scene, overlapping_views, rotation_z, se3
 from torch_parity import both_clouds, t
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-#: the framework-free reference modules the port may import
-ALLOWED_REFERENCE = {
-    "mapmerge_tpu.core.params",
-    "mapmerge_tpu.core.enums",
-    "mapmerge_tpu.graph.merge_graph",
-    "mapmerge_tpu.graph.pose_graph",
-}
 
 
 def _random_rigid(rng, n):
@@ -92,8 +85,10 @@ class TestTransforms:
             rtol=1e-6, atol=1e-6,
         )
         # the identity and zero conventions
-        np.testing.assert_array_equal(ttf.identity().numpy(), np.asarray(jtf.identity()))
-        np.testing.assert_array_equal(ttf.zero().numpy(), np.asarray(jtf.zero()))
+        np.testing.assert_array_equal(
+            ttf.identity("cpu").numpy(), np.asarray(jtf.identity())
+        )
+        np.testing.assert_array_equal(ttf.zero("cpu").numpy(), np.asarray(jtf.zero()))
 
     def test_geodesic_and_translation_error_match_reference(self, rng):
         r, tr = _random_rigid(rng, 6)
@@ -165,44 +160,19 @@ def _imports(path: pathlib.Path) -> set[str]:
     return names
 
 
-def _module_file(name: str) -> pathlib.Path | None:
-    base = ROOT.joinpath(*name.split("."))
-    for cand in (base.with_suffix(".py"), base / "__init__.py"):
-        if cand.exists():
-            return cand
-    return None
-
-
 class TestNoJax:
     def test_port_imports_no_jax(self):
-        """AST scan: no module of mapmerge_torch (nor chip_smoke.py) imports
-        jax, and every mapmerge_tpu import is a framework-free module of the
-        allowlist, whose own imports reach no jax either."""
-        smoke = ROOT / "chip_smoke.py"
-        files = sorted((ROOT / "mapmerge_torch").rglob("*.py")) + [smoke]
+        """AST scan: no module of mapmerge_torch, nor chip_smoke.py, imports
+        jax or anything of mapmerge_tpu, at any depth of its code. The port
+        keeps its own copies (core.params, core.enums, graph.*)."""
+        files = sorted((ROOT / "mapmerge_torch").rglob("*.py"))
+        files.append(ROOT / "chip_smoke.py")
         assert len(files) > 20
-        # the smoke script reaches the reference only through the port
-        assert not any(n.startswith("mapmerge_tpu") for n in _imports(smoke))
-        reference = set()
         for path in files:
             for name in _imports(path):
-                assert name.split(".")[0] != "jax", f"{path}: imports {name}"
-                if name.startswith("mapmerge_tpu"):
-                    if _module_file(name) is not None:
-                        reference.add(name)
-        assert reference and reference <= ALLOWED_REFERENCE, reference
-        # the allowlisted modules, and what they import in turn
-        seen, todo = set(), list(reference)
-        while todo:
-            name = todo.pop()
-            if name in seen:
-                continue
-            seen.add(name)
-            for dep in _imports(_module_file(name)):
-                assert dep.split(".")[0] != "jax", f"{name} imports {dep}"
-                if dep.startswith("mapmerge_tpu") and _module_file(dep):
-                    todo.append(dep)
-        assert "mapmerge_tpu.native" in seen  # merge_graph's native solver
+                assert name.split(".")[0] not in ("jax", "jaxlib", "mapmerge_tpu"), (
+                    f"{path.relative_to(ROOT)}: imports {name}"
+                )
 
     def test_constants_match_reference(self):
         from mapmerge_tpu.ops import neighbors as jn
@@ -242,13 +212,13 @@ class TestOutsideTheSlice:
     def test_keypoint_descriptor_and_method(self):
         """HARRIS, PFH and SAC_IA dispatch now; the same calls on the
         cell-grid engine raise naming it."""
-        from mapmerge_tpu.core.enums import Descriptor, Keypoint
+        from mapmerge_torch.core.enums import Descriptor, Keypoint
         from mapmerge_torch.ops.descriptors import compute_descriptors
         from mapmerge_torch.ops.keypoints import detect_keypoints
         from mapmerge_torch.ops.normals import compute_surface_normals
         from mapmerge_torch.pipeline.features import extract_features
         from mapmerge_torch.pipeline.registration import estimate_transform
-        from torch_parity import SLICE_PARAMS
+        from torch_parity import SLICE_PARAMS, port_params
 
         rng = np.random.default_rng(1)
         xyz = (rng.random((300, 3)) * 2).astype(np.float32)
@@ -272,7 +242,7 @@ class TestOutsideTheSlice:
         assert kp.mask.any()
         desc = pfh("dense")
         assert desc.data.shape == (8, 125) and desc.valid.any()
-        params = SLICE_PARAMS.replace(
+        params = port_params(SLICE_PARAMS).replace(
             keypoint_type="HARRIS", keypoint_threshold=0.0,
             descriptor_type="PFH", estimation_method="SAC_IA",
             sacia_hypotheses=64, max_keypoints=16, refine_transform=False,

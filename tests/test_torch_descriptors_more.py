@@ -75,7 +75,7 @@ def surface():
     tn = SurfaceNormals(
         normals=t(jn.normals), curvature=t(jn.curvature), valid=t(jn.valid)
     )
-    return (jc, jn, jk), (convert.cloud_from_numpy(jc), tn, tk)
+    return (jc, jn, jk), (convert.cloud_from_numpy(jc, "cpu"), tn, tk)
 
 
 def _both(surface, kind):

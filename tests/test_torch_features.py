@@ -38,7 +38,7 @@ def surface():
     jc = j_voxel(jc, p.resolution, out_capacity=min(cap, p.max_points))
     jc = j_outliers(jc, p.descriptor_radius, p.outliers_min_neighbours, tile=512)
     jn = j_normals(jc, p.normal_radius, tile=512)
-    tc = convert.cloud_from_numpy(jc)
+    tc = convert.cloud_from_numpy(jc, "cpu")
     tn = SurfaceNormals(
         normals=t(jn.normals), curvature=t(jn.curvature), valid=t(jn.valid)
     )

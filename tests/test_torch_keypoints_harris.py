@@ -35,7 +35,7 @@ def surface():
     tn = SurfaceNormals(
         normals=t(jn.normals), curvature=t(jn.curvature), valid=t(jn.valid)
     )
-    return jc, jn, convert.cloud_from_numpy(jc), tn
+    return jc, jn, convert.cloud_from_numpy(jc, "cpu"), tn
 
 
 def test_response_matches_reference(surface):

@@ -26,14 +26,16 @@ from mapmerge_torch.pipeline.merging import compose_maps as t_compose
 from mapmerge_torch.pipeline.merging import estimate_maps_transforms as t_estimate
 from mapmerge_torch.pipeline.merging import pair_generator
 
-from torch_parity import SLICE_PARAMS, rel_pose, small_scene
+from torch_parity import SLICE_PARAMS, port_params, rel_pose, small_scene
 
 
 @pytest.fixture(scope="module")
 def scene():
     va, vb, cap, truth = small_scene()
     jax_clouds = [JaxCloud.from_arrays(*v, capacity=cap) for v in (va, vb)]
-    torch_clouds = [TorchCloud.from_numpy(*v, capacity=cap) for v in (va, vb)]
+    torch_clouds = [
+        TorchCloud.from_numpy(*v, capacity=cap, device="cpu") for v in (va, vb)
+    ]
     return jax_clouds, torch_clouds, truth
 
 
@@ -41,7 +43,7 @@ def scene():
 def merged(scene):
     jax_clouds, torch_clouds, _ = scene
     info = {}
-    ours = t_estimate(torch_clouds, SLICE_PARAMS, seed=0, info_out=info)
+    ours = t_estimate(torch_clouds, port_params(SLICE_PARAMS), seed=0, info_out=info)
     theirs = j_estimate(jax_clouds, SLICE_PARAMS, seed=0)
     return ours, theirs, info
 
@@ -110,7 +112,7 @@ def test_operating_point_matches_reference_and_truth(scene, name):
     fails too."""
     jax_clouds, torch_clouds, truth = scene
     params = OPERATING_POINTS[name]
-    ours = t_estimate(torch_clouds, params, seed=0)
+    ours = t_estimate(torch_clouds, port_params(params), seed=0)
     theirs = j_estimate(jax_clouds, params, seed=0)
     assert len(ours) == len(theirs) == 2
     assert [t.any() for t in ours] == [bool(np.asarray(t).any()) for t in theirs]
@@ -127,8 +129,9 @@ class TestContracts:
 
     def test_empty_and_single(self, scene):
         jax_clouds, torch_clouds, _ = scene
-        assert t_estimate([], SLICE_PARAMS) == j_estimate([], SLICE_PARAMS) == []
-        ours = t_estimate(torch_clouds[:1], SLICE_PARAMS)
+        params = port_params(SLICE_PARAMS)
+        assert t_estimate([], params) == j_estimate([], SLICE_PARAMS) == []
+        ours = t_estimate(torch_clouds[:1], params)
         assert len(ours) == 1
         np.testing.assert_array_equal(ours[0], np.eye(4, dtype=np.float32))
         np.testing.assert_array_equal(
@@ -140,14 +143,17 @@ class TestContracts:
         empty = t_compose(torch_clouds, [np.zeros((4, 4))] * 2, 0.1)
         assert empty.capacity == 1 and not empty.mask.any()
         with pytest.raises(NotImplementedError, match="mesh"):
-            t_estimate(torch_clouds, SLICE_PARAMS, mesh=object())
+            t_estimate(torch_clouds, params, mesh=object())
 
     def test_clouds_without_keypoints(self, rng):
         """Uniform colour: SIFT finds nothing, no pair is generated, and
         the result is [] in both packages."""
         xyz = (rng.random((600, 3)) * 3).astype(np.float32)
         rgb = np.full((600, 3), 0.5, np.float32)
-        ours = t_estimate([TorchCloud.from_numpy(xyz, rgb)] * 2, SLICE_PARAMS)
+        ours = t_estimate(
+            [TorchCloud.from_numpy(xyz, rgb, device="cpu")] * 2,
+            port_params(SLICE_PARAMS),
+        )
         theirs = j_estimate([JaxCloud.from_arrays(xyz, rgb)] * 2, SLICE_PARAMS)
         assert ours == theirs == []
 
@@ -161,7 +167,7 @@ class TestContracts:
         info = {}
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            ours = t_estimate(torch_clouds, params, info_out=info)
+            ours = t_estimate(torch_clouds, port_params(params), info_out=info)
         assert any("keypoint cap" in str(w.message) for w in caught)
         theirs = j_estimate(jax_clouds, params)
         assert info["n_failed"] == 1

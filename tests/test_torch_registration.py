@@ -33,7 +33,7 @@ from mapmerge_torch.ops.score import transform_score as t_score
 from mapmerge_torch.pipeline.registration import estimate_transform as t_estimate
 
 from synthetic import rotation_z, se3
-from torch_parity import SLICE_PARAMS, both_clouds, small_scene, t
+from torch_parity import SLICE_PARAMS, both_clouds, port_params, small_scene, t
 
 
 def _pose_gap(a, b):
@@ -275,9 +275,9 @@ class TestEstimateTransform:
             jf[0].descriptors.valid & jf[0].keypoints.mask,
         )
         samples = _sample_hypotheses(key, jcorr.valid, SLICE_PARAMS.ransac_hypotheses)
-        tf_ = [convert.features_from_numpy(jax.tree_util.tree_map(np.asarray, f))
+        tf_ = [convert.features_from_numpy(jax.tree_util.tree_map(np.asarray, f), "cpu")
                for f in jf]
-        test = t_estimate(tf_[1], tf_[0], SLICE_PARAMS, samples=t(samples))
+        test = t_estimate(tf_[1], tf_[0], port_params(SLICE_PARAMS), samples=t(samples))
         assert bool(test.ok) and bool(jest.ok)
         assert int(test.inlier_count) == int(jest.inlier_count)
         rot, trans = _pose_gap(test.transform.numpy(), np.asarray(jest.transform))

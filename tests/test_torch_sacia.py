@@ -26,7 +26,7 @@ from mapmerge_torch.ops.sacia import truncated_error
 from mapmerge_torch.pipeline.registration import estimate_transform as t_estimate
 
 from synthetic import rotation_z, se3
-from torch_parity import small_scene, t
+from torch_parity import port_params, small_scene, t
 
 K_FEATURES = 10
 
@@ -151,9 +151,11 @@ def estimates():
     jest = j_estimate(jf[1], jf[0], params, key)
     s_valid = np.asarray(jf[1].keypoints.mask & jf[1].descriptors.valid)
     samples, pick = reference_draws(key, s_valid, params.sacia_hypotheses, K_FEATURES)
-    tf_ = [convert.features_from_numpy(jax.tree_util.tree_map(np.asarray, f)) for f in jf]
-    injected = t_estimate(tf_[1], tf_[0], params, samples=samples, pick=pick)
-    own = t_estimate(tf_[1], tf_[0], params, generator=torch.Generator().manual_seed(3))
+    tf_ = [convert.features_from_numpy(jax.tree_util.tree_map(np.asarray, f), "cpu")
+           for f in jf]
+    tparams = port_params(params)
+    injected = t_estimate(tf_[1], tf_[0], tparams, samples=samples, pick=pick)
+    own = t_estimate(tf_[1], tf_[0], tparams, generator=torch.Generator().manual_seed(3))
     return jest, injected, own, truth
 
 

@@ -1,7 +1,8 @@
 """Shared inputs for the parity tests of mapmerge_torch against mapmerge_tpu.
 
 Inputs are made with numpy from a seed and handed to both packages as
-arrays; nothing here decides anything about devices.
+arrays; the port's side is put on the CPU by name (its entry points default
+to the card), and is handed the port's own MergeParams (`port_params`).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import torch
 
 from mapmerge_tpu.core.cloud import PointCloud as JaxCloud
 from mapmerge_tpu.core.params import MergeParams
+from mapmerge_torch import convert
 from mapmerge_torch.core.cloud import PointCloud as TorchCloud
 from mapmerge_torch.testing.scene import (
     make_scene,
@@ -38,8 +40,13 @@ def both_clouds(xyz, rgb=None, capacity=None):
     """The same padded cloud in both packages."""
     return (
         JaxCloud.from_arrays(xyz, rgb, capacity=capacity),
-        TorchCloud.from_numpy(xyz, rgb, capacity=capacity),
+        TorchCloud.from_numpy(xyz, rgb, capacity=capacity, device="cpu"),
     )
+
+
+def port_params(p):
+    """The port's MergeParams with the field values of the reference's `p`."""
+    return convert.params_from_reference(p)
 
 
 def small_scene():
