@@ -25,7 +25,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      1.5 deg / 0.15 m, with the descriptors' width and normalisation
      checked, the launches required, and 3 warm calls timed and required to
      repeat the first run bit for bit (SHOT and SC3D excepted: their
-     fractional scatter-adds may round otherwise from run to run).
+     fractional scatter-adds may round otherwise from run to run);
+  7. eval config #2 (bench_configs.py:250-303) at full size on the cell-grid
+     engine: five views of one synthetic town, 1,150,172 points each, at
+     capacity 2^21 with max_points 2^20, Harris + FPFH, all ten pairs and
+     the graph solve. One cold run (launch counts, peak memory, the
+     counters of the feature and pair stages), gated at 4 of 5 maps within
+     2 deg / 0.3 m of the truth and every registered map within 2 deg /
+     0.3 m of golden/config2.json; one warm timed run and one run timed
+     stage by stage, each required to repeat the cold run bit for bit.
+     The SPFH kernel's per-cell mode must launch, and its first launch must
+     equal the plain version exactly.
 Each path runs with the launch counts reset just before it and read just
 after. On every path each kernel it launched is then held against its plain
 version on the inputs of its first launch in that run (the path's own
@@ -57,6 +67,10 @@ ROOT = Path(__file__).resolve().parent
 SPFH_B, SPFH_CQ, SPFH_M = 512, 48, 32768
 NN_Q = NN_P = 32768
 DESC_R2 = 0.8 * 0.8
+#: eval config #2 (bench_configs.py:250-303, golden/config2.json)
+CONFIG2_MAPS, CONFIG2_VIEW_TARGET = 5, 500_000
+CONFIG2_VIEW_POINTS = 1_150_172
+CONFIG2_CAP = 1 << 21
 #: H100 SXM data sheet: float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
@@ -253,34 +267,46 @@ def check_spfh(dev, spfh) -> dict:
 
 
 @contextlib.contextmanager
+def patched(targets):
+    """Replace each (module, attribute) of `targets` by make(original) for
+    the duration: `targets` maps (module, attribute) to make. Callers look
+    these functions up on their modules at call time, so they see the
+    replacements."""
+    saved = {key: getattr(*key) for key in targets}
+    try:
+        for (mod, attr), make in targets.items():
+            setattr(mod, attr, make(saved[(mod, attr)]))
+        yield
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
 def first_launch_inputs(nn, spfh):
     """Record clones of the arguments of each kernel wrapper's first call
     while a path runs. The wrappers still launch and count as before; the
     callers (ops/neighbors.py, ops/descriptors/fpfh.py) look them up on
     their modules at call time, so they see the recording ones."""
     seen: dict[str, tuple] = {}
-    saved = {}
 
-    def record(mod, attr, name):
-        fn = saved[(mod, attr)] = getattr(mod, attr)
+    def record(name):
+        def make(fn):
+            def wrapper(*args, **kwargs):
+                if name not in seen:
+                    seen[name] = (
+                        [a.clone() if torch.is_tensor(a) else a for a in args],
+                        dict(kwargs),
+                    )
+                return fn(*args, **kwargs)
 
-        def wrapper(*args, **kwargs):
-            if name not in seen:
-                seen[name] = (
-                    [a.clone() if torch.is_tensor(a) else a for a in args],
-                    dict(kwargs),
-                )
-            return fn(*args, **kwargs)
+            return wrapper
 
-        setattr(mod, attr, wrapper)
+        return make
 
-    record(nn, "nearest_neighbor", "nearest_neighbor")
-    record(spfh, "spfh_tile", "spfh")
-    try:
+    with patched({(nn, "nearest_neighbor"): record("nearest_neighbor"),
+                  (spfh, "spfh_tile"): record("spfh")}):
         yield seen
-    finally:
-        for (mod, attr), fn in saved.items():
-            setattr(mod, attr, fn)
 
 
 #: per path, per kernel: shape, max error, times and bound on the path's
@@ -289,12 +315,12 @@ PATH_STATS: dict[str, dict] = {}
 
 
 def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
-                        plain: bool = False) -> None:
+                        plain: bool = False, exact: bool = False) -> None:
     """Each kernel a path launched against its plain version on the inputs
     of its first launch there, with check_nn's and check_spfh's
-    tolerances, then timed on them (CUDA events, warm, median; the plain
-    version too where `plain`). These launches come after the path's
-    counts were read."""
+    tolerances (with `exact`: no difference at all), then timed on them
+    (CUDA events, warm, median; the plain version too where `plain`).
+    These launches come after the path's counts were read."""
     stats = PATH_STATS[label] = {}
     if "nearest_neighbor" in seen:
         args, _ = seen["nearest_neighbor"]
@@ -314,11 +340,15 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
         err, n_bad = _spfh_compare(
             f"{label} spfh", spfh.spfh_tile(*args, **kwargs), ref
         )
+        require(not exact or (err == 0.0 and n_bad == 0),
+                f"{label} spfh: max err {err}, {n_bad} rows off; exact required")
         b, cq, _ = args[0].shape
         bc, m, _ = args[2].shape
         counted = ref[1][ref[1] > 0]
         st = stats["spfh"] = {
-            "shape": f"{b}x{cq} x {bc}x{m}", "launches": launches["spfh"],
+            "shape": f"{b}x{cq} x {bc}x{m}",
+            "mode": "shared (Bc = 1)" if bc == 1 else "per-cell (Bc = B)",
+            "launches": launches["spfh"],
             "max_abs_err": err, "rows_off": n_bad,
             "pairs_per_query": float(ref[1].mean()),
             "pairs_per_counted_query": float(counted.mean()) if counted.numel() else 0.0,
@@ -641,6 +671,189 @@ def run_registry_sweep(dev, kernels) -> None:
                else "3 warm runs bitwise equal to the first"))
 
 
+def config2_params():
+    """bench_configs._big_params(2**20): Harris + FPFH at the JAX package's
+    large-map settings, the engine left at "auto" (the grid at this size)."""
+    from mapmerge_torch.pipeline.merging import MergeParams
+
+    return MergeParams(
+        keypoint_type="HARRIS", keypoint_threshold=5.0, descriptor_type="FPFH",
+        refine_transform=True, max_iterations=40, max_points=1 << 20,
+        max_keypoints=1024, max_neighbors=48, ransac_hypotheses=1024,
+    )
+
+
+def chain_errors(transforms, truths) -> list:
+    """Each map's relative pose error (deg, m) against the truth, both
+    anchored at the first registered map (bench_configs.check_chain); None
+    for a map that did not register."""
+    from mapmerge_torch.core import transforms as tf
+
+    ok = [i for i in range(len(truths)) if np.asarray(transforms[i]).any()]
+    require(ok, "no map registered at all")
+    inv_ta = np.linalg.inv(transforms[ok[0]])
+    inv_truth_a = np.linalg.inv(truths[ok[0]])
+    return [
+        tf.pose_error(inv_ta @ transforms[i], inv_truth_a @ truths[i])
+        if i in ok else None
+        for i in range(len(truths))
+    ]
+
+
+def golden_errors(transforms, golden) -> list:
+    """Each registered map's pose error (deg, m) against the frozen oracle
+    poses, both relative to map 0 (bench_configs.config2's golden gate);
+    None where either side did not register."""
+    from mapmerge_torch.core import transforms as tf
+
+    g = [np.asarray(t, np.float32) for t in golden["transforms"]]
+    inv_t0, inv_g0 = np.linalg.inv(transforms[0]), np.linalg.inv(g[0])
+    return [
+        tf.pose_error(inv_t0 @ transforms[i], inv_g0 @ g[i])
+        if g[i].any() and np.asarray(transforms[i]).any() else None
+        for i in range(len(g))
+    ]
+
+
+#: the stages timed in one run of config #2: (module, function, label)
+CONFIG2_STAGES = (
+    ("features", "voxel_downsample", "downsample"),
+    ("features", "overflow_probe", "probe"),
+    ("features", "remove_outliers", "outliers"),
+    ("features", "compute_surface_normals", "normals"),
+    ("features", "detect_keypoints", "Harris"),
+    ("features", "compute_descriptors", "FPFH"),
+    ("registration", "find_correspondences", "matching"),
+    ("registration", "ransac_transform", "RANSAC"),
+    ("registration", "icp_refine", "ICP"),
+    ("registration", "transform_score", "score"),
+    ("merging", "_solve_graph", "graph"),
+)
+
+
+@contextlib.contextmanager
+def stage_recorder():
+    """Host ms of every stage of CONFIG2_STAGES, each call between two
+    synchronisations, summed over the clouds and pairs of one run; and the
+    counters of each cloud's features and each pair's estimate."""
+    from mapmerge_torch.pipeline import features, merging, registration
+
+    mods = {"features": features, "registration": registration,
+            "merging": merging}
+    rec = {"ms": {label: 0.0 for _, _, label in CONFIG2_STAGES},
+           "clouds": [], "pairs": []}
+
+    def timed(label):
+        def make(fn):
+            def wrapper(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                rec["ms"][label] += (time.perf_counter() - t0) * 1e3
+                return out
+
+            return wrapper
+
+        return make
+
+    def features_counters(fn):
+        def wrapper(*args, **kwargs):
+            f = fn(*args, **kwargs)
+            rec["clouds"].append({
+                "points": int(f.cloud.mask.sum()),
+                "dropped_points": int(f.dropped_points),
+                "scan_overflow": int(f.scan_overflow),
+                "keypoints": int(f.keypoints.mask.sum()),
+                "keypoints_truncated": int(f.keypoints.truncated),
+            })
+            return f
+
+        return wrapper
+
+    def pair_counters(fn):
+        def wrapper(*args, **kwargs):
+            est = fn(*args, **kwargs)
+            rec["pairs"].append({"ok": bool(est.ok),
+                                 "scan_overflow": int(est.scan_overflow)})
+            return est
+
+        return wrapper
+
+    targets = {(mods[m], f): timed(label) for m, f, label in CONFIG2_STAGES}
+    targets[(merging, "extract_features")] = features_counters
+    targets[(merging, "estimate_transform")] = pair_counters
+    with patched(targets):
+        yield rec
+
+
+def run_config2(dev, kernels) -> None:
+    """Eval config #2 on the cell-grid engine (phase 7)."""
+    from mapmerge_torch.core.cloud import PointCloud
+    from mapmerge_torch.kernels import nn, spfh
+    from mapmerge_torch.pipeline.merging import estimate_maps_transforms
+    from mapmerge_torch.testing.scene import town_views
+
+    t0 = time.perf_counter()
+    views, truths = town_views(CONFIG2_MAPS, CONFIG2_VIEW_TARGET)
+    sizes = [v[0].shape[0] for v in views]
+    require(sizes == [CONFIG2_VIEW_POINTS] * CONFIG2_MAPS,
+            f"config #2 views have {sizes} points")
+    clouds = [PointCloud.from_numpy(x, r, capacity=CONFIG2_CAP, device=dev)
+              for x, r in views]
+    params = config2_params()
+    log(f"config #2: {CONFIG2_MAPS} views of {sizes[0]} points, capacity "
+        f"{CONFIG2_CAP}, max_points {params.max_points}; made in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    info: dict = {}
+    with first_launch_inputs(nn, spfh) as seen:
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        cold = estimate_maps_transforms(clouds, params, seed=0, info_out=info)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"config #2 cold run: {cold_s:.3f} s, launches {launches} "
+        f"(nearest_neighbor expected 0: ICP and the score take the grid), "
+        f"pairs {info}, peak device memory {peak_gib:.2f} GiB")
+    require(launches["spfh"] > 0, "config #2: spfh was not launched")
+    hold_on_path_inputs("config #2", seen, nn, spfh, launches, plain=True,
+                        exact=True)
+
+    require(len(cold) == CONFIG2_MAPS and all(
+        t.shape == (4, 4) and np.isfinite(t).all() for t in cold
+    ), "config #2: transforms are not five finite 4x4 matrices")
+    truth_err = chain_errors(cold, truths)
+    golden = json.loads((ROOT / "golden" / "config2.json").read_text())
+    gold_err = golden_errors(cold, golden)
+    log(f"config #2 pose error per map vs truth (deg, m): {truth_err}")
+    log(f"config #2 pose error per map vs golden/config2.json: {gold_err}")
+    n_ok = sum(e is not None and e[0] < 2.0 and e[1] < 0.3 for e in truth_err)
+    require(n_ok >= 4, f"config #2: only {n_ok} of 5 maps within 2 deg / 0.3 m")
+    require(all(e is None or (e[0] < 2.0 and e[1] < 0.3) for e in gold_err),
+            "config #2: golden pose gate (2 deg / 0.3 m) failed")
+
+    t0 = time.perf_counter()
+    warm = estimate_maps_transforms(clouds, params, seed=0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    with stage_recorder() as rec:
+        staged = estimate_maps_transforms(clouds, params, seed=0)
+    for label, out in (("warm", warm), ("stage-timed", staged)):
+        require(all(np.array_equal(a, b) for a, b in zip(out, cold)),
+                f"config #2: the {label} run gave other transforms than the cold run")
+    log(f"config #2 wall s: cold {cold_s}, warm {warm_s}; the warm and the "
+        "stage-timed run bitwise equal to the cold run")
+    log(f"config #2 feature stage per cloud: {json.dumps(rec['clouds'])}")
+    log(f"config #2 pair stage per pair: {json.dumps(rec['pairs'])}")
+    log(f"config #2 stage ms of one run (5 clouds, 10 pairs summed): "
+        f"{json.dumps(rec['ms'])}, sum {sum(rec['ms'].values())}")
+
+
 def kernel_entry(k, launches: dict, stats: dict) -> dict:
     """A kernel's entry of the line before the last: its numbers on config
     #1's own inputs (the main path), then per path and on the synthetic
@@ -696,6 +909,7 @@ def main() -> int:
     launches = run_main_path(dev, kernels)
     run_default_operating_point(dev, kernels)
     run_registry_sweep(dev, kernels)
+    run_config2(dev, kernels)
 
     loaded = sorted(m for m in sys.modules
                     if m.startswith("jax") or m.startswith("mapmerge_tpu"))

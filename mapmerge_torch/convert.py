@@ -65,4 +65,5 @@ def features_from_numpy(features, device=None) -> CloudFeatures:
             data=_t(d.data, device), valid=_t(d.valid, device)
         ),
         dropped_points=_t(features.dropped_points, device),
+        scan_overflow=_t(features.scan_overflow, device),
     )

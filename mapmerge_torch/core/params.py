@@ -74,10 +74,13 @@ class MergeParams:
     #: per-iteration shrink of ICP's correspondence bound; 1.0 = PCL's
     #: fixed bound
     icp_anneal: float = 0.85
-    #: neighbour engine: "dense", "grid" or "auto" (the grid engine is not
-    #: ported: ops/neighbors.check_dense)
+    #: neighbour engine: "dense" (exact tiled sweeps), "grid" (the cell
+    #: grid of ops/grid.py) or "auto" (the grid at ops/neighbors'
+    #: GRID_AUTO_THRESHOLD points, at GRID_NN_THRESHOLD for bounded 1-NN);
+    #: SIFT has no grid branch yet and raises there
     neighbor_engine: str = "auto"
-    #: candidates read per hash bucket under the grid engine
+    #: candidates read per hash bucket under the grid engine; overflow is
+    #: counted and surfaced (CloudFeatures.scan_overflow)
     grid_scan_cap: int = 128
     #: relax all confident pair edges after the MST chaining
     #: (graph/pose_graph.py); False = the reference's MST chaining only
@@ -98,6 +101,14 @@ class MergeParams:
         )
         base.update(overrides)
         return cls(**base)
+
+    @property
+    def registration_scan_cap(self) -> int:
+        """Bucket capacity of the pair-stage grids (ICP correspondences,
+        transform score): their cells are max_correspondence_distance wide,
+        wider than the feature stage's, so twice grid_scan_cap and never
+        less than 256."""
+        return max(256, self.grid_scan_cap * 2)
 
     def replace(self, **overrides: Any) -> "MergeParams":
         return dataclasses.replace(self, **overrides)

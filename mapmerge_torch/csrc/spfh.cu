@@ -35,9 +35,13 @@
 //   - counts, in the binning and the histograms, are integer atomicAdds:
 //     integer sums are exact in any order, so the result repeats bit for
 //     bit whatever order the atomics take.
-// Per-cell mode (batch i's queries against batch i's candidates, the grid
-// engine's caller, not ported yet), spfh_cell_kernel: one thread per query
-// sweeps its own cell's candidates, staged in shared memory.
+// Per-cell mode (batch i's queries against batch i's candidates: the grid
+// engine's SPFH sweep, ops/descriptors/fpfh.py:_spfh_grid, one batch per
+// bucket that holds a needed point, Cq = the bucket cap, M = 27 x the cap),
+// spfh_cell_kernel: one thread per query slot sweeps its bucket's
+// candidates, staged in shared memory. A simple kernel: every slot of a
+// bucket is swept, needed or not, and each candidate costs one distance
+// test per slot.
 //
 // The library is built with -fmad=false, and every pair goes through
 // pair_bins below in the order of the plain PyTorch version (kernels/spfh.py:

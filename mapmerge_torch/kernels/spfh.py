@@ -9,7 +9,10 @@ floor-and-clip binning. See csrc/spfh.cu for what bounds the kernel.
 
 Candidates come with a leading dimension Bc in {1, B}: Bc = 1 is the
 shared-candidate mode of the dense FPFH sweep (every query sees the same
-cloud); Bc = B is the per-cell mode of the grid engine.
+cloud); Bc = B is the per-cell mode of the grid engine (fpfh._spfh_grid:
+one batch per bucket, Cq = 128 slots against M = 27 x 128 candidates, B a
+grid_query chunk of 151 buckets; B x M <= PAIRS_PER_CHUNK / Cq = 2^26 / Cq
+stays far inside the size guard below).
 
 In shared mode the launch first bins the ok candidates by cell on the
 card (csrc/spfh.cu: count, scan, scatter): cells of edge r (1 + 1e-3),
@@ -124,6 +127,8 @@ def spfh_ref(
     """Plain PyTorch SPFH: the `_spfh_dense` XLA-branch math, chunked over
     queries to bound the (rows, M) planes in flight."""
     b, cq = q_xyz.shape[0], q_xyz.shape[1]
+    if b == 0:  # an empty chunk of grid buckets
+        return q_xyz.new_zeros((0, cq, 3 * _BINS)), q_xyz.new_zeros((0, cq))
     if cand_xyz.shape[0] == 1:
         hist, total = _spfh_rows(
             q_xyz.reshape(-1, 3), q_nrm.reshape(-1, 3),

@@ -40,6 +40,7 @@ def compute_descriptors(
     max_neighbors: int = 64,
     tile: int = 1024,
     engine: str = "auto",
+    scan_cap: int = 128,
 ) -> Descriptors:
     """`kind` descriptors at the keypoints over the `cloud` surface
     (reference features.cpp:152-166)."""
@@ -48,7 +49,7 @@ def compute_descriptors(
         raise ValueError(f"unknown descriptor type: {kind}")
     return fn(
         cloud, normals, keypoints, radius, max_neighbors=max_neighbors,
-        tile=tile, engine=engine,
+        tile=tile, engine=engine, scan_cap=scan_cap,
     )
 
 

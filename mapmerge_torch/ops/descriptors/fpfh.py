@@ -1,5 +1,4 @@
-"""FPFH-33 descriptors, dense engine (port of
-mapmerge_tpu/ops/descriptors/fpfh.py).
+"""FPFH-33 descriptors (port of mapmerge_tpu/ops/descriptors/fpfh.py).
 
 pcl::FPFHEstimation: an SPFH histogram (11 theta, 11 alpha, 11 phi bins,
 each block summing to 100) at every neighbour of every keypoint, over ALL
@@ -7,6 +6,17 @@ valid in-radius points of the cloud (the SPFH sweep kernel,
 kernels/spfh.py); then FPFH(keypoint) = sum over its nearest `max_neighbors`
 in-radius neighbours j at distance > 0 of SPFH_j / d_j, each 11-bin block
 renormalised to 100. Keypoints with no weighted neighbour are invalid.
+
+Two engines, dispatched as every neighbour op (ops/neighbors.py):
+- dense: the kernel's shared-candidate mode, every neighbour row against
+  the whole cloud (duplicate neighbours are recomputed);
+- grid: one grid of the valid surface at the descriptor radius serves the
+  keypoint neighbourhoods (small-Q path) and the SPFH sweep. The sweep
+  computes each needed point's SPFH once (the deduplicated union of the
+  neighbourhoods), bucket by bucket through the kernel's per-cell mode on
+  the blocks grid_query hands out, and only over the buckets that hold a
+  needed point. Bucket overflow is the only cap, counted by the feature
+  stage's probe.
 """
 
 from __future__ import annotations
@@ -16,8 +26,9 @@ import torch
 from mapmerge_torch.core.cloud import PointCloud
 from mapmerge_torch.kernels import spfh as spfh_kernel
 from mapmerge_torch.ops.descriptors.base import Descriptors, keypoint_neighborhoods
+from mapmerge_torch.ops.grid import build_grid, grid_query, masked_query_grid
 from mapmerge_torch.ops.keypoints import Keypoints
-from mapmerge_torch.ops.neighbors import check_dense
+from mapmerge_torch.ops.neighbors import _resolve_engine
 from mapmerge_torch.ops.normals import SurfaceNormals
 
 _BINS = 11
@@ -44,6 +55,35 @@ def _spfh_dense(
     return spfh, q_ok & (total > 0)
 
 
+def _spfh_grid(
+    cloud: PointCloud,
+    normals: SurfaceNormals,
+    needed: torch.Tensor,
+    radius: float,
+    grid,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """SPFH (P, 33) at every cloud point flagged `needed` + pair counts (P,).
+
+    `grid` is the cloud's valid surface at `radius`; the query grid is
+    derived from it by masking (the queries are its own points), so the
+    stage sorts the cloud once. Each chunk of buckets goes to the kernel's
+    per-cell mode as grid_query hands it out: (B, Cq) query slots against
+    each bucket's (B, 27 C) candidates."""
+    qg = masked_query_grid(grid, needed & cloud.mask & normals.valid, cloud.capacity)
+    r2 = float(radius) * float(radius)
+
+    def tile_fn(q_block, cand_xyz, cand_ok, cand_idx, q_nrm, cand_nrm):
+        return spfh_kernel.spfh_tile(
+            q_block, q_nrm, cand_xyz, cand_nrm, cand_ok, r2=r2
+        )
+
+    nrm = normals.normals
+    (spfh, total), _ = grid_query(
+        cloud.xyz, grid, tile_fn, (0.0, 0.0), q_values=nrm, p_values=nrm, qg=qg,
+    )
+    return spfh, total
+
+
 def compute_fpfh(
     cloud: PointCloud,
     normals: SurfaceNormals,
@@ -52,17 +92,32 @@ def compute_fpfh(
     max_neighbors: int = 64,
     tile: int = 1024,
     engine: str = "auto",
+    scan_cap: int = 128,
 ) -> Descriptors:
     """FPFH-33 at each keypoint over the cloud surface."""
-    check_dense(engine, cloud.capacity)
-    idx, d2, nmask = keypoint_neighborhoods(
-        cloud, normals, keypoints, radius, max_neighbors, tile, engine
-    )
-    # SPFH only at the gathered neighbour points (PCL computeSPFHSignatures);
-    # duplicates are recomputed
-    spfh, spfh_ok = _spfh_dense(
-        cloud.xyz[idx], normals.normals[idx], nmask, cloud, normals, radius,
-    )
+    n = cloud.capacity
+    if _resolve_engine(engine, n) == "grid":
+        grid = build_grid(cloud.xyz, cloud.mask & normals.valid, radius, None, scan_cap)
+        idx, d2, nmask = keypoint_neighborhoods(
+            cloud, normals, keypoints, radius, max_neighbors, tile, engine,
+            scan_cap=scan_cap, grid=grid,
+        )
+        # each cloud point in any neighbourhood gets its SPFH computed once
+        needed = torch.zeros((n + 1,), dtype=torch.bool, device=cloud.device)
+        needed[torch.where(nmask, idx, n).reshape(-1)] = True
+        spfh_all, npairs = _spfh_grid(cloud, normals, needed[:n], radius, grid)
+        spfh = spfh_all[idx]
+        spfh_ok = (npairs[idx] > 0) & nmask
+    else:
+        idx, d2, nmask = keypoint_neighborhoods(
+            cloud, normals, keypoints, radius, max_neighbors, tile, engine,
+            scan_cap=scan_cap,
+        )
+        # SPFH only at the gathered neighbour points (PCL
+        # computeSPFHSignatures); duplicates are recomputed
+        spfh, spfh_ok = _spfh_dense(
+            cloud.xyz[idx], normals.normals[idx], nmask, cloud, normals, radius,
+        )
 
     dist = torch.sqrt(d2.clamp_min(0.0))
     w = torch.where(

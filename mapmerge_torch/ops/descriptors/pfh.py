@@ -67,10 +67,12 @@ def compute_pfh(
     max_neighbors: int = 64,
     tile: int = 1024,
     engine: str = "auto",
+    scan_cap: int = 128,
 ) -> Descriptors:
     """PFH-125 at each keypoint; valid with at least 2 neighbours."""
     idx, _, nmask = keypoint_neighborhoods(
-        cloud, normals, keypoints, radius, max_neighbors, tile, engine
+        cloud, normals, keypoints, radius, max_neighbors, tile, engine,
+        scan_cap=scan_cap,
     )
     hist, _ = _geometry_hist(cloud, normals, idx, nmask)
     valid = keypoints.mask & (nmask.sum(dim=-1) >= 2)
@@ -85,11 +87,13 @@ def compute_pfhrgb(
     max_neighbors: int = 64,
     tile: int = 1024,
     engine: str = "auto",
+    scan_cap: int = 128,
 ) -> Descriptors:
     """PFHRGB-250: PFH-125, then the colour-ratio histogram (PCL
     computeRGBPairFeatures) under the same pair weights."""
     idx, _, nmask = keypoint_neighborhoods(
-        cloud, normals, keypoints, radius, max_neighbors, tile, engine
+        cloud, normals, keypoints, radius, max_neighbors, tile, engine,
+        scan_cap=scan_cap,
     )
     geo, w = _geometry_hist(cloud, normals, idx, nmask)
     cols = cloud.rgb[idx]  # (K, M, 3)

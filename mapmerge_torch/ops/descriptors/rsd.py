@@ -35,10 +35,12 @@ def compute_rsd(
     max_neighbors: int = 64,
     tile: int = 1024,
     engine: str = "auto",
+    scan_cap: int = 128,
 ) -> Descriptors:
     """(r_min, r_max) at each keypoint; valid with at least 3 neighbours."""
     idx, d2, nmask = keypoint_neighborhoods(
-        cloud, normals, keypoints, radius, max_neighbors, tile, engine
+        cloud, normals, keypoints, radius, max_neighbors, tile, engine,
+        scan_cap=scan_cap,
     )
     dist = torch.sqrt(d2.clamp_min(0.0))  # (K, M)
     dev = dist.device

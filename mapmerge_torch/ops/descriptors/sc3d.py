@@ -46,6 +46,7 @@ def compute_sc3d(
     max_neighbors: int = 64,
     tile: int = 1024,
     engine: str = "auto",
+    scan_cap: int = 128,
 ) -> Descriptors:
     """SC3D-1980 at each keypoint; valid with a frame and >= 5 neighbours."""
     # 1980 bins need a denser sample than the default gather cap (PCL uses
@@ -60,7 +61,8 @@ def compute_sc3d(
         cloud.xyz, cloud.xyz, radius / 5.0, p_mask=cloud.mask, tile=tile
     )
     idx, d2, nmask = keypoint_neighborhoods(
-        cloud, normals, keypoints, radius, max_neighbors, tile, engine
+        cloud, normals, keypoints, radius, max_neighbors, tile, engine,
+        scan_cap=scan_cap,
     )
     nbr_xyz = cloud.xyz[idx]
     dist = torch.sqrt(d2.clamp_min(0.0))

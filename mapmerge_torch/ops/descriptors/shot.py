@@ -139,10 +139,12 @@ def compute_shot(
     max_neighbors: int = 64,
     tile: int = 1024,
     engine: str = "auto",
+    scan_cap: int = 128,
 ) -> Descriptors:
     """SHOT1344 at each keypoint; valid with a frame and >= 5 neighbours."""
     idx, d2, nmask = keypoint_neighborhoods(
-        cloud, normals, keypoints, radius, max_neighbors, tile, engine
+        cloud, normals, keypoints, radius, max_neighbors, tile, engine,
+        scan_cap=scan_cap,
     )
     nbr_xyz, nbr_nrm, nbr_rgb = cloud.xyz[idx], normals.normals[idx], cloud.rgb[idx]
     dist = torch.sqrt(d2.clamp_min(0.0))

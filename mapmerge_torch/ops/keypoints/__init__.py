@@ -38,6 +38,7 @@ def detect_keypoints(
     sift_octaves: int = 3,
     sift_scales_per_octave: int = 3,
     engine: str = "auto",
+    scan_cap: int = 128,
 ) -> Keypoints:
     """The reference switch (features.cpp:85-97): SIFT(min_scale=resolution,
     octaves, scales, min_contrast=threshold) or HARRIS(threshold, radius)
@@ -48,6 +49,7 @@ def detect_keypoints(
         return detect_keypoints_harris(
             cloud, normals, threshold=threshold, radius=radius,
             max_keypoints=max_keypoints, tile=tile, engine=engine,
+            scan_cap=scan_cap,
         )
     if kind == Keypoint.SIFT:
         from mapmerge_torch.ops.keypoints.sift import detect_keypoints_sift

@@ -5,7 +5,9 @@ the HARRIS response of the covariance of the valid surface normals in the
 search radius, C = sum n n^T, r = det(C) - 0.04 tr(C)^2 (one radius_reduce
 sum of the 9 outer-product channels); non-max suppression as a radius_reduce
 max; the top `max_keypoints` survivors above the threshold; then a fixed 3
-refinement solves sum(n n^T) x = sum(n n^T p).
+refinement solves sum(n n^T) x = sum(n n^T p). On the grid engine the
+response and the suppression sweep the cells with the values as a per-point
+channel; the refinement's few queries take the small-Q path.
 """
 
 from __future__ import annotations
@@ -34,12 +36,13 @@ def harris_response(
     radius: float,
     tile: int = 1024,
     engine: str = "auto",
+    scan_cap: int = 128,
 ) -> torch.Tensor:
     """HARRIS corner response per cloud point; -BIG at invalid slots."""
     ok = cloud.mask & normals.valid
     _, sums, _ = radius_reduce(
         cloud.xyz, cloud.xyz, radius, _outer(normals).reshape(-1, 9),
-        p_mask=ok, tile=tile, engine=engine,
+        p_mask=ok, tile=tile, engine=engine, scan_cap=scan_cap,
     )
     c = sums.reshape(-1, 3, 3)
     trace = c[:, 0, 0] + c[:, 1, 1] + c[:, 2, 2]
@@ -54,6 +57,7 @@ def _refine_step(
     radius: float,
     tile: int,
     engine: str = "auto",
+    scan_cap: int = 128,
 ) -> torch.Tensor:
     """One corner-refinement solve sum(n n^T) x = sum(n n^T p) by the
     adjugate. An ill-conditioned system, or a solution that moves more than
@@ -63,7 +67,7 @@ def _refine_step(
     values = torch.cat([outer.reshape(-1, 9), nntp], dim=-1)  # (P, 12)
     _, sums, _ = radius_reduce(
         kp_xyz, cloud.xyz, radius, values, p_mask=cloud.mask & normals.valid,
-        tile=tile, engine=engine,
+        tile=tile, engine=engine, scan_cap=scan_cap,
     )
     a = sums[:, :9].reshape(-1, 3, 3)
     b = sums[:, 9:]
@@ -98,17 +102,20 @@ def detect_keypoints_harris(
     max_keypoints: int,
     tile: int = 1024,
     engine: str = "auto",
+    scan_cap: int = 128,
 ) -> Keypoints:
     """Reference features.cpp:64-83: non-max suppression on, refine on.
 
     Slots beyond the survivors are masked and parked at FAR; the order of
     equal responses is unspecified (it differs from lax.top_k's)."""
-    resp = harris_response(cloud, normals, radius, tile=tile, engine=engine)
+    resp = harris_response(
+        cloud, normals, radius, tile=tile, engine=engine, scan_cap=scan_cap
+    )
     ok = cloud.mask & normals.valid
     # non-max suppression: the own response must equal the neighborhood max
     _, nmax, _ = radius_reduce(
         cloud.xyz, cloud.xyz, radius, resp[:, None], p_mask=ok, tile=tile,
-        reduce="max", engine=engine,
+        reduce="max", engine=engine, scan_cap=scan_cap,
     )
     keep = ok & (resp >= nmax[:, 0]) & (resp > threshold)
 
@@ -118,7 +125,9 @@ def detect_keypoints_harris(
     kp_mask = top_scores > -BIG / 2
     kp_xyz = cloud.xyz[top_idx]
     for _ in range(_REFINE_ITERS):
-        kp_xyz = _refine_step(kp_xyz, cloud, normals, radius, tile, engine)
+        kp_xyz = _refine_step(
+            kp_xyz, cloud, normals, radius, tile, engine, scan_cap
+        )
     return Keypoints(
         xyz=torch.where(kp_mask[:, None], kp_xyz, FAR),
         response=torch.where(kp_mask, top_scores, 0.0),

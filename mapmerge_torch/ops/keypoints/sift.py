@@ -40,11 +40,9 @@ def _scale_space(
     intensity: torch.Tensor,
     sigmas: list[float],
     tile: int,
-    engine: str = "auto",
 ) -> torch.Tensor:
     """Gaussian-smoothed intensities for every sigma: (S, P), each bounded at
     3 sigma_max."""
-    check_dense(engine, cloud.capacity)
     r2_bound = _f32((3.0 * max(sigmas)) ** 2)
     qc, pc = _center(cloud.xyz, cloud.xyz, cloud.mask)
     vals = torch.where(cloud.mask, intensity, 0.0)
@@ -75,7 +73,9 @@ def detect_keypoints_sift(
     engine: str = "auto",
 ) -> Keypoints:
     """Reference features.cpp:45-62: setScales(min_scale, octaves, scales),
-    setMinimumContrast(min_contrast)."""
+    setMinimumContrast(min_contrast). Raises on the grid engine, whose SIFT
+    branch (the grid scale space and 26-NN) is not ported yet."""
+    check_dense(engine, cloud.capacity)
     dev = cloud.device
     cand_resp, cand_xyz = [], []
     base = float(min_scale)
@@ -95,7 +95,7 @@ def detect_keypoints_sift(
 
         n_s = scales_per_octave + 3
         sigmas = [base * (2.0 ** (s / scales_per_octave)) for s in range(n_s)]
-        smoothed = _scale_space(oct_cloud, intensity, sigmas, tile, engine)
+        smoothed = _scale_space(oct_cloud, intensity, sigmas, tile)
         dog = smoothed[1:] - smoothed[:-1]  # (S-1, P)
 
         for s in range(1, dog.shape[0] - 1):

@@ -1,42 +1,63 @@
-"""Dense tiled neighbor engine (port of mapmerge_tpu/ops/neighbors.py).
+"""Neighbour queries, dense tiled engine and dispatch (port of
+mapmerge_tpu/ops/neighbors.py).
 
-Every neighborhood query is an exact dense distance computation, tiled over
+Every dense neighbourhood query is an exact distance computation, tiled over
 the query axis so only a (tile, P) slab exists at a time. Squared distances
 are taken on inputs centred on the valid mean of p (see `sq_dists`). Exact
 1-NN goes through the hand-written kernel (kernels/nn.py). Every reduction
 here sums in a fixed order (matmuls and dense reductions, no atomics), so a
 query repeats bit for bit on one card.
 
-Only the dense engine is ported. The cell-grid engine of the reference
-(ops/grid.py) raises NotImplementedError: explicitly requested, or chosen by
-"auto" at or above the thresholds below.
+Each op dispatches to the cell-grid engine (ops/grid.py) as the reference
+does: engine="grid", or "auto" at or above the capacity thresholds below
+(`_resolve_engine`). Those thresholds are the reference's, so both packages
+choose the same engine.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable
 
 import torch
 
 from mapmerge_torch.kernels import nn as nn_kernel
+from mapmerge_torch.ops import grid
+from mapmerge_torch.ops.grid import BIG, _f32
 
-#: squared-distance value used to exclude masked pairs
-BIG = 1.0e12
-#: capacities at which the reference's "auto" engine switches to the
-#: cell grid (mapmerge_tpu/ops/neighbors.py:34,37); the grid is not ported
+#: capacity at which "auto" takes the cell grid for radius queries
+#: (mapmerge_tpu/ops/neighbors.py:34)
 GRID_AUTO_THRESHOLD = 131072
+#: capacity at which "auto" takes the cell grid for bounded 1-NN
+#: (mapmerge_tpu/ops/neighbors.py:37)
 GRID_NN_THRESHOLD = 49152
 
 
-def check_dense(engine: str, p_count: int, threshold: int = GRID_AUTO_THRESHOLD):
-    """Raise where the reference would take the cell-grid engine."""
+def _resolve_engine(
+    engine: str, p_count: int, threshold: int = GRID_AUTO_THRESHOLD
+) -> str:
+    """"dense" or "grid": "auto" takes the grid at `threshold` points or
+    more. MAPMERGE_ENGINE=dense|grid in the environment forces one engine
+    everywhere (the reference's override)."""
+    forced = os.environ.get("MAPMERGE_ENGINE", "")
+    if forced in ("dense", "grid"):
+        return forced
     if engine not in ("auto", "dense", "grid"):
         raise ValueError(f"unknown neighbor engine: {engine!r}")
-    if engine == "grid" or (engine == "auto" and p_count >= threshold):
+    if engine != "auto":
+        return engine
+    return "grid" if p_count >= threshold else "dense"
+
+
+def check_dense(engine: str, p_count: int, threshold: int = GRID_AUTO_THRESHOLD):
+    """Raise where the reference takes a grid branch the port lacks (SIFT's
+    scale space and 26-NN)."""
+    if _resolve_engine(engine, p_count, threshold) == "grid":
         raise NotImplementedError(
-            f"the cell-grid neighbor engine (engine={engine!r}, capacity "
-            f"{p_count}, threshold {threshold}) is not ported to mapmerge_torch"
-            "; use capacities below the threshold or engine='dense'"
+            f"SIFT on the cell-grid neighbor engine (engine={engine!r}, "
+            f"capacity {p_count}, threshold {threshold}) is not ported to "
+            "mapmerge_torch; use capacities below the threshold or "
+            "engine='dense'"
         )
 
 
@@ -82,10 +103,16 @@ def radius_count(
     tile: int = 1024,
     include_self: bool = True,
     engine: str = "auto",
-) -> tuple[torch.Tensor, int]:
+    scan_cap: int = 128,
+) -> tuple[torch.Tensor, int | torch.Tensor]:
     """Counts of p-points within `radius` of each query: ((Q,) int32,
-    overflow = 0 on the dense engine)."""
-    check_dense(engine, p.shape[0])
+    overflow). `overflow` counts the queries the grid engine dropped at its
+    query-side bucket cap (0 on the dense engine); callers surface it."""
+    if _resolve_engine(engine, p.shape[0]) == "grid":
+        return grid.grid_radius_count(
+            q, p, radius, p_mask=p_mask, include_self=include_self,
+            scan_cap=scan_cap,
+        )
     qc, pc = _center(q, p, p_mask)
     r2 = _f32(radius * radius)
 
@@ -110,13 +137,19 @@ def radius_neighbors(
     tile: int = 1024,
     exclude_self: bool = False,
     engine: str = "auto",
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    scan_cap: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int | torch.Tensor]:
     """Up to `k` nearest p-points within `radius` per query, nearest first:
-    (idx (Q, k) int32, d2 (Q, k), valid (Q, k) bool, overflow = 0).
+    (idx (Q, k) int32, d2 (Q, k), valid (Q, k) bool, overflow; 0 on the
+    dense engine).
 
     The order of equal distances is unspecified (it differs from
     lax.top_k's)."""
-    check_dense(engine, p.shape[0])
+    if _resolve_engine(engine, p.shape[0]) == "grid":
+        return grid.grid_radius_neighbors(
+            q, p, radius, k, p_mask=p_mask, exclude_self=exclude_self,
+            scan_cap=scan_cap,
+        )
     qc, pc = _center(q, p, p_mask)
     r2 = _f32(radius * radius)
     k_eff = min(k, p.shape[0])
@@ -144,16 +177,25 @@ def nearest_neighbor(
     p: torch.Tensor,
     p_mask: torch.Tensor | None = None,
     bound: float | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """Exact 1-NN: (idx (Q,) int32, squared distance (Q,), overflow = 0).
+    engine: str = "auto",
+    scan_cap: int = 128,
+    q_mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, int | torch.Tensor]:
+    """Exact 1-NN: (idx (Q,) int32, squared distance (Q,), overflow).
 
-    Runs the hand-written kernel (kernels/nn.py), the port of the reference's
-    Pallas path: direct (q-p)^2 expansion, masked targets at d2 + BIG, ties
-    to the first occurrence. With `bound` given, the reference takes the
-    grid engine for targets of GRID_NN_THRESHOLD points or more, whatever
-    the configured engine (ICP and the score resolve "auto")."""
-    if bound is not None:
-        check_dense("auto", p.shape[0], GRID_NN_THRESHOLD)
+    The dense engine runs the hand-written kernel (kernels/nn.py), the port
+    of the reference's Pallas path: direct (q-p)^2 expansion, masked targets
+    at d2 + BIG, ties to the first occurrence; overflow 0. With `bound`
+    given, targets of GRID_NN_THRESHOLD points or more take the grid engine
+    under "auto": matches beyond the bound come back at d2 = BIG, and
+    `overflow` counts the queries in `q_mask` that the query-side bucket cap
+    dropped."""
+    if bound is not None and (
+        _resolve_engine(engine, p.shape[0], GRID_NN_THRESHOLD) == "grid"
+    ):
+        return grid.grid_nearest_neighbor(
+            q, p, bound=bound, p_mask=p_mask, scan_cap=scan_cap, q_mask=q_mask,
+        )
     idx, d2 = nn_kernel.nearest_neighbor(
         q.contiguous(), p.contiguous(),
         None if p_mask is None else p_mask.contiguous(),
@@ -170,16 +212,22 @@ def radius_reduce(
     tile: int = 1024,
     reduce: str = "sum",
     engine: str = "auto",
-) -> tuple[torch.Tensor, torch.Tensor, int]:
+    scan_cap: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor, int | torch.Tensor]:
     """Reduce `values` (P, C) over each query's radius neighborhood:
-    (count (Q,) int32, sums or maxes (Q, C), overflow = 0).
+    (count (Q,) int32, sums or maxes (Q, C), overflow; 0 on the dense
+    engine).
 
     "sum" is one matmul of the {0,1} within-radius matrix per tile; "max"
     masks out-of-radius values with -BIG (a query with no neighbour gets
     -BIG)."""
     if reduce not in ("sum", "max"):
         raise ValueError(f"unknown reduce: {reduce}")
-    check_dense(engine, p.shape[0])
+    if _resolve_engine(engine, p.shape[0]) == "grid":
+        return grid.grid_radius_reduce(
+            q, p, radius, values, p_mask=p_mask, reduce=reduce,
+            scan_cap=scan_cap,
+        )
     qc, pc = _center(q, p, p_mask)
     r2 = _f32(radius * radius)
 
@@ -205,10 +253,15 @@ def neighbor_moments(
     p_mask: torch.Tensor | None = None,
     tile: int = 1024,
     engine: str = "auto",
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    scan_cap: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int | torch.Tensor]:
     """Count (Q,), mean (Q, 3) and covariance (Q, 3, 3) of each query's
-    radius neighborhood, as matmuls of the {0,1} within-radius matrix."""
-    check_dense(engine, p.shape[0])
+    radius neighborhood, as matmuls of the {0,1} within-radius matrix, and
+    the overflow (0 on the dense engine)."""
+    if _resolve_engine(engine, p.shape[0]) == "grid":
+        return grid.grid_neighbor_moments(
+            q, p, radius, p_mask=p_mask, scan_cap=scan_cap
+        )
     qc, pc = _center(q, p, p_mask)
     r2 = _f32(radius * radius)
     pp = (pc[:, :, None] * pc[:, None, :]).reshape(-1, 9)
@@ -235,8 +288,3 @@ def _mean(p: torch.Tensor, p_mask: torch.Tensor | None) -> torch.Tensor:
         return p.mean(dim=0)
     w = p_mask.to(p.dtype)
     return (p * w[:, None]).sum(dim=0) / w.sum().clamp_min(1.0)
-
-
-def _f32(x: float) -> float:
-    """`x` rounded to float32, as the reference's jnp.float32 constants."""
-    return float(torch.tensor(x, dtype=torch.float32))

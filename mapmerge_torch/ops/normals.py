@@ -3,7 +3,8 @@
 pcl::NormalEstimation: PCA over each point's radius neighborhood; the normal
 is the smallest-eigenvalue eigenvector flipped towards the viewpoint,
 curvature = l0 / (l0 + l1 + l2). A plane fit needs at least 3 in-radius
-points (the query counts).
+points (the query counts). A self-query: on the grid engine its query
+overflow is bounded by the feature stage's probe.
 """
 
 from __future__ import annotations
@@ -32,10 +33,11 @@ def compute_surface_normals(
     viewpoint: tuple[float, float, float] = (0.0, 0.0, 0.0),
     tile: int = 1024,
     engine: str = "auto",
+    scan_cap: int = 128,
 ) -> SurfaceNormals:
     count, _, cov, _ = neighbor_moments(
         cloud.xyz, cloud.xyz, radius, p_mask=cloud.mask, tile=tile,
-        engine=engine,
+        engine=engine, scan_cap=scan_cap,
     )
     lam, normal, ok = smallest_eigenpair3(cov)
     valid = cloud.mask & ok & (count >= 3.0)

@@ -4,7 +4,8 @@ pcl::registration::TransformationValidationEuclidean: mean squared
 nearest-neighbour distance from the moved source to the target over pairs
 closer than `max_range` (MAX_SCORE when none). Coverage is the fraction of
 valid source points with such a pair. Confidence = 1 / score, or
-coverage^2 / score in the robust variant.
+coverage^2 / score in the robust variant. The bound max_range lets targets
+of GRID_NN_THRESHOLD points or more take the grid engine.
 """
 
 from __future__ import annotations
@@ -23,11 +24,15 @@ def transform_score(
     target: PointCloud,
     transform: torch.Tensor,
     max_range: float,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (score, coverage) as 0-d float32 tensors."""
+    scan_cap: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor, int | torch.Tensor]:
+    """Returns (score, coverage) as 0-d float32 tensors and the grid
+    engine's scan overflow: valid source points its query-side bucket cap
+    dropped, scored as unmatched (0 on the dense engine)."""
     moved = tf.apply(transform, source.xyz)
-    _, d2, _ = nearest_neighbor(
-        moved, target.xyz, p_mask=target.mask, bound=float(max_range)
+    _, d2, overflow = nearest_neighbor(
+        moved, target.xyz, p_mask=target.mask, bound=float(max_range),
+        scan_cap=scan_cap, q_mask=source.mask,
     )
     r2 = _f32(max_range * max_range)
     within = source.mask & (d2 <= r2)
@@ -35,7 +40,7 @@ def transform_score(
     cnt = within.sum()
     total = source.mask.sum().clamp_min(1)
     score = torch.where(cnt > 0, num / cnt.clamp_min(1), MAX_SCORE)
-    return score, (cnt / total).to(torch.float32)
+    return score, (cnt / total).to(torch.float32), overflow
 
 
 def confidence(

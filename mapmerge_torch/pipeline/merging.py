@@ -6,8 +6,10 @@ matrix; pairs are registered only where both keypoint sets are non-empty;
 compose skips zero transforms and re-voxelizes at the output resolution.
 
 The clouds and pairs run as plain Python loops on the clouds' device, then
-one host graph solve (`mapmerge_torch.graph`, numpy). `MergeParams` is
-importable from here.
+one host graph solve (`mapmerge_torch.graph`, numpy). That is the
+reference's big-cloud path (merging.py:312-326, 404-410: per-cloud stages,
+per-pair registration at a common capacity) at every size, so the port needs
+no separate branch for it. `MergeParams` is importable from here.
 """
 
 from __future__ import annotations
@@ -41,7 +43,9 @@ def pair_generator(seed: int, pair_index: int, device) -> torch.Generator:
     return g
 
 
-def _warn_feature_caps(dropped: np.ndarray, kp_truncated: np.ndarray) -> None:
+def _warn_feature_caps(
+    dropped: np.ndarray, scan_overflow: np.ndarray, kp_truncated: np.ndarray
+) -> None:
     """Surface the feature stage's caps: no silent caps."""
     if dropped.sum() > 0:
         per_cloud = ", ".join(
@@ -53,6 +57,13 @@ def _warn_feature_caps(dropped: np.ndarray, kp_truncated: np.ndarray) -> None:
             "resolution to keep all geometry",
             stacklevel=3,
         )
+    if scan_overflow.max(initial=0) > 0:
+        warnings.warn(
+            "grid neighbor engine: fullest hash bucket exceeds "
+            f"grid_scan_cap by {int(scan_overflow.max())} points — neighbor "
+            "queries may be truncated; raise MergeParams.grid_scan_cap",
+            stacklevel=3,
+        )
     if kp_truncated.sum() > 0:
         per_cloud = ", ".join(
             f"cloud {i}: {int(d)}" for i, d in enumerate(kp_truncated) if d > 0
@@ -62,6 +73,22 @@ def _warn_feature_caps(dropped: np.ndarray, kp_truncated: np.ndarray) -> None:
             f"were dropped, keeping the top responses ({per_cloud}); the "
             "reference keeps every above-threshold keypoint — raise "
             "MergeParams.max_keypoints to match",
+            stacklevel=3,
+        )
+
+
+def _warn_pair_overflow(overflow: np.ndarray) -> None:
+    """Surface the pair stage's query-side grid overflow: ICP and the score
+    query the moved SOURCE against the target's grid, and a source denser
+    than the target's buckets loses correspondences there, which the
+    per-cloud probe cannot see."""
+    if overflow.max(initial=0) > 0:
+        warnings.warn(
+            "grid neighbor engine: up to "
+            f"{int(overflow.max())} source query points per pair overflowed "
+            "the target grid's query-side bucket cap during ICP/scoring — "
+            "correspondences were dropped; raise MergeParams.grid_scan_cap "
+            "or coarsen resolution",
             stacklevel=3,
         )
 
@@ -97,12 +124,13 @@ def estimate_maps_transforms(
     kp_counts = [int(f.keypoints.mask.sum()) for f in features]
     _warn_feature_caps(
         np.array([int(f.dropped_points) for f in features]),
+        np.array([int(f.scan_overflow) for f in features]),
         np.array([int(f.keypoints.truncated) for f in features]),
     )
 
     n = len(clouds)
     all_pairs = [(i, j) for i in range(n - 1) for j in range(i + 1, n)]
-    estimates = []
+    estimates, pair_overflow = [], []
     for k, (i, j) in enumerate(all_pairs):
         # reference pair generation: both keypoint sets non-empty
         # (map_merging.cpp:246-254)
@@ -121,6 +149,8 @@ def estimate_maps_transforms(
                 ambiguous=bool(est.ambiguous()),
             )
         )
+        pair_overflow.append(int(est.scan_overflow))
+    _warn_pair_overflow(np.array(pair_overflow, dtype=np.int64))
     if info_out is not None:
         info_out["n_pairs"] = len(estimates)
         info_out["n_failed"] = sum(1 for e in estimates if not e.transform.any())

@@ -41,6 +41,11 @@ class PairEstimate:
     consensus_purity: torch.Tensor
     #: winning inlier count / putative correspondence count; 1 when failed
     support: torch.Tensor
+    #: worst count of source points the grid engine's query-side bucket
+    #: cap dropped during ICP or the score (0 for a failed pair, whose zero
+    #: transform piles every point into one bucket); surfaced as a warning
+    #: by estimate_maps_transforms
+    scan_overflow: torch.Tensor
 
     def ambiguous(
         self,
@@ -109,8 +114,10 @@ def estimate_transform(
     else:
         raise ValueError(f"unknown estimation method: {params.estimation_method}")
 
+    dev = source.cloud.device
+    icp_overflow = torch.zeros((), dtype=torch.int32, device=dev)
     if params.refine_transform:
-        refined, icp_ok = icp_refine(
+        refined, icp_ok, icp_overflow = icp_refine(
             source.cloud,
             target.cloud,
             initial=transform,
@@ -121,13 +128,15 @@ def estimate_transform(
             anneal=params.icp_anneal,
             # coarse-to-fine floor: one registration voxel
             min_correspondence_distance=params.resolution,
+            scan_cap=params.registration_scan_cap,
         )
         transform = torch.where(ok & icp_ok, refined, transform)
 
     transform = torch.where(ok, transform, tf.zero(transform.device))
-    score, coverage = transform_score(
+    score, coverage, score_overflow = transform_score(
         source.cloud, target.cloud, transform,
         params.max_correspondence_distance,
+        scan_cap=params.registration_scan_cap,
     )
     if params.robust_confidence:
         conf = confidence_fn(score, coverage) * inliers.clamp_min(1)
@@ -141,4 +150,12 @@ def estimate_transform(
         coverage=torch.where(ok, coverage, 0.0).to(torch.float32),
         consensus_purity=purity.to(torch.float32),
         support=torch.where(ok, support, 1.0).to(torch.float32),
+        scan_overflow=torch.where(
+            ok,
+            torch.maximum(
+                icp_overflow,
+                torch.as_tensor(score_overflow, dtype=torch.int32, device=dev),
+            ),
+            0,
+        ),
     )

@@ -1,0 +1,112 @@
+"""Dense against cell-grid engine on the card, at the sizes where "auto"
+switches between them.
+
+    python3 -m mapmerge_torch.testing.grid_crossover [SIZE ...]
+
+For each size (default 65,536, 131,072 and 262,144 points) the script cuts
+a cloud from eval config #2's first view, voxel-downsampled at 0.1 m as the
+feature stage does: the points nearest one corner of the map (smallest
+x + y), so the cloud keeps the map's density. On it, each engine runs one
+radius_count at the descriptor radius (0.8 m, the outlier pass), one
+neighbor_moments at the normal radius (0.6 m) and one bounded
+nearest_neighbor at the correspondence bound (1.0 m) of the cloud moved by
+a small rotation and shift against itself (ICP and the score), with the
+default scan caps (128, and 256 for the 1-NN). Prints the card; for the
+whole view, at each of those radii, the fullest bucket and the points the
+cap drops (the grid the pipeline builds at capacity 2^20); then one JSON
+line per (size, op, engine): the median of 5 timed calls after one warm-up
+(CUDA events around the call, host work included) and how many queries the
+two engines answer differently (the grid's bucket caps). The thresholds of
+ops/neighbors.py are not changed by it.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from mapmerge_torch.core import transforms as tf
+from mapmerge_torch.core.cloud import PointCloud
+from mapmerge_torch.ops.downsample import voxel_downsample
+from mapmerge_torch.ops.grid import build_grid
+from mapmerge_torch.ops.neighbors import nearest_neighbor, neighbor_moments, radius_count
+from mapmerge_torch.testing.scene import rotation_z, se3, town_views
+
+SIZES = (65536, 131072, 262144)
+
+
+def _ms(fn, reps: int = 5) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main(sizes) -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("grid_crossover: needs a CUDA device")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[torch.cuda.current_device()], flush=True)
+
+    views, _ = town_views(5, 500_000)
+    x, rgb = views[0]
+    cap = 1 << int(np.ceil(np.log2(x.shape[0])))
+    view = voxel_downsample(
+        PointCloud.from_numpy(x, rgb, capacity=cap, device=dev), 0.1,
+        out_capacity=1 << 20,
+    )
+    for radius, scan_cap in ((0.8, 128), (0.6, 128), (1.0, 256)):
+        grid = build_grid(view.xyz, view.mask, radius, None, scan_cap)
+        print(json.dumps({
+            "view_points": int(view.mask.sum()), "cell": radius, "cap": scan_cap,
+            "dims": grid.dims, "fullest_bucket": int(grid.raw_max),
+            "points_dropped_by_cap": int(grid.overflow),
+        }), flush=True)
+    pts = view.xyz[view.mask]
+    order = torch.argsort(pts[:, 0] + pts[:, 1])
+    move = torch.from_numpy(se3(rotation_z(0.01), [0.05, -0.03, 0.0])).to(dev)
+    for n in sizes:
+        p = pts[order[:n]].contiguous()
+        mask = torch.ones((n,), dtype=torch.bool, device=dev)
+        moved = tf.apply(move, p)
+        calls = {
+            "radius_count r=0.8": lambda e: radius_count(
+                p, p, 0.8, p_mask=mask, engine=e)[0],
+            "neighbor_moments r=0.6": lambda e: neighbor_moments(
+                p, p, 0.6, p_mask=mask, engine=e)[0],
+            "nearest_neighbor bound=1.0": lambda e: nearest_neighbor(
+                moved, p, p_mask=mask, bound=1.0, engine=e, scan_cap=256,
+                q_mask=mask)[1],
+        }
+        for op, call in calls.items():
+            out = {e: call(e) for e in ("dense", "grid")}
+            if op.startswith("nearest"):  # matches within the bound only
+                near = out["dense"] <= 0.99
+                differ = int((out["dense"][near] != out["grid"][near]).sum())
+            else:
+                differ = int((out["dense"] != out["grid"]).sum())
+            for e in ("dense", "grid"):
+                print(json.dumps({
+                    "points": n, "op": op, "engine": e,
+                    "ms": _ms(lambda: call(e)), "queries_differing": differ,
+                }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main([int(a) for a in sys.argv[1:]] or SIZES))

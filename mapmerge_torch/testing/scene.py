@@ -1,9 +1,11 @@
 """Synthetic box-world scenes with known SE(3) ground truth, numpy only.
 
-A copy of `make_scene`, `_sample_box_surface` and `overlapping_views` from
-tests/synthetic.py that returns arrays instead of the JAX package's clouds
-(tests/synthetic.py imports jax through mapmerge_tpu.core.cloud). It makes
-the same RNG calls in the same order, so a seed gives bit-identical points.
+A copy of `make_scene`, `_sample_box_surface`, `overlapping_views`,
+`make_town` and `n_overlapping_views` from tests/synthetic.py, and of
+`town_views` from bench_configs.py, that returns arrays instead of the JAX
+package's clouds (tests/synthetic.py imports jax through
+mapmerge_tpu.core.cloud). It makes the same RNG calls in the same order, so
+a seed gives bit-identical points.
 """
 
 from __future__ import annotations
@@ -118,3 +120,96 @@ def config1_scene():
         np.random.default_rng(3), xyz, rgb, truth, overlap=0.6
     )
     return va, vb, cap, truth
+
+
+def make_town(
+    rng: np.random.Generator,
+    n_resized_target: int,
+    resolution: float = 0.1,
+    raw_density: float = 260.0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """A floor and yawed, tinted boxes sized so that voxel-downsampling at
+    `resolution` gives roughly `n_resized_target` points (the floor ~40% of
+    the surface). Box edges exceed Harris's suppression diameter, and the
+    bottom faces are dropped (they would double the floor's density)."""
+    area_target = n_resized_target * resolution * resolution
+    extent = float(np.sqrt(area_target * 0.4))
+    pts, cols = [], []
+    nf = int(extent * extent * raw_density)
+    floor = np.empty((nf, 3), np.float32)
+    floor[:, 0] = rng.random(nf) * extent
+    floor[:, 1] = rng.random(nf) * extent
+    floor[:, 2] = 0.0
+    pts.append(floor)
+    cols.append(np.full((nf, 3), 0.4, np.float32))
+
+    box_area = 0.0
+    while box_area < area_target * 0.6:
+        size = (
+            0.9 + rng.random() * 1.2,
+            0.9 + rng.random() * 1.2,
+            0.7 + rng.random() * 1.2,
+        )
+        center = (
+            1.0 + rng.random() * (extent - 2.0),
+            1.0 + rng.random() * (extent - 2.0),
+            size[2] / 2,
+        )
+        p, c = _sample_box_surface(rng, (0.0, 0.0, center[2]), size, raw_density)
+        keep = p[:, 2] > 0.02
+        p, c = p[keep], c[keep]
+        r = rotation_z(rng.random() * np.pi)
+        p = p @ r.T
+        p[:, 0] += center[0]
+        p[:, 1] += center[1]
+        c = 0.3 * c + 0.7 * rng.random(3).astype(np.float32)
+        pts.append(p.astype(np.float32))
+        cols.append(c.astype(np.float32))
+        sx, sy, sz = size
+        box_area += 2 * (sx * sy + sx * sz + sy * sz)
+    return np.concatenate(pts), np.concatenate(cols)
+
+
+def n_overlapping_views(
+    rng: np.random.Generator,
+    xyz: np.ndarray,
+    rgb: np.ndarray,
+    truths: list[np.ndarray],
+    keep: float = 0.6,
+) -> list[tuple[np.ndarray, np.ndarray]]:
+    """N views of one scene, each a directional crop keeping `keep` of the
+    points, crop directions evenly spaced around the circle (small jitter),
+    each in its own frame (world = truth_i @ local)."""
+    views = []
+    n = len(truths)
+    for i, truth in enumerate(truths):
+        ang = 2.0 * np.pi * i / max(n, 1) + rng.normal() * 0.1
+        u = np.array([np.cos(ang), np.sin(ang)])
+        proj = xyz[:, 0] * u[0] + xyz[:, 1] * u[1]
+        cut = np.quantile(proj, 1.0 - keep)
+        m = proj >= cut
+        inv = np.linalg.inv(truth)
+        v = xyz[m] @ inv[:3, :3].T + inv[:3, 3]
+        views.append((v.astype(np.float32), rgb[m]))
+    return views
+
+
+def town_views(
+    n_maps: int, view_resized_target: int, keep: float = 0.6, seed: int = 42
+):
+    """N overlapping views of one make_town scene and their SE(3) truths
+    (bench_configs.town_views); `view_resized_target` ~ points per view at
+    registration resolution. Eval config #2 is town_views(5, 500_000)."""
+    rng = np.random.default_rng(seed)
+    xyz, rgb = make_town(rng, int(view_resized_target / keep))
+    truths = [
+        np.eye(4, dtype=np.float32)
+        if i == 0
+        else se3(
+            rotation_z(0.15 * ((i % 7) - 3)),
+            [0.6 * (i % 5), -0.3 * (i % 4), 0.04 * (i % 3)],
+        )
+        for i in range(n_maps)
+    ]
+    views = n_overlapping_views(rng, xyz, rgb, truths, keep=keep)
+    return views, truths

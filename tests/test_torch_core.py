@@ -196,22 +196,28 @@ class TestOutsideTheSlice:
     """Configurations the port does not cover raise NotImplementedError,
     naming what is missing, instead of taking another path."""
 
-    def test_grid_engine(self):
+    def test_grid_engine(self, monkeypatch):
+        """The grid engine answers the neighbour ops; only SIFT's grid
+        branch is missing (check_dense), chosen by "grid", by "auto" at the
+        threshold, or by the MAPMERGE_ENGINE override."""
         from mapmerge_torch.ops import neighbors as tn
 
         q = torch.zeros((4, 3))
-        with pytest.raises(NotImplementedError, match="cell-grid"):
-            tn.radius_count(q, q, 1.0, engine="grid")
-        with pytest.raises(NotImplementedError, match="cell-grid"):
+        counts, overflow = tn.radius_count(q, q, 1.0, engine="grid")
+        assert counts.tolist() == [4] * 4 and int(overflow) == 0
+        with pytest.raises(NotImplementedError, match="SIFT on the cell-grid"):
             tn.check_dense("auto", tn.GRID_AUTO_THRESHOLD)
-        with pytest.raises(NotImplementedError, match="cell-grid"):
+        with pytest.raises(NotImplementedError, match="SIFT on the cell-grid"):
             tn.check_dense("auto", tn.GRID_NN_THRESHOLD, tn.GRID_NN_THRESHOLD)
         tn.check_dense("auto", tn.GRID_NN_THRESHOLD - 1, tn.GRID_NN_THRESHOLD)
         tn.check_dense("dense", tn.GRID_AUTO_THRESHOLD)
+        monkeypatch.setenv("MAPMERGE_ENGINE", "grid")
+        with pytest.raises(NotImplementedError, match="SIFT on the cell-grid"):
+            tn.check_dense("dense", 10)
 
     def test_keypoint_descriptor_and_method(self):
-        """HARRIS, PFH and SAC_IA dispatch now; the same calls on the
-        cell-grid engine raise naming it."""
+        """HARRIS, PFH and SAC_IA dispatch on both engines; SIFT on the
+        cell-grid engine raises naming it."""
         from mapmerge_torch.core.enums import Descriptor, Keypoint
         from mapmerge_torch.ops.descriptors import compute_descriptors
         from mapmerge_torch.ops.keypoints import detect_keypoints
@@ -252,10 +258,11 @@ class TestOutsideTheSlice:
             feats, feats, params, generator=torch.Generator().manual_seed(0)
         )
         assert est.transform.shape == (4, 4) and float(est.support) == 1.0
-        for call in (
-            lambda: harris("grid"),
-            lambda: pfh("grid"),
-            lambda: extract_features(tc, params.replace(neighbor_engine="grid")),
-        ):
-            with pytest.raises(NotImplementedError, match="cell-grid"):
-                call()
+        assert torch.equal(harris("grid").mask, kp.mask)
+        assert torch.equal(pfh("grid").valid, desc.valid)
+        grid_feats = extract_features(tc, params.replace(neighbor_engine="grid"))
+        assert int(grid_feats.scan_overflow) == 0
+        with pytest.raises(NotImplementedError, match="SIFT on the cell-grid"):
+            extract_features(tc, params.replace(
+                neighbor_engine="grid", keypoint_type="SIFT"
+            ))

@@ -196,3 +196,49 @@ def test_spfh_cell_hash_covers_every_in_radius_pair(case):
     if case == "collisions":
         live = cc[ok]
         assert len(np.unique(live, axis=0)) > len(np.unique(_buckets(live)))
+
+
+@pytest.mark.cuda
+def test_spfh_per_cell_mode_on_grid_blocks_bit_exact(cuda):
+    """Per-cell mode on the blocks the grid engine hands it (fpfh._spfh_grid):
+    Cq = 128 slots against M = 27 x 128 candidates per bucket, a sparse
+    needed set so most buckets hold no query and are never launched, empty
+    slots parked at FAR, and one bucket full to the cap (a dense cluster).
+    Bit for bit against the plain version."""
+    from mapmerge_torch.ops import grid as tg
+
+    rng = np.random.default_rng(8)
+    n = 40000
+    xyz = rng.uniform(0, 12.0, (n, 3)).astype(np.float32)
+    xyz[:, 2] = np.round(xyz[:, 2] / 3) * 3 + rng.normal(0, 0.01, n)
+    xyz[:400] = rng.uniform(2.0, 2.3, (400, 3))  # > 128 points in one cell
+    nrm = rng.normal(0, 0.2, (n, 3)).astype(np.float32)
+    nrm[:, 2] += 1
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    ok = rng.random(n) > 0.05
+    needed = (rng.random(n) < 0.01) | (np.arange(n) < 4)
+    xyz, nrm, ok, needed = (torch.from_numpy(a).to(cuda) for a in (xyz, nrm, ok, needed))
+    grid = tg.build_grid(xyz, ok, 0.8, None, 128)
+    qg = tg.masked_query_grid(grid, needed & ok, n)
+    assert int(grid.raw_max) > 128 and bool((grid.count == 128).any())
+    assert int((qg.count > 0).sum()) < grid.count.numel() // 4
+    blocks = []
+
+    def tile_fn(*args):
+        blocks.append([a.clone() for a in args])
+        return kspfh.spfh_tile(args[0], args[4], args[1], args[5], args[2], r2=0.64)
+
+    before = kspfh.KERNEL.launches
+    tg.grid_query(xyz, grid, tile_fn, (0.0, 0.0), q_values=nrm, p_values=nrm, qg=qg)
+    assert kspfh.KERNEL.launches - before == len(blocks) >= 1
+    full = 0
+    for q_block, cand_xyz, cand_ok, _, q_nrm, cand_nrm in blocks:
+        assert q_block.shape[1:] == (128, 3) and cand_xyz.shape[1:] == (27 * 128, 3)
+        assert bool((q_block == FAR).any())
+        full += int((q_block != FAR).all(-1).all(-1).sum())
+        args = (q_block, q_nrm, cand_xyz, cand_nrm, cand_ok)
+        h, tot = kspfh.spfh_tile(*args, r2=0.64)
+        rh, rtot = kspfh.spfh_ref(*args, r2=0.64)
+        assert torch.equal(tot, rtot) and torch.equal(h, rh)
+        assert bool((tot > 0).any())
+    assert full >= 1

@@ -149,8 +149,12 @@ class TestDenseEngine:
             assert (to[-1] == -tn.BIG).all()
         with pytest.raises(ValueError, match="reduce"):
             tn.radius_reduce(t(q), t(p), r, t(values), reduce="mean")
-        with pytest.raises(NotImplementedError, match="cell-grid"):
-            tn.radius_reduce(t(q), t(p), r, t(values), engine="grid")
+        # the grid engine (small-Q path here) counts the same neighbours
+        gc, go, _ = tn.radius_reduce(
+            t(q), t(p), r, t(values), p_mask=t(mask), reduce=reduce, engine="grid"
+        )
+        np.testing.assert_array_equal(gc.numpy()[ok], tc.numpy()[ok])
+        np.testing.assert_allclose(go.numpy()[ok], to.numpy()[ok], rtol=1e-5, atol=1e-6)
 
     def test_nearest_neighbor_matches_reference_xla_path(self, rng):
         """The port's 1-NN (kernel A's semantics: direct expansion) against

@@ -227,8 +227,8 @@ class TestIcpAndScore:
                   max_iterations=50, transform_epsilon=1e-2,
                   min_correspondence_distance=0.1)
         jt, jok, _ = j_icp(jb, ja, jnp.asarray(init), tile=512, **kw)
-        tt, tok = t_icp(tb, ta, t(init), **kw)
-        assert tok and bool(jok)
+        tt, tok, tover = t_icp(tb, ta, t(init), **kw)
+        assert tok and bool(jok) and int(tover) == 0
         rot, trans = _pose_gap(tt.numpy(), np.asarray(jt))
         assert rot < 1e-3 and trans < 1e-4
         rot, trans = _pose_gap(tt.numpy(), truth)
@@ -236,7 +236,7 @@ class TestIcpAndScore:
 
     def test_icp_from_zero_guess_does_not_converge(self, views):
         (ja, ta), (jb, tb) = views[0]
-        tt, tok = t_icp(tb, ta, torch.zeros(4, 4), 1.0, 0.5, 20, 1e-2)
+        tt, tok, _ = t_icp(tb, ta, torch.zeros(4, 4), 1.0, 0.5, 20, 1e-2)
         _, jok, _ = j_icp(jb, ja, jnp.zeros((4, 4)), 1.0, 0.5, 20, 1e-2)
         assert tok == bool(jok) == False  # noqa: E712
 
@@ -244,7 +244,8 @@ class TestIcpAndScore:
         (ja, ta), (jb, tb) = views[0]
         for pose in (views[1], se3(rotation_z(0.3), [1.0, -0.5, 0.2])):
             js, jcov, _ = j_score(jb, ja, jnp.asarray(pose), 1.0)
-            ts, tcov = t_score(tb, ta, t(pose), 1.0)
+            ts, tcov, tover = t_score(tb, ta, t(pose), 1.0)
+            assert tover == 0
             np.testing.assert_allclose(float(ts), float(js), rtol=1e-4)
             np.testing.assert_allclose(float(tcov), float(jcov), atol=1e-3)
             np.testing.assert_allclose(
@@ -252,7 +253,7 @@ class TestIcpAndScore:
             )
         far = np.eye(4, dtype=np.float32)
         far[:3, 3] = 100.0
-        ts, tcov = t_score(tb, ta, t(far), 1.0)
+        ts, tcov, _ = t_score(tb, ta, t(far), 1.0)
         assert float(ts) == float(np.float32(1e30)) and float(tcov) == 0.0
 
 
