@@ -34,8 +34,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      2 deg / 0.3 m of the truth and every registered map within 2 deg /
      0.3 m of golden/config2.json; one warm timed run and one run timed
      stage by stage, each required to repeat the cold run bit for bit.
-     The SPFH kernel's per-cell mode must launch, and its first launch must
-     equal the plain version exactly.
+     The SPFH kernel's grid entry must launch once per cloud (5 times a
+     merge) and equal its plain version exactly on the first cloud's
+     inputs; the stage-timed run logs each cloud's sweep: the buckets that
+     hold a needed slot, the needed slots, the filled slots in those
+     buckets, the candidates staged and the pairs counted.
 Each path runs with the launch counts reset just before it and read just
 after. On every path each kernel it launched is then held against its plain
 version on the inputs of its first launch in that run (the path's own
@@ -52,6 +55,7 @@ that no such module was loaded.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -145,6 +149,44 @@ def spfh_bound(args, pairs: int) -> dict:
     return _bound(rows * 24 + cands * 25 + rows * 34 * 4, pairs * SPFH_PAIR_OPS)
 
 
+def grid_sweep_counters(grid, q_ok, total) -> dict:
+    """What one spfh_grid call swept: the buckets that hold a needed slot,
+    the needed slots, the filled slots in those buckets, the candidates the
+    blocks stage (each block the filled slots of the distinct wrapped
+    neighbours of its bucket, ops/grid._candidates' set), the distinct
+    points among them, and the pairs counted (the needed rows' counts)."""
+    from mapmerge_torch.kernels import spfh as spfh_kernel
+    from mapmerge_torch.ops.grid import _neighbor_buckets
+
+    active = torch.nonzero(q_ok.any(dim=1)).flatten()
+    count = grid.count.to(torch.int64)
+    nbr, _ = torch.sort(_neighbor_buckets(active, grid.dims), dim=-1)
+    first = torch.ones_like(nbr, dtype=torch.bool)
+    first[:, 1:] = nbr[:, 1:] != nbr[:, :-1]
+    groups = -(-q_ok.sum(dim=1)[active] // spfh_kernel._GRID_GROUP)  # blocks
+    staged = (count[nbr] * first).sum(dim=1)
+    return {
+        "active_buckets": int(active.numel()),
+        "needed_slots": int(q_ok.sum()),
+        "filled_in_active": int(count[active].sum()),
+        "blocks": int(groups.sum()),
+        "staged_candidates": int((staged * groups).sum()),
+        "distinct_candidates": int(count[torch.unique(nbr)].sum()),
+        "counted_pairs": int(total.to(torch.int64).sum()),
+    }
+
+
+def spfh_grid_bound(grid, q_ok, normals, total) -> dict:
+    """The distinct candidate points read once (12 B xyz, 8 B index, 12 B
+    normal), the needed flags of the active buckets (1 B a slot), the
+    (P, 33) rows and (P,) counts written once; SPFH_PAIR_OPS for each pair
+    the needed rows count."""
+    c = grid_sweep_counters(grid, q_ok, total)
+    n_bytes = (c["distinct_candidates"] * 32 + c["active_buckets"] * grid.cap
+               + normals.shape[0] * 34 * 4)
+    return _bound(n_bytes, c["counted_pairs"] * SPFH_PAIR_OPS)
+
+
 def _nn_compare(name, nn, q, p, mask=None):
     """Kernel A against nearest_neighbor_ref on the same inputs.
 
@@ -231,9 +273,30 @@ def _spfh_compare(name, got, ref):
     return float((h_k - h_r).abs().max()), n_bad
 
 
+def _grid_inputs(g, dev, n, extent, needed):
+    """A cell grid at r = 0.8 (cap 128) of n surface-like points over
+    `extent` m (planes 3 m apart, 5% masked, one dense cluster over the
+    cap), a share `needed` of them needed: spfh_grid's arguments."""
+    from mapmerge_torch.ops.grid import build_grid, masked_query_grid
+
+    xyz = torch.rand((n, 3), generator=g, device=dev) * extent
+    xyz[:, 2] = torch.round(xyz[:, 2] / 3) * 3 + 0.01 * torch.rand(
+        (n,), generator=g, device=dev
+    )
+    xyz[:400] = 2.0 + 0.3 * torch.rand((400, 3), generator=g, device=dev)
+    nrm = torch.randn((n, 3), generator=g, device=dev) * 0.2
+    nrm[:, 2] += 1.0
+    nrm = nrm / nrm.norm(dim=-1, keepdim=True)
+    ok = torch.rand((n,), generator=g, device=dev) > 0.05
+    need = torch.rand((n,), generator=g, device=dev) < needed
+    grid = build_grid(xyz, ok, 0.8, None, 128)
+    return grid, masked_query_grid(grid, need & ok, n).cell_ok, nrm
+
+
 def check_spfh(dev, spfh) -> dict:
-    """Kernel B against spfh_ref: 24,576 queries x 32,768 candidates at
-    r2 = 0.64 in shared-candidate mode, plus a small per-cell case."""
+    """Kernel B against its plain versions: 24,576 queries x 32,768
+    candidates at r2 = 0.64 in shared-candidate mode, plus a grid case
+    (200,000 points, 2% needed), which must agree exactly."""
     g = torch.Generator(device=dev).manual_seed(12)
     args = _spfh_inputs(g, dev, SPFH_B, SPFH_CQ, 1, SPFH_M)
     got = spfh.spfh_tile(*args, r2=DESC_R2)
@@ -247,10 +310,13 @@ def check_spfh(dev, spfh) -> dict:
     err, n_bad = _spfh_compare("spfh shared", got, ref)
     mean_pairs = float(ref[1].mean())
 
-    cell = _spfh_inputs(g, dev, 4, 40, 4, 300)
-    err_cell, bad_cell = _spfh_compare(
-        "spfh per-cell", spfh.spfh_tile(*cell, r2=1.0), spfh.spfh_ref(*cell, r2=1.0)
+    grid_args = _grid_inputs(g, dev, 200_000, 40.0, 0.02)
+    err_grid, bad_grid = _spfh_compare(
+        "spfh grid", spfh.spfh_grid(*grid_args, r2=DESC_R2),
+        spfh.spfh_grid_ref(*grid_args, r2=DESC_R2),
     )
+    require(err_grid == 0.0 and bad_grid == 0,
+            f"spfh grid: max err {err_grid}, {bad_grid} rows off; exact required")
 
     ms = time_ms(lambda: spfh.spfh_tile(*args, r2=DESC_R2))
     plain_ms = time_ms(lambda: spfh.spfh_ref(*args, r2=DESC_R2), reps=3, warmup=1)
@@ -258,11 +324,11 @@ def check_spfh(dev, spfh) -> dict:
     log(
         f"kernel spfh {SPFH_B * SPFH_CQ} x {SPFH_M} (shared, mean "
         f"{mean_pairs} pairs/query): max|hist err| {err}, rows off {n_bad}"
-        f"; per-cell 4x40x300: max err {err_cell}, rows off {bad_cell}; "
+        f"; grid 200,000 points: max err {err_grid}, rows off {bad_grid}; "
         f"kernel {ms} ms, plain {plain_ms} ms, bound {bound['bound_ms']} ms"
     )
     return {"shape": f"{SPFH_B}x{SPFH_CQ} x {SPFH_M}",
-            "max_abs_err": max(err, err_cell), "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(err, err_grid), "ms": ms, "plain_ms": plain_ms,
             **bound}
 
 
@@ -282,6 +348,19 @@ def patched(targets):
             setattr(mod, attr, fn)
 
 
+def _copied(a, dev=None):
+    """A copy of a recorded argument, on `dev` (None: where it lies): a
+    tensor, or the tensors of a cell grid (spfh_grid's first argument)."""
+    if torch.is_tensor(a):
+        return a.to(a.device if dev is None else dev, copy=True)
+    if dataclasses.is_dataclass(a):
+        return dataclasses.replace(a, **{
+            f.name: _copied(getattr(a, f.name), dev) for f in dataclasses.fields(a)
+            if torch.is_tensor(getattr(a, f.name))
+        })
+    return a
+
+
 @contextlib.contextmanager
 def first_launch_inputs(nn, spfh):
     """Record clones of the arguments of each kernel wrapper's first call
@@ -290,14 +369,11 @@ def first_launch_inputs(nn, spfh):
     their modules at call time, so they see the recording ones."""
     seen: dict[str, tuple] = {}
 
-    def record(name):
+    def record(name, dev=None):
         def make(fn):
             def wrapper(*args, **kwargs):
                 if name not in seen:
-                    seen[name] = (
-                        [a.clone() if torch.is_tensor(a) else a for a in args],
-                        dict(kwargs),
-                    )
+                    seen[name] = ([_copied(a, dev) for a in args], dict(kwargs))
                 return fn(*args, **kwargs)
 
             return wrapper
@@ -305,7 +381,10 @@ def first_launch_inputs(nn, spfh):
         return make
 
     with patched({(nn, "nearest_neighbor"): record("nearest_neighbor"),
-                  (spfh, "spfh_tile"): record("spfh")}):
+                  (spfh, "spfh_tile"): record("spfh"),
+                  # a grid sweep's arguments are ~200 MB at config #2's size:
+                  # kept in host memory, out of the run's peak device memory
+                  (spfh, "spfh_grid"): record("spfh_grid", torch.device("cpu"))}):
         yield seen
 
 
@@ -347,7 +426,7 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
         counted = ref[1][ref[1] > 0]
         st = stats["spfh"] = {
             "shape": f"{b}x{cq} x {bc}x{m}",
-            "mode": "shared (Bc = 1)" if bc == 1 else "per-cell (Bc = B)",
+            "mode": "shared (Bc = 1)",
             "launches": launches["spfh"],
             "max_abs_err": err, "rows_off": n_bad,
             "pairs_per_query": float(ref[1].mean()),
@@ -357,6 +436,30 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
         }
         if plain:
             st["plain_ms"] = time_ms(lambda: spfh.spfh_ref(*args, **kwargs),
+                                     reps=3, warmup=1)
+    if "spfh_grid" in seen:
+        require("spfh" not in seen, f"{label}: both spfh entries launched")
+        args, kwargs = seen["spfh_grid"]
+        dev = torch.device("cuda", torch.cuda.current_device())
+        args = [_copied(a, dev) for a in args]
+        ref = spfh.spfh_grid_ref(*args, **kwargs)
+        err, n_bad = _spfh_compare(
+            f"{label} spfh_grid", spfh.spfh_grid(*args, **kwargs), ref
+        )
+        require(not exact or (err == 0.0 and n_bad == 0),
+                f"{label} spfh_grid: max err {err}, {n_bad} rows off; exact required")
+        grid, q_ok, normals = args[:3]
+        st = stats["spfh"] = {
+            "shape": f"grid {tuple(grid.cell_idx.shape)}, {normals.shape[0]} points",
+            "mode": "grid (spfh_grid, one launch a cloud)",
+            "launches": launches["spfh"],
+            "max_abs_err": err, "rows_off": n_bad,
+            **grid_sweep_counters(grid, q_ok, ref[1]),
+            "ms": time_ms(lambda: spfh.spfh_grid(*args, **kwargs)),
+            **spfh_grid_bound(grid, q_ok, normals, ref[1]),
+        }
+        if plain:
+            st["plain_ms"] = time_ms(lambda: spfh.spfh_grid_ref(*args, **kwargs),
                                      reps=3, warmup=1)
     require(stats, f"{label}: no kernel input was recorded")
     log(f"{label}: kernels on the path's own inputs: {json.dumps(stats)}")
@@ -820,7 +923,9 @@ def run_config2(dev, kernels) -> None:
     log(f"config #2 cold run: {cold_s:.3f} s, launches {launches} "
         f"(nearest_neighbor expected 0: ICP and the score take the grid), "
         f"pairs {info}, peak device memory {peak_gib:.2f} GiB")
-    require(launches["spfh"] > 0, "config #2: spfh was not launched")
+    require(launches["spfh"] == CONFIG2_MAPS and "spfh_grid" in seen,
+            f"config #2: spfh launched {launches['spfh']} times, expected "
+            f"{CONFIG2_MAPS} through spfh_grid (one a cloud)")
     hold_on_path_inputs("config #2", seen, nn, spfh, launches, plain=True,
                         exact=True)
 
@@ -841,7 +946,17 @@ def run_config2(dev, kernels) -> None:
     warm = estimate_maps_transforms(clouds, params, seed=0)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    with stage_recorder() as rec:
+    sweeps = []  # (args, outputs) of each spfh_grid call, read after the run
+
+    def keep(fn):
+        def wrapper(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            sweeps.append((args, out))
+            return out
+
+        return wrapper
+
+    with stage_recorder() as rec, patched({(spfh, "spfh_grid"): keep}):
         staged = estimate_maps_transforms(clouds, params, seed=0)
     for label, out in (("warm", warm), ("stage-timed", staged)):
         require(all(np.array_equal(a, b) for a, b in zip(out, cold)),
@@ -850,6 +965,8 @@ def run_config2(dev, kernels) -> None:
         "stage-timed run bitwise equal to the cold run")
     log(f"config #2 feature stage per cloud: {json.dumps(rec['clouds'])}")
     log(f"config #2 pair stage per pair: {json.dumps(rec['pairs'])}")
+    log("config #2 SPFH grid sweep per cloud: " + json.dumps(
+        [grid_sweep_counters(a[0], a[1], out[1]) for a, out in sweeps]))
     log(f"config #2 stage ms of one run (5 clouds, 10 pairs summed): "
         f"{json.dumps(rec['ms'])}, sum {sum(rec['ms'].values())}")
 

@@ -35,13 +35,28 @@
 //   - counts, in the binning and the histograms, are integer atomicAdds:
 //     integer sums are exact in any order, so the result repeats bit for
 //     bit whatever order the atomics take.
-// Per-cell mode (batch i's queries against batch i's candidates: the grid
-// engine's SPFH sweep, ops/descriptors/fpfh.py:_spfh_grid, one batch per
-// bucket that holds a needed point, Cq = the bucket cap, M = 27 x the cap),
-// spfh_cell_kernel: one thread per query slot sweeps its bucket's
-// candidates, staged in shared memory. A simple kernel: every slot of a
-// bucket is swept, needed or not, and each candidate costs one distance
-// test per slot.
+// Grid mode (the grid engine's SPFH sweep, ops/descriptors/fpfh.py:
+// _spfh_grid: the needed points of one cloud against the cloud's cell grid,
+// ops/grid.py:build_grid), mm_spfh_grid, one launch per cloud:
+//   - spfh_grid_kernel: one block per (bucket that holds a needed slot,
+//     group of up to 32 of its needed slots; a bucket holds ~17 of them on
+//     config #2, so most buckets take one block). It reads the grid in place:
+//     the query slots' coordinates from the (H, C, 3) cells, their normals
+//     through the slots' point indices from the (P, 3) normals, and the
+//     filled slots [0, count) of the distinct wrapped neighbour buckets of
+//     its bucket (ids repeated by wrapping on tiny grids are taken once, as
+//     ops/grid.py:_candidates masks them). Slots that are not needed are
+//     never swept;
+//   - the candidates go through shared memory in rounds and the sweep is the
+//     shared kernel's (stage_index, sweep_stage, write_rows below): the
+//     distance pre-test without a square root, the per-warp queue of hits,
+//     every lane busy in the Darboux features, integer shared atomics, one
+//     scale pass. Rows go to the slots' point indices, each written once.
+//   What bounds it: a config #2 cloud counts ~8.5e6 pairs for ~30,000
+//   needed slots, ~0.01 ms of FP32 work at the card's peak, less than the
+//   time to write the (P, 33) output that the wrapper zero-fills (143 MB
+//   at P = 2^20). A block stages ~1,200 candidates, each through two
+//   dependent loads (the slot's point index, then its normal).
 //
 // The library is built with -fmad=false, and every pair goes through
 // pair_bins below in the order of the plain PyTorch version (kernels/spfh.py:
@@ -57,7 +72,7 @@ constexpr float kEps = 1.0e-12f;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 
-// shared mode
+// shared and grid mode
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroupMax = 64;                  // queries per block
@@ -68,10 +83,8 @@ constexpr int kTable = 1 << 15;                // buckets; kernels/spfh.py: _TAB
 constexpr float kCellClamp = 1073741824.f;     // 2^30
 constexpr int kBinThreads = 256;
 constexpr int kScanThreads = 1024;
-
-// per-cell mode
-constexpr int kCellThreads = 128;
-constexpr int kChunk = 256;
+constexpr int kNeighbors = 27;                 // grid mode: buckets per block
+constexpr int kGridGroup = 32;                 // grid mode: queries per block
 
 __device__ __forceinline__ int bin_index(float value, float lo, float span) {
   // floor((value - lo) / span * bins), clipped (darboux.bin_index)
@@ -246,6 +259,85 @@ __device__ __forceinline__ void bin_queued(
   }
 }
 
+// The source index of staged candidate i: in the block's list of buckets
+// (bpre their candidates scanned, bfirst each one's first candidate), the
+// last bucket k with bpre[k] <= i, then the offset into it.
+__device__ __forceinline__ int stage_index(int i, const int* bpre,
+                                           const int* bfirst, int nb) {
+  int lo = 0, hi = nb - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (bpre[mid] <= i) lo = mid; else hi = mid - 1;
+  }
+  return bfirst[lo] + (i - bpre[lo]);
+}
+
+// Test each of the block's nqb queries against the n staged candidates and
+// bin the pairs within the radius. A warp takes a query and sweeps its
+// candidates 32 at a time, a lane a candidate; where the block holds fewer
+// queries than warps, the warps split each query's candidates. The cheap
+// distance test's hits go into the warp's queue (__ballot_sync), and the
+// Darboux features run over the queue 32 at a time with every lane busy.
+__device__ __forceinline__ void sweep_stage(
+    const float (*qs)[kGroupMax], int nqb, const float4* pos,
+    const float4* nrm, int n, int (*queue)[kQueue],
+    unsigned int (*hist)[kHist], float r2, float r2_hi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int split = max(1, kWarps / nqb);  // warps per query
+  int queued = 0;                          // warp-uniform
+  for (int q = warp / split; q < nqb; q += kWarps / split) {
+    const float px = qs[0][q], py = qs[1][q], pz = qs[2][q];
+    for (int j0 = (warp % split) * 32; j0 < n; j0 += split * 32) {
+      const int j = j0 + lane;
+      bool hit = false;
+      if (j < n) {
+        // the distance of pair_bins; r2_hi lets through every pair whose
+        // rounded sqrt passes r2 there
+        const float4 c = pos[j];
+        const float dx = c.x - px;
+        const float dy = c.y - py;
+        const float dz = c.z - pz;
+        const float dist2 = dx * dx + dy * dy + dz * dz;
+        hit = dist2 > kEps && dist2 <= r2_hi;
+      }
+      const unsigned int hits = __ballot_sync(0xffffffffu, hit);
+      if (hit) {
+        queue[warp][queued + __popc(hits & ((1u << lane) - 1u))] = (q << 16) | j;
+      }
+      queued += __popc(hits);
+      if (queued >= 32) {
+        __syncwarp();
+        bin_queued(queue[warp][lane], qs, pos, nrm, hist, r2);
+        __syncwarp();
+        if (lane < queued - 32) queue[warp][lane] = queue[warp][lane + 32];
+        __syncwarp();
+        queued -= 32;
+      }
+    }
+  }
+  __syncwarp();
+  if (lane < queued) bin_queued(queue[warp][lane], qs, pos, nrm, hist, r2);
+}
+
+// Scale each of the block's nqb rows to sum 100 and write it with its pair
+// count to output row row0 + q, or rows[q] where rows is given.
+__device__ __forceinline__ void write_rows(const unsigned int (*hist)[kHist],
+                                           int nqb, long long row0,
+                                           const long long* rows,
+                                           float* __restrict__ hist_out,
+                                           float* __restrict__ total_out) {
+  for (int i = threadIdx.x; i < nqb * 3 * kBins; i += kThreads) {
+    const int q = i / (3 * kBins), k = i % (3 * kBins);
+    const long long r = rows ? rows[q] : row0 + q;
+    const float total = static_cast<float>(hist[q][3 * kBins]);
+    const float scale = total > 0.f ? 100.f / fmaxf(total, 1.f) : 0.f;
+    hist_out[r * (3 * kBins) + k] = static_cast<float>(hist[q][k]) * scale;
+  }
+  for (int q = threadIdx.x; q < nqb; q += kThreads) {
+    total_out[rows ? rows[q] : row0 + q] = static_cast<float>(hist[q][3 * kBins]);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 spfh_shared_kernel(const float* __restrict__ q_xyz,
                    const float* __restrict__ q_nrm, int nq, int group,
@@ -320,139 +412,131 @@ spfh_shared_kernel(const float* __restrict__ q_xyz,
   __syncthreads();
   const int n_cand = bpre[nb];
 
-  // 4. stage the candidates, test every (query, candidate) pair, queue the
-  //    hits, and bin them 32 at a time
-  int queued = 0;  // warp-uniform
+  // 4. stage the candidates and sweep them
   for (int s0 = 0; s0 < n_cand; s0 += kStage) {
     const int n = min(kStage, n_cand - s0);
     for (int j = tid; j < n; j += kThreads) {
-      // the bucket holding staged candidate s0 + j: last k with bpre[k] <= i
-      const int i = s0 + j;
-      int lo = 0, hi = nb - 1;
-      while (lo < hi) {
-        const int mid = (lo + hi + 1) >> 1;
-        if (bpre[mid] <= i) lo = mid; else hi = mid - 1;
-      }
-      const int g = blist[lo] + (i - bpre[lo]);
+      const int g = stage_index(s0 + j, bpre, blist, nb);
       pos[j] = s_pos[g];
       nrm[j] = s_nrm[g];
     }
     __syncthreads();
-    for (int q = warp; q < nqb; q += kWarps) {
-      const float px = qs[0][q], py = qs[1][q], pz = qs[2][q];
-      for (int j0 = 0; j0 < n; j0 += 32) {
-        const int j = j0 + lane;
-        bool hit = false;
-        if (j < n) {
-          // the distance of pair_bins; r2_hi lets through every pair whose
-          // rounded sqrt passes r2 there
-          const float4 c = pos[j];
-          const float dx = c.x - px;
-          const float dy = c.y - py;
-          const float dz = c.z - pz;
-          const float dist2 = dx * dx + dy * dy + dz * dz;
-          hit = dist2 > kEps && dist2 <= r2_hi;
-        }
-        const unsigned int hits = __ballot_sync(0xffffffffu, hit);
-        if (hit) {
-          queue[warp][queued + __popc(hits & ((1u << lane) - 1u))] = (q << 16) | j;
-        }
-        queued += __popc(hits);
-        if (queued >= 32) {
-          __syncwarp();
-          bin_queued(queue[warp][lane], qs, pos, nrm, hist, r2);
-          __syncwarp();
-          if (lane < queued - 32) queue[warp][lane] = queue[warp][lane + 32];
-          __syncwarp();
-          queued -= 32;
-        }
-      }
-    }
-    __syncwarp();
-    if (lane < queued) bin_queued(queue[warp][lane], qs, pos, nrm, hist, r2);
-    queued = 0;
+    sweep_stage(qs, nqb, pos, nrm, n, queue, hist, r2, r2_hi);
     __syncthreads();  // the stage is read by no one any more
   }
 
   // 5. scale each row to sum 100
-  for (int i = tid; i < nqb * 3 * kBins; i += kThreads) {
-    const int q = i / (3 * kBins), k = i % (3 * kBins);
-    const float total = static_cast<float>(hist[q][3 * kBins]);
-    const float scale = total > 0.f ? 100.f / fmaxf(total, 1.f) : 0.f;
-    hist_out[q0 * (3 * kBins) + i] = static_cast<float>(hist[q][k]) * scale;
-  }
-  for (int q = tid; q < nqb; q += kThreads) {
-    total_out[q0 + q] = static_cast<float>(hist[q][3 * kBins]);
-  }
+  write_rows(hist, nqb, q0, nullptr, hist_out, total_out);
 }
 
-__global__ void __launch_bounds__(kCellThreads)
-spfh_cell_kernel(const float* __restrict__ q_xyz,
-                 const float* __restrict__ q_nrm, int cq,
-                 const float* __restrict__ c_xyz,
-                 const float* __restrict__ c_nrm,
-                 const unsigned char* __restrict__ c_ok, int m, float r2,
-                 float* __restrict__ hist_out, float* __restrict__ total_out) {
-  __shared__ float cand[7][kChunk];
-  __shared__ unsigned int hist[kHist][kCellThreads];
+__global__ void __launch_bounds__(kThreads)
+spfh_grid_kernel(const float* __restrict__ cell_xyz,
+                 const long long* __restrict__ cell_idx,
+                 const int* __restrict__ count,
+                 const unsigned char* __restrict__ q_ok,
+                 const int* __restrict__ active, int cap, int gx, int gy,
+                 int gz, const float* __restrict__ normals, float r2,
+                 float r2_hi, float* __restrict__ hist_out,
+                 float* __restrict__ total_out) {
+  __shared__ float qs[6][kGroupMax];            // query xyz, normal
+  __shared__ int qslot[kGridGroup];             // the queries' slots
+  __shared__ long long rows[kGridGroup];        // their output rows
+  __shared__ unsigned int hist[kGridGroup][kHist];
+  __shared__ int bfirst[kNeighbors];            // each bucket's first slot
+  __shared__ int bpre[kNeighbors + 1];          // their filled slots, scanned
+  __shared__ float4 pos[kStage], nrm[kStage];   // the staged candidates
+  __shared__ int queue[kWarps][kQueue];         // (query << 16) | candidate
+  __shared__ int n_q, n_b;
 
-  const int tid = threadIdx.x;
-  const long long b = blockIdx.x;
-  const int qi = blockIdx.y * kCellThreads + tid;
-  const bool active = qi < cq;
-  const long long qrow = b * cq + qi;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = active[blockIdx.x];
+  const long long base = static_cast<long long>(b) * cap;
+  const int g0 = blockIdx.y * kGridGroup;
 
-  float px = 0.f, py = 0.f, pz = 0.f, n1x = 0.f, n1y = 0.f, n1z = 0.f;
-  if (active) {
-    px = q_xyz[3 * qrow];
-    py = q_xyz[3 * qrow + 1];
-    pz = q_xyz[3 * qrow + 2];
-    n1x = q_nrm[3 * qrow];
-    n1y = q_nrm[3 * qrow + 1];
-    n1z = q_nrm[3 * qrow + 2];
+  if (warp == 0) {
+    // 1. the block's queries: the needed filled slots of bucket b whose
+    //    rank among them lies in [g0, g0 + kGridGroup)
+    const int filled = count[b];
+    int seen = 0;  // warp-uniform
+    for (int s0 = 0; s0 < filled && seen < g0 + kGridGroup; s0 += 32) {
+      const int s = s0 + lane;
+      const bool need = s < filled && q_ok[base + s];
+      const unsigned int m = __ballot_sync(0xffffffffu, need);
+      const int r = seen + __popc(m & ((1u << lane) - 1u));
+      if (need && r >= g0 && r < g0 + kGridGroup) qslot[r - g0] = s;
+      seen += __popc(m);
+    }
+    if (lane == 0) n_q = min(max(seen - g0, 0), kGridGroup);
+  } else if (warp == 1) {
+    // 2. the distinct filled buckets among the 27 wrapped neighbours of b
+    //    (a lane each; on an axis of 1 or 2 cells ids repeat, and only the
+    //    first copy is kept), and an exclusive scan of their counts
+    const int bx = b % gx, by = (b / gx) % gy, bz = b / (gx * gy);
+    int id = -1;
+    if (lane < kNeighbors) {
+      const int nx = (bx + lane % 3 - 1 + gx) % gx;
+      const int ny = (by + (lane / 3) % 3 - 1 + gy) % gy;
+      const int nz = (bz + lane / 9 - 1 + gz) % gz;
+      id = (nz * gy + ny) * gx + nx;
+    }
+    bool dup = false;
+    for (int k = 0; k < kNeighbors; ++k) {
+      const int other = __shfl_sync(0xffffffffu, id, k);
+      dup |= k < lane && other == id;
+    }
+    const int cnt = (id >= 0 && !dup) ? count[id] : 0;
+    const unsigned int keep = __ballot_sync(0xffffffffu, cnt > 0);
+    int incl = cnt;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    if (cnt > 0) {
+      const int k = __popc(keep & ((1u << lane) - 1u));
+      bfirst[k] = id * cap;
+      bpre[k] = incl - cnt;
+    }
+    if (lane == 31) {
+      n_b = __popc(keep);
+      bpre[__popc(keep)] = incl;
+    }
   }
-  // bin-major counters, hist[bin][thread]: no atomics, no local memory
-#pragma unroll
-  for (int k = 0; k < kHist; ++k) hist[k][tid] = 0u;
+  __syncthreads();
+  const int nqb = n_q;
+  if (nqb == 0) return;  // a group past the bucket's needed slots
 
-  const long long cbase = b * m;
-  for (int c0 = 0; c0 < m; c0 += kChunk) {
-    const int n = min(kChunk, m - c0);
-    __syncthreads();  // the previous chunk is no longer read
-    for (int j = tid; j < n; j += kCellThreads) {
-      const long long g = cbase + c0 + j;
-      cand[0][j] = c_xyz[3 * g];
-      cand[1][j] = c_xyz[3 * g + 1];
-      cand[2][j] = c_xyz[3 * g + 2];
-      cand[3][j] = c_nrm[3 * g];
-      cand[4][j] = c_nrm[3 * g + 1];
-      cand[5][j] = c_nrm[3 * g + 2];
-      cand[6][j] = c_ok[g] ? 1.f : 0.f;
+  // 3. the queries' coordinates, normals and output rows; zeroed counters
+  for (int i = tid; i < nqb; i += kThreads) {
+    const long long g = base + qslot[i];
+    const long long r = cell_idx[g];
+    rows[i] = r;
+    for (int c = 0; c < 3; ++c) {
+      qs[c][i] = cell_xyz[3 * g + c];
+      qs[3 + c][i] = normals[3 * r + c];
+    }
+  }
+  for (int i = tid; i < nqb * kHist; i += kThreads) hist[i / kHist][i % kHist] = 0u;
+  __syncthreads();
+  const int nb = n_b, n_cand = bpre[nb];
+
+  // 4. stage the filled slots of the buckets and sweep them
+  for (int s0 = 0; s0 < n_cand; s0 += kStage) {
+    const int n = min(kStage, n_cand - s0);
+    for (int j = tid; j < n; j += kThreads) {
+      const long long g = stage_index(s0 + j, bpre, bfirst, nb);
+      const long long r = cell_idx[g];
+      pos[j] = make_float4(cell_xyz[3 * g], cell_xyz[3 * g + 1],
+                           cell_xyz[3 * g + 2], 0.f);
+      nrm[j] = make_float4(normals[3 * r], normals[3 * r + 1],
+                           normals[3 * r + 2], 0.f);
     }
     __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < n; ++j) {
-      if (cand[6][j] == 0.f) continue;
-      int bt, ba, bp;
-      if (pair_bins(px, py, pz, n1x, n1y, n1z, cand[0][j], cand[1][j],
-                    cand[2][j], cand[3][j], cand[4][j], cand[5][j], r2, &bt,
-                    &ba, &bp)) {
-        hist[bt][tid] += 1u;
-        hist[ba][tid] += 1u;
-        hist[bp][tid] += 1u;
-        hist[3 * kBins][tid] += 1u;
-      }
-    }
+    sweep_stage(qs, nqb, pos, nrm, n, queue, hist, r2, r2_hi);
+    __syncthreads();  // the stage is read by no one any more
   }
-  if (!active) return;
-  const float total = static_cast<float>(hist[3 * kBins][tid]);
-  const float scale = total > 0.f ? 100.f / fmaxf(total, 1.f) : 0.f;
-  float* out = hist_out + qrow * (3 * kBins);
-#pragma unroll
-  for (int k = 0; k < 3 * kBins; ++k) {
-    out[k] = static_cast<float>(hist[k][tid]) * scale;
-  }
-  total_out[qrow] = total;
+
+  // 5. scale each row to sum 100, written at the slot's point index
+  write_rows(hist, nqb, 0, rows, hist_out, total_out);
 }
 
 }  // namespace
@@ -495,16 +579,27 @@ extern "C" int mm_spfh_shared(const float* q_xyz, const float* q_nrm, int nq,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Per-cell mode. q_xyz, q_nrm (b, cq, 3) f32; c_xyz, c_nrm (b, m, 3) f32,
-// c_ok (b, m) bool: batch i's queries see batch i's candidates.
-// hist_out (b, cq, 33) f32, total_out (b, cq) f32.
+// Grid mode, one cloud. The grid of ops/grid.py:build_grid, h = gx gy gz
+// buckets of cap slots: cell_xyz (h, cap, 3) f32, cell_idx (h, cap) i64 the
+// point index of each slot, count (h,) i32 its filled slots (slots
+// [0, count) hold points); q_ok (h, cap) bool the needed slots; active
+// (n_active,) i32 the buckets that hold one; normals (p, 3) f32 by point
+// index. Writes the needed slots' rows of hist_out (p, 33) f32 and
+// total_out (p,) f32, and no other row.
 // Returns cudaGetLastError() after the launch.
-extern "C" int mm_spfh_cell(const float* q_xyz, const float* q_nrm, int cq,
-                            int b, const float* c_xyz, const float* c_nrm,
-                            const unsigned char* c_ok, int m, float r2,
-                            float* hist_out, float* total_out, void* stream) {
-  const dim3 grid(b, (cq + kCellThreads - 1) / kCellThreads);
-  spfh_cell_kernel<<<grid, kCellThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      q_xyz, q_nrm, cq, c_xyz, c_nrm, c_ok, m, r2, hist_out, total_out);
+extern "C" int mm_spfh_grid(const float* cell_xyz, const long long* cell_idx,
+                            const int* count, const unsigned char* q_ok,
+                            const int* active, int n_active, int cap, int gx,
+                            int gy, int gz, const float* normals, float r2,
+                            float r2_hi, float* hist_out, float* total_out,
+                            void* stream) {
+  const int groups = (cap + kGridGroup - 1) / kGridGroup;
+  if (n_active < 1 || cap < 1 || groups > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(n_active, groups);
+  spfh_grid_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      cell_xyz, cell_idx, count, q_ok, active, cap, gx, gy, gz, normals, r2,
+      r2_hi, hist_out, total_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,7 +42,10 @@ SOURCES = {
             _vp, _vp, _ci, _ci, _vp, _vp, _vp, _ci, _cf, _cf, _cf, _vp, _vp, _vp,
             _vp, _vp,
         ],
-        "mm_spfh_cell": [_vp, _vp, _ci, _ci, _vp, _vp, _vp, _ci, _cf, _vp, _vp, _vp],
+        "mm_spfh_grid": [
+            _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _vp, _cf, _cf, _vp,
+            _vp, _vp,
+        ],
     },
 }
 

@@ -7,12 +7,14 @@ plus a pair count; each row is scaled to sum 100. The math is that of the
 plain/XLA path of the reference (`fpfh._spfh_dense`): atan2 theta and
 floor-and-clip binning. See csrc/spfh.cu for what bounds the kernel.
 
-Candidates come with a leading dimension Bc in {1, B}: Bc = 1 is the
-shared-candidate mode of the dense FPFH sweep (every query sees the same
-cloud); Bc = B is the per-cell mode of the grid engine (fpfh._spfh_grid:
-one batch per bucket, Cq = 128 slots against M = 27 x 128 candidates, B a
-grid_query chunk of 151 buckets; B x M <= PAIRS_PER_CHUNK / Cq = 2^26 / Cq
-stays far inside the size guard below).
+Two entries. `spfh_tile` is the shared-candidate mode of the dense FPFH
+sweep: (B, Cq) queries, every one against the same candidate cloud (Bc = 1).
+`spfh_grid` is the grid engine's sweep (fpfh._spfh_grid): the needed slots
+of a cloud's cell grid (ops/grid.py) against the filled slots of the 27
+wrapped neighbour buckets of their own, one launch per cloud, rows written
+in point order. `spfh_ref` keeps the per-bucket form (Bc = B, batch i's
+queries against batch i's candidates), which the grid entry's plain version
+runs over grid_query's blocks.
 
 In shared mode the launch first bins the ok candidates by cell on the
 card (csrc/spfh.cu: count, scan, scatter): cells of edge r (1 + 1e-3),
@@ -26,12 +28,14 @@ r = 0.8 m); a collision only adds candidates that fail the radius test.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from mapmerge_torch.kernels import build
 from mapmerge_torch.ops.descriptors.darboux import bin_index, pair_features
+from mapmerge_torch.ops.grid import CellGrid, grid_query
 
 _BINS = 11
 _PI = 3.141592653589793
@@ -43,6 +47,8 @@ _TABLE = 1 << 15
 _CELL_MARGIN = 1.0 + 1e-3
 #: most queries a block of the shared sweep takes (csrc/spfh.cu: kGroupMax)
 _GROUP_MAX = 64
+#: queries a block of the grid sweep takes (csrc/spfh.cu: kGridGroup)
+_GRID_GROUP = 32
 #: squared-radius margin of the kernel's first distance test; a pair whose
 #: rounded sqrt passes r2 has d2 <= r2 (1 + 2.4e-7)
 _R2_MARGIN = 1.0 + 1e-5
@@ -64,8 +70,9 @@ def spfh_tile(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """SPFH histograms ((B, Cq, 33) float32, pair counts (B, Cq) float32).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    A CPU tensor takes the plain version (either candidate batch, Bc in
+    {1, B}); a CUDA tensor launches the shared-candidate kernel (Bc = 1) or
+    raises."""
     if q_xyz.device.type == "cpu":
         return spfh_ref(q_xyz, q_nrm, cand_xyz, cand_nrm, cand_ok, r2)
     if q_xyz.device.type != "cuda":
@@ -73,46 +80,115 @@ def spfh_tile(
     dev = q_xyz.device
     b, cq = q_xyz.shape[0], q_xyz.shape[1]
     bc, m = cand_xyz.shape[0], cand_xyz.shape[1]
+    if bc != 1:
+        raise ValueError(
+            f"spfh_tile: candidate batch {bc}; the kernel takes one candidate "
+            "cloud (Bc = 1); per-bucket candidates go through spfh_grid"
+        )
     f32 = torch.float32
     build.require("q_xyz", q_xyz, f32, (b, cq, 3), dev)
     build.require("q_nrm", q_nrm, f32, (b, cq, 3), dev)
-    build.require("cand_xyz", cand_xyz, f32, (bc, m, 3), dev)
-    build.require("cand_nrm", cand_nrm, f32, (bc, m, 3), dev)
-    build.require("cand_ok", cand_ok, torch.bool, (bc, m), dev)
-    if bc not in (1, b):
-        raise ValueError(f"spfh_tile: candidate batch {bc} is neither 1 nor {b}")
+    build.require("cand_xyz", cand_xyz, f32, (1, m, 3), dev)
+    build.require("cand_nrm", cand_nrm, f32, (1, m, 3), dev)
+    build.require("cand_ok", cand_ok, torch.bool, (1, m), dev)
     hist = torch.empty((b, cq, 3 * _BINS), dtype=f32, device=dev)
     total = torch.empty((b, cq), dtype=f32, device=dev)
-    if cq >= 128 * 65535 or max(bc * m, b * cq) >= 2**31 // 3:
+    if max(m, b * cq) >= 2**31 // 3:
         raise ValueError(f"spfh_tile: unsupported sizes B={b} Cq={cq} M={m}")
     if b * cq == 0:
         return hist, total
     lib = build.load()
-    stream = build.stream_handle(dev)
+    # one group of rows per block: one keypoint's neighbours where Cq holds
+    # them, all within r of the keypoint
+    group = -(-cq // -(-cq // _GROUP_MAX))
     with torch.cuda.device(dev):
-        if bc == 1:
-            # one group of rows per block: one keypoint's neighbours where
-            # Cq holds them, all within r of the keypoint
-            group = -(-cq // -(-cq // _GROUP_MAX))
-            # bucket counts, starts, cursors and each candidate's bucket;
-            # the candidates gathered by bucket
-            ints = torch.empty((3 * _TABLE + 1 + m,), dtype=torch.int32, device=dev)
-            gathered = torch.empty((2, m, 4), dtype=f32, device=dev)
-            err = lib.mm_spfh_shared(
-                q_xyz.data_ptr(), q_nrm.data_ptr(), b * cq, group,
-                cand_xyz.data_ptr(), cand_nrm.data_ptr(), cand_ok.data_ptr(),
-                m, math.sqrt(r2) * _CELL_MARGIN, float(r2),
-                float(r2) * _R2_MARGIN, ints.data_ptr(), gathered.data_ptr(),
-                hist.data_ptr(), total.data_ptr(), stream,
-            )
-        else:
-            err = lib.mm_spfh_cell(
-                q_xyz.data_ptr(), q_nrm.data_ptr(), cq, b,
-                cand_xyz.data_ptr(), cand_nrm.data_ptr(), cand_ok.data_ptr(),
-                m, float(r2), hist.data_ptr(), total.data_ptr(), stream,
-            )
+        # bucket counts, starts, cursors and each candidate's bucket; the
+        # candidates gathered by bucket
+        ints = torch.empty((3 * _TABLE + 1 + m,), dtype=torch.int32, device=dev)
+        gathered = torch.empty((2, m, 4), dtype=f32, device=dev)
+        err = lib.mm_spfh_shared(
+            q_xyz.data_ptr(), q_nrm.data_ptr(), b * cq, group,
+            cand_xyz.data_ptr(), cand_nrm.data_ptr(), cand_ok.data_ptr(),
+            m, math.sqrt(r2) * _CELL_MARGIN, float(r2),
+            float(r2) * _R2_MARGIN, ints.data_ptr(), gathered.data_ptr(),
+            hist.data_ptr(), total.data_ptr(), build.stream_handle(dev),
+        )
     KERNEL.launches += 1
     build.check_launch(KERNEL, err)
+    return hist, total
+
+
+def spfh_grid(
+    grid: CellGrid,
+    q_ok: torch.Tensor,  # (H, C) bool
+    normals: torch.Tensor,  # (P, 3)
+    r2: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """SPFH at the needed slots of a cloud's cell grid, in point order:
+    ((P, 33) float32 histograms, (P,) float32 pair counts).
+
+    `grid` is the cloud's grid (ops/grid.build_grid: slot s of bucket h
+    holds point cell_idx[h, s] where s < count[h]); `q_ok` marks the needed
+    slots (ops/grid.masked_query_grid's cell_ok, a subset of the filled
+    ones); `normals` are the cloud's, by point index. Each needed slot is
+    swept against the filled slots of the distinct wrapped neighbour
+    buckets of its bucket. Rows of points in no needed slot are zero.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (one launch; none when no slot is needed) or raises."""
+    if normals.device.type == "cpu":
+        return spfh_grid_ref(grid, q_ok, normals, r2)
+    if normals.device.type != "cuda":
+        raise ValueError(f"spfh_grid: unsupported device {normals.device}")
+    dev = normals.device
+    h, cap = grid.cell_idx.shape
+    p = normals.shape[0]
+    gx, gy, gz = grid.dims
+    build.require("cell_xyz", grid.cell_xyz, torch.float32, (h, cap, 3), dev)
+    build.require("cell_idx", grid.cell_idx, torch.int64, (h, cap), dev)
+    build.require("count", grid.count, torch.int32, (h,), dev)
+    build.require("q_ok", q_ok, torch.bool, (h, cap), dev)
+    build.require("normals", normals, torch.float32, (p, 3), dev)
+    if gx * gy * gz != h or 3 * h * cap >= 2**31 or cap > _GRID_GROUP * 65535:
+        raise ValueError(f"spfh_grid: unsupported grid H={h} C={cap} dims={grid.dims}")
+    hist = torch.zeros((p, 3 * _BINS), dtype=torch.float32, device=dev)
+    total = torch.zeros((p,), dtype=torch.float32, device=dev)
+    # the buckets that hold a needed slot (one host read)
+    active = torch.nonzero(q_ok.any(dim=1)).flatten().to(torch.int32)
+    if active.numel() == 0:
+        return hist, total
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = lib.mm_spfh_grid(
+            grid.cell_xyz.data_ptr(), grid.cell_idx.data_ptr(),
+            grid.count.data_ptr(), q_ok.data_ptr(), active.data_ptr(),
+            active.numel(), cap, gx, gy, gz, normals.data_ptr(), float(r2),
+            float(r2) * _R2_MARGIN, hist.data_ptr(), total.data_ptr(),
+            build.stream_handle(dev),
+        )
+    KERNEL.launches += 1
+    build.check_launch(KERNEL, err)
+    return hist, total
+
+
+def spfh_grid_ref(
+    grid: CellGrid, q_ok: torch.Tensor, normals: torch.Tensor, r2: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of spfh_grid: grid_query over the needed
+    slots' buckets, each block through spfh_ref's per-bucket form (the
+    candidates of ops/grid._candidates, wrapped duplicates masked)."""
+    qg = dataclasses.replace(
+        grid, cell_ok=q_ok, count=q_ok.sum(dim=1).to(torch.int32)
+    )
+
+    def tile_fn(q_block, cand_xyz, cand_ok, cand_idx, q_nrm, cand_nrm):
+        return spfh_ref(q_block, q_nrm, cand_xyz, cand_nrm, cand_ok, r2)
+
+    # with qg given, grid_query reads only the row count of its first operand
+    (hist, total), _ = grid_query(
+        normals, grid, tile_fn, (0.0, 0.0), q_values=normals,
+        p_values=normals, qg=qg,
+    )
     return hist, total
 
 

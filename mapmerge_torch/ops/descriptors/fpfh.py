@@ -13,10 +13,9 @@ Two engines, dispatched as every neighbour op (ops/neighbors.py):
 - grid: one grid of the valid surface at the descriptor radius serves the
   keypoint neighbourhoods (small-Q path) and the SPFH sweep. The sweep
   computes each needed point's SPFH once (the deduplicated union of the
-  neighbourhoods), bucket by bucket through the kernel's per-cell mode on
-  the blocks grid_query hands out, and only over the buckets that hold a
-  needed point. Bucket overflow is the only cap, counted by the feature
-  stage's probe.
+  neighbourhoods) through the kernel's grid entry, one launch per cloud that
+  reads the grid in place and sweeps only the needed slots. Bucket overflow
+  is the only cap, counted by the feature stage's probe.
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ import torch
 from mapmerge_torch.core.cloud import PointCloud
 from mapmerge_torch.kernels import spfh as spfh_kernel
 from mapmerge_torch.ops.descriptors.base import Descriptors, keypoint_neighborhoods
-from mapmerge_torch.ops.grid import build_grid, grid_query, masked_query_grid
+from mapmerge_torch.ops.grid import build_grid, masked_query_grid
 from mapmerge_torch.ops.keypoints import Keypoints
 from mapmerge_torch.ops.neighbors import _resolve_engine
 from mapmerge_torch.ops.normals import SurfaceNormals
@@ -64,24 +63,14 @@ def _spfh_grid(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """SPFH (P, 33) at every cloud point flagged `needed` + pair counts (P,).
 
-    `grid` is the cloud's valid surface at `radius`; the query grid is
+    `grid` is the cloud's valid surface at `radius`; the query slots are
     derived from it by masking (the queries are its own points), so the
-    stage sorts the cloud once. Each chunk of buckets goes to the kernel's
-    per-cell mode as grid_query hands it out: (B, Cq) query slots against
-    each bucket's (B, 27 C) candidates."""
+    stage sorts the cloud once. The kernel's grid entry sweeps those slots
+    against the grid in one launch."""
     qg = masked_query_grid(grid, needed & cloud.mask & normals.valid, cloud.capacity)
-    r2 = float(radius) * float(radius)
-
-    def tile_fn(q_block, cand_xyz, cand_ok, cand_idx, q_nrm, cand_nrm):
-        return spfh_kernel.spfh_tile(
-            q_block, q_nrm, cand_xyz, cand_nrm, cand_ok, r2=r2
-        )
-
-    nrm = normals.normals
-    (spfh, total), _ = grid_query(
-        cloud.xyz, grid, tile_fn, (0.0, 0.0), q_values=nrm, p_values=nrm, qg=qg,
+    return spfh_kernel.spfh_grid(
+        grid, qg.cell_ok, normals.normals.contiguous(), float(radius) * float(radius)
     )
-    return spfh, total
 
 
 def compute_fpfh(

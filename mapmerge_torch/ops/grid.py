@@ -26,7 +26,10 @@ float32 plane). Instead one host read (`nonzero`) selects the buckets that
 hold a query; they go through `tile_fn` in chunks of at most
 `PAIRS_PER_CHUNK` (query, candidate) pairs, and each chunk's rows are
 scattered back to query order through a sacrificial row `nq`, where the
-unused slots land (the only repeated index of the scatter).
+unused slots land (the only repeated index of the scatter). It serves the
+plain tile_fns of the radius ops and the 1-NN; FPFH's SPFH sweep reads the
+grid in place in one kernel launch (kernels/spfh.spfh_grid), and only its
+plain version goes through grid_query.
 
 Every sum adds in a fixed order (dense reductions, bmm) and every scatter
 writes distinct rows apart from the discarded sacrificial one, so a query
@@ -48,7 +51,8 @@ BIG = 1.0e12
 #: neighbour blocks directly (the small-Q paths) instead of sweeping cells
 SMALL_Q_THRESHOLD = 4096
 #: (query, candidate) pairs per grid_query chunk: one float32 plane of such
-#: a chunk is 256 MB, and the heaviest tile_fn (moments) holds ~10 of them
+#: a chunk is 256 MB, and the heaviest plain tile_fn (moments) holds ~10 of
+#: them (the SPFH kernel holds no plane and takes no chunks)
 PAIRS_PER_CHUNK = 1 << 26
 
 #: the 27 neighbour-cell offsets, x fastest (the reference's _OFFSETS)

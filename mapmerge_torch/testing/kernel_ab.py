@@ -7,17 +7,23 @@ inputs, on one card, for a before/after comparison.
 `record` drives config #1 and the registry sweep's FPFH + SAC_IA path
 (chip_smoke.py's scenes and parameters) through this checkout and saves the
 arguments of each kernel's first launch in each, beside chip_smoke.py's
-synthetic inputs. `time` imports `mapmerge_torch.kernels` from the checkout
-at ROOT (this one, or an earlier commit unpacked with `git archive` into a
-directory that .gitignore lists), holds each kernel against that
-checkout's plain version bit for bit on every saved input, and prints one
-JSON line: the card, and per input three medians of 20 timed calls (CUDA
-events around the wrapper, after 3 warm-up calls). Compare in one process
-order on one card: parent, change, change, parent.
+synthetic inputs; it also saves the inputs of the FPFH stage's grid sweep
+on eval config #2's first view (the cloud, its normals, the needed points,
+the radius and the bucket cap). `time` imports `mapmerge_torch` from the
+checkout at ROOT (this one, or an earlier commit unpacked with `git archive`
+into a directory that .gitignore lists), holds each kernel against that
+checkout's plain version bit for bit on every saved input, builds that
+checkout's grid of the config #2 view outside the timing and times its
+`fpfh._spfh_grid` on it, and prints one JSON line: the card, and per input
+three medians of 20 timed calls (CUDA events around the call, after 3
+warm-up calls), with a digest of the grid sweep's rows so that two
+checkouts can be seen to agree bit for bit. Compare in one process order on
+one card: parent, change, change, parent.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -84,8 +90,70 @@ def record(out: Path) -> None:
         cs._spfh_inputs(g, dev, cs.SPFH_B, cs.SPFH_CQ, 1, cs.SPFH_M),
         {"r2": cs.DESC_R2},
     )
+    inputs["fpfh grid config #2"] = record_config2_sweep(cs, dev)
     torch.save(inputs, out)
     print(f"recorded {sorted(inputs)} to {out}")
+
+
+def record_config2_sweep(cs, dev) -> tuple:
+    """The arguments of fpfh._spfh_grid's first call in the feature stage
+    of eval config #2's first view, as tensors: ((xyz, rgb, mask, normals,
+    curvature, valid, needed), {"radius", "cap"})."""
+    from mapmerge_torch.core.cloud import PointCloud
+    from mapmerge_torch.ops.descriptors import fpfh
+    from mapmerge_torch.pipeline.features import extract_features
+    from mapmerge_torch.testing import scene
+
+    views, _ = scene.town_views(cs.CONFIG2_MAPS, cs.CONFIG2_VIEW_TARGET)
+    cloud = PointCloud.from_numpy(*views[0], capacity=cs.CONFIG2_CAP, device=dev)
+    seen = []
+
+    def make(fn):
+        def wrapper(cloud, normals, needed, radius, grid):
+            if not seen:
+                seen.append((
+                    tuple(a.clone() for a in (
+                        cloud.xyz, cloud.rgb, cloud.mask, normals.normals,
+                        normals.curvature, normals.valid, needed,
+                    )),
+                    {"radius": float(radius), "cap": grid.cap},
+                ))
+            return fn(cloud, normals, needed, radius, grid)
+
+        return wrapper
+
+    with cs.patched({(fpfh, "_spfh_grid"): make}):
+        extract_features(cloud, cs.config2_params())
+    return seen[0]
+
+
+def time_config2_sweep(args, kwargs) -> dict:
+    """The checkout's grid sweep of one config #2 cloud: its grid built
+    outside the timing, as compute_fpfh builds it."""
+    from mapmerge_torch.core.cloud import PointCloud
+    from mapmerge_torch.ops.descriptors import fpfh
+    from mapmerge_torch.ops.grid import build_grid
+    from mapmerge_torch.ops.normals import SurfaceNormals
+
+    xyz, rgb, mask, nrm, curv, valid, needed = args
+    cloud = PointCloud(xyz=xyz, rgb=rgb, mask=mask)
+    normals = SurfaceNormals(normals=nrm, curvature=curv, valid=valid)
+    radius = kwargs["radius"]
+    grid = build_grid(xyz, mask & valid, radius, None, kwargs["cap"])
+
+    def sweep():
+        return fpfh._spfh_grid(cloud, normals, needed, radius, grid)
+
+    hist, total = sweep()
+    digest = hashlib.sha256(hist.cpu().numpy().tobytes())
+    digest.update(total.cpu().numpy().tobytes())
+    return {
+        "shape": f"{xyz.shape[0]} points, {int(needed.sum())} needed, grid "
+                 f"{tuple(grid.cell_idx.shape)}",
+        "rows_digest": digest.hexdigest()[:16],
+        "counted_pairs": int(total.to(torch.int64).sum()),
+        "ms": [time_ms(sweep) for _ in range(3)],
+    }
 
 
 def time_root(inputs_path: Path, root: Path) -> None:
@@ -99,6 +167,9 @@ def time_root(inputs_path: Path, root: Path) -> None:
     inputs = torch.load(inputs_path, map_location=f"cuda:{torch.cuda.current_device()}")
     result = {"root": str(root), "card": card, "kernels": {}}
     for name, (args, kwargs) in sorted(inputs.items()):
+        if name.startswith("fpfh grid"):
+            result["kernels"][name] = time_config2_sweep(args, kwargs)
+            continue
         kernel, ref = (
             (nn.nearest_neighbor, nn.nearest_neighbor_ref)
             if name.startswith("nn") else (spfh.spfh_tile, spfh.spfh_ref)
@@ -111,7 +182,7 @@ def time_root(inputs_path: Path, root: Path) -> None:
             "ms": [time_ms(lambda: kernel(*args, **kwargs)) for _ in range(3)],
         }
     print(json.dumps(result))
-    if not all(k["exact"] for k in result["kernels"].values()):
+    if not all(k.get("exact", True) for k in result["kernels"].values()):
         raise SystemExit("kernel_ab: a kernel disagrees with its plain version")
 
 

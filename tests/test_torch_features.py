@@ -3,6 +3,8 @@ SPFH version of kernel B (kernels/spfh.py: spfh_ref) against the Pallas
 kernel in interpret mode and against the reference's `_spfh_dense`, and
 FPFH-33, each against mapmerge_tpu on the same inputs."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from mapmerge_tpu.ops.outliers import remove_outliers as j_outliers
 from mapmerge_tpu.pallas.spfh import spfh_tile_pallas
 from mapmerge_torch import convert
 from mapmerge_torch.kernels import spfh as kspfh
+from mapmerge_torch.ops import grid as tg
 from mapmerge_torch.ops.descriptors import darboux as td
 from mapmerge_torch.ops.descriptors.fpfh import _spfh_dense as t_spfh_dense
 from mapmerge_torch.ops.descriptors.fpfh import compute_fpfh as t_fpfh
@@ -25,6 +28,7 @@ from mapmerge_torch.ops.keypoints import Keypoints
 from mapmerge_torch.ops.keypoints.sift import detect_keypoints_sift as t_sift
 from mapmerge_torch.ops.normals import SurfaceNormals
 
+from test_torch_kernels import _grid_case
 from torch_parity import SLICE_PARAMS, both_clouds, small_scene, t
 
 
@@ -118,6 +122,17 @@ class TestSpfhRef:
         with pytest.raises(ValueError, match="unsupported device"):
             kspfh.spfh_tile(*(a.to("meta") for a in case), r2=0.64)
 
+    def test_grid_wrapper_takes_plain_version_only_on_cpu(self):
+        grid, q_ok, nrm = _grid_case(seed=12, n=3000, extent=4.0, needed=0.05)
+        before = kspfh.KERNEL.launches
+        h, tot = kspfh.spfh_grid(grid, q_ok, nrm, r2=0.64)
+        ref = kspfh.spfh_grid_ref(grid, q_ok, nrm, r2=0.64)
+        assert kspfh.KERNEL.launches == before
+        assert torch.equal(tot, ref[1]) and torch.equal(h, ref[0])
+        assert h.shape == (3000, 33) and bool((tot > 0).any())
+        with pytest.raises(ValueError, match="unsupported device"):
+            kspfh.spfh_grid(grid, q_ok, nrm.to("meta"), r2=0.64)
+
     def test_matches_reference_spfh_dense(self, surface):
         """The port's _spfh_dense (through spfh_ref) against the reference's
         XLA branch on a real surface: the same math, so pair counts match
@@ -140,6 +155,57 @@ class TestSpfhRef:
         assert tok.all()
         bad = np.abs(th - np.asarray(jh)).max(axis=1) > 1e-3
         assert bad.mean() <= 0.01, f"{bad.sum()} rows differ"
+
+
+class TestSpfhGrid:
+    """The plain version of kernel B's grid entry (kernels/spfh.py:
+    spfh_grid_ref), which the CPU path of fpfh._spfh_grid runs."""
+
+    def test_plain_version_is_grid_query_over_spfh_ref(self):
+        """Bit for bit the composition that served the grid sweep before it
+        had its own entry: grid_query over the masked query grid, spfh_ref
+        per bucket. A sparse needed set and a bucket over the cap."""
+        grid, q_ok, nrm = _grid_case(seed=13, n=6000, extent=8.0, dense=300,
+                                     needed=0.02, forced=4)
+        assert int(grid.raw_max) > grid.cap
+        assert int(q_ok.any(dim=1).sum()) < grid.count.numel() // 10
+        qg = dataclasses.replace(grid, cell_ok=q_ok,
+                                 count=q_ok.sum(dim=1).to(torch.int32))
+
+        def tile_fn(q_block, cand_xyz, cand_ok, cand_idx, q_nrm, cand_nrm):
+            return kspfh.spfh_ref(q_block, q_nrm, cand_xyz, cand_nrm, cand_ok, 0.64)
+
+        (want_h, want_t), _ = tg.grid_query(
+            grid.cell_xyz.new_zeros((nrm.shape[0], 3)), grid, tile_fn,
+            (0.0, 0.0), q_values=nrm, p_values=nrm, qg=qg,
+        )
+        got_h, got_t = kspfh.spfh_grid(grid, q_ok, nrm, r2=0.64)
+        assert torch.equal(got_t, want_t) and torch.equal(got_h, want_h)
+        assert int((got_t > 0).sum()) == int(q_ok.sum())
+
+    @pytest.mark.parametrize("dims", [(2, 1, 2), (1, 2, 1), (1, 1, 1)])
+    def test_wrapped_neighbour_ids_count_once(self, dims):
+        """On an axis of 1 or 2 cells the 27 neighbour ids repeat; each
+        bucket's points still count once: pair counts equal the dense sweep
+        over the whole cloud exactly (histograms to 1e-3 but for <= 1% of
+        rows, the CPU atan2 rounding of test_spfh_grid_matches_reference)."""
+        grid, q_ok, nrm = _grid_case(seed=9, n=400, extent=2.0, cap=512,
+                                     dims=dims, needed=0.3)
+        assert int(grid.overflow) == 0
+        h, tot = kspfh.spfh_grid(grid, q_ok, nrm, r2=0.64)
+        slots = grid.cell_idx[q_ok]
+        pts = grid.cell_xyz.new_full((nrm.shape[0], 3), 1.0e8)
+        pts[grid.cell_idx[grid.cell_ok]] = grid.cell_xyz[grid.cell_ok]
+        ok = torch.zeros_like(tot, dtype=torch.bool)
+        ok[grid.cell_idx[grid.cell_ok]] = True
+        dh, dt = kspfh.spfh_ref(pts[slots][None], nrm[slots][None], pts[None],
+                                nrm[None], ok[None], 0.64)
+        assert torch.equal(tot[slots], dt[0]) and bool((dt > 0).all())
+        bad = (h[slots] - dh[0]).abs().amax(dim=1) > 1e-3
+        assert float(bad.float().mean()) <= 0.01, f"{int(bad.sum())} rows differ"
+        rest = torch.ones_like(ok)
+        rest[slots] = False
+        assert not bool(tot[rest].any())
 
 
 class TestSift:

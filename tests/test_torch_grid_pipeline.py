@@ -1,5 +1,5 @@
 """The port's pipeline on the cell-grid engine against the JAX package's:
-FPFH's grid branch (its SPFH sweep through the kernel's per-cell mode, here
+FPFH's grid branch (its SPFH sweep through the kernel's grid entry, here
 its plain version), every descriptor's keypoint neighbourhoods, Harris +
 FPFH through extract_features, a two-map merge, and the town fixture of
 eval config #2.

@@ -86,23 +86,45 @@ def test_nn_kernel_rejects_bad_operands(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shared", [True, False])
 def test_spfh_kernel_matches_plain_version(cuda, shared):
+    """Shared mode on one candidate cloud; grid mode (shared=False) on a
+    cell grid of the same kind of points."""
     g = torch.Generator(device=cuda).manual_seed(1)
+    if not shared:
+        grid, q_ok, nrm = _grid_case(seed=1, n=4000, extent=2.0, needed=0.2,
+                                     radius=0.6, device=cuda)
+        before = kspfh.KERNEL.launches
+        h, tot = kspfh.spfh_grid(grid, q_ok, nrm, r2=0.36)
+        assert kspfh.KERNEL.launches == before + 1
+        rh, rtot = kspfh.spfh_grid_ref(grid, q_ok, nrm, r2=0.36)
+        assert torch.equal(tot, rtot) and bool((tot > 0).any())
+        assert float((h - rh).abs().max()) <= 1e-4
+        return
     b, cq, m = 6, 40, 700
-    bc = 1 if shared else b
-    cand = torch.rand((bc, m, 3), generator=g, device=cuda) * 2
+    cand = torch.rand((1, m, 3), generator=g, device=cuda) * 2
     nrm = torch.nn.functional.normalize(
-        torch.randn((bc, m, 3), generator=g, device=cuda), dim=-1
+        torch.randn((1, m, 3), generator=g, device=cuda), dim=-1
     )
-    ok = torch.rand((bc, m), generator=g, device=cuda) > 0.2
+    ok = torch.rand((1, m), generator=g, device=cuda) > 0.2
     pick = torch.randint(0, m, (b, cq), generator=g, device=cuda)
-    src = 0 if shared else torch.arange(b, device=cuda)[:, None]
-    args = (cand[src, pick], nrm[src, pick], cand, nrm, ok)
+    args = (cand[0, pick], nrm[0, pick], cand, nrm, ok)
     before = kspfh.KERNEL.launches
     h, tot = kspfh.spfh_tile(*args, r2=0.36)
     assert kspfh.KERNEL.launches == before + 1
     rh, rtot = kspfh.spfh_ref(*args, r2=0.36)
     assert torch.equal(tot, rtot)
     assert float((h - rh).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_spfh_tile_takes_one_candidate_cloud_on_the_card(cuda):
+    """Per-bucket candidates (Bc = B) have no kernel behind spfh_tile: the
+    grid engine's sweep goes through spfh_grid."""
+    args = _spfh_case(seed=7, b=6, cq=50, m=900, extent=2.0, per_cell=True,
+                      device=cuda)
+    before = kspfh.KERNEL.launches
+    with pytest.raises(ValueError, match="spfh_grid"):
+        kspfh.spfh_tile(*args, r2=0.64)
+    assert kspfh.KERNEL.launches == before
 
 
 def _spfh_case(seed, b, cq, m, extent, dense=0, far=0.0, masked=False,
@@ -140,7 +162,6 @@ SPFH_EDGES = {
     # one cell far denser than one shared-memory stage (512)
     "dense_cell": dict(seed=5, b=16, cq=48, m=5000, extent=3.0, dense=3000),
     "ragged_group": dict(seed=6, b=5, cq=100, m=4000, extent=3.0),
-    "per_cell": dict(seed=7, b=6, cq=50, m=900, extent=2.0, per_cell=True),
 }
 
 
@@ -198,47 +219,68 @@ def test_spfh_cell_hash_covers_every_in_radius_pair(case):
         assert len(np.unique(live, axis=0)) > len(np.unique(_buckets(live)))
 
 
-@pytest.mark.cuda
-def test_spfh_per_cell_mode_on_grid_blocks_bit_exact(cuda):
-    """Per-cell mode on the blocks the grid engine hands it (fpfh._spfh_grid):
-    Cq = 128 slots against M = 27 x 128 candidates per bucket, a sparse
-    needed set so most buckets hold no query and are never launched, empty
-    slots parked at FAR, and one bucket full to the cap (a dense cluster).
-    Bit for bit against the plain version."""
+def _grid_case(seed, n, extent, cap=128, dims=None, dense=0, needed=0.01,
+               forced=0, radius=0.8, device="cpu"):
+    """Seeded inputs of the grid sweep: n points on planes 3 m apart over
+    `extent` m, the first `dense` packed into one 0.3 m cube (more than
+    `cap` of them fill a bucket to the cap), 5% masked, a share `needed` of
+    the points and the first `forced` needed. Returns (grid at `radius`,
+    the needed slots, normals), as fpfh._spfh_grid hands them over."""
     from mapmerge_torch.ops import grid as tg
 
-    rng = np.random.default_rng(8)
-    n = 40000
-    xyz = rng.uniform(0, 12.0, (n, 3)).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(0, extent, (n, 3)).astype(np.float32)
     xyz[:, 2] = np.round(xyz[:, 2] / 3) * 3 + rng.normal(0, 0.01, n)
-    xyz[:400] = rng.uniform(2.0, 2.3, (400, 3))  # > 128 points in one cell
+    xyz[:dense] = rng.uniform(2.0, 2.3, (dense, 3))
     nrm = rng.normal(0, 0.2, (n, 3)).astype(np.float32)
     nrm[:, 2] += 1
     nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
     ok = rng.random(n) > 0.05
-    needed = (rng.random(n) < 0.01) | (np.arange(n) < 4)
-    xyz, nrm, ok, needed = (torch.from_numpy(a).to(cuda) for a in (xyz, nrm, ok, needed))
-    grid = tg.build_grid(xyz, ok, 0.8, None, 128)
-    qg = tg.masked_query_grid(grid, needed & ok, n)
-    assert int(grid.raw_max) > 128 and bool((grid.count == 128).any())
-    assert int((qg.count > 0).sum()) < grid.count.numel() // 4
-    blocks = []
+    need = rng.random(n) < needed
+    need[:forced] = True
+    xyz, nrm, ok, need = (torch.from_numpy(a).to(device) for a in (xyz, nrm, ok, need))
+    grid = tg.build_grid(xyz, ok, radius, dims, cap)
+    return grid, tg.masked_query_grid(grid, need & ok, n).cell_ok, nrm
 
-    def tile_fn(*args):
-        blocks.append([a.clone() for a in args])
-        return kspfh.spfh_tile(args[0], args[4], args[1], args[5], args[2], r2=0.64)
 
+GRID_CASES = {
+    # config #2's shape in small: a sparse needed set, so most buckets hold
+    # no needed slot, and one bucket full to the cap
+    "sparse_needed_full_bucket": dict(seed=8, n=40000, extent=12.0, dense=400,
+                                      needed=0.01, forced=4),
+    # an axis of 1 or 2 cells: the 27 wrapped neighbour ids repeat
+    "tiny_dims": dict(seed=9, n=400, extent=2.0, cap=512, dims=(2, 1, 2),
+                      needed=0.3),
+    # more needed slots in one bucket than a block takes: several blocks a
+    # bucket
+    "two_groups_a_bucket": dict(seed=10, n=3000, extent=6.0, cap=256,
+                                dense=300, needed=0.1, forced=200),
+    "all_unneeded": dict(seed=11, n=5000, extent=6.0, needed=0.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GRID_CASES))
+def test_spfh_grid_kernel_bit_exact(cuda, case):
+    """The grid sweep against its plain version (grid_query over spfh_ref's
+    per-bucket form) bit for bit: one launch, none where no slot is needed,
+    and zero rows at every point in no needed slot."""
+    grid, q_ok, nrm = _grid_case(**GRID_CASES[case], device=cuda)
     before = kspfh.KERNEL.launches
-    tg.grid_query(xyz, grid, tile_fn, (0.0, 0.0), q_values=nrm, p_values=nrm, qg=qg)
-    assert kspfh.KERNEL.launches - before == len(blocks) >= 1
-    full = 0
-    for q_block, cand_xyz, cand_ok, _, q_nrm, cand_nrm in blocks:
-        assert q_block.shape[1:] == (128, 3) and cand_xyz.shape[1:] == (27 * 128, 3)
-        assert bool((q_block == FAR).any())
-        full += int((q_block != FAR).all(-1).all(-1).sum())
-        args = (q_block, q_nrm, cand_xyz, cand_nrm, cand_ok)
-        h, tot = kspfh.spfh_tile(*args, r2=0.64)
-        rh, rtot = kspfh.spfh_ref(*args, r2=0.64)
-        assert torch.equal(tot, rtot) and torch.equal(h, rh)
-        assert bool((tot > 0).any())
-    assert full >= 1
+    h, tot = kspfh.spfh_grid(grid, q_ok, nrm, r2=0.64)
+    assert kspfh.KERNEL.launches == before + int(bool(q_ok.any()))
+    rh, rtot = kspfh.spfh_grid_ref(grid, q_ok, nrm, r2=0.64)
+    assert torch.equal(tot, rtot) and torch.equal(h, rh)
+    rows = torch.zeros_like(tot, dtype=torch.bool)
+    rows[grid.cell_idx[q_ok]] = True
+    assert not bool(tot[~rows].any()) and not bool(h[~rows].any())
+    if case == "all_unneeded":
+        assert not bool(q_ok.any())
+        return
+    assert bool((tot[rows] > 0).all())
+    per_bucket = q_ok.sum(dim=1)
+    if case == "sparse_needed_full_bucket":
+        assert int(grid.raw_max) > grid.cap and bool((grid.count == grid.cap).any())
+        assert int((per_bucket > 0).sum()) < grid.count.numel() // 4
+    if case == "two_groups_a_bucket":
+        assert int(per_bucket.max()) > 2 * kspfh._GRID_GROUP
