@@ -24,8 +24,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      SHOT and SC3D under MATCHING, FPFH and RSD under SAC_IA, each gated at
      1.5 deg / 0.15 m, with the descriptors' width and normalisation
      checked, the launches required, and 3 warm calls timed and required to
-     repeat the first run bit for bit (SHOT and SC3D excepted: their
-     fractional scatter-adds may round otherwise from run to run);
+     repeat the first run bit for bit;
   7. eval config #2 (bench_configs.py:250-303) at full size on the cell-grid
      engine: five views of one synthetic town, 1,150,172 points each, at
      capacity 2^21 with max_points 2^20, Harris + FPFH, all ten pairs and
@@ -39,6 +38,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      inputs; the stage-timed run logs each cloud's sweep: the buckets that
      hold a needed slot, the needed slots, the filled slots in those
      buckets, the candidates staged and the pairs counted.
+  8. the online node, stateless (runtime/node.MapMergeNode over an
+     InProcTransport) on config #1's views: one discovery, estimation and
+     compositing tick; the poses bit for bit those of estimate_maps_transforms
+     on the clouds the node builds (each view subsampled to max_points, as the
+     reference node does), gated at 1 deg / 0.1 m; both kernels launched;
+  9. the node in incremental mode on the same views, gated at 1 deg / 0.1 m,
+     nn launched, run twice and required to repeat bit for bit;
+  10. config5_big (bench_configs.py:678-788): 50 town views of 459,685 raw
+     points streamed into an incremental node (max_robots 64, capacity 2^19,
+     SIFT on the grid for octaves 0-1 and dense for octave 2, FPFH) five at a
+     time, each batch a discovery and an estimation tick, compositing once at
+     the end; gated at 45 of 50 maps registered, 40 adjacent pairs within 5
+     deg / 0.5 m, end-to-end drift under 0.5 deg / 0.25 m and more than 10,000
+     merged points; spfh launched once per feature extraction through
+     spfh_grid and held exactly on the first map's inputs; a second node runs
+     the first batch and must repeat the first tick's poses bit for bit; the
+     stage times, counters, peak memory, wall time and maps per minute are
+     printed.
 Each path runs with the launch counts reset just before it and read just
 after. On every path each kernel it launched is then held against its plain
 version on the inputs of its first launch in that run (the path's own
@@ -57,6 +74,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -556,9 +574,7 @@ def run_main_path(dev, kernels) -> dict:
 
 def warm_runs(clouds, params, first, label: str, reps: int = 5) -> list[float]:
     """Wall seconds of `reps` warm estimate_maps_transforms calls, each
-    required to give transforms bitwise equal to `first` unless that is
-    None (SHOT's and SC3D's fractional scatter-adds may round otherwise
-    from run to run)."""
+    required to give transforms bitwise equal to `first`."""
     from mapmerge_torch.pipeline.merging import estimate_maps_transforms
 
     walls = []
@@ -568,8 +584,7 @@ def warm_runs(clouds, params, first, label: str, reps: int = 5) -> list[float]:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         require(
-            first is None
-            or len(out) == len(first)
+            len(out) == len(first)
             and all(np.array_equal(a, b) for a, b in zip(out, first)),
             f"{label}: a repeat run gave other transforms than the first",
         )
@@ -730,8 +745,6 @@ SWEEP = (
     ("PFH", "MATCHING"), ("PFHRGB", "MATCHING"), ("SHOT", "MATCHING"),
     ("SC3D", "MATCHING"), ("FPFH", "SAC_IA"), ("RSD", "SAC_IA"),
 )
-#: fractional scatter-adds: not required to repeat bit for bit
-UNREPEATABLE = ("SHOT", "SC3D")
 
 
 def run_registry_sweep(dev, kernels) -> None:
@@ -766,12 +779,10 @@ def run_registry_sweep(dev, kernels) -> None:
             f = extract_features(pad_cloud(c, cap), params)
             check_descriptor_rows(label, desc, f.descriptors.data,
                                   f.descriptors.valid)
-        first = None if desc in UNREPEATABLE else out
-        walls = warm_runs(clouds, params, first, label, reps=3)
+        walls = warm_runs(clouds, params, out, label, reps=3)
         log(f"{label}: warm call s (3 reps): median {statistics.median(walls)}"
             f", min {min(walls)}, max {max(walls)}; descriptors well formed; "
-            + ("repeats not required (fractional scatter-adds)" if first is None
-               else "3 warm runs bitwise equal to the first"))
+            "3 warm runs bitwise equal to the first")
 
 
 def config2_params():
@@ -818,42 +829,44 @@ def golden_errors(transforms, golden) -> list:
     ]
 
 
-#: the stages timed in one run of config #2: (module, function, label)
-CONFIG2_STAGES = (
-    ("features", "voxel_downsample", "downsample"),
-    ("features", "overflow_probe", "probe"),
-    ("features", "remove_outliers", "outliers"),
-    ("features", "compute_surface_normals", "normals"),
-    ("features", "detect_keypoints", "Harris"),
-    ("features", "compute_descriptors", "FPFH"),
-    ("registration", "find_correspondences", "matching"),
-    ("registration", "ransac_transform", "RANSAC"),
-    ("registration", "icp_refine", "ICP"),
-    ("registration", "transform_score", "score"),
-    ("merging", "_solve_graph", "graph"),
-)
+def config2_stages():
+    """The stages timed in one run of config #2: (module, function, label)."""
+    from mapmerge_torch.pipeline import features, merging, registration
+
+    return (
+        (features, "voxel_downsample", "downsample"),
+        (features, "overflow_probe", "probe"),
+        (features, "remove_outliers", "outliers"),
+        (features, "compute_surface_normals", "normals"),
+        (features, "detect_keypoints", "Harris"),
+        (features, "compute_descriptors", "FPFH"),
+        (registration, "find_correspondences", "matching"),
+        (registration, "ransac_transform", "RANSAC"),
+        (registration, "icp_refine", "ICP"),
+        (registration, "transform_score", "score"),
+        (merging, "_solve_graph", "graph"),
+    )
 
 
 @contextlib.contextmanager
-def stage_recorder():
-    """Host ms of every stage of CONFIG2_STAGES, each call between two
-    synchronisations, summed over the clouds and pairs of one run; and the
-    counters of each cloud's features and each pair's estimate."""
-    from mapmerge_torch.pipeline import features, merging, registration
-
-    mods = {"features": features, "registration": registration,
-            "merging": merging}
-    rec = {"ms": {label: 0.0 for _, _, label in CONFIG2_STAGES},
-           "clouds": [], "pairs": []}
+def stage_recorder(stages, features_at, pairs_at):
+    """Host ms and calls of every stage of `stages` ((owner, attribute,
+    label); a label may be a function of the call's arguments), each call
+    between two synchronisations, summed over one run; and the counters of
+    each cloud's features (the calls of `features_at`, an (owner,
+    attribute)) and each pair's estimate (`pairs_at`)."""
+    rec = {"ms": {}, "calls": {}, "clouds": [], "pairs": []}
 
     def timed(label):
         def make(fn):
             def wrapper(*args, **kwargs):
+                name = label(*args, **kwargs) if callable(label) else label
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out = fn(*args, **kwargs)
                 torch.cuda.synchronize()
-                rec["ms"][label] += (time.perf_counter() - t0) * 1e3
+                rec["ms"][name] = rec["ms"].get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+                rec["calls"][name] = rec["calls"].get(name, 0) + 1
                 return out
 
             return wrapper
@@ -883,10 +896,21 @@ def stage_recorder():
 
         return wrapper
 
-    targets = {(mods[m], f): timed(label) for m, f, label in CONFIG2_STAGES}
-    targets[(merging, "extract_features")] = features_counters
-    targets[(merging, "estimate_transform")] = pair_counters
-    with patched(targets):
+    makes: dict = {}
+    for owner, attr, label in stages:
+        makes.setdefault((owner, attr), []).append(timed(label))
+    makes.setdefault(features_at, []).append(features_counters)
+    makes.setdefault(pairs_at, []).append(pair_counters)
+
+    def composed(fs):
+        def make(fn):
+            for f in fs:
+                fn = f(fn)
+            return fn
+
+        return make
+
+    with patched({key: composed(fs) for key, fs in makes.items()}):
         yield rec
 
 
@@ -956,7 +980,11 @@ def run_config2(dev, kernels) -> None:
 
         return wrapper
 
-    with stage_recorder() as rec, patched({(spfh, "spfh_grid"): keep}):
+    from mapmerge_torch.pipeline import merging
+
+    recorder = stage_recorder(config2_stages(), (merging, "extract_features"),
+                              (merging, "estimate_transform"))
+    with recorder as rec, patched({(spfh, "spfh_grid"): keep}):
         staged = estimate_maps_transforms(clouds, params, seed=0)
     for label, out in (("warm", warm), ("stage-timed", staged)):
         require(all(np.array_equal(a, b) for a, b in zip(out, cold)),
@@ -969,6 +997,284 @@ def run_config2(dev, kernels) -> None:
         [grid_sweep_counters(a[0], a[1], out[1]) for a, out in sweeps]))
     log(f"config #2 stage ms of one run (5 clouds, 10 pairs summed): "
         f"{json.dumps(rec['ms'])}, sum {sum(rec['ms'].values())}")
+
+
+def node_tick(dev, kernels, views, params, incremental: bool):
+    """A node (seed 0, on `dev`) over an InProcTransport holding `views` as
+    robot0, robot1, ...; one discovery and one estimation tick with the
+    launch counts reset just before and read just after. Returns (node,
+    transforms in robot order, recorded kernel inputs, launches, wall s)."""
+    from mapmerge_torch.kernels import nn, spfh
+    from mapmerge_torch.runtime.node import MapMergeNode
+    from mapmerge_torch.runtime.transport import InProcTransport
+
+    transport = InProcTransport()
+    robots = [f"robot{i}" for i in range(len(views))]
+    for robot, (x, r) in zip(robots, views):
+        transport.publish(robot, x, r)
+    node = MapMergeNode(transport, params, seed=0, incremental=incremental,
+                        device=dev)
+    with first_launch_inputs(nn, spfh) as seen:
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        node.discovery()
+        node.transforms_estimation()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+    poses = node.get_transforms()
+    return node, [poses[r] for r in robots], seen, launches, wall
+
+
+def run_node_config1(dev, kernels) -> None:
+    """Phases 8 and 9: the online node on config #1's views, stateless and
+    incremental."""
+    from mapmerge_torch.core import transforms as tf
+    from mapmerge_torch.core.cloud import PointCloud
+    from mapmerge_torch.kernels import nn, spfh
+    from mapmerge_torch.pipeline.merging import estimate_maps_transforms
+    from mapmerge_torch.testing.scene import config1_scene
+
+    va, vb, _, truth = config1_scene()
+    params = config1_params()
+
+    label = "node stateless"
+    node, out, seen, launches, wall = node_tick(dev, kernels, (va, vb), params, False)
+    rot, trans = tf.pose_error(rel_pose(out), truth)
+    log(f"{label} (config #1's views): {wall:.3f} s, launches {launches}, "
+        f"pose vs truth {rot} deg, {trans} m, stats {node.get_stats()}")
+    for name, n in launches.items():
+        require(n > 0, f"{label}: kernel {name} was not launched")
+    hold_on_path_inputs(label, seen, nn, spfh, launches)
+    require(rot < 1.0 and trans < 0.1, f"{label}: pose gate 1 deg / 0.1 m failed")
+    # the node subsamples each view to max_points, as the reference node
+    # does: the direct call takes the clouds the node built
+    cap = min(max(len(va[0]), len(vb[0])), params.max_points)
+    clouds = [
+        PointCloud.from_numpy(*node._fit_to_capacity(x, r, cap, f"robot{i}")[:2],
+                              capacity=cap, device=dev)
+        for i, (x, r) in enumerate((va, vb))
+    ]
+    direct = estimate_maps_transforms(clouds, params, seed=0)
+    require(all(np.array_equal(a, b) for a, b in zip(out, direct)),
+            f"{label}: poses differ from estimate_maps_transforms on its clouds")
+    node.map_compositing()
+    merged = node.get_merged_map()
+    n_merged = int(merged.count)
+    require(n_merged > 0 and bool(torch.isfinite(merged.xyz[merged.mask]).all()),
+            f"{label}: the merged map has no finite points")
+    log(f"{label}: poses bitwise equal to estimate_maps_transforms on the "
+        f"node's {cap}-point clouds; merged map {n_merged} points; metrics "
+        f"{json.dumps(node.get_metrics()['gauges'])}")
+
+    label = "node incremental"
+    runs = [node_tick(dev, kernels, (va, vb), params, True) for _ in range(2)]
+    node, out, seen, launches, wall = runs[0]
+    rot, trans = tf.pose_error(rel_pose(out), truth)
+    log(f"{label} (config #1's views): {wall:.3f} s (second run "
+        f"{runs[1][4]:.3f} s), launches {launches}, pose vs truth {rot} deg, "
+        f"{trans} m, world edges {len(node._world.edges)}")
+    require(launches["nearest_neighbor"] > 0,
+            f"{label}: kernel nearest_neighbor was not launched")
+    hold_on_path_inputs(label, seen, nn, spfh, launches)
+    require(rot < 1.0 and trans < 0.1, f"{label}: pose gate 1 deg / 0.1 m failed")
+    require(all(np.array_equal(a, b) for a, b in zip(out, runs[1][1])),
+            f"{label}: the second run gave other poses than the first")
+    log(f"repeat check ({label}): two runs bitwise equal")
+
+
+#: config5_big (bench_configs.py:678-788): maps, view size, stream batch;
+#: the views' raw size is BENCH_configs.json's raw_points_per_map
+CONFIG5_MAPS, CONFIG5_VIEW_TARGET, CONFIG5_BATCH = 50, 200_000, 5
+CONFIG5_VIEW_POINTS = 459_685
+
+
+def config5_big_params(cap: int):
+    """bench_configs.py:711-716: SIFT (threshold 3.0) + FPFH at the raw
+    capacity, K 384, M 32, 768 hypotheses, ICP <= 30, tile 1024."""
+    from mapmerge_torch.pipeline.merging import MergeParams
+
+    return MergeParams(
+        keypoint_type="SIFT", keypoint_threshold=3.0, descriptor_type="FPFH",
+        refine_transform=True, max_iterations=30, max_points=cap,
+        max_keypoints=384, max_neighbors=32, ransac_hypotheses=768,
+        neighbor_tile=1024,
+    )
+
+
+def config5_stages():
+    """The stages timed in the config5_big stream: (owner, function, label);
+    SIFT's scale space and 26-NN are split by the engine each octave's
+    capacity resolves to."""
+    from mapmerge_torch.ops.keypoints import sift
+    from mapmerge_torch.ops.neighbors import _resolve_engine
+    from mapmerge_torch.pipeline import features, incremental
+    from mapmerge_torch.runtime import node
+
+    def octaves(stage, engine, capacity):
+        return f"SIFT {stage}, {_resolve_engine(engine, capacity)} octaves"
+
+    return (
+        (node, "features_for", "features"),
+        (features, "voxel_downsample", "downsample"),
+        (features, "overflow_probe", "probe"),
+        (features, "remove_outliers", "outliers"),
+        (features, "compute_surface_normals", "normals"),
+        (features, "detect_keypoints", "SIFT"),
+        (sift, "_scale_space",
+         lambda *a, **k: octaves("scale space", a[4], a[0].capacity)),
+        (sift, "radius_neighbors",
+         lambda *a, **k: octaves("26-NN", k["engine"], a[1].shape[0])),
+        (features, "compute_descriptors", "FPFH"),
+        (incremental, "_vote", "vote"),
+        (incremental, "estimate_transform", "pair registrations"),
+        (incremental.WorldModel, "refine", "refine"),
+        (node, "compose_maps", "compositing"),
+    )
+
+
+def stream(node, transport, views, n: int):
+    """Publish views[:n] as robot_00, robot_01, ..., CONFIG5_BATCH at a
+    time, each batch followed by a discovery and an estimation tick; the
+    poses after the first tick."""
+    first = None
+    for start in range(0, n, CONFIG5_BATCH):
+        for i in range(start, min(start + CONFIG5_BATCH, n)):
+            transport.publish(f"robot_{i:02d}", *views[i])
+        node.discovery()
+        node.transforms_estimation()
+        if first is None:
+            first = node.get_transforms()
+    return first
+
+
+def run_config5_big(dev, kernels) -> None:
+    """config5_big (phase 10): the JAX package's 50-map stream through the
+    incremental node at full per-map size."""
+    from mapmerge_torch.core import transforms as tf
+    from mapmerge_torch.kernels import nn, spfh
+    from mapmerge_torch.ops import grid
+    from mapmerge_torch.pipeline import incremental
+    from mapmerge_torch.runtime import node as node_module
+    from mapmerge_torch.runtime.node import MapMergeNode
+    from mapmerge_torch.runtime.transport import InProcTransport
+    from mapmerge_torch.testing.scene import town_views
+
+    n = CONFIG5_MAPS
+    t0 = time.perf_counter()
+    views, truths = town_views(n, CONFIG5_VIEW_TARGET, keep=0.8, seed=5)
+    sizes = [len(v[0]) for v in views]
+    require(sizes == [CONFIG5_VIEW_POINTS] * n, f"config5_big views have {sizes} points")
+    cap = 1 << int(np.ceil(np.log2(max(sizes))))
+    params = config5_big_params(cap)
+    log(f"config5_big: {n} views of {sizes[0]} raw points, capacity {cap}, "
+        f"batches of {CONFIG5_BATCH}; made in {time.perf_counter() - t0:.3f} s")
+
+    def new_node():
+        transport = InProcTransport()
+        node = MapMergeNode(transport, params, seed=0, incremental=True,
+                            max_robots=64, device=dev)
+        return node, transport
+
+    # per SIFT grid octave: (capacity, valid points, grid_gaussian_smooth's
+    # query overflow, which counts the parked padding too, and the valid
+    # points its bucket cap drops, from a second build of the same grid)
+    smooth_overflow = []
+
+    def record_overflow(fn):
+        def wrapper(q, p, values, sigmas, p_mask=None, scan_cap=128, **kwargs):
+            out, overflow = fn(q, p, values, sigmas, p_mask=p_mask,
+                               scan_cap=scan_cap, **kwargs)
+            built = grid.build_grid(p, p_mask, 3.0 * max(sigmas), None, scan_cap)
+            smooth_overflow.append((p.shape[0], int(p_mask.sum()), int(overflow),
+                                    int(built.overflow)))
+            return out, overflow
+
+        return wrapper
+
+    node, transport = new_node()
+    recorder = stage_recorder(config5_stages(), (node_module, "features_for"),
+                              (incremental, "estimate_transform"))
+    with first_launch_inputs(nn, spfh) as seen, recorder as rec, patched(
+        {(grid, "grid_gaussian_smooth"): record_overflow}
+    ):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        first_tick = stream(node, transport, views, n)
+        node.map_compositing()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    n_features = rec["calls"]["features"]
+    log(f"config5_big stream: {wall:.3f} s, {n * 60.0 / wall} maps a minute, "
+        f"launches {launches} (nearest_neighbor expected 0: the 2^19-capacity "
+        f"targets take the grid 1-NN), {n_features} feature extractions, "
+        f"{rec['calls'].get('pair registrations', 0)} pair registrations, "
+        f"peak device memory {peak_gib:.2f} GiB")
+    require(launches["spfh"] == n_features == n and "spfh_grid" in seen,
+            f"config5_big: spfh launched {launches['spfh']} times for "
+            f"{n_features} feature extractions, expected one each through spfh_grid")
+    hold_on_path_inputs("config5_big", seen, nn, spfh, launches, plain=True,
+                        exact=True)
+
+    poses = node.get_transforms()
+    ordered = [poses[f"robot_{i:02d}"] for i in range(n)]
+    require(len(poses) == n and all(
+        t.shape == (4, 4) and np.isfinite(t).all() for t in ordered
+    ), "config5_big: transforms are not finite 4x4 matrices, one a map")
+    registered = sum(1 for t in ordered if t.any())
+    adjacent = [
+        tf.pose_error(np.linalg.inv(ordered[i]) @ ordered[i + 1],
+                      np.linalg.inv(truths[i]) @ truths[i + 1])
+        for i in range(n - 1) if ordered[i].any() and ordered[i + 1].any()
+    ]
+    n_adjacent = sum(1 for rot, trans in adjacent if rot < 5.0 and trans < 0.5)
+    drift = max(e for e in chain_errors(ordered, truths) if e is not None)
+    merged = node.get_merged_map()
+    n_merged = int(merged.count)
+    min_registered = math.ceil(0.9 * n)
+    min_adjacent = 40 if n == 50 else math.floor(0.8 * (n - 1))
+    log(f"config5_big: {registered}/{n} maps registered, {n_adjacent}/"
+        f"{len(adjacent)} adjacent pairs within 5 deg / 0.5 m, end-to-end drift "
+        f"{drift[0]} deg / {drift[1]} m, merged map {n_merged} points, world "
+        f"edges {len(node._world.edges)}, metrics "
+        f"{json.dumps(node.get_metrics()['gauges'])}")
+    log(f"config5_big adjacent pair errors (deg, m): {adjacent}")
+    require(registered >= min_registered,
+            f"config5_big: {registered} maps registered, gate {min_registered}")
+    require(n_adjacent >= min_adjacent,
+            f"config5_big: {n_adjacent} adjacent pairs ok, gate {min_adjacent}")
+    require(drift[0] < 0.5 and drift[1] < 0.25,
+            "config5_big: drift gate 0.5 deg / 0.25 m failed")
+    require(n_merged > 10000, f"config5_big: merged map of {n_merged} points")
+
+    ms = rec["ms"]
+    log(f"config5_big stage ms, the whole stream: {json.dumps(ms)}; calls "
+        f"{json.dumps(rec['calls'])}; features per map "
+        f"{ms['features'] / n_features}")
+    log(f"config5_big feature stage per map: {json.dumps(rec['clouds'])}")
+    log(f"config5_big pair registrations: {json.dumps(rec['pairs'])}")
+    by_cap: dict = {}
+    for c, *counts in smooth_overflow:
+        by_cap.setdefault(c, []).append(counts)
+    log("config5_big SIFT grid_gaussian_smooth per octave capacity: calls, "
+        "valid points, query overflow (padding included) and valid points the "
+        "cap drops, each summed over the maps: " + json.dumps(
+            {c: [len(v)] + [sum(x) for x in zip(*v)] for c, v in by_cap.items()}))
+
+    # repeatability: a second node streams the first batch
+    again, again_transport = new_node()
+    stream(again, again_transport, views, CONFIG5_BATCH)
+    second = again.get_transforms()
+    require(sorted(second) == sorted(first_tick) and all(
+        np.array_equal(second[r], first_tick[r]) for r in first_tick
+    ), "config5_big: a second node's first batch gave other poses than the first tick")
+    log(f"repeat check (config5_big): a second node's first batch "
+        f"({CONFIG5_BATCH} maps) bitwise equal to the first tick")
 
 
 def kernel_entry(k, launches: dict, stats: dict) -> dict:
@@ -1027,6 +1333,8 @@ def main() -> int:
     run_default_operating_point(dev, kernels)
     run_registry_sweep(dev, kernels)
     run_config2(dev, kernels)
+    run_node_config1(dev, kernels)
+    run_config5_big(dev, kernels)
 
     loaded = sorted(m for m in sys.modules
                     if m.startswith("jax") or m.startswith("mapmerge_tpu"))

@@ -76,8 +76,7 @@ class MergeParams:
     icp_anneal: float = 0.85
     #: neighbour engine: "dense" (exact tiled sweeps), "grid" (the cell
     #: grid of ops/grid.py) or "auto" (the grid at ops/neighbors'
-    #: GRID_AUTO_THRESHOLD points, at GRID_NN_THRESHOLD for bounded 1-NN);
-    #: SIFT has no grid branch yet and raises there
+    #: GRID_AUTO_THRESHOLD points, at GRID_NN_THRESHOLD for bounded 1-NN)
     neighbor_engine: str = "auto"
     #: candidates read per hash bucket under the grid engine; overflow is
     #: counted and surfaced (CloudFeatures.scan_overflow)
@@ -110,5 +109,86 @@ class MergeParams:
         less than 256."""
         return max(256, self.grid_scan_cap * 2)
 
+    @classmethod
+    def derived(cls, resolution: float = _DEFAULT_RESOLUTION, **overrides: Any):
+        """Params with the radii re-derived from `resolution` (the reference
+        derives them from the default only, map_merging.h:29-38); explicit
+        overrides still win."""
+        derived_fields = dict(
+            resolution=resolution,
+            descriptor_radius=resolution * 8.0,
+            normal_radius=resolution * 6.0,
+            inlier_threshold=resolution * 5.0,
+            max_correspondence_distance=resolution * 10.0,
+        )
+        if "inlier_threshold" in overrides and (
+            "max_correspondence_distance" not in overrides
+        ):
+            derived_fields["max_correspondence_distance"] = (
+                overrides["inlier_threshold"] * 2.0
+            )
+        derived_fields.update(overrides)
+        return cls(**derived_fields)
+
+    @classmethod
+    def command_line_overrides(cls, argv: list[str]) -> dict[str, Any]:
+        """The `--field value` overrides in argv (MapMergingParams::
+        fromCommandLine, map_merging.cpp:10-54); matching_k only when > 0
+        (map_merging.cpp:44-47)."""
+        overrides: dict[str, Any] = {}
+        fields = {f.name: f for f in dataclasses.fields(cls)}
+        i = 0
+        while i < len(argv):
+            arg = argv[i]
+            if arg.startswith("--"):
+                name = arg[2:]
+                if name in fields and i + 1 < len(argv):
+                    overrides[name] = _parse_field(fields[name], argv[i + 1])
+                    i += 2
+                    continue
+            i += 1
+        if "matching_k" in overrides and overrides["matching_k"] <= 0:
+            del overrides["matching_k"]
+        return overrides
+
+    @classmethod
+    def from_command_line(cls, argv: list[str]) -> "MergeParams":
+        """Params from `--field value` arguments (map_merging.cpp:10-54)."""
+        return cls(**cls.command_line_overrides(argv))
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "MergeParams":
+        """Params from a mapping (the ROS-params analog,
+        map_merging.cpp:56-98); unknown keys are ignored."""
+        fields = {f.name: f for f in dataclasses.fields(cls)}
+        overrides = {
+            k: _parse_field(fields[k], v) for k, v in d.items() if k in fields
+        }
+        if "matching_k" in overrides and overrides["matching_k"] <= 0:
+            del overrides["matching_k"]
+        return cls(**overrides)
+
     def replace(self, **overrides: Any) -> "MergeParams":
         return dataclasses.replace(self, **overrides)
+
+    def __str__(self) -> str:
+        # one "field: value" line each (operator<<, map_merging.cpp:100-123)
+        return "\n".join(
+            f"{f.name}: {getattr(self, f.name)}" for f in dataclasses.fields(self)
+        )
+
+
+def _parse_field(field: dataclasses.Field, raw: Any) -> Any:
+    """`raw` (a string or a value) as the type of `field`."""
+    if field.type in ("float", float):
+        return float(raw)
+    if field.type in ("int", int):
+        return int(raw)
+    if field.type in ("bool", bool):
+        if isinstance(raw, str):
+            return raw.strip().lower() in ("1", "true", "yes", "on")
+        return bool(raw)
+    for name, enum_cls in _ENUM_FIELDS:
+        if field.name == name:
+            return from_string(enum_cls, raw) if isinstance(raw, str) else raw
+    return raw

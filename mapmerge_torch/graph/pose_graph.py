@@ -1,6 +1,6 @@
 """Pose-graph refinement over all confident pair edges, host numpy (the
-port's copy of mapmerge_tpu/graph/pose_graph.py, with the options the port
-never sets fixed at the reference's defaults).
+port's copy of mapmerge_tpu/graph/pose_graph.py, options and defaults
+included).
 
 The reference chains transforms over the maximum spanning tree only
 (map_merge_3d/src/map_merging.cpp:137-186), so per-hop error compounds.
@@ -23,13 +23,6 @@ from __future__ import annotations
 import numpy as np
 
 _EPS = 1e-9
-_MAX_ITERATIONS = 50
-_TOL = 1e-10
-#: an edge farther than this from the tree seed is a wrong registration
-_SEED_GATE_DEG = 25.0
-_SEED_GATE_M = 1.5
-#: rounds of gross-edge rejection
-_REJECT_DEPTH = 3
 
 
 def _hat(w: np.ndarray) -> np.ndarray:
@@ -171,7 +164,14 @@ def refine_global_transforms(
     estimates,
     global_t: list[np.ndarray],
     confidence_threshold: float = 0.0,
-    _reject_depth: int = _REJECT_DEPTH,
+    max_iterations: int = 50,
+    huber_delta: float | None = None,
+    tol: float = 1e-10,
+    reject_outliers: bool = True,
+    seed_gate_deg: float = 25.0,
+    seed_gate_m: float = 1.5,
+    rot_scale_m: float | None = None,
+    _reject_depth: int = 3,
 ) -> list[np.ndarray]:
     """Relax all confident pair edges from the spanning-tree seed.
 
@@ -179,11 +179,20 @@ def refine_global_transforms(
     the tree-chained seed, whose zero matrices (unregistered maps) pass
     through. The gauge stays at the node seeded with the identity.
 
-    The Huber knee is re-estimated every iteration, clip(3 * median |r|,
-    0.01, 0.1), after a graduated start at the 90th percentile; edges far
-    from the seed are gated out first, and after convergence gross edges
-    (beyond 3 knees and 6 medians) are dropped and the solve repeats, up to
-    three rounds, keeping every node attached by its least bad edge."""
+    `huber_delta=None` re-estimates the Huber knee every iteration,
+    clip(3 * median |r|, 0.01, 0.1), after a graduated start at the 90th
+    percentile. Edges farther than `seed_gate_deg` / `seed_gate_m` from the
+    seed are gated out first; after convergence (`max_iterations`, or a
+    step under `tol`) gross edges (beyond 3 knees and 6 medians) are dropped
+    and the solve repeats, up to three rounds with `reject_outliers`,
+    keeping every node attached by its least bad edge.
+
+    `rot_scale_m` scales the rotation part of each residual by a length, so
+    that rotational misfit counts as the displacement it causes at that
+    distance (the map's radius, which incremental.WorldModel.refine passes);
+    None keeps the mixed-unit residual (radians beside metres). The
+    reference measured on its 50-map stream that leaving it out makes
+    rotation drift twice as bad."""
     n = len(global_t)
     active = np.array([t[:3, :3].any() for t in global_t])
     if active.sum() < 3:
@@ -212,7 +221,7 @@ def refine_global_transforms(
     gated = []
     for e in edges:
         rot, trans = _seed_residual(e)
-        if rot <= _SEED_GATE_DEG and trans <= _SEED_GATE_M:
+        if rot <= seed_gate_deg and trans <= seed_gate_m:
             gated.append(e)
     # keep every active node attached
     deg = np.zeros(n, int)
@@ -250,13 +259,19 @@ def refine_global_transforms(
     if amb.any() and not amb.all():
         w = np.where(amb, 0.5 * w, w)
 
+    # commensurate units: rotation components scaled by rot_scale_m
+    rot_l = 1.0 if rot_scale_m is None else float(rot_scale_m)
+    svec = np.array([1.0, 1.0, 1.0, rot_l, rot_l, rot_l])
+
     def residuals(G):
         # r = log((G_j T)^-1 G_i): zero iff G_i = G_j @ T
         M = _inv44(G[tgt]) @ G[src]  # (E,4,4)
         Z = _inv44(T) @ M
-        return se3_log(Z), M
+        return se3_log(Z) * svec, M
 
     def knee_of(r):
+        if huber_delta is not None:
+            return huber_delta
         rn = np.linalg.norm(r, axis=-1)
         return float(np.clip(3.0 * np.median(rn), 0.01, 0.1))
 
@@ -273,7 +288,7 @@ def refine_global_transforms(
     # graduated non-convexity: start with the knee at the 90th percentile
     # and halve it toward the adaptive knee
     gnc0 = float(np.quantile(np.linalg.norm(r, axis=-1), 0.9)) + _EPS
-    for it in range(_MAX_ITERATIONS):
+    for it in range(max_iterations):
         # iteratively reweighted Huber
         delta_h = max(knee_of(r), gnc0 * 0.5**it)
         cost = cost_of(r, delta_h)
@@ -282,9 +297,11 @@ def refine_global_transforms(
             rn <= delta_h, 1.0, delta_h / np.maximum(rn, _EPS)
         )
 
-        Jri = _jr_inv(r)  # (E,6,6)
-        Ji = Jri
-        Jj = -Jri @ _se3_adjoint(_inv44(M))
+        # Jacobians of the scaled residual (the right Jacobian takes the
+        # unscaled log)
+        Jri = _jr_inv(r / svec)  # (E,6,6)
+        Ji = Jri * svec[None, :, None]
+        Jj = (-Jri @ _se3_adjoint(_inv44(M))) * svec[None, :, None]
 
         # H (6N, 6N) and b (6N) from the 6x6 blocks of every edge
         H = np.zeros((6 * n, 6 * n))
@@ -335,10 +352,10 @@ def refine_global_transforms(
             lam *= 10.0
         else:
             break  # no damping made progress
-        if np.linalg.norm(delta) < _TOL:
+        if np.linalg.norm(delta) < tol:
             break
 
-    if _reject_depth > 0:
+    if reject_outliers and _reject_depth > 0:
         rn = np.linalg.norm(r, axis=-1)
         gross = rn > np.maximum(3.0 * delta_h, 6.0 * np.median(rn))
         if gross.any() and not gross.all():
@@ -367,7 +384,13 @@ def refine_global_transforms(
                     for i in range(n)
                 ]
                 return refine_global_transforms(
-                    kept, seeded, confidence_threshold, _reject_depth - 1
+                    kept, seeded, confidence_threshold, max_iterations,
+                    huber_delta, tol,
+                    reject_outliers=True,
+                    seed_gate_deg=seed_gate_deg,
+                    seed_gate_m=seed_gate_m,
+                    rot_scale_m=rot_scale_m,
+                    _reject_depth=_reject_depth - 1,
                 )
 
     return [

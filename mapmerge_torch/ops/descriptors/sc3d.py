@@ -9,9 +9,8 @@ radius and density radius = radius / 5 (PCL's defaults). As in the
 reference, the grid sits in SHOT's repeatable local reference frame (the
 Unique Shape Context construction) instead of PCL's random azimuth.
 
-The weights are fractional and go in by scatter_add_, which on CUDA adds in
-an order that varies from run to run: a descriptor can differ in its last
-ulp between runs.
+The weights are fractional, so they are summed in one fixed order
+(shot._fixed_order_hist): a descriptor is the same bits on every run.
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ from mapmerge_torch.ops.descriptors.shot import (
     _cbrt,
     _const,
     _dot,
+    _fixed_order_hist,
     _local_reference_frames,
 )
 from mapmerge_torch.ops.keypoints import Keypoints
@@ -97,8 +97,7 @@ def compute_sc3d(
     w = w_vol * w_den * nmask.to(torch.float32)
 
     joint = (a_bin * _ELEVATION + e_bin) * _RADIAL + r_bin  # (K, M)
-    hist = torch.zeros((idx.shape[0], SC3D_DIM), dtype=torch.float32, device=dev)
-    hist.scatter_add_(1, joint, w)
+    hist = _fixed_order_hist(joint, w, SC3D_DIM)
     data = hist / torch.sqrt((hist * hist).sum(dim=-1).clamp_min(1e-12))[:, None]
 
     valid = keypoints.mask & lrf_ok & (nmask.sum(dim=-1) >= 5)

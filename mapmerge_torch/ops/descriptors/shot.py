@@ -17,9 +17,9 @@ pcl::SHOTColorEstimation as the reference chooses it
     dropped); then the whole descriptor is L2-normalised.
 The keypoint's colour is its nearest surface point's, as in the reference.
 
-The votes are fractional and go in by scatter_add_, which on CUDA adds in
-an order that varies from run to run: a descriptor can differ in its last
-ulp between runs (PFH's 0/1 counts cannot).
+The votes are fractional, so they are summed in one fixed order
+(`_fixed_order_hist`), not by scatter_add_, which on CUDA adds in an order
+that varies from run to run: a descriptor is the same bits on every run.
 """
 
 from __future__ import annotations
@@ -50,6 +50,8 @@ _RGB_TO_XYZ = (
     (0.019334, 0.119193, 0.950227),
 )
 _WHITE = (0.950456, 1.0, 1.088754)  # D65
+#: elements of one (rows, votes, width) one-hot block of _fixed_order_hist
+_ONEHOT_BLOCK = 1 << 24
 
 
 def _const(x, device) -> torch.Tensor:
@@ -119,6 +121,25 @@ def _rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
     a = 500.0 * (f[..., 0] - f[..., 1])
     b = 200.0 * (f[..., 1] - f[..., 2])
     return torch.stack([lum, a, b], dim=-1)
+
+
+def _fixed_order_hist(
+    cols: torch.Tensor, weights: torch.Tensor, width: int
+) -> torch.Tensor:
+    """(K, width) sums of `weights` (K, N) into the columns `cols` (K, N):
+    a one-hot product reduced over N, so every cell adds its votes in one
+    fixed order and repeats bit for bit. Rows go in blocks of at most
+    _ONEHOT_BLOCK one-hot elements."""
+    k, n = cols.shape
+    rows = max(1, _ONEHOT_BLOCK // max(n * width, 1))
+    ids = torch.arange(width, device=cols.device)
+    blocks = [
+        torch.where(
+            cols[s : s + rows, :, None] == ids, weights[s : s + rows, :, None], 0.0
+        ).sum(dim=1)
+        for s in range(0, k, rows)
+    ]
+    return torch.cat(blocks) if blocks else weights.new_zeros((0, width))
 
 
 def _adjacent(
@@ -218,12 +239,10 @@ def compute_shot(
             (vol, bin_own, w * central),
             (vol, bin_adj, w * rb.abs()),
         ) + tuple((v, bin_own, ww) for v, ww in spatial_votes)
-        hist = torch.zeros(
-            (vol.shape[0], _VOLUMES * nbins), dtype=torch.float32, device=dev
+        cols = torch.cat([(v * nbins + b).to(torch.int64) for v, b, _ in votes], 1)
+        return _fixed_order_hist(
+            cols, torch.cat([ww for _, _, ww in votes], 1), _VOLUMES * nbins
         )
-        for v, b, ww in votes:
-            hist.scatter_add_(1, (v * nbins + b).to(torch.int64), ww)
-        return hist
 
     data = torch.cat(
         [

@@ -63,5 +63,6 @@ def detect_keypoints(
             max_keypoints=max_keypoints,
             tile=tile,
             engine=engine,
+            scan_cap=scan_cap,
         )
     raise ValueError(f"unknown keypoint type: {kind}")

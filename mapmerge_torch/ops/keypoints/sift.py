@@ -7,6 +7,12 @@ test of each point against its 25 nearest neighbours' DoG values at the
 adjacent levels. Between octaves the cloud is voxel-downsampled with leaf
 2 x octave scale, at a third of the capacity. Keypoints of all octaves are
 pooled and the top `max_keypoints` by |DoG| kept.
+
+Each octave resolves its neighbour engine on its own capacity, as the
+reference does. On the cell grid the scale space is
+`grid.grid_gaussian_smooth` and the 25-NN is bounded at
+_GRID_KNN_RADIUS_SCALES octave scales; on the dense engine both are exact
+tiled sweeps (the 25-NN unbounded, PCL's semantics).
 """
 
 from __future__ import annotations
@@ -14,19 +20,24 @@ from __future__ import annotations
 import torch
 
 from mapmerge_torch.core.cloud import FAR, PointCloud
+from mapmerge_torch.ops import grid
 from mapmerge_torch.ops.downsample import voxel_downsample
 from mapmerge_torch.ops.keypoints import Keypoints
 from mapmerge_torch.ops.neighbors import (
     BIG,
     _center,
     _f32,
-    check_dense,
+    _resolve_engine,
     radius_neighbors,
     sq_dists,
     tiled_query,
 )
 
 _KNN = 25  # PCL's spatial neighborhood for extremum tests
+#: radius, in octave scales, bounding the 25-NN under the grid engine:
+#: points lie at least the previous octave's voxel leaf apart, so 8 scales
+#: cover 25 surface neighbours (mapmerge_tpu/ops/keypoints/sift.py:45-48)
+_GRID_KNN_RADIUS_SCALES = 8.0
 
 
 def _intensity(rgb: torch.Tensor) -> torch.Tensor:
@@ -40,9 +51,19 @@ def _scale_space(
     intensity: torch.Tensor,
     sigmas: list[float],
     tile: int,
+    engine: str = "auto",
+    scan_cap: int = 128,
 ) -> torch.Tensor:
     """Gaussian-smoothed intensities for every sigma: (S, P), each bounded at
-    3 sigma_max."""
+    3 sigma_max. The grid's query overflow is dropped here, as in the
+    reference: the query grid is the point grid, so it equals the build
+    overflow that the feature stage's probe reports."""
+    if _resolve_engine(engine, cloud.capacity) == "grid":
+        out, _ = grid.grid_gaussian_smooth(
+            cloud.xyz, cloud.xyz, intensity, sigmas, p_mask=cloud.mask,
+            scan_cap=scan_cap,
+        )  # (P, S)
+        return out.T
     r2_bound = _f32((3.0 * max(sigmas)) ** 2)
     qc, pc = _center(cloud.xyz, cloud.xyz, cloud.mask)
     vals = torch.where(cloud.mask, intensity, 0.0)
@@ -71,23 +92,27 @@ def detect_keypoints_sift(
     max_keypoints: int,
     tile: int = 1024,
     engine: str = "auto",
+    scan_cap: int = 128,
 ) -> Keypoints:
     """Reference features.cpp:45-62: setScales(min_scale, octaves, scales),
-    setMinimumContrast(min_contrast). Raises on the grid engine, whose SIFT
-    branch (the grid scale space and 26-NN) is not ported yet."""
-    check_dense(engine, cloud.capacity)
+    setMinimumContrast(min_contrast)."""
     dev = cloud.device
     cand_resp, cand_xyz = [], []
     base = float(min_scale)
     oct_cloud = cloud
     for octave in range(octaves):
         p_oct = oct_cloud.capacity
-        # pure k-NN (radius unbounded on the dense engine); slot 0 is the
-        # point itself
+        # slot 0 is the point itself; the radius is unbounded on the dense
+        # engine and _GRID_KNN_RADIUS_SCALES octave scales on the grid
+        knn_radius = (
+            _GRID_KNN_RADIUS_SCALES * base
+            if _resolve_engine(engine, p_oct) == "grid"
+            else 1.0e6
+        )
         idx, _, nmask, _ = radius_neighbors(
-            oct_cloud.xyz, oct_cloud.xyz, radius=1.0e6,
+            oct_cloud.xyz, oct_cloud.xyz, radius=knn_radius,
             k=min(_KNN + 1, p_oct), p_mask=oct_cloud.mask, tile=tile,
-            engine=engine,
+            engine=engine, scan_cap=scan_cap,
         )
         nbr_idx = idx[:, 1:].to(torch.int64)
         nbr_ok = nmask[:, 1:]
@@ -95,7 +120,9 @@ def detect_keypoints_sift(
 
         n_s = scales_per_octave + 3
         sigmas = [base * (2.0 ** (s / scales_per_octave)) for s in range(n_s)]
-        smoothed = _scale_space(oct_cloud, intensity, sigmas, tile)
+        smoothed = _scale_space(
+            oct_cloud, intensity, sigmas, tile, engine, scan_cap
+        )
         dog = smoothed[1:] - smoothed[:-1]  # (S-1, P)
 
         for s in range(1, dog.shape[0] - 1):

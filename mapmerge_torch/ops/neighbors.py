@@ -33,11 +33,10 @@ GRID_AUTO_THRESHOLD = 131072
 GRID_NN_THRESHOLD = 49152
 
 
-def _resolve_engine(
-    engine: str, p_count: int, threshold: int = GRID_AUTO_THRESHOLD
-) -> str:
+def _resolve_engine(engine: str, p_count: int, threshold: int | None = None) -> str:
     """"dense" or "grid": "auto" takes the grid at `threshold` points or
-    more. MAPMERGE_ENGINE=dense|grid in the environment forces one engine
+    more (GRID_AUTO_THRESHOLD when None, read at call time).
+    MAPMERGE_ENGINE=dense|grid in the environment forces one engine
     everywhere (the reference's override)."""
     forced = os.environ.get("MAPMERGE_ENGINE", "")
     if forced in ("dense", "grid"):
@@ -46,19 +45,8 @@ def _resolve_engine(
         raise ValueError(f"unknown neighbor engine: {engine!r}")
     if engine != "auto":
         return engine
-    return "grid" if p_count >= threshold else "dense"
-
-
-def check_dense(engine: str, p_count: int, threshold: int = GRID_AUTO_THRESHOLD):
-    """Raise where the reference takes a grid branch the port lacks (SIFT's
-    scale space and 26-NN)."""
-    if _resolve_engine(engine, p_count, threshold) == "grid":
-        raise NotImplementedError(
-            f"SIFT on the cell-grid neighbor engine (engine={engine!r}, "
-            f"capacity {p_count}, threshold {threshold}) is not ported to "
-            "mapmerge_torch; use capacities below the threshold or "
-            "engine='dense'"
-        )
+    cut = GRID_AUTO_THRESHOLD if threshold is None else threshold
+    return "grid" if p_count >= cut else "dense"
 
 
 def _center(q: torch.Tensor, p: torch.Tensor, p_mask: torch.Tensor | None):

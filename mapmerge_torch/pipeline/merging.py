@@ -33,14 +33,21 @@ from mapmerge_torch.pipeline.features import extract_features
 from mapmerge_torch.pipeline.registration import estimate_transform
 
 
+def seeded_generator(entropy: Sequence[int], device) -> torch.Generator:
+    """A generator on `device` seeded from np.random.SeedSequence(entropy):
+    the port's counterpart of folding integers into a JAX key (torch cannot
+    replay JAX's key stream, so parity is checked at the pose level)."""
+    state = np.random.SeedSequence(list(entropy)).generate_state(2)
+    g = torch.Generator(device=device)
+    g.manual_seed(int(state[0]) << 32 | int(state[1]))
+    return g
+
+
 def pair_generator(seed: int, pair_index: int, device) -> torch.Generator:
     """RANSAC generator of one pair, keyed on (seed, the pair's index in the
     full i<j enumeration), so a pair draws the same hypotheses whichever
     other pairs are skipped."""
-    state = np.random.SeedSequence([seed, pair_index]).generate_state(2)
-    g = torch.Generator(device=device)
-    g.manual_seed(int(state[0]) << 32 | int(state[1]))
-    return g
+    return seeded_generator([seed, pair_index], device)
 
 
 def _warn_feature_caps(

@@ -194,30 +194,54 @@ class TestNoJax:
 
 class TestOutsideTheSlice:
     """Configurations the port does not cover raise NotImplementedError,
-    naming what is missing, instead of taking another path."""
+    naming what is missing, instead of taking another path; the engines and
+    the keypoint x descriptor x method surface dispatch on both engines."""
 
     def test_grid_engine(self, monkeypatch):
-        """The grid engine answers the neighbour ops; only SIFT's grid
-        branch is missing (check_dense), chosen by "grid", by "auto" at the
-        threshold, or by the MAPMERGE_ENGINE override."""
+        """The grid engine answers the neighbour ops and SIFT, chosen by
+        "grid", by "auto" at the threshold, or by the MAPMERGE_ENGINE
+        override."""
+        from mapmerge_torch.core.params import MergeParams
         from mapmerge_torch.ops import neighbors as tn
+        from mapmerge_torch.pipeline.features import extract_features
 
         q = torch.zeros((4, 3))
         counts, overflow = tn.radius_count(q, q, 1.0, engine="grid")
         assert counts.tolist() == [4] * 4 and int(overflow) == 0
-        with pytest.raises(NotImplementedError, match="SIFT on the cell-grid"):
-            tn.check_dense("auto", tn.GRID_AUTO_THRESHOLD)
-        with pytest.raises(NotImplementedError, match="SIFT on the cell-grid"):
-            tn.check_dense("auto", tn.GRID_NN_THRESHOLD, tn.GRID_NN_THRESHOLD)
-        tn.check_dense("auto", tn.GRID_NN_THRESHOLD - 1, tn.GRID_NN_THRESHOLD)
-        tn.check_dense("dense", tn.GRID_AUTO_THRESHOLD)
+        assert tn._resolve_engine("auto", tn.GRID_AUTO_THRESHOLD) == "grid"
+        assert tn._resolve_engine(
+            "auto", tn.GRID_NN_THRESHOLD, tn.GRID_NN_THRESHOLD
+        ) == "grid"
+        assert tn._resolve_engine(
+            "auto", tn.GRID_NN_THRESHOLD - 1, tn.GRID_NN_THRESHOLD
+        ) == "dense"
+        assert tn._resolve_engine("dense", tn.GRID_AUTO_THRESHOLD) == "dense"
         monkeypatch.setenv("MAPMERGE_ENGINE", "grid")
-        with pytest.raises(NotImplementedError, match="SIFT on the cell-grid"):
-            tn.check_dense("dense", 10)
+        assert tn._resolve_engine("dense", 10) == "grid"
+        # the default MergeParams() (SIFT + PFH) runs on the forced grid
+        rng = np.random.default_rng(2)
+        xyz = (rng.random((400, 3)) * 2).astype(np.float32)
+        xyz[:200, 2] = 0.0
+        _, tc = both_clouds(xyz, rng.random((400, 3)))
+        feats = extract_features(tc, MergeParams(
+            neighbor_engine="dense", keypoint_threshold=0.0, max_keypoints=16,
+        ))
+        assert feats.keypoints.xyz.shape == (16, 3)
+        assert feats.descriptors.data.shape == (16, 125)
+        assert int(feats.scan_overflow) == 0
+
+    def test_mesh_is_not_ported(self):
+        from mapmerge_torch.pipeline.merging import estimate_maps_transforms
+        from mapmerge_torch.runtime.node import MapMergeNode
+        from mapmerge_torch.runtime.transport import InProcTransport
+
+        with pytest.raises(NotImplementedError, match="mesh"):
+            estimate_maps_transforms([], mesh=object())
+        with pytest.raises(NotImplementedError, match="mesh"):
+            MapMergeNode(InProcTransport(), mesh=object(), device="cpu")
 
     def test_keypoint_descriptor_and_method(self):
-        """HARRIS, PFH and SAC_IA dispatch on both engines; SIFT on the
-        cell-grid engine raises naming it."""
+        """HARRIS, SIFT, PFH and SAC_IA dispatch on both engines."""
         from mapmerge_torch.core.enums import Descriptor, Keypoint
         from mapmerge_torch.ops.descriptors import compute_descriptors
         from mapmerge_torch.ops.keypoints import detect_keypoints
@@ -262,7 +286,10 @@ class TestOutsideTheSlice:
         assert torch.equal(pfh("grid").valid, desc.valid)
         grid_feats = extract_features(tc, params.replace(neighbor_engine="grid"))
         assert int(grid_feats.scan_overflow) == 0
-        with pytest.raises(NotImplementedError, match="SIFT on the cell-grid"):
-            extract_features(tc, params.replace(
-                neighbor_engine="grid", keypoint_type="SIFT"
-            ))
+        # SIFT on the cell-grid engine
+        grid_feats = extract_features(tc, params.replace(
+            neighbor_engine="grid", keypoint_type="SIFT"
+        ))
+        assert grid_feats.keypoints.xyz.shape == (params.max_keypoints, 3)
+        assert grid_feats.keypoints.mask.shape == (params.max_keypoints,)
+        assert int(grid_feats.scan_overflow) == 0
