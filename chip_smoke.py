@@ -56,8 +56,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the first batch and must repeat the first tick's poses bit for bit; the
      stage times, counters, peak memory, wall time and maps per minute are
      printed.
+  11. the offline tools on config #1's views written as binary .pcd files:
+     tools/merge_tool.main, its transforms held bit for bit against
+     estimate_maps_transforms on the files read back, its output file's
+     points against compose_maps, gated at 1 deg / 0.1 m; then
+     tools/registration_visualisation.main with --dump-dir: its dump files,
+     its printed counts and its StageTimes table (nn bypassed there: the
+     views' own sizes take the grid 1-NN);
+  12. eval config #2 over a two-rank mesh on the one card (two threads, each
+     a gloo group of one HashStore): both ranks' transforms and info_out bit
+     for bit phase 7's, phase 7's gates, spfh exactly 5 launches (grid) and
+     nn 0 over both ranks; the wall, the peak memory, and each rank's clouds,
+     pairs and gather seconds;
+  13. the stateless node over two ranks on config #1's views, each rank
+     ingesting one robot through its own DirectoryTransport, ticks in
+     lockstep: both ranks' poses bit for bit one stateless node's over the
+     same two maps, within 1 deg / 0.1 m; the merged maps of equal size.
 Each path runs with the launch counts reset just before it and read just
-after. On every path each kernel it launched is then held against its plain
+after. The kernel launch counts are one per process, so the two-rank phases
+count both ranks' launches. On every path each kernel it launched is then held against its plain
 version on the inputs of its first launch in that run (the path's own
 shapes, ragged edges included) and timed there (CUDA events, warm, median),
 beside its bound: the larger of the bytes it must move over 3.35 TB/s and
@@ -73,8 +90,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -422,6 +442,8 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
     if "nearest_neighbor" in seen:
         args, _ = seen["nearest_neighbor"]
         err, ties = _nn_compare(f"{label} nn", nn, *args)
+        require(not exact or (err == 0.0 and ties == 0),
+                f"{label} nn: max err {err}, {ties} indices differ; exact required")
         st = stats["nearest_neighbor"] = {
             "shape": f"Q={args[0].shape[0]} P={args[1].shape[0]}",
             "launches": launches["nearest_neighbor"], "max_abs_err": err,
@@ -914,8 +936,11 @@ def stage_recorder(stages, features_at, pairs_at):
         yield rec
 
 
-def run_config2(dev, kernels) -> None:
-    """Eval config #2 on the cell-grid engine (phase 7)."""
+def run_config2(dev, kernels):
+    """Eval config #2 on the cell-grid engine (phase 7). Returns (the views
+    in host memory, truths, cold transforms, info_out of the cold run) for
+    phase 12, which builds its own clouds: phases 8-10 hold none of these
+    on the card."""
     from mapmerge_torch.core.cloud import PointCloud
     from mapmerge_torch.kernels import nn, spfh
     from mapmerge_torch.pipeline.merging import estimate_maps_transforms
@@ -980,9 +1005,10 @@ def run_config2(dev, kernels) -> None:
 
         return wrapper
 
+    from mapmerge_torch.parallel import pair_shard
     from mapmerge_torch.pipeline import merging
 
-    recorder = stage_recorder(config2_stages(), (merging, "extract_features"),
+    recorder = stage_recorder(config2_stages(), (pair_shard, "extract_features"),
                               (merging, "estimate_transform"))
     with recorder as rec, patched({(spfh, "spfh_grid"): keep}):
         staged = estimate_maps_transforms(clouds, params, seed=0)
@@ -997,6 +1023,7 @@ def run_config2(dev, kernels) -> None:
         [grid_sweep_counters(a[0], a[1], out[1]) for a, out in sweeps]))
     log(f"config #2 stage ms of one run (5 clouds, 10 pairs summed): "
         f"{json.dumps(rec['ms'])}, sum {sum(rec['ms'].values())}")
+    return views, truths, cold, info
 
 
 def node_tick(dev, kernels, views, params, incremental: bool):
@@ -1277,6 +1304,301 @@ def run_config5_big(dev, kernels) -> None:
         f"({CONFIG5_BATCH} maps) bitwise equal to the first tick")
 
 
+def config1_argv() -> list[str]:
+    """config1_params() as the tools' `--name value` arguments."""
+    from mapmerge_torch.pipeline.merging import MergeParams
+
+    argv = [
+        "--keypoint_type", "SIFT", "--keypoint_threshold", "3.0",
+        "--descriptor_type", "FPFH", "--refine_transform", "true",
+        "--max_iterations", "60", "--max_points", "32768",
+        "--max_keypoints", "512", "--max_neighbors", "48",
+        "--ransac_hypotheses", "1024", "--neighbor_tile", "1024",
+    ]
+    require(MergeParams.from_command_line(argv) == config1_params(),
+            "the tools' arguments do not give config #1's params")
+    return argv
+
+
+def captured(fn, *args, **kwargs):
+    """(fn's result, its standard output), the output also logged."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args, **kwargs)
+    text = out.getvalue()
+    log(text.rstrip())
+    return result, text
+
+
+def launched_on(label: str, dev, kernels, fn, bypassed=()):
+    """fn() with the launch counts reset just before and read just after,
+    every kernel but those named in `bypassed` (which must not launch)
+    required to have launched, and the kernels held against their plain
+    versions on the inputs of their first launch there. Returns (fn's
+    result, launches, wall s)."""
+    from mapmerge_torch.kernels import nn, spfh
+
+    with first_launch_inputs(nn, spfh) as seen:
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+    log(f"{label}: {wall:.3f} s, launches {launches}")
+    for name, n in launches.items():
+        require((n == 0) == (name in bypassed),
+                f"{label}: kernel {name} launched {n} times")
+    hold_on_path_inputs(label, seen, nn, spfh, launches, exact=True)
+    return result, launches, wall
+
+
+def run_offline_tools(dev, kernels) -> None:
+    """Phase 11: the offline tools on config #1's views at full size, as
+    binary .pcd files."""
+    import tempfile
+
+    from mapmerge_torch.core import transforms as tf
+    from mapmerge_torch.core.cloud import PointCloud
+    from mapmerge_torch.io.pcd import read_pcd_arrays, write_pcd
+    from mapmerge_torch.ops import neighbors
+    from mapmerge_torch.pipeline import merging
+    from mapmerge_torch.testing.scene import config1_scene
+    from mapmerge_torch.tools import merge_tool, registration_visualisation
+
+    va, vb, _, truth = config1_scene()
+    argv = config1_argv()
+    with tempfile.TemporaryDirectory() as d:
+        a, b, out = (str(Path(d) / f) for f in ("a.pcd", "b.pcd", "out.pcd"))
+        write_pcd(a, va)
+        write_pcd(b, vb)
+
+        returned = []
+
+        def keep(fn):
+            def wrapper(*args, **kwargs):
+                returned.append(fn(*args, **kwargs))
+                return returned[-1]
+
+            return wrapper
+
+        with patched({(merging, "estimate_maps_transforms"): keep}):
+            (rc, text), _, _ = launched_on(
+                "merge_tool", dev, kernels,
+                lambda: captured(merge_tool.main, [a, b, "--output", out, *argv],
+                                 device=dev),
+            )
+        require(rc == 0 and len(returned) == 1, f"merge_tool: exit code {rc}")
+        tool_t = returned[0]
+        raw = [read_pcd_arrays(p) for p in (a, b)]
+        cap = max(len(x) for x, _ in raw)
+        clouds = [PointCloud.from_numpy(x, r, capacity=cap, device=dev) for x, r in raw]
+        params = config1_params()
+        direct = merging.estimate_maps_transforms(clouds, params, seed=0)
+        require(len(tool_t) == 2 and all(
+            np.array_equal(x, y) for x, y in zip(tool_t, direct)
+        ), "merge_tool: transforms differ from estimate_maps_transforms on the files")
+        n_out = len(read_pcd_arrays(out)[0])
+        n_compose = int(merging.compose_maps(clouds, direct, params.output_resolution).count)
+        require(n_out == n_compose and f"merged map: {n_out} points" in text,
+                f"merge_tool: out.pcd has {n_out} points, compose_maps {n_compose}")
+        rot, trans = tf.pose_error(rel_pose(tool_t), truth)
+        log(f"merge_tool: transforms bitwise equal to estimate_maps_transforms on "
+            f"the files read back; out.pcd {n_out} points = compose_maps; pose "
+            f"vs truth {rot} deg, {trans} m")
+        require(rot < 1.0 and trans < 0.1, "merge_tool: pose gate 1 deg / 0.1 m failed")
+
+        # the debugger keeps each view's own size (no max_points cut, as the
+        # reference tool does): at 55,425 and 62,499 points ICP and the score
+        # resolve the bounded 1-NN to the grid, so kernel A is bypassed
+        require(min(len(x) for x, _ in raw) >= neighbors.GRID_NN_THRESHOLD,
+                "config #1's views are below the grid 1-NN threshold")
+        dump = str(Path(d) / "dump")
+        (rc, text), _, wall = launched_on(
+            "registration_visualisation", dev, kernels,
+            lambda: captured(registration_visualisation.main,
+                             [a, b, "--dump-dir", dump, *argv], device=dev),
+            bypassed=("nearest_neighbor",),
+        )
+        require(rc == 0, f"registration_visualisation: exit code {rc}")
+        lines = text.splitlines()
+        stages = {ln.split(":")[0][len("[stage] "):]: float(ln.split(":")[1].split()[0])
+                  for ln in lines if ln.startswith("[stage] ")}
+        counts = {m.group(1): int(m.group(2)) for m in map(
+            re.compile(r"^  (map\d \w[\w ]*|correspondences): (\d+)").match, lines) if m}
+        files = sorted(os.listdir(dump))
+        expect = sorted([f"map{i}_{k}.pcd" for i in (0, 1)
+                         for k in ("downsampled", "inliers", "keypoints")]
+                        + ["aligned_overlay.pcd"])
+        require(files == expect and all(
+            os.path.getsize(os.path.join(dump, f)) > 0 for f in files
+        ), f"registration_visualisation: dump files {files}")
+        # ICP's flag may be False: the reference's float32 Kabsch fails at
+        # this size and ICP keeps the RANSAC pose (ROADMAP §3)
+        require(len(stages) == 14 and len(counts) == 11 and all(
+            n > 0 for n in counts.values()
+        ) and "  ICP refined: ok=" in text,
+            f"registration_visualisation: stages {list(stages)}, counts {counts}")
+        log(f"registration_visualisation: {wall:.3f} s; StageTimes ms "
+            f"{json.dumps(stages)}, sum {sum(stages.values())}; counts "
+            f"{json.dumps(counts)}; dump files {files}")
+
+
+def run_ranks(world: int, dev, fn, timeout_s: float = 900.0) -> list:
+    """fn(rank, group) on `world` threads, each a rank of one gloo group
+    built on one HashStore, each with `dev` as its current card; the
+    results in rank order. A rank's failure is raised here."""
+    import datetime
+    import threading
+
+    from torch.distributed import HashStore, ProcessGroupGloo
+
+    store = HashStore()
+    results: list = [None] * world
+    errors: list = []
+
+    def rank(r: int):
+        try:
+            torch.cuda.set_device(dev)
+            group = ProcessGroupGloo(store, r, world, datetime.timedelta(seconds=timeout_s))
+            results[r] = fn(r, group)
+        except BaseException as e:  # re-raised below, on the calling thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=rank, args=(r,), daemon=True) for r in range(world)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout_s)
+    require(not any(th.is_alive() for th in threads), "a rank is stuck")
+    if errors:
+        raise errors[0]
+    return results
+
+
+def run_config2_two_ranks(dev, kernels, views, truths, single, single_info) -> None:
+    """Phase 12: eval config #2 over a two-rank mesh on the one card, held
+    bit for bit against phase 7's single-rank transforms on the same views."""
+    from mapmerge_torch.core.cloud import PointCloud
+    from mapmerge_torch.kernels import nn, spfh
+    from mapmerge_torch.parallel.mesh import make_mesh
+    from mapmerge_torch.pipeline.merging import estimate_maps_transforms
+
+    clouds = [PointCloud.from_numpy(x, r, capacity=CONFIG2_CAP, device=dev)
+              for x, r in views]
+
+    def rank(r, group):
+        info: dict = {}
+        out = estimate_maps_transforms(
+            clouds, config2_params(), seed=0, mesh=make_mesh([dev], group),
+            info_out=info,
+        )
+        torch.cuda.synchronize(dev)
+        return out, info
+
+    with first_launch_inputs(nn, spfh) as seen:
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        ranks = run_ranks(2, dev, rank)
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    took = [info.pop("mesh") for _, info in ranks]
+    log(f"config #2 over two ranks: {wall:.3f} s, launches {launches} (both "
+        f"ranks), peak device memory {peak_gib:.2f} GiB, per rank "
+        f"{json.dumps(took)}")
+    require(launches["spfh"] == CONFIG2_MAPS and launches["nearest_neighbor"] == 0
+            and "spfh_grid" in seen,
+            f"config #2 over two ranks: launches {launches}, expected spfh "
+            f"{CONFIG2_MAPS} through spfh_grid and nearest_neighbor 0")
+    hold_on_path_inputs("config #2, two ranks", seen, nn, spfh, launches,
+                        exact=True)
+    for r, (out, info) in enumerate(ranks):
+        require(len(out) == len(single) and all(
+            np.array_equal(a, b) for a, b in zip(out, single)
+        ), f"config #2 rank {r}: transforms differ from the single-rank run")
+        require(info == single_info,
+                f"config #2 rank {r}: info_out {info} != single-rank {single_info}")
+    truth_err = chain_errors(ranks[0][0], truths)
+    golden = json.loads((ROOT / "golden" / "config2.json").read_text())
+    gold_err = golden_errors(ranks[0][0], golden)
+    n_ok = sum(e is not None and e[0] < 2.0 and e[1] < 0.3 for e in truth_err)
+    require(n_ok >= 4, f"config #2 over two ranks: only {n_ok} of 5 maps within 2 deg / 0.3 m")
+    require(all(e is None or (e[0] < 2.0 and e[1] < 0.3) for e in gold_err),
+            "config #2 over two ranks: golden pose gate (2 deg / 0.3 m) failed")
+    log(f"config #2 over two ranks: both ranks bitwise equal to the single-rank "
+        f"run, info_out equal; {n_ok} of 5 maps within 2 deg / 0.3 m of the truth")
+
+
+def run_node_two_ranks(dev, kernels) -> None:
+    """Phase 13: the stateless node over two ranks on config #1's views,
+    each rank ingesting one robot through its own DirectoryTransport, the
+    ticks in lockstep; held against one stateless node over both maps."""
+    import tempfile
+
+    from mapmerge_torch.core import transforms as tf
+    from mapmerge_torch.io.pcd import read_pcd_arrays, write_pcd
+    from mapmerge_torch.kernels import nn, spfh
+    from mapmerge_torch.parallel.mesh import make_mesh
+    from mapmerge_torch.runtime.node import MapMergeNode
+    from mapmerge_torch.runtime.transport import DirectoryTransport
+    from mapmerge_torch.testing.scene import config1_scene
+
+    va, vb, _, truth = config1_scene()
+    params = config1_params()
+    robots = ["robot0", "robot1"]
+    with tempfile.TemporaryDirectory() as d:
+        for r, (robot, view) in enumerate(zip(robots, (va, vb))):
+            (Path(d) / f"rank{r}").mkdir()
+            write_pcd(Path(d) / f"rank{r}" / f"{robot}.pcd", view)
+        # the maps as the transports read them (a .pcd holds 8-bit colour)
+        maps = [read_pcd_arrays(Path(d) / f"rank{r}" / f"{robot}.pcd")
+                for r, robot in enumerate(robots)]
+
+        def rank(r, group):
+            node = MapMergeNode(
+                DirectoryTransport(str(Path(d) / f"rank{r}")), params, seed=0,
+                mesh=make_mesh([dev], group), device=dev,
+            )
+            node.discovery()
+            require(node.get_robots() == [robots[r]], f"rank {r}: {node.get_robots()}")
+            t0 = time.perf_counter()
+            node.transforms_estimation()
+            torch.cuda.synchronize(dev)
+            est_s = time.perf_counter() - t0
+            node.map_compositing()
+            return node.get_transforms(), int(node.get_merged_map().count), est_s
+
+        with first_launch_inputs(nn, spfh) as seen:
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            ranks = run_ranks(2, dev, rank)
+            wall = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels}
+    label = "node stateless, two ranks"
+    log(f"{label}: {wall:.3f} s (estimation ticks {[x[2] for x in ranks]} s), "
+        f"launches {launches}, merged maps {[x[1] for x in ranks]} points")
+    for name, n in launches.items():
+        require(n > 0, f"{label}: kernel {name} was not launched")
+    hold_on_path_inputs(label, seen, nn, spfh, launches, exact=True)
+    (p0, n0, _), (p1, n1, _) = ranks
+    require(sorted(p0) == sorted(p1) == robots and all(
+        np.array_equal(p0[r], p1[r]) for r in robots
+    ), f"{label}: the ranks hold different poses")
+    require(n0 == n1 > 0, f"{label}: merged maps of {n0} and {n1} points")
+    _, alone, _, _, _ = node_tick(dev, kernels, maps, params, False)
+    require(all(np.array_equal(p0[r], t) for r, t in zip(robots, alone)),
+            f"{label}: poses differ from one stateless node over both maps")
+    rot, trans = tf.pose_error(np.linalg.inv(p0["robot0"]) @ p0["robot1"], truth)
+    log(f"{label}: both ranks bitwise equal to one stateless node over the same "
+        f"two maps; pose vs truth {rot} deg, {trans} m")
+    require(rot < 1.0 and trans < 0.1, f"{label}: pose gate 1 deg / 0.1 m failed")
+
+
 def kernel_entry(k, launches: dict, stats: dict) -> dict:
     """A kernel's entry of the line before the last: its numbers on config
     #1's own inputs (the main path), then per path and on the synthetic
@@ -1332,9 +1654,13 @@ def main() -> int:
     launches = run_main_path(dev, kernels)
     run_default_operating_point(dev, kernels)
     run_registry_sweep(dev, kernels)
-    run_config2(dev, kernels)
+    config2 = run_config2(dev, kernels)
     run_node_config1(dev, kernels)
     run_config5_big(dev, kernels)
+    run_offline_tools(dev, kernels)
+    run_config2_two_ranks(dev, kernels, *config2)
+    del config2
+    run_node_two_ranks(dev, kernels)
 
     loaded = sorted(m for m in sys.modules
                     if m.startswith("jax") or m.startswith("mapmerge_tpu"))

@@ -58,13 +58,22 @@ class Kernel:
     """A hand-written kernel and its launch count.
 
     `launches` grows by one each time the wrapper launches the kernel, and
-    nowhere else, so a run can show that it went through the kernel."""
+    nowhere else, so a run can show that it went through the kernel. It is
+    one count for the whole process: rank threads add to it under a lock."""
 
     name: str
     source: str  # path in the repository
     replaces: str  # file:line of the TPU kernel it replaces
     route: str = "cuda"
     launches: int = 0
+    _lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False
+    )
+
+    def launched(self) -> None:
+        """Count one launch (called by the wrapper after the launch)."""
+        with self._lock:
+            self.launches += 1
 
 
 def _nvcc() -> str:

@@ -71,7 +71,7 @@ def nearest_neighbor(
             part_idx.data_ptr(), part_d2.data_ptr(),
             idx.data_ptr(), d2.data_ptr(), build.stream_handle(dev),
         )
-    KERNEL.launches += 1
+    KERNEL.launched()
     build.check_launch(KERNEL, err)
     return idx, d2
 

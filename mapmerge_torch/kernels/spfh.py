@@ -113,7 +113,7 @@ def spfh_tile(
             float(r2) * _R2_MARGIN, ints.data_ptr(), gathered.data_ptr(),
             hist.data_ptr(), total.data_ptr(), build.stream_handle(dev),
         )
-    KERNEL.launches += 1
+    KERNEL.launched()
     build.check_launch(KERNEL, err)
     return hist, total
 
@@ -166,7 +166,7 @@ def spfh_grid(
             float(r2) * _R2_MARGIN, hist.data_ptr(), total.data_ptr(),
             build.stream_handle(dev),
         )
-    KERNEL.launches += 1
+    KERNEL.launched()
     build.check_launch(KERNEL, err)
     return hist, total
 

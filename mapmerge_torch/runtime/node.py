@@ -38,6 +38,7 @@ import torch
 from mapmerge_torch.core.cloud import PointCloud
 from mapmerge_torch.core.device import resolve
 from mapmerge_torch.core.params import MergeParams
+from mapmerge_torch.parallel import multihost
 from mapmerge_torch.pipeline.incremental import WorldModel, features_for
 from mapmerge_torch.pipeline.merging import compose_maps, estimate_maps_transforms
 from mapmerge_torch.runtime.transport import Transport
@@ -67,13 +68,13 @@ class MapMergeNode:
         device=None,
     ):
         """`device`: where the node's clouds live (the current CUDA device
-        when None; raises without a card). The reference's `mesh` (pairs
-        sharded over devices) is not ported and raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the multi-device pair axis is not ported to mapmerge_torch"
-            )
+        when None; raises without a card). `mesh` (`parallel/mesh.Mesh`):
+        the stateless estimation deals its clouds and pairs over the mesh,
+        and when the mesh spans ranks every tick exchanges the robots' maps
+        first (`_global_maps`). Incremental mode ignores it: its world model
+        is per node."""
         self.device = resolve(device)
+        self.mesh = mesh
         self.transport = transport
         self.params = params or MergeParams()
         self.rates = {
@@ -150,6 +151,22 @@ class MapMergeNode:
             kept.append(robot)
             clouds.append((xyz, rgb))
         return kept, clouds
+
+    def _global_maps(self, kept: list[str], raw: list):
+        """The union of every rank's snapshot, by robot name, when the
+        node's mesh spans ranks (per-rank ingest, one exchange, the same
+        input on every rank; parallel/multihost.py); as given otherwise.
+
+        COLLECTIVE when the mesh spans ranks: every rank's node drives its
+        estimation and compositing ticks in lockstep (`start()`'s timers are
+        for a node alone; a job ticks the jobs from its own loop)."""
+        if self.mesh is None or self.mesh.world == 1:
+            return kept, raw
+        merged = multihost.allgather_robot_maps(
+            dict(zip(kept, raw)), group=self.mesh.group
+        )
+        names = sorted(merged)
+        return names, [merged[r] for r in names]
 
     def _fit_to_capacity(self, xyz, rgb, cap: int, robot: str):
         """Bound a raw cloud to `cap` points by a uniform random subsample
@@ -318,6 +335,9 @@ class MapMergeNode:
     def _transforms_estimation_stateless(self) -> None:
         """Full re-estimation from the latest maps (map_merge_node.cpp:141-142)."""
         kept, raw = self._snapshot_clouds(self.get_robots())
+        # the exchange comes before the guard: every rank joins the
+        # collective, also one that has no map yet
+        kept, raw = self._global_maps(kept, raw)
         if not kept:
             return
         cap = min(max(len(x) for x, _ in raw), self.params.max_points)
@@ -337,7 +357,7 @@ class MapMergeNode:
             )
         info: dict = {}
         transforms = estimate_maps_transforms(
-            clouds, self.params, seed=self.seed, info_out=info
+            clouds, self.params, seed=self.seed, mesh=self.mesh, info_out=info
         )
         # registration-time ambiguity flags are an operator-visible condition
         self.metrics.set_gauge("pairs_registered", info.get("n_pairs", 0))
@@ -368,9 +388,10 @@ class MapMergeNode:
         with self._lock:
             est_robots = list(self._estimated_robots)
             transforms = {r: self._transforms.get(r) for r in est_robots}
+        kept, raw = self._snapshot_clouds(self.get_robots())
+        kept, raw = self._global_maps(kept, raw)  # collective first, guards after
         if not est_robots:
             return
-        kept, raw = self._snapshot_clouds(self.get_robots())
         have = dict(zip(kept, raw))
         # the maps known at the last estimation (map_merge_node.cpp:114-116)
         robots = [

@@ -231,14 +231,19 @@ class TestOutsideTheSlice:
         assert int(feats.scan_overflow) == 0
 
     def test_mesh_is_not_ported(self):
+        """The mesh is ported: both entry points take one and no longer
+        raise (tests/test_torch_parallel.py holds the sharded path)."""
+        from mapmerge_torch.parallel.mesh import make_mesh
         from mapmerge_torch.pipeline.merging import estimate_maps_transforms
         from mapmerge_torch.runtime.node import MapMergeNode
         from mapmerge_torch.runtime.transport import InProcTransport
 
-        with pytest.raises(NotImplementedError, match="mesh"):
-            estimate_maps_transforms([], mesh=object())
-        with pytest.raises(NotImplementedError, match="mesh"):
-            MapMergeNode(InProcTransport(), mesh=object(), device="cpu")
+        mesh = make_mesh(["cpu"])
+        assert estimate_maps_transforms([], mesh=mesh) == []
+        node = MapMergeNode(InProcTransport(), mesh=mesh, device="cpu")
+        assert node.mesh is mesh
+        node.transforms_estimation()  # no robot yet: an empty tick
+        assert node.get_transforms() == {}
 
     def test_keypoint_descriptor_and_method(self):
         """HARRIS, SIFT, PFH and SAC_IA dispatch on both engines."""

@@ -22,6 +22,7 @@ from mapmerge_tpu.pipeline.merging import compose_maps as j_compose
 from mapmerge_tpu.pipeline.merging import estimate_maps_transforms as j_estimate
 from mapmerge_torch.core import transforms as ttf
 from mapmerge_torch.core.cloud import PointCloud as TorchCloud
+from mapmerge_torch.parallel.mesh import make_mesh
 from mapmerge_torch.pipeline.merging import compose_maps as t_compose
 from mapmerge_torch.pipeline.merging import estimate_maps_transforms as t_estimate
 from mapmerge_torch.pipeline.merging import pair_generator
@@ -142,8 +143,11 @@ class TestContracts:
             t_compose(torch_clouds, [np.eye(4)], 0.1)
         empty = t_compose(torch_clouds, [np.zeros((4, 4))] * 2, 0.1)
         assert empty.capacity == 1 and not empty.mask.any()
-        with pytest.raises(NotImplementedError, match="mesh"):
-            t_estimate(torch_clouds, params, mesh=object())
+        # the mesh is ported: a single cloud is the identity there too
+        mesh = make_mesh(["cpu"])
+        np.testing.assert_array_equal(
+            t_estimate(torch_clouds[:1], params, mesh=mesh)[0], ours[0]
+        )
 
     def test_clouds_without_keypoints(self, rng):
         """Uniform colour: SIFT finds nothing, no pair is generated, and
