@@ -72,12 +72,43 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      ingesting one robot through its own DirectoryTransport, ticks in
      lockstep: both ranks' poses bit for bit one stateless node's over the
      same two maps, within 1 deg / 0.1 m; the merged maps of equal size.
+  14. eval config #3 (bench_configs.py:306-348): two town views of
+     1,840,730 points at capacity 2^21, extract_features on each and one
+     estimate_transform (Harris + FPFH, 1024 hypotheses, ICP <= 40, grid
+     engine); a cold run (launches, peak memory, the probe's and the pair's
+     overflow, ICP's flag and iterations) gated at 2 deg / 0.3 m against the
+     truth, spfh exactly 2 launches through spfh_grid held exactly on the
+     first cloud's inputs, nn 0; a warm and a stage-timed run, each bit for
+     bit the cold one;
+  15. eval config #4 (bench_configs.py:351-369, gates :599-611) over two OS
+     processes on the one card: this script runs itself twice as
+     `--rank-job RANK WORLD ADDRESS WORKDIR`; each joins through
+     multihost.initialize and global_mesh(), merges config #4's 20 maps
+     (town_views(20, 4096, seed=3), SIFT + FPFH, dense engine) and runs
+     tests/test_distributed_node.py's scenario (one robot a rank, its own
+     DirectoryTransport, ticks in lockstep), holds both kernels on its own
+     first-launch inputs and prints one JSON line. Both ranks must give this
+     process's single-rank merge bit for bit, info_out included, and one
+     stateless node's poses over both maps (within 3 deg / 0.1 m, the gates
+     both packages meet there); config #4's gates (14 of 19 adjacent hops
+     within 5 deg / 0.5 m, 18 of 20 maps within 1 deg / 0.1 m of the truth
+     relative to the first registered map); a failed or stuck rank process
+     fails the phase;
+  16. config5 (bench_configs.py:615-675): 50 town views of 6,747 points
+     streamed ten at a time through the stateless node (SIFT + FPFH, dense
+     engine), each batch a discovery, an estimation and a compositing tick:
+     gated at 35 of 50 maps registered, 38 adjacent hops within 8 deg / 0.5
+     m, drift under 10 deg / 0.5 m and more than 1,000 merged points; the
+     last tick bit for bit estimate_maps_transforms on the node's clouds, a
+     second node's first batch bit for bit the first tick; each tick's
+     time with the host graph solve split out, maps a second, peak memory.
 Each path runs with the launch counts reset just before it and read just
-after. The kernel launch counts are one per process, so the two-rank phases
-count both ranks' launches. On every path each kernel it launched is then held against its plain
-version on the inputs of its first launch in that run (the path's own
-shapes, ragged edges included) and timed there (CUDA events, warm, median),
-beside its bound: the larger of the bytes it must move over 3.35 TB/s and
+after. The kernel launch counts are one per process, so phases 12-13 count
+both thread ranks' launches, and phase 15's rank processes each report
+their own. On every path each kernel it launched is then held against its
+plain version on the inputs of its first launch in that run (the path's own
+shapes, ragged edges included), and both are timed there (CUDA events,
+warm, median), beside the kernel's bound: the larger of the bytes it must move over 3.35 TB/s and
 the float32 operations these inputs need over 67 TFLOP/s (H100 SXM data
 sheet). The line before the last is a JSON object of the kernels: launches,
 times and bound on config #1's own inputs, and the same for every path and
@@ -432,11 +463,11 @@ PATH_STATS: dict[str, dict] = {}
 
 
 def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
-                        plain: bool = False, exact: bool = False) -> None:
+                        exact: bool = False) -> None:
     """Each kernel a path launched against its plain version on the inputs
     of its first launch there, with check_nn's and check_spfh's
     tolerances (with `exact`: no difference at all), then timed on them
-    (CUDA events, warm, median; the plain version too where `plain`).
+    (CUDA events, warm, median), and the plain version too.
     These launches come after the path's counts were read."""
     stats = PATH_STATS[label] = {}
     if "nearest_neighbor" in seen:
@@ -444,15 +475,14 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
         err, ties = _nn_compare(f"{label} nn", nn, *args)
         require(not exact or (err == 0.0 and ties == 0),
                 f"{label} nn: max err {err}, {ties} indices differ; exact required")
-        st = stats["nearest_neighbor"] = {
+        stats["nearest_neighbor"] = {
             "shape": f"Q={args[0].shape[0]} P={args[1].shape[0]}",
             "launches": launches["nearest_neighbor"], "max_abs_err": err,
             "tie_mismatches": ties,
             "ms": time_ms(lambda: nn.nearest_neighbor(*args)),
+            "plain_ms": time_ms(lambda: nn.nearest_neighbor_ref(*args), reps=5),
             **nn_bound(args[0], args[1]),
         }
-        if plain:
-            st["plain_ms"] = time_ms(lambda: nn.nearest_neighbor_ref(*args), reps=5)
     if "spfh" in seen:
         args, kwargs = seen["spfh"]
         ref = spfh.spfh_ref(*args, **kwargs)
@@ -464,7 +494,7 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
         b, cq, _ = args[0].shape
         bc, m, _ = args[2].shape
         counted = ref[1][ref[1] > 0]
-        st = stats["spfh"] = {
+        stats["spfh"] = {
             "shape": f"{b}x{cq} x {bc}x{m}",
             "mode": "shared (Bc = 1)",
             "launches": launches["spfh"],
@@ -472,11 +502,9 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
             "pairs_per_query": float(ref[1].mean()),
             "pairs_per_counted_query": float(counted.mean()) if counted.numel() else 0.0,
             "ms": time_ms(lambda: spfh.spfh_tile(*args, **kwargs)),
+            "plain_ms": time_ms(lambda: spfh.spfh_ref(*args, **kwargs), reps=3, warmup=1),
             **spfh_bound(args, int(ref[1].sum())),
         }
-        if plain:
-            st["plain_ms"] = time_ms(lambda: spfh.spfh_ref(*args, **kwargs),
-                                     reps=3, warmup=1)
     if "spfh_grid" in seen:
         require("spfh" not in seen, f"{label}: both spfh entries launched")
         args, kwargs = seen["spfh_grid"]
@@ -489,18 +517,17 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
         require(not exact or (err == 0.0 and n_bad == 0),
                 f"{label} spfh_grid: max err {err}, {n_bad} rows off; exact required")
         grid, q_ok, normals = args[:3]
-        st = stats["spfh"] = {
+        stats["spfh"] = {
             "shape": f"grid {tuple(grid.cell_idx.shape)}, {normals.shape[0]} points",
             "mode": "grid (spfh_grid, one launch a cloud)",
             "launches": launches["spfh"],
             "max_abs_err": err, "rows_off": n_bad,
             **grid_sweep_counters(grid, q_ok, ref[1]),
             "ms": time_ms(lambda: spfh.spfh_grid(*args, **kwargs)),
+            "plain_ms": time_ms(lambda: spfh.spfh_grid_ref(*args, **kwargs),
+                                reps=3, warmup=1),
             **spfh_grid_bound(grid, q_ok, normals, ref[1]),
         }
-        if plain:
-            st["plain_ms"] = time_ms(lambda: spfh.spfh_grid_ref(*args, **kwargs),
-                                     reps=3, warmup=1)
     require(stats, f"{label}: no kernel input was recorded")
     log(f"{label}: kernels on the path's own inputs: {json.dumps(stats)}")
 
@@ -560,7 +587,7 @@ def run_main_path(dev, kernels) -> dict:
         f"peak device memory {peak_gib:.2f} GiB")
     for name, n in launches.items():
         require(n > 0, f"kernel {name} was not launched by the main path")
-    hold_on_path_inputs("config #1", seen, nn, spfh, launches, plain=True)
+    hold_on_path_inputs("config #1", seen, nn, spfh, launches)
 
     require(len(out) == 2 and all(
         t.shape == (4, 4) and np.isfinite(t).all() for t in out
@@ -836,6 +863,19 @@ def chain_errors(transforms, truths) -> list:
     ]
 
 
+def adjacent_errors(transforms, truths) -> list:
+    """The relative pose error (deg, m) of each pair of adjacent maps that
+    both registered (bench_configs.check_adjacent)."""
+    from mapmerge_torch.core import transforms as tf
+
+    return [
+        tf.pose_error(np.linalg.inv(transforms[i]) @ transforms[i + 1],
+                      np.linalg.inv(truths[i]) @ truths[i + 1])
+        for i in range(len(truths) - 1)
+        if np.asarray(transforms[i]).any() and np.asarray(transforms[i + 1]).any()
+    ]
+
+
 def golden_errors(transforms, golden) -> list:
     """Each registered map's pose error (deg, m) against the frozen oracle
     poses, both relative to map 0 (bench_configs.config2's golden gate);
@@ -870,6 +910,19 @@ def config2_stages():
     )
 
 
+def feature_counters(f) -> dict:
+    """A cloud's feature-stage counters: its points after the voxel grid,
+    the valid points the grid dropped, the probe's overflow (the fullest
+    bucket beyond its cap), its keypoints and those the cap truncated."""
+    return {
+        "points": int(f.cloud.mask.sum()),
+        "dropped_points": int(f.dropped_points),
+        "scan_overflow": int(f.scan_overflow),
+        "keypoints": int(f.keypoints.mask.sum()),
+        "keypoints_truncated": int(f.keypoints.truncated),
+    }
+
+
 @contextlib.contextmanager
 def stage_recorder(stages, features_at, pairs_at):
     """Host ms and calls of every stage of `stages` ((owner, attribute,
@@ -898,13 +951,7 @@ def stage_recorder(stages, features_at, pairs_at):
     def features_counters(fn):
         def wrapper(*args, **kwargs):
             f = fn(*args, **kwargs)
-            rec["clouds"].append({
-                "points": int(f.cloud.mask.sum()),
-                "dropped_points": int(f.dropped_points),
-                "scan_overflow": int(f.scan_overflow),
-                "keypoints": int(f.keypoints.mask.sum()),
-                "keypoints_truncated": int(f.keypoints.truncated),
-            })
+            rec["clouds"].append(feature_counters(f))
             return f
 
         return wrapper
@@ -975,7 +1022,7 @@ def run_config2(dev, kernels):
     require(launches["spfh"] == CONFIG2_MAPS and "spfh_grid" in seen,
             f"config #2: spfh launched {launches['spfh']} times, expected "
             f"{CONFIG2_MAPS} through spfh_grid (one a cloud)")
-    hold_on_path_inputs("config #2", seen, nn, spfh, launches, plain=True,
+    hold_on_path_inputs("config #2", seen, nn, spfh, launches,
                         exact=True)
 
     require(len(cold) == CONFIG2_MAPS and all(
@@ -1054,11 +1101,23 @@ def node_tick(dev, kernels, views, params, incremental: bool):
     return node, [poses[r] for r in robots], seen, launches, wall
 
 
+def stateless_clouds(node) -> tuple[list, list]:
+    """(robots, clouds) of a stateless node's next estimation tick, as the
+    node builds them: each robot's latest map subsampled to the tick's
+    capacity (the larger map's size, at most max_points) as the reference
+    node does, in the node's robot order."""
+    robots, raw = node._snapshot_clouds(node.get_robots())
+    cap = min(max(len(x) for x, _ in raw), node.params.max_points)
+    return robots, [
+        node._cloud(*node._fit_to_capacity(x, r, cap, robot)[:2], cap)
+        for robot, (x, r) in zip(robots, raw)
+    ]
+
+
 def run_node_config1(dev, kernels) -> None:
     """Phases 8 and 9: the online node on config #1's views, stateless and
     incremental."""
     from mapmerge_torch.core import transforms as tf
-    from mapmerge_torch.core.cloud import PointCloud
     from mapmerge_torch.kernels import nn, spfh
     from mapmerge_torch.pipeline.merging import estimate_maps_transforms
     from mapmerge_torch.testing.scene import config1_scene
@@ -1075,14 +1134,8 @@ def run_node_config1(dev, kernels) -> None:
         require(n > 0, f"{label}: kernel {name} was not launched")
     hold_on_path_inputs(label, seen, nn, spfh, launches)
     require(rot < 1.0 and trans < 0.1, f"{label}: pose gate 1 deg / 0.1 m failed")
-    # the node subsamples each view to max_points, as the reference node
-    # does: the direct call takes the clouds the node built
-    cap = min(max(len(va[0]), len(vb[0])), params.max_points)
-    clouds = [
-        PointCloud.from_numpy(*node._fit_to_capacity(x, r, cap, f"robot{i}")[:2],
-                              capacity=cap, device=dev)
-        for i, (x, r) in enumerate((va, vb))
-    ]
+    _, clouds = stateless_clouds(node)
+    cap = clouds[0].capacity
     direct = estimate_maps_transforms(clouds, params, seed=0)
     require(all(np.array_equal(a, b) for a, b in zip(out, direct)),
             f"{label}: poses differ from estimate_maps_transforms on its clouds")
@@ -1245,7 +1298,7 @@ def run_config5_big(dev, kernels) -> None:
     require(launches["spfh"] == n_features == n and "spfh_grid" in seen,
             f"config5_big: spfh launched {launches['spfh']} times for "
             f"{n_features} feature extractions, expected one each through spfh_grid")
-    hold_on_path_inputs("config5_big", seen, nn, spfh, launches, plain=True,
+    hold_on_path_inputs("config5_big", seen, nn, spfh, launches,
                         exact=True)
 
     poses = node.get_transforms()
@@ -1254,11 +1307,7 @@ def run_config5_big(dev, kernels) -> None:
         t.shape == (4, 4) and np.isfinite(t).all() for t in ordered
     ), "config5_big: transforms are not finite 4x4 matrices, one a map")
     registered = sum(1 for t in ordered if t.any())
-    adjacent = [
-        tf.pose_error(np.linalg.inv(ordered[i]) @ ordered[i + 1],
-                      np.linalg.inv(truths[i]) @ truths[i + 1])
-        for i in range(n - 1) if ordered[i].any() and ordered[i + 1].any()
-    ]
+    adjacent = adjacent_errors(ordered, truths)
     n_adjacent = sum(1 for rot, trans in adjacent if rot < 5.0 and trans < 0.5)
     drift = max(e for e in chain_errors(ordered, truths) if e is not None)
     merged = node.get_merged_map()
@@ -1533,6 +1582,25 @@ def run_config2_two_ranks(dev, kernels, views, truths, single, single_info) -> N
         f"run, info_out equal; {n_ok} of 5 maps within 2 deg / 0.3 m of the truth")
 
 
+def stateless_node_tick(watch, params, dev, mesh=None):
+    """A stateless node (seed 0) over the maps in the directory `watch`:
+    one discovery, estimation and compositing tick. Returns (robots it
+    ingested, poses, merged points, estimation seconds)."""
+    from mapmerge_torch.runtime.node import MapMergeNode
+    from mapmerge_torch.runtime.transport import DirectoryTransport
+
+    node = MapMergeNode(DirectoryTransport(str(watch)), params, mesh=mesh, seed=0,
+                        device=dev)
+    node.discovery()
+    t0 = time.perf_counter()
+    node.transforms_estimation()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    est_s = time.perf_counter() - t0
+    node.map_compositing()
+    return node.get_robots(), node.get_transforms(), int(node.get_merged_map().count), est_s
+
+
 def run_node_two_ranks(dev, kernels) -> None:
     """Phase 13: the stateless node over two ranks on config #1's views,
     each rank ingesting one robot through its own DirectoryTransport, the
@@ -1540,11 +1608,9 @@ def run_node_two_ranks(dev, kernels) -> None:
     import tempfile
 
     from mapmerge_torch.core import transforms as tf
-    from mapmerge_torch.io.pcd import read_pcd_arrays, write_pcd
+    from mapmerge_torch.io.pcd import write_pcd
     from mapmerge_torch.kernels import nn, spfh
     from mapmerge_torch.parallel.mesh import make_mesh
-    from mapmerge_torch.runtime.node import MapMergeNode
-    from mapmerge_torch.runtime.transport import DirectoryTransport
     from mapmerge_torch.testing.scene import config1_scene
 
     va, vb, _, truth = config1_scene()
@@ -1552,25 +1618,13 @@ def run_node_two_ranks(dev, kernels) -> None:
     robots = ["robot0", "robot1"]
     with tempfile.TemporaryDirectory() as d:
         for r, (robot, view) in enumerate(zip(robots, (va, vb))):
-            (Path(d) / f"rank{r}").mkdir()
-            write_pcd(Path(d) / f"rank{r}" / f"{robot}.pcd", view)
-        # the maps as the transports read them (a .pcd holds 8-bit colour)
-        maps = [read_pcd_arrays(Path(d) / f"rank{r}" / f"{robot}.pcd")
-                for r, robot in enumerate(robots)]
+            for watch in (Path(d) / f"rank{r}", Path(d) / "both"):
+                watch.mkdir(exist_ok=True)
+                write_pcd(watch / f"{robot}.pcd", view)
 
         def rank(r, group):
-            node = MapMergeNode(
-                DirectoryTransport(str(Path(d) / f"rank{r}")), params, seed=0,
-                mesh=make_mesh([dev], group), device=dev,
-            )
-            node.discovery()
-            require(node.get_robots() == [robots[r]], f"rank {r}: {node.get_robots()}")
-            t0 = time.perf_counter()
-            node.transforms_estimation()
-            torch.cuda.synchronize(dev)
-            est_s = time.perf_counter() - t0
-            node.map_compositing()
-            return node.get_transforms(), int(node.get_merged_map().count), est_s
+            return stateless_node_tick(Path(d) / f"rank{r}", params, dev,
+                                       make_mesh([dev], group))
 
         with first_launch_inputs(nn, spfh) as seen:
             for k in kernels:
@@ -1579,24 +1633,542 @@ def run_node_two_ranks(dev, kernels) -> None:
             ranks = run_ranks(2, dev, rank)
             wall = time.perf_counter() - t0
             launches = {k.name: k.launches for k in kernels}
+        # one node over both maps as the transports read them (a .pcd holds
+        # 8-bit colour)
+        _, alone, _, _ = stateless_node_tick(Path(d) / "both", params, dev)
     label = "node stateless, two ranks"
-    log(f"{label}: {wall:.3f} s (estimation ticks {[x[2] for x in ranks]} s), "
-        f"launches {launches}, merged maps {[x[1] for x in ranks]} points")
+    log(f"{label}: {wall:.3f} s (estimation ticks {[x[3] for x in ranks]} s), "
+        f"launches {launches}, merged maps {[x[2] for x in ranks]} points")
     for name, n in launches.items():
         require(n > 0, f"{label}: kernel {name} was not launched")
     hold_on_path_inputs(label, seen, nn, spfh, launches, exact=True)
-    (p0, n0, _), (p1, n1, _) = ranks
+    (s0, p0, n0, _), (s1, p1, n1, _) = ranks
+    require([s0, s1] == [robots[:1], robots[1:]], f"{label}: ranks ingested {s0}, {s1}")
     require(sorted(p0) == sorted(p1) == robots and all(
         np.array_equal(p0[r], p1[r]) for r in robots
     ), f"{label}: the ranks hold different poses")
     require(n0 == n1 > 0, f"{label}: merged maps of {n0} and {n1} points")
-    _, alone, _, _, _ = node_tick(dev, kernels, maps, params, False)
-    require(all(np.array_equal(p0[r], t) for r, t in zip(robots, alone)),
+    require(all(np.array_equal(p0[r], alone[r]) for r in robots),
             f"{label}: poses differ from one stateless node over both maps")
     rot, trans = tf.pose_error(np.linalg.inv(p0["robot0"]) @ p0["robot1"], truth)
     log(f"{label}: both ranks bitwise equal to one stateless node over the same "
         f"two maps; pose vs truth {rot} deg, {trans} m")
     require(rot < 1.0 and trans < 0.1, f"{label}: pose gate 1 deg / 0.1 m failed")
+
+
+#: eval config #3 (bench_configs.py:306-348): two LiDAR-style town views
+CONFIG3_VIEW_POINTS = 1_840_730
+CONFIG3_CAP = 1 << 21
+
+
+def config3_params():
+    """bench_configs.py:318: _big_params(1 << 20) with 1024 hypotheses
+    (config #2's params; the replace mirrors the reference's)."""
+    return config2_params().replace(ransac_hypotheses=1024)
+
+
+def run_config3(dev, kernels) -> None:
+    """Phase 14: eval config #3, the JAX package's largest pair, through
+    the library's lower entry points."""
+    from mapmerge_torch.core import transforms as tf
+    from mapmerge_torch.core.cloud import PointCloud
+    from mapmerge_torch.kernels import nn, spfh
+    from mapmerge_torch.ops import icp
+    from mapmerge_torch.pipeline import features, merging, registration
+    from mapmerge_torch.testing.scene import town_views
+
+    t0 = time.perf_counter()
+    views, truths = town_views(2, 800_000, keep=0.75, seed=9)
+    sizes = [len(v[0]) for v in views]
+    require(sizes == [CONFIG3_VIEW_POINTS] * 2, f"config #3 views have {sizes} points")
+    clouds = [PointCloud.from_numpy(x, r, capacity=CONFIG3_CAP, device=dev)
+              for x, r in views]
+    del views
+    params = config3_params()
+    truth = np.linalg.inv(truths[1]) @ truths[0]
+    log(f"config #3: 2 views of {sizes[0]} points, capacity {CONFIG3_CAP}, "
+        f"max_points {params.max_points}; made in {time.perf_counter() - t0:.3f} s")
+
+    def register():
+        fa = features.extract_features(clouds[0], params)
+        fb = features.extract_features(clouds[1], params)
+        est = registration.estimate_transform(
+            fa, fb, params, merging.seeded_generator([0], dev))
+        return fa, fb, est
+
+    # ICP's iterations (one 1-NN query each, grid or dense) and its flag
+    icp_run = {"iterations": 0, "ok": None}
+
+    def count(fn):
+        def wrapper(*args, **kwargs):
+            icp_run["iterations"] += 1
+            return fn(*args, **kwargs)
+
+        return wrapper
+
+    def keep_flag(fn):
+        def wrapper(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            icp_run["ok"] = out[1]
+            return out
+
+        return wrapper
+
+    icp_probe = {(icp, "grid_nn_query"): count, (icp, "nearest_neighbor"): count,
+                 (registration, "icp_refine"): keep_flag}
+    with first_launch_inputs(nn, spfh) as seen, patched(icp_probe):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        fa, fb, est = register()
+        cold = est.transform.cpu().numpy()
+        cold_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    counters = [feature_counters(f) for f in (fa, fb)]
+    del fa, fb
+    log(f"config #3 cold run: {cold_s:.3f} s, launches {launches} (nearest_neighbor "
+        f"expected 0: ICP and the score take the grid), peak device memory "
+        f"{peak_gib:.2f} GiB")
+    log(f"config #3 feature stage per cloud (scan_overflow: the fullest probe "
+        f"bucket beyond grid_scan_cap {params.grid_scan_cap} at "
+        f"{params.descriptor_radius} m or registration_scan_cap "
+        f"{params.registration_scan_cap} at {params.max_correspondence_distance} "
+        f"m): {json.dumps(counters)}")
+    log(f"config #3 pair: ok {bool(est.ok)}, confidence {float(est.confidence)}, "
+        f"inliers {int(est.inlier_count)}, coverage {float(est.coverage)}, "
+        f"dropped source queries (scan_overflow) {int(est.scan_overflow)}; ICP ok "
+        f"{icp_run['ok']} after {icp_run['iterations']} iterations")
+    require(launches["spfh"] == 2 and "spfh_grid" in seen
+            and launches["nearest_neighbor"] == 0,
+            f"config #3: launches {launches}, expected spfh 2 through spfh_grid "
+            "(one a cloud) and nearest_neighbor 0")
+    hold_on_path_inputs("config #3", seen, nn, spfh, launches, exact=True)
+
+    require(cold.shape == (4, 4) and np.isfinite(cold).all() and bool(est.ok),
+            "config #3: no finite registration")
+    rot, trans = tf.pose_error(cold, truth)
+    log(f"config #3 pose vs truth: {rot} deg, {trans} m")
+    require(rot < 2.0 and trans < 0.3, "config #3: pose gate 2 deg / 0.3 m failed")
+
+    t0 = time.perf_counter()
+    warm = register()[2].transform.cpu().numpy()
+    warm_s = time.perf_counter() - t0
+    recorder = stage_recorder(config2_stages(), (features, "extract_features"),
+                              (registration, "estimate_transform"))
+    with recorder as rec:
+        staged = register()[2].transform.cpu().numpy()
+    for label, out in (("warm", warm), ("stage-timed", staged)):
+        require(np.array_equal(out, cold),
+                f"config #3: the {label} run gave another transform than the cold run")
+    log(f"config #3 wall s: cold {cold_s}, warm {warm_s}; the warm and the "
+        "stage-timed run bitwise equal to the cold run")
+    log(f"config #3 stage ms of one run (2 clouds, 1 pair): {json.dumps(rec['ms'])}, "
+        f"sum {sum(rec['ms'].values())}")
+
+
+#: eval config #4 (bench_configs.py:351-369): 20 views of one town
+CONFIG4_MAPS, CONFIG4_VIEW_POINTS = 20, 9_745
+#: seconds a rank process of phase 15 may run; also its collectives' timeout
+RANK_TIMEOUT_S = 300.0
+#: the JAX package's stateless node (seed 0) on distributed_node_case's
+#: maps, on the CPU: RANSAC alone misses 1 deg there, as the port does, so
+#: phase 15 gates the node at tests/test_distributed_node.py's 3 deg and the
+#: 0.1 m that both packages meet (ROADMAP.md §3)
+NODE_JAX_ERROR = (1.5920073986053467, 0.0770241990685463)
+
+
+def config4_params():
+    """bench_configs.py:362-367: SIFT (3.0) + FPFH, ICP <= 30, max_points
+    8192, K 384, M 48, 768 hypotheses, tile 256."""
+    from mapmerge_torch.pipeline.merging import MergeParams
+
+    return MergeParams(
+        keypoint_type="SIFT", keypoint_threshold=3.0, descriptor_type="FPFH",
+        refine_transform=True, max_iterations=30, max_points=8192,
+        max_keypoints=384, max_neighbors=48, ransac_hypotheses=768,
+        neighbor_tile=256,
+    )
+
+
+def raw_clouds(views, dev) -> list:
+    """The views as clouds at their raw capacity, the next power of two
+    above the largest (bench_configs._config4_fixture)."""
+    from mapmerge_torch.core.cloud import PointCloud
+
+    cap = 1 << int(np.ceil(np.log2(max(len(x) for x, _ in views))))
+    return [PointCloud.from_numpy(x, r, capacity=cap, device=dev) for x, r in views]
+
+
+def distributed_node_case():
+    """tests/test_distributed_node.py:45-66: the box scene's views a and b
+    (robot_a, robot_b), b moved by the truth, and that test's params
+    (Harris + FPFH, RANSAC alone): (views by robot, truth, params)."""
+    from mapmerge_torch.pipeline.merging import MergeParams
+    from mapmerge_torch.testing.scene import make_scene, overlapping_views, rotation_z, se3
+
+    xyz, rgb = make_scene(np.random.default_rng(7), n_boxes=6, extent=8.0, density=40.0)
+    truth = se3(rotation_z(0.35), [1.2, -0.5, 0.15])
+    va, vb, _ = overlapping_views(np.random.default_rng(3), xyz, rgb, truth, overlap=0.65)
+    params = MergeParams(
+        keypoint_type="HARRIS", keypoint_threshold=5.0, descriptor_type="FPFH",
+        refine_transform=False, max_points=4096, max_keypoints=128,
+        max_neighbors=32, ransac_hypotheses=256, neighbor_tile=256,
+    )
+    return {"robot_a": va, "robot_b": vb}, truth, params
+
+
+def rank_job(rank: int, world: int, address, dev, workdir, merge, node) -> None:
+    """One rank of phase 15: join the job (initialize is a no-op at world
+    1), merge `merge` = (views, params) over global_mesh(), then run the
+    stateless node over `node` = (views by robot, params), this rank
+    ingesting every world-th robot from rank on through its own
+    DirectoryTransport under `workdir`, in lockstep with the other ranks.
+    On the card each path's kernels are held on their first-launch inputs
+    here. Prints one JSON line: the transforms, info_out (its "mesh" apart),
+    the node's robots, poses and merged points, the launch counts, the
+    kernel holds, the peak memory, the walls and the modules of JAX or
+    mapmerge_tpu loaded."""
+    from mapmerge_torch.io.pcd import write_pcd
+    from mapmerge_torch.kernels import nn, spfh
+    from mapmerge_torch.parallel import multihost
+    from mapmerge_torch.pipeline.merging import estimate_maps_transforms
+
+    t_start = time.perf_counter()
+    kernels = (nn.KERNEL, spfh.KERNEL)
+    on_card = dev.type == "cuda"
+    multihost.initialize(address, world, rank, timeout=RANK_TIMEOUT_S)
+    mesh = multihost.global_mesh(None if on_card else [dev])
+    out: dict = {"rank": mesh.rank, "world": mesh.world,
+                 "devices": [str(d) for d in mesh.devices]}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def launched(label, fn):
+        with first_launch_inputs(nn, spfh) as seen:
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            result = fn()
+            wall = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels}
+        if on_card:
+            hold_on_path_inputs(label, seen, nn, spfh, launches, exact=True)
+        return result, launches, wall
+
+    views, params = merge
+    clouds = raw_clouds(views, dev)
+    info: dict = {}
+    transforms, out["merge_launches"], out["merge_s"] = launched(
+        f"config #4, rank {rank}",
+        lambda: estimate_maps_transforms(clouds, params, seed=0, mesh=mesh, info_out=info))
+    out["mesh"] = info.pop("mesh")
+    out["transforms"] = [t.tolist() for t in transforms]
+    out["info"] = info
+
+    node_views, node_params = node
+    watch = Path(workdir) / f"rank{rank}"
+    watch.mkdir(parents=True, exist_ok=True)
+    for robot in sorted(node_views)[rank::world]:
+        write_pcd(watch / f"{robot}.pcd", node_views[robot])
+    tick, out["node_launches"], _ = launched(
+        f"node two processes, rank {rank}",
+        lambda: stateless_node_tick(watch, node_params, dev, mesh))
+    out["node"] = dict(zip(("robots", "poses", "merged_points", "estimation_s"), tick))
+    out["node"]["poses"] = {r: t.tolist() for r, t in tick[1].items()}
+    out["kernels"] = {label: PATH_STATS[label] for label in PATH_STATS}
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
+    out["loaded"] = sorted(m for m in sys.modules
+                           if m.startswith("jax") or m.startswith("mapmerge_tpu"))
+    out["wall_s"] = time.perf_counter() - t_start
+    print(json.dumps(out), flush=True)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(world: int, workdir) -> list[dict]:
+    """`world` rank processes of this script (`--rank-job`), joined at a
+    free local port; each one's JSON line, in rank order. A rank that
+    fails or outlasts RANK_TIMEOUT_S kills every rank and fails the run."""
+    address = f"127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-job", str(r), str(world),
+         address, str(workdir)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+    ) for r in range(world)]
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    lines = []
+    try:
+        for r, proc in enumerate(procs):
+            try:
+                stdout, stderr = proc.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"chip_smoke: rank {r} did not finish in "
+                                   f"{RANK_TIMEOUT_S} s") from None
+            require(proc.returncode == 0, f"rank {r} exited with code "
+                    f"{proc.returncode}:\n{stderr[-4000:]}")
+            lines.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    return lines
+
+
+def run_config4_two_processes(dev, kernels) -> None:
+    """Phase 15: eval config #4 and the distributed node over two rank
+    processes on the one card, held against this process's single-rank
+    runs."""
+    import tempfile
+
+    from mapmerge_torch.core import transforms as tf
+    from mapmerge_torch.io.pcd import write_pcd
+    from mapmerge_torch.kernels import nn, spfh
+    from mapmerge_torch.pipeline.merging import estimate_maps_transforms
+    from mapmerge_torch.testing.scene import town_views
+
+    views, truths = town_views(CONFIG4_MAPS, 4096, seed=3)
+    sizes = [len(x) for x, _ in views]
+    require(sizes == [CONFIG4_VIEW_POINTS] * CONFIG4_MAPS,
+            f"config #4 views have {sizes} points")
+    params = config4_params()
+    clouds = raw_clouds(views, dev)
+    info: dict = {}
+    with first_launch_inputs(nn, spfh) as seen:
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        single = estimate_maps_transforms(clouds, params, seed=0, info_out=info)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"config #4, one rank: {CONFIG4_MAPS} views of {sizes[0]} points, capacity "
+        f"{clouds[0].capacity}: {wall:.3f} s, launches {launches}, info_out {info}, "
+        f"peak device memory {peak_gib:.2f} GiB")
+    for name, n in launches.items():
+        require(n > 0, f"config #4: kernel {name} was not launched")
+    hold_on_path_inputs("config #4", seen, nn, spfh, launches, exact=True)
+    require(len(single) == CONFIG4_MAPS and all(
+        t.shape == (4, 4) and np.isfinite(t).all() for t in single
+    ), "config #4: transforms are not 20 finite 4x4 matrices")
+    hops = adjacent_errors(single, truths)
+    per_map = chain_errors(single, truths)
+    n_hops = sum(1 for rot, trans in hops if rot < 5.0 and trans < 0.5)
+    n_maps = sum(1 for e in per_map if e is not None and e[0] < 1.0 and e[1] < 0.1)
+    log(f"config #4: {n_hops} of {len(hops)} adjacent hops within 5 deg / 0.5 m, "
+        f"{n_maps} of {CONFIG4_MAPS} maps within 1 deg / 0.1 m, drift "
+        f"{max(e for e in per_map if e is not None)}; per map {per_map}")
+    require(n_hops >= 14, f"config #4: {n_hops} adjacent hops ok, gate 14")
+    require(n_maps >= 18, f"config #4: {n_maps} maps within 1 deg / 0.1 m, gate 18")
+
+    node_views, node_truth, node_params = distributed_node_case()
+    with tempfile.TemporaryDirectory() as d:
+        (Path(d) / "both").mkdir()
+        for robot, view in node_views.items():
+            write_pcd(Path(d) / "both" / f"{robot}.pcd", view)
+        _, alone, n_alone, _ = stateless_node_tick(Path(d) / "both", node_params, dev)
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(2, Path(d) / "ranks")
+        ranks_s = time.perf_counter() - t0
+    label = "config #4, two processes"
+    log(f"{label}: {ranks_s:.3f} s for both rank processes (start-up included); "
+        f"per rank " + json.dumps([{
+            **{k: x[k] for k in ("rank", "world", "devices", "merge_s", "merge_launches",
+                                 "node_launches", "peak_gib", "wall_s")},
+            "gather_s": x["mesh"]["gather_s"], "clouds": len(x["mesh"]["clouds"]),
+            "pairs": len(x["mesh"]["pairs"])} for x in ranks]))
+    want_info = json.loads(json.dumps(info))
+    for r, x in enumerate(ranks):
+        require(x["rank"] == r and x["world"] == 2 and not x["loaded"],
+                f"rank {r}: rank {x['rank']} of {x['world']}, loaded {x['loaded']}")
+        require(all(np.array_equal(np.asarray(t, np.float32), s)
+                    for t, s in zip(x["transforms"], single))
+                and len(x["transforms"]) == len(single),
+                f"{label}: rank {r}'s transforms differ from the single-rank merge")
+        require(x["info"] == want_info,
+                f"{label}: rank {r}'s info_out {x['info']} != single-rank {want_info}")
+        for name, n in x["merge_launches"].items():
+            require(n > 0, f"{label}: kernel {name} not launched on rank {r}")
+        PATH_STATS.update(x["kernels"])
+    robots = sorted(node_views)
+    node_launches = {name: sum(x["node_launches"][name] for x in ranks)
+                     for name in launches}
+    for r, x in enumerate(ranks):
+        nd = x["node"]
+        require(nd["robots"] == robots[r::2] and sorted(nd["poses"]) == robots,
+                f"node, rank {r}: robots {nd['robots']}, poses of {sorted(nd['poses'])}")
+        require(all(np.array_equal(np.asarray(nd["poses"][k], np.float32), alone[k])
+                    for k in robots),
+                f"node, rank {r}: poses differ from one stateless node over both maps")
+        require(nd["merged_points"] == n_alone > 1000,
+                f"node, rank {r}: merged map of {nd['merged_points']} points, one "
+                f"node {n_alone}")
+    for name, n in node_launches.items():
+        require(n > 0, f"node, two processes: kernel {name} was not launched")
+    rot, trans = tf.pose_error(np.linalg.inv(alone["robot_a"]) @ alone["robot_b"],
+                               node_truth)
+    log(f"{label}: both ranks bitwise equal to the single-rank merge, info_out "
+        f"equal; the node over two processes (estimation ticks "
+        f"{[x['node']['estimation_s'] for x in ranks]} s, launches {node_launches}) "
+        f"bitwise equal to one node over both maps, merged maps {n_alone} points; "
+        f"pose vs truth {rot} deg, {trans} m (1 deg / 0.1 m not gated: the JAX "
+        f"package's node gives {NODE_JAX_ERROR[0]} deg / {NODE_JAX_ERROR[1]} m here)")
+    require(rot < 3.0 and trans < 0.1, f"{label}: node pose gate 3 deg / 0.1 m failed")
+
+
+#: config5 (bench_configs.py:615-675): 50 views of one town, 10 a tick
+CONFIG5S_MAPS, CONFIG5S_BATCH, CONFIG5S_VIEW_POINTS = 50, 10, 6_747
+
+
+def config5_params():
+    """bench_configs.py:633-638: SIFT (3.0) + FPFH, ICP <= 20, max_points
+    4096, K 128, M 32, 256 hypotheses, tile 256."""
+    from mapmerge_torch.pipeline.merging import MergeParams
+
+    return MergeParams(
+        keypoint_type="SIFT", keypoint_threshold=3.0, descriptor_type="FPFH",
+        refine_transform=True, max_iterations=20, max_points=4096,
+        max_keypoints=128, max_neighbors=32, ransac_hypotheses=256,
+        neighbor_tile=256,
+    )
+
+
+def run_config5(dev, kernels) -> None:
+    """Phase 16: config5, the 50-map stream through the stateless node,
+    which registers every pair anew on each tick."""
+    from mapmerge_torch.kernels import nn, spfh
+    from mapmerge_torch.parallel import pair_shard
+    from mapmerge_torch.pipeline import merging, registration
+    from mapmerge_torch.runtime import node as node_module
+    from mapmerge_torch.runtime.node import MapMergeNode
+    from mapmerge_torch.runtime.transport import InProcTransport
+    from mapmerge_torch.testing.scene import town_views
+
+    n = CONFIG5S_MAPS
+    views, truths = town_views(n, 2048, seed=5)
+    sizes = [len(x) for x, _ in views]
+    require(sizes == [CONFIG5S_VIEW_POINTS] * n, f"config5 views have {sizes} points")
+    params = config5_params()
+
+    def tick(node, transport, start):
+        for i in range(start, start + CONFIG5S_BATCH):
+            transport.publish(f"robot_{i:02d}", *views[i])
+        node.discovery()
+        node.transforms_estimation()
+        node.map_compositing()
+        torch.cuda.synchronize(dev)
+
+    stages = (
+        (pair_shard, "extract_features", "features"),
+        (merging, "estimate_transform", "pair registrations"),
+        (registration, "find_correspondences", "matching"),
+        (registration, "ransac_transform", "RANSAC"),
+        (registration, "icp_refine", "ICP"),
+        (registration, "transform_score", "score"),
+        (merging, "_solve_graph", "graph solve (host)"),
+        (node_module, "compose_maps", "compositing"),
+    )
+    transport = InProcTransport()
+    node = MapMergeNode(transport, params, seed=0, device=dev)
+    ticks = []
+    recorder = stage_recorder(stages, (pair_shard, "extract_features"),
+                              (merging, "estimate_transform"))
+    last_call = {}  # the node's last estimate_maps_transforms call
+
+    def keep_call(fn):
+        def wrapper(clouds, *args, **kwargs):
+            out = fn(clouds, *args, **kwargs)
+            last_call.update(clouds=clouds, args=args, kwargs=kwargs, out=out)
+            return out
+
+        return wrapper
+
+    with first_launch_inputs(nn, spfh) as seen, recorder as rec, patched(
+        {(node_module, "estimate_maps_transforms"): keep_call}
+    ):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_stream = time.perf_counter()
+        for start in range(0, n, CONFIG5S_BATCH):
+            before = dict(rec["ms"])
+            t0 = time.perf_counter()
+            tick(node, transport, start)
+            ticks.append({"maps": start + CONFIG5S_BATCH,
+                          "s": time.perf_counter() - t0,
+                          **{k: v - before.get(k, 0.0) for k, v in rec["ms"].items()}})
+            if start == 0:
+                first_tick = node.get_transforms()
+        wall = time.perf_counter() - t_stream
+        launches = {k.name: k.launches for k in kernels}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"config5 stream: {wall:.3f} s, {n / wall} maps a second, launches "
+        f"{launches}, {rec['calls'].get('pair registrations', 0)} pair "
+        f"registrations, {rec['calls'].get('features', 0)} feature extractions, "
+        f"peak device memory {peak_gib:.2f} GiB")
+    log(f"config5 ticks (s; stage ms): {json.dumps(ticks)}")
+    log("config5 feature overflow, keypoints truncated, pairs ok: "
+        f"{sum(c['scan_overflow'] for c in rec['clouds'])}, "
+        f"{sum(c['keypoints_truncated'] for c in rec['clouds'])}, "
+        f"{sum(p['ok'] for p in rec['pairs'])} of {len(rec['pairs'])}")
+    require(all(k > 0 for k in launches.values()) and "spfh" in seen,
+            f"config5: launches {launches}, expected both kernels, spfh in shared mode")
+    hold_on_path_inputs("config5", seen, nn, spfh, launches, exact=True)
+
+    # the last tick is estimate_maps_transforms on the node's clouds: the
+    # clouds it passed are those built here from the transport, bit for
+    # bit, and its poses are what the call returned (a second call on the
+    # same clouds would repeat 1,225 registrations; the second node below
+    # shows that a tick repeats bit for bit)
+    robots, clouds = stateless_clouds(node)
+    poses = node.get_transforms()
+    ordered = [poses[f"robot_{i:02d}"] for i in range(n)]
+    passed = last_call["clouds"]
+    require(robots == [f"robot_{i:02d}" for i in range(n)] and len(passed) == n
+            and all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+                    for a, b in zip(passed, clouds) for f in dataclasses.fields(a)),
+            "config5: the last tick's clouds differ from the node's clouds")
+    require(last_call["args"] == (params,) and last_call["kwargs"]["seed"] == 0
+            and last_call["kwargs"]["mesh"] is None and all(
+                np.array_equal(poses[r], t) for r, t in zip(robots, last_call["out"])),
+            "config5: the last tick's poses are not estimate_maps_transforms' "
+            "on its clouds")
+    registered = sum(1 for t in ordered if t.any())
+    hops = adjacent_errors(ordered, truths)
+    n_hops = sum(1 for rot, trans in hops if rot < 8.0 and trans < 0.5)
+    drift = max(e for e in chain_errors(ordered, truths) if e is not None)
+    n_merged = int(node.get_merged_map().count)
+    log(f"config5: {registered}/{n} maps registered, {n_hops}/{len(hops)} adjacent "
+        f"hops within 8 deg / 0.5 m, drift {drift[0]} deg / {drift[1]} m, merged "
+        f"map {n_merged} points; the last tick bitwise estimate_maps_transforms "
+        f"on the node's {clouds[0].capacity}-point clouds")
+    log(f"config5 adjacent hop errors (deg, m): {hops}")
+    require(len(poses) == n and registered >= 35,
+            f"config5: {registered} of {len(poses)} maps registered, gate 35 of 50")
+    require(n_hops >= 38, f"config5: {n_hops} adjacent hops ok, gate 38")
+    require(drift[0] < 10.0 and drift[1] < 0.5, "config5: drift gate 10 deg / 0.5 m failed")
+    require(n_merged > 1000, f"config5: merged map of {n_merged} points")
+
+    again_transport = InProcTransport()
+    again = MapMergeNode(again_transport, params, seed=0, device=dev)
+    tick(again, again_transport, 0)
+    second = again.get_transforms()
+    require(sorted(second) == sorted(first_tick) and all(
+        np.array_equal(second[r], first_tick[r]) for r in first_tick
+    ), "config5: a second node's first batch gave other poses than the first tick")
+    log(f"repeat check (config5): a second node's first batch ({CONFIG5S_BATCH} "
+        "maps) bitwise equal to the first tick")
 
 
 def kernel_entry(k, launches: dict, stats: dict) -> dict:
@@ -1622,7 +2194,34 @@ def kernel_entry(k, launches: dict, stats: dict) -> dict:
     }
 
 
+def phase(label: str, fn, *args):
+    """fn(*args), its wall time printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {label}: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def rank_main(argv: list[str]) -> int:
+    """`--rank-job RANK WORLD ADDRESS WORKDIR`: one rank process of phase 15
+    (rank_job on config #4's views and the distributed node's scene)."""
+    rank, world, address, workdir = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    require(torch.cuda.is_available(), f"rank {rank}: no CUDA device")
+    import mapmerge_torch  # noqa: F401  (sets the TF32 flags off)
+    from mapmerge_torch.kernels import build
+    from mapmerge_torch.testing.scene import town_views
+
+    build.load()
+    views, _ = town_views(CONFIG4_MAPS, 4096, seed=3)
+    node_views, _, node_params = distributed_node_case()
+    rank_job(rank, world, address, torch.device("cuda", torch.cuda.current_device()),
+             workdir, (views, config4_params()), (node_views, node_params))
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--rank-job"]:
+        return rank_main(sys.argv[2:])
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs a GPU")
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1651,16 +2250,19 @@ def main() -> int:
 
     stats = {"nearest_neighbor": check_nn(dev, nn), "spfh": check_spfh(dev, spfh)}
     kernels = (nn.KERNEL, spfh.KERNEL)
-    launches = run_main_path(dev, kernels)
-    run_default_operating_point(dev, kernels)
-    run_registry_sweep(dev, kernels)
-    config2 = run_config2(dev, kernels)
-    run_node_config1(dev, kernels)
-    run_config5_big(dev, kernels)
-    run_offline_tools(dev, kernels)
-    run_config2_two_ranks(dev, kernels, *config2)
+    launches = phase("4 (config #1)", run_main_path, dev, kernels)
+    phase("5 (config1_pfh)", run_default_operating_point, dev, kernels)
+    phase("6 (registry sweep)", run_registry_sweep, dev, kernels)
+    config2 = phase("7 (config #2)", run_config2, dev, kernels)
+    phase("8-9 (node on config #1)", run_node_config1, dev, kernels)
+    phase("10 (config5_big)", run_config5_big, dev, kernels)
+    phase("11 (offline tools)", run_offline_tools, dev, kernels)
+    phase("12 (config #2, two ranks)", run_config2_two_ranks, dev, kernels, *config2)
     del config2
-    run_node_two_ranks(dev, kernels)
+    phase("13 (node, two ranks)", run_node_two_ranks, dev, kernels)
+    phase("14 (config #3)", run_config3, dev, kernels)
+    phase("15 (config #4, two processes)", run_config4_two_processes, dev, kernels)
+    phase("16 (config5)", run_config5, dev, kernels)
 
     loaded = sorted(m for m in sys.modules
                     if m.startswith("jax") or m.startswith("mapmerge_tpu"))

@@ -17,6 +17,7 @@ needs a registered group, and a group can be built directly from a store.
 
 from __future__ import annotations
 
+import datetime
 import pickle
 
 import numpy as np
@@ -28,17 +29,22 @@ from mapmerge_torch.parallel.mesh import Mesh, make_mesh
 
 def initialize(
     address: str | None = None, world_size: int | None = None,
-    rank: int | None = None,
+    rank: int | None = None, timeout: float | None = None,
 ) -> None:
     """Join the job at `address` ("host:port" or "tcp://host:port") as
     `rank` of `world_size`, over gloo. A no-op if already joined or
-    single-process, so it is safe to call unconditionally at start-up."""
+    single-process, so it is safe to call unconditionally at start-up.
+
+    `timeout` (seconds) bounds the join and every collective of the job, so
+    a lost rank fails the others instead of holding them for gloo's default
+    of 30 minutes."""
     if dist.is_initialized() or world_size is None or world_size <= 1:
         return
     if address is not None and "://" not in address:
         address = f"tcp://{address}"
     dist.init_process_group(
-        "gloo", init_method=address, world_size=world_size, rank=rank
+        "gloo", init_method=address, world_size=world_size, rank=rank,
+        timeout=None if timeout is None else datetime.timedelta(seconds=timeout),
     )
 
 

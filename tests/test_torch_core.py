@@ -18,6 +18,7 @@ from mapmerge_torch.testing import scene as tscene
 
 from synthetic import make_scene, overlapping_views, rotation_z, se3
 from torch_parity import both_clouds, t
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

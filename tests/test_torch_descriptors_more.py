@@ -33,6 +33,7 @@ from mapmerge_torch.ops.neighbors import radius_neighbors
 from mapmerge_torch.ops.normals import SurfaceNormals
 
 from torch_parity import SLICE_PARAMS, both_clouds, small_scene, t
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 RADIUS = SLICE_PARAMS.descriptor_radius
 N_KP, SLOTS = 64, 80

@@ -30,6 +30,7 @@ from mapmerge_torch.ops.normals import SurfaceNormals
 
 from test_torch_kernels import _grid_case
 from torch_parity import SLICE_PARAMS, both_clouds, small_scene, t
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(scope="module")

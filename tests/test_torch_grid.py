@@ -24,6 +24,7 @@ from mapmerge_tpu.ops import grid as jg
 from mapmerge_torch.ops import grid as tg
 from mapmerge_torch.ops import neighbors as tn
 from torch_parity import t
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 RADIUS = 0.35
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)

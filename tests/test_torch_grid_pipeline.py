@@ -33,6 +33,7 @@ from mapmerge_torch.pipeline.merging import estimate_maps_transforms as t_merge
 from mapmerge_torch.testing import scene
 from test_torch_descriptors_more import N_KP, RADIUS, SLOTS, surface  # noqa: F401
 from torch_parity import both_clouds, port_params, rel_pose, small_scene, t
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 #: the two-map grid merge of tests/test_grid.py:276-287, Harris + FPFH
 GRID_PARAMS = MergeParams(

@@ -31,6 +31,7 @@ from mapmerge_torch.pipeline import incremental as tinc
 from mapmerge_torch.testing.scene import rotation_z, se3, town_views
 
 from torch_parity import port_params
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 #: the stream's parameters at tier-1 size (tests/test_incremental.py:38-47,
 #: max_points 4096)

@@ -18,6 +18,7 @@ from mapmerge_torch.ops.keypoints.sift import detect_keypoints_sift
 from mapmerge_torch.ops.normals import SurfaceNormals
 
 from torch_parity import SLICE_PARAMS, both_clouds, small_scene, t
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 RADIUS = SLICE_PARAMS.normal_radius  # features.py: Harris radius = normal_radius
 

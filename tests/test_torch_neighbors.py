@@ -14,6 +14,7 @@ from mapmerge_torch.kernels import nn as knn
 from mapmerge_torch.ops import neighbors as tn
 
 from torch_parity import t
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _oracle(q, p, mask=None):

@@ -31,6 +31,7 @@ from mapmerge_torch.testing.scene import town_views
 from mapmerge_torch.tools import node_cli as tcli
 
 from torch_parity import SLICE_PARAMS, port_params, rel_pose, small_scene
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 #: the stateless node's parameters: the slice test's with Harris + PFH at

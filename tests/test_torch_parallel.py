@@ -31,6 +31,7 @@ from mapmerge_torch.pipeline.merging import estimate_maps_transforms
 from mapmerge_torch.runtime.node import MapMergeNode
 from mapmerge_torch.runtime.transport import DirectoryTransport
 from mapmerge_torch.testing.scene import make_scene, overlapping_views, rotation_z, se3
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 #: tests/test_distributed_node.py's parameters
 PARAMS = MergeParams(

@@ -28,6 +28,7 @@ from mapmerge_torch.pipeline.merging import estimate_maps_transforms as t_estima
 from mapmerge_torch.pipeline.merging import pair_generator
 
 from torch_parity import SLICE_PARAMS, port_params, rel_pose, small_scene
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,7 @@ from mapmerge_torch.ops.normals import compute_surface_normals as t_normals
 from mapmerge_torch.ops.outliers import remove_outliers as t_outliers
 
 from torch_parity import both_clouds, small_scene, t
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _points(rng, n=3000, scale=3.0):

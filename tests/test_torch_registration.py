@@ -34,6 +34,7 @@ from mapmerge_torch.pipeline.registration import estimate_transform as t_estimat
 
 from synthetic import rotation_z, se3
 from torch_parity import SLICE_PARAMS, both_clouds, port_params, small_scene, t
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _pose_gap(a, b):

@@ -25,6 +25,7 @@ from mapmerge_torch.ops.keypoints.sift import detect_keypoints_sift as t_sift
 from mapmerge_torch.testing.scene import make_town, n_overlapping_views
 
 from torch_parity import both_clouds
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CAP = 4096
 SIFT_ARGS = dict(

@@ -36,6 +36,7 @@ from mapmerge_torch.pipeline.merging import compose_maps
 from mapmerge_torch.testing.scene import make_scene, overlapping_views, rotation_z, se3
 from mapmerge_torch.tools import merge_tool, registration_visualisation, render
 from mapmerge_torch.utils import profiling
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRUTH = se3(rotation_z(0.35), [1.2, -0.5, 0.15])

@@ -8,6 +8,7 @@ to the card), and is handed the port's own MergeParams (`port_params`).
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 from mapmerge_tpu.core.cloud import PointCloud as JaxCloud
@@ -34,6 +35,21 @@ SLICE_PARAMS = MergeParams(
     ransac_hypotheses=512,
     neighbor_tile=512,
 )
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a module's torch CPU work on one intra-op thread, restored after
+    the module (an autouse fixture for the port's test files that import
+    it). The suite runs six test processes at once, and torch's default of
+    a thread a core in each of them oversubscribes the host: on an 8-core
+    host six concurrent copies of a node test that takes ~8 s alone took
+    ~690 s each, and ~45 s with one thread each. Tolerances and bit-for-bit
+    comparisons within a module hold under either setting."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def both_clouds(xyz, rgb=None, capacity=None):
