@@ -7,7 +7,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from csrc/ and print the build time;
   3. hold each kernel against its plain PyTorch version at the main path's
-     shapes, with the stated tolerances, and time both (CUDA events);
+     shapes, with the stated tolerances, and time both (CUDA events); kernel
+     A's batched entry at config5's shape (45 pairs of 4,096 points),
+     exactly, and against the unbatched kernel on each pair;
   4. eval config #1 (bench.py:49-77) through estimate_maps_transforms on the
      card: reset the kernels' launch counts, run once, require every kernel
      to have launched; gate the poses against the ground truth and against
@@ -94,6 +96,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      within 5 deg / 0.5 m, 18 of 20 maps within 1 deg / 0.1 m of the truth
      relative to the first registered map); a failed or stuck rank process
      fails the phase;
+     On the one-rank merge, its first 20 pairs (the first chunk) are
+     registered again one at a time: the same ok flags, poses within
+     PAIR_TOL, the largest difference printed;
   16. config5 (bench_configs.py:615-675): 50 town views of 6,747 points
      streamed ten at a time through the stateless node (SIFT + FPFH, dense
      engine), each batch a discovery, an estimation and a compositing tick:
@@ -101,7 +106,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      m, drift under 10 deg / 0.5 m and more than 1,000 merged points; the
      last tick bit for bit estimate_maps_transforms on the node's clouds, a
      second node's first batch bit for bit the first tick; each tick's
-     time with the host graph solve split out, maps a second, peak memory.
+     time with the host graph solve split out, maps a second, peak memory,
+     ICP's loop iterations per chunk; the first tick's 45 pairs (one chunk)
+     registered again one at a time, held as in phase 15.
+Pair routes: where the registration clouds take the dense engine,
+estimate_maps_transforms registers the pairs in chunks through
+estimate_pairs_batch (config #1, config1_pfh, the sweep, the stateless
+node, merge_tool, the node over two ranks or processes, config #4,
+config5): kernel A's batched entry launches there and its one-pair entry
+must not (no fallback). The incremental node registers one pair at a time
+on the dense engine (the one-pair entry); config #2, config5_big, the
+debugger and config #3 take the grid 1-NN (neither entry). Each path's
+route, its pair stage's seconds and its chunks are printed and required.
 Each path runs with the launch counts reset just before it and read just
 after. The kernel launch counts are one per process, so phases 12-13 count
 both thread ranks' launches, and phase 15's rank processes each report
@@ -110,9 +126,12 @@ plain version on the inputs of its first launch in that run (the path's own
 shapes, ragged edges included), and both are timed there (CUDA events,
 warm, median), beside the kernel's bound: the larger of the bytes it must move over 3.35 TB/s and
 the float32 operations these inputs need over 67 TFLOP/s (H100 SXM data
-sheet). The line before the last is a JSON object of the kernels: launches,
-times and bound on config #1's own inputs, and the same for every path and
-for the synthetic shapes; the last line is {"ok": true, "device": {...}}.
+sheet). The line before the last is a JSON object of the kernels (kernel
+A's one-pair and batched entries and kernel B): launches, times and bound
+on each kernel's main path (MAIN_PATH: config #1 for the batched entry and
+kernel B, the incremental node on config #1's views for the one-pair
+entry), and the same for every path and for the synthetic shapes; the last
+line is {"ok": true, "device": {...}}.
 Imports nothing of JAX and nothing of mapmerge_tpu, and checks at its end
 that no such module was loaded.
 """
@@ -206,6 +225,12 @@ def nn_bound(q, p) -> dict:
     written once; every (query, target) pair costs NN_PAIR_OPS."""
     nq, np_ = q.shape[0], p.shape[0]
     return _bound(nq * 12 + np_ * 13 + nq * 8, nq * np_ * NN_PAIR_OPS)
+
+
+def nn_batched_bound(q, p) -> dict:
+    """nn_bound of each pair, times the batch."""
+    nb, nq, np_ = q.shape[0], q.shape[1], p.shape[1]
+    return _bound(nb * (nq * 12 + np_ * 13 + nq * 8), nb * nq * np_ * NN_PAIR_OPS)
 
 
 def spfh_bound(args, pairs: int) -> dict:
@@ -310,6 +335,50 @@ def check_nn(dev, nn) -> dict:
         f"kernel {ms} ms, plain {plain_ms} ms, bound {bound['bound_ms']} ms"
     )
     return {"shape": f"Q={NN_Q} P={NN_P}", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, **bound}
+
+
+def _nn_batched_compare(name, nn, q, p, mask=None):
+    """Kernel A's batched entry against its plain version and against the
+    unbatched kernel on each pair: indices and d2 bit for bit (both round
+    every operation alike, and a pair's row does not depend on the batch).
+    Returns (max |d2 err|, differing indices), both 0."""
+    idx_k, d2_k = nn.nearest_neighbor_batched(q, p, mask)
+    idx_r, d2_r = nn.nearest_neighbor_batched_ref(q, p, mask)
+    torch.cuda.synchronize()
+    require(idx_k.shape == d2_k.shape == q.shape[:2], f"{name}: shapes")
+    err, diff = float((d2_k - d2_r).abs().max()), int((idx_k != idx_r).sum())
+    require(err == 0.0 and diff == 0,
+            f"{name}: max d2 err {err}, {diff} indices differ; exact required")
+    for b in range(q.shape[0]):
+        i1, d1 = nn.nearest_neighbor(q[b], p[b], None if mask is None else mask[b])
+        require(torch.equal(i1, idx_k[b]) and torch.equal(d1, d2_k[b]),
+                f"{name}: pair {b} differs from the unbatched kernel")
+    return err, diff
+
+
+def check_nn_batched(dev, nn) -> dict:
+    """Kernel A's batched entry at config5's shape (45 pairs, Q = P =
+    4096) with ragged masks and one fully masked pair, and the tie case,
+    against its plain version and the unbatched kernel, exactly."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    nb, n = 45, 4096
+    q = torch.round(torch.rand((nb, n, 3), generator=g, device=dev) * 160) / 8
+    p = torch.round(torch.rand((nb, n, 3), generator=g, device=dev) * 160) / 8
+    mask = torch.rand((nb, n), generator=g, device=dev) > torch.rand(
+        (nb, 1), generator=g, device=dev)
+    mask[-1] = False
+    err, diff = _nn_batched_compare("nn batched", nn, q, p, mask)
+    it, dt = nn.nearest_neighbor_batched(torch.zeros((3, 256, 3), device=dev),
+                                         torch.zeros((3, 5000, 3), device=dev))
+    require(bool((it == 0).all()) and bool((dt == 0).all()), "nn batched: tie break")
+    ms = time_ms(lambda: nn.nearest_neighbor_batched(q, p, mask))
+    plain_ms = time_ms(lambda: nn.nearest_neighbor_batched_ref(q, p, mask), reps=5)
+    bound = nn_batched_bound(q, p)
+    log(f"kernel nearest_neighbor_batched B={nb} Q=P={n}: max|d2 err| {err}, "
+        f"indices differing {diff}, each pair = the unbatched kernel, ties ok; "
+        f"kernel {ms} ms, plain {plain_ms} ms, bound {bound['bound_ms']} ms")
+    return {"shape": f"B={nb} Q={n} P={n}", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, **bound}
 
 
@@ -435,8 +504,52 @@ def first_launch_inputs(nn, spfh):
     """Record clones of the arguments of each kernel wrapper's first call
     while a path runs. The wrappers still launch and count as before; the
     callers (ops/neighbors.py, ops/descriptors/fpfh.py) look them up on
-    their modules at call time, so they see the recording ones."""
-    seen: dict[str, tuple] = {}
+    their modules at call time, so they see the recording ones. Also
+    records the merge's pair stage (`seen["pairs"]`): its host seconds
+    between two synchronisations, the batched chunks and their pairs, and
+    the pairs registered one at a time through merging.register_pair."""
+    import threading
+
+    from mapmerge_torch.parallel import pair_shard
+    from mapmerge_torch.pipeline import merging
+
+    seen: dict = {"pairs": {"stage_s": 0.0, "chunks": 0, "batched_pairs": 0,
+                            "one_pair_calls": 0}}
+    lock = threading.Lock()
+
+    def add(key, value):
+        with lock:
+            seen["pairs"][key] += value
+
+    def sync():  # rank_job also runs on the CPU
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def stage(fn):
+        def wrapper(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            add("stage_s", time.perf_counter() - t0)
+            return out
+
+        return wrapper
+
+    def chunk(fn):
+        def wrapper(sources, targets, params, seed, pairs):
+            add("chunks", 1)
+            add("batched_pairs", len(pairs))
+            return fn(sources, targets, params, seed, pairs)
+
+        return wrapper
+
+    def one_pair(fn):
+        def wrapper(*args, **kwargs):
+            add("one_pair_calls", 1)
+            return fn(*args, **kwargs)
+
+        return wrapper
 
     def record(name, dev=None):
         def make(fn):
@@ -450,6 +563,10 @@ def first_launch_inputs(nn, spfh):
         return make
 
     with patched({(nn, "nearest_neighbor"): record("nearest_neighbor"),
+                  (nn, "nearest_neighbor_batched"): record("nearest_neighbor_batched"),
+                  (pair_shard, "estimate_pairs_sharded"): stage,
+                  (merging, "register_chunk"): chunk,
+                  (merging, "register_pair"): one_pair,
                   (spfh, "spfh_tile"): record("spfh"),
                   # a grid sweep's arguments are ~200 MB at config #2's size:
                   # kept in host memory, out of the run's peak device memory
@@ -460,6 +577,29 @@ def first_launch_inputs(nn, spfh):
 #: per path, per kernel: shape, max error, times and bound on the path's
 #: own first-launch inputs (hold_on_path_inputs)
 PATH_STATS: dict[str, dict] = {}
+#: per path: the route its pairs took (require_route) and its pair stage
+ROUTES: dict[str, dict] = {}
+
+#: the 1-NN entry each pair route launches, the other entry never: the
+#: dense batch (no fallback to one pair at a time), pairs one at a time on
+#: the dense engine, or the grid 1-NN (neither entry)
+ROUTE_NN = {"batched": "nearest_neighbor_batched", "one pair": "nearest_neighbor",
+            "grid": None}
+
+
+def require_route(label: str, launches: dict, route: str, pairs: dict | None = None):
+    """The path's pairs took `route`: its 1-NN entry launched and the other
+    not (ROUTE_NN); with the pair-stage record of first_launch_inputs,
+    chunks on the batched route and none on the others. Logged, and kept in
+    ROUTES."""
+    for entry in ("nearest_neighbor", "nearest_neighbor_batched"):
+        require((launches.get(entry, 0) > 0) == (entry == ROUTE_NN[route]),
+                f"{label}: launches {launches} on the {route} route")
+    if pairs is not None:
+        require((pairs["chunks"] > 0) == (route == "batched"),
+                f"{label}: pair stage {pairs} on the {route} route")
+    ROUTES[label] = {"route": route, **(pairs or {})}
+    log(f"{label}: pairs took the {route} route; pair stage {json.dumps(pairs)}")
 
 
 def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
@@ -482,6 +622,17 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
             "ms": time_ms(lambda: nn.nearest_neighbor(*args)),
             "plain_ms": time_ms(lambda: nn.nearest_neighbor_ref(*args), reps=5),
             **nn_bound(args[0], args[1]),
+        }
+    if "nearest_neighbor_batched" in seen:
+        args, _ = seen["nearest_neighbor_batched"]
+        err, diff = _nn_batched_compare(f"{label} nn batched", nn, *args)
+        stats["nearest_neighbor_batched"] = {
+            "shape": f"B={args[0].shape[0]} Q={args[0].shape[1]} P={args[1].shape[1]}",
+            "launches": launches["nearest_neighbor_batched"], "max_abs_err": err,
+            "indices_differing": diff,
+            "ms": time_ms(lambda: nn.nearest_neighbor_batched(*args)),
+            "plain_ms": time_ms(lambda: nn.nearest_neighbor_batched_ref(*args), reps=5),
+            **nn_batched_bound(args[0], args[1]),
         }
     if "spfh" in seen:
         args, kwargs = seen["spfh"]
@@ -553,7 +704,7 @@ def rel_pose(transforms) -> np.ndarray:
     return np.linalg.inv(transforms[0]) @ transforms[1]
 
 
-def run_main_path(dev, kernels) -> dict:
+def run_main_path(dev, kernels) -> None:
     from mapmerge_torch.core import transforms as tf
     from mapmerge_torch.core.cloud import PointCloud
     from mapmerge_torch.pipeline.merging import (
@@ -585,8 +736,8 @@ def run_main_path(dev, kernels) -> dict:
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"main path run: {first_s:.3f} s, launches {launches}, "
         f"peak device memory {peak_gib:.2f} GiB")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched by the main path")
+    require(launches["spfh"] > 0, "kernel spfh was not launched by the main path")
+    require_route("config #1", launches, "batched", seen["pairs"])
     hold_on_path_inputs("config #1", seen, nn, spfh, launches)
 
     require(len(out) == 2 and all(
@@ -618,7 +769,6 @@ def run_main_path(dev, kernels) -> dict:
     require(again == n_merged, f"compose_maps gave {n_merged} then {again} points")
     log("repeat check (config #1): 5 warm runs bitwise equal to the first; "
         f"compose_maps {n_merged} points twice")
-    return launches
 
 
 def warm_runs(clouds, params, first, label: str, reps: int = 5) -> list[float]:
@@ -665,8 +815,7 @@ def drive(label: str, clouds, params, kernels, truth, rot_gate, trans_gate):
         f"{rot} deg, {trans} m")
     require(rot < rot_gate and trans < trans_gate,
             f"{label}: pose gate {rot_gate} deg / {trans_gate} m failed")
-    require(launches["nearest_neighbor"] > 0,
-            f"{label}: kernel nearest_neighbor was not launched")
+    require_route(label, launches, "batched", seen["pairs"])
     hold_on_path_inputs(label, seen, nn, spfh, launches)
     return out, launches, wall, (rot, trans)
 
@@ -929,7 +1078,8 @@ def stage_recorder(stages, features_at, pairs_at):
     label); a label may be a function of the call's arguments), each call
     between two synchronisations, summed over one run; and the counters of
     each cloud's features (the calls of `features_at`, an (owner,
-    attribute)) and each pair's estimate (`pairs_at`)."""
+    attribute)) and each pair's estimate (`pairs_at`, which returns one
+    pair's estimate or a batch's)."""
     rec = {"ms": {}, "calls": {}, "clouds": [], "pairs": []}
 
     def timed(label):
@@ -958,9 +1108,9 @@ def stage_recorder(stages, features_at, pairs_at):
 
     def pair_counters(fn):
         def wrapper(*args, **kwargs):
-            est = fn(*args, **kwargs)
-            rec["pairs"].append({"ok": bool(est.ok),
-                                 "scan_overflow": int(est.scan_overflow)})
+            est = fn(*args, **kwargs)  # one pair, or a batch of them
+            rec["pairs"] += [{"ok": bool(ok), "scan_overflow": int(over)} for ok, over
+                             in zip(est.ok.reshape(-1), est.scan_overflow.reshape(-1))]
             return est
 
         return wrapper
@@ -1022,6 +1172,7 @@ def run_config2(dev, kernels):
     require(launches["spfh"] == CONFIG2_MAPS and "spfh_grid" in seen,
             f"config #2: spfh launched {launches['spfh']} times, expected "
             f"{CONFIG2_MAPS} through spfh_grid (one a cloud)")
+    require_route("config #2", launches, "grid", seen["pairs"])
     hold_on_path_inputs("config #2", seen, nn, spfh, launches,
                         exact=True)
 
@@ -1130,8 +1281,8 @@ def run_node_config1(dev, kernels) -> None:
     rot, trans = tf.pose_error(rel_pose(out), truth)
     log(f"{label} (config #1's views): {wall:.3f} s, launches {launches}, "
         f"pose vs truth {rot} deg, {trans} m, stats {node.get_stats()}")
-    for name, n in launches.items():
-        require(n > 0, f"{label}: kernel {name} was not launched")
+    require(launches["spfh"] > 0, f"{label}: kernel spfh was not launched")
+    require_route(label, launches, "batched", seen["pairs"])
     hold_on_path_inputs(label, seen, nn, spfh, launches)
     require(rot < 1.0 and trans < 0.1, f"{label}: pose gate 1 deg / 0.1 m failed")
     _, clouds = stateless_clouds(node)
@@ -1155,8 +1306,7 @@ def run_node_config1(dev, kernels) -> None:
     log(f"{label} (config #1's views): {wall:.3f} s (second run "
         f"{runs[1][4]:.3f} s), launches {launches}, pose vs truth {rot} deg, "
         f"{trans} m, world edges {len(node._world.edges)}")
-    require(launches["nearest_neighbor"] > 0,
-            f"{label}: kernel nearest_neighbor was not launched")
+    require_route(label, launches, "one pair", seen["pairs"])
     hold_on_path_inputs(label, seen, nn, spfh, launches)
     require(rot < 1.0 and trans < 0.1, f"{label}: pose gate 1 deg / 0.1 m failed")
     require(all(np.array_equal(a, b) for a, b in zip(out, runs[1][1])),
@@ -1298,6 +1448,7 @@ def run_config5_big(dev, kernels) -> None:
     require(launches["spfh"] == n_features == n and "spfh_grid" in seen,
             f"config5_big: spfh launched {launches['spfh']} times for "
             f"{n_features} feature extractions, expected one each through spfh_grid")
+    require_route("config5_big", launches, "grid", seen["pairs"])
     hold_on_path_inputs("config5_big", seen, nn, spfh, launches,
                         exact=True)
 
@@ -1379,12 +1530,11 @@ def captured(fn, *args, **kwargs):
     return result, text
 
 
-def launched_on(label: str, dev, kernels, fn, bypassed=()):
+def launched_on(label: str, dev, kernels, fn, route: str):
     """fn() with the launch counts reset just before and read just after,
-    every kernel but those named in `bypassed` (which must not launch)
-    required to have launched, and the kernels held against their plain
-    versions on the inputs of their first launch there. Returns (fn's
-    result, launches, wall s)."""
+    spfh required to have launched and the pairs to have taken `route`, and
+    the kernels held against their plain versions on the inputs of their
+    first launch there. Returns (fn's result, launches, wall s)."""
     from mapmerge_torch.kernels import nn, spfh
 
     with first_launch_inputs(nn, spfh) as seen:
@@ -1396,9 +1546,8 @@ def launched_on(label: str, dev, kernels, fn, bypassed=()):
         wall = time.perf_counter() - t0
         launches = {k.name: k.launches for k in kernels}
     log(f"{label}: {wall:.3f} s, launches {launches}")
-    for name, n in launches.items():
-        require((n == 0) == (name in bypassed),
-                f"{label}: kernel {name} launched {n} times")
+    require(launches["spfh"] > 0, f"{label}: kernel spfh was not launched")
+    require_route(label, launches, route, seen["pairs"])
     hold_on_path_inputs(label, seen, nn, spfh, launches, exact=True)
     return result, launches, wall
 
@@ -1437,6 +1586,7 @@ def run_offline_tools(dev, kernels) -> None:
                 "merge_tool", dev, kernels,
                 lambda: captured(merge_tool.main, [a, b, "--output", out, *argv],
                                  device=dev),
+                "batched",
             )
         require(rc == 0 and len(returned) == 1, f"merge_tool: exit code {rc}")
         tool_t = returned[0]
@@ -1468,7 +1618,7 @@ def run_offline_tools(dev, kernels) -> None:
             "registration_visualisation", dev, kernels,
             lambda: captured(registration_visualisation.main,
                              [a, b, "--dump-dir", dump, *argv], device=dev),
-            bypassed=("nearest_neighbor",),
+            "grid",
         )
         require(rc == 0, f"registration_visualisation: exit code {rc}")
         lines = text.splitlines()
@@ -1563,6 +1713,7 @@ def run_config2_two_ranks(dev, kernels, views, truths, single, single_info) -> N
             and "spfh_grid" in seen,
             f"config #2 over two ranks: launches {launches}, expected spfh "
             f"{CONFIG2_MAPS} through spfh_grid and nearest_neighbor 0")
+    require_route("config #2, two ranks", launches, "grid", seen["pairs"])
     hold_on_path_inputs("config #2, two ranks", seen, nn, spfh, launches,
                         exact=True)
     for r, (out, info) in enumerate(ranks):
@@ -1639,8 +1790,8 @@ def run_node_two_ranks(dev, kernels) -> None:
     label = "node stateless, two ranks"
     log(f"{label}: {wall:.3f} s (estimation ticks {[x[3] for x in ranks]} s), "
         f"launches {launches}, merged maps {[x[2] for x in ranks]} points")
-    for name, n in launches.items():
-        require(n > 0, f"{label}: kernel {name} was not launched")
+    require(launches["spfh"] > 0, f"{label}: kernel spfh was not launched")
+    require_route(label, launches, "batched", seen["pairs"])
     hold_on_path_inputs(label, seen, nn, spfh, launches, exact=True)
     (s0, p0, n0, _), (s1, p1, n1, _) = ranks
     require([s0, s1] == [robots[:1], robots[1:]], f"{label}: ranks ingested {s0}, {s1}")
@@ -1744,6 +1895,7 @@ def run_config3(dev, kernels) -> None:
             and launches["nearest_neighbor"] == 0,
             f"config #3: launches {launches}, expected spfh 2 through spfh_grid "
             "(one a cloud) and nearest_neighbor 0")
+    require_route("config #3", launches, "grid", seen["pairs"])
     hold_on_path_inputs("config #3", seen, nn, spfh, launches, exact=True)
 
     require(cold.shape == (4, 4) and np.isfinite(cold).all() and bool(est.ok),
@@ -1836,7 +1988,7 @@ def rank_job(rank: int, world: int, address, dev, workdir, merge, node) -> None:
     from mapmerge_torch.pipeline.merging import estimate_maps_transforms
 
     t_start = time.perf_counter()
-    kernels = (nn.KERNEL, spfh.KERNEL)
+    kernels = (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL)
     on_card = dev.type == "cuda"
     multihost.initialize(address, world, rank, timeout=RANK_TIMEOUT_S)
     mesh = multihost.global_mesh(None if on_card else [dev])
@@ -1924,6 +2076,73 @@ def spawn_ranks(world: int, workdir) -> list[dict]:
     return lines
 
 
+#: the batched estimate of a pair against register_pair on the same pair:
+#: ok flags equal, poses within this many deg and m (tests/
+#: test_torch_pairs_batch.py's PAIR_TOL: the two round Kabsch's 3x3
+#: products and the sums over the points differently, which an ICP that runs
+#: to its iteration cap carries along its oscillation; a few times the
+#: largest gap seen, 0.040 deg / 1.9 mm, and under the 1 deg / 0.1 m gates)
+PAIR_TOL = (0.2, 0.02)
+
+
+@contextlib.contextmanager
+def first_chunk():
+    """Keep the arguments and results of the first merging.register_chunk
+    call while a path runs."""
+    from mapmerge_torch.pipeline import merging
+
+    kept: dict = {}
+
+    def keep(fn):
+        def wrapper(sources, targets, params, seed, pairs):
+            out = fn(sources, targets, params, seed, pairs)
+            if not kept:
+                kept.update(sources=sources, targets=targets, seed=seed,
+                            pairs=pairs, out=out)
+            return out
+
+        return wrapper
+
+    with patched({(merging, "register_chunk"): keep}):
+        yield kept
+
+
+def against_one_pair(label: str, chunk: dict, params, n: int) -> None:
+    """The first `n` pairs of a recorded chunk registered again one at a
+    time (merging.register_pair, on the same features and generators):
+    the same ok flags (a zero matrix is a failure) and poses within
+    PAIR_TOL; the largest difference and the pairs that differ at all are
+    printed. These launches come after the path's counts were read."""
+    from mapmerge_torch.core import transforms as tf
+    from mapmerge_torch.pipeline.merging import register_pair
+
+    pairs = chunk["pairs"][:n]
+    require(len(pairs) == n, f"{label}: the first chunk holds {len(chunk['pairs'])} pairs")
+    worst, differ, n_ok, beyond = (0.0, 0.0), 0, 0, 0
+    t0 = time.perf_counter()
+    for b, (k, i, j) in enumerate(pairs):
+        alone, over = register_pair(chunk["sources"][b], chunk["targets"][b], params,
+                                    chunk["seed"], i, j, k)
+        est, b_over = chunk["out"][b]
+        ok = bool(est.transform.any())
+        require(ok == bool(alone.transform.any()),
+                f"{label}: pair ({i}, {j}) ok {ok} batched, {not ok} alone")
+        differ += not np.array_equal(est.transform, alone.transform)
+        if ok:
+            n_ok += 1
+            gap = tf.pose_error(est.transform, alone.transform)
+            worst = (max(worst[0], gap[0]), max(worst[1], gap[1]))
+            beyond += gap[0] > 0.05 or gap[1] > 0.005
+    one_s = time.perf_counter() - t0
+    log(f"{label}: the first {n} pairs batched against register_pair alone ({one_s:.3f} s): "
+        f"ok flags equal ({n_ok} ok), {differ} transforms differ in any bit, "
+        f"{beyond} by more than 0.05 deg / 5 mm, largest "
+        f"difference {worst[0]} deg / {worst[1]} m (tolerance {PAIR_TOL[0]} deg / "
+        f"{PAIR_TOL[1]} m)")
+    require(worst[0] <= PAIR_TOL[0] and worst[1] <= PAIR_TOL[1],
+            f"{label}: batched and one-pair poses differ by {worst}")
+
+
 def run_config4_two_processes(dev, kernels) -> None:
     """Phase 15: eval config #4 and the distributed node over two rank
     processes on the one card, held against this process's single-rank
@@ -1943,7 +2162,7 @@ def run_config4_two_processes(dev, kernels) -> None:
     params = config4_params()
     clouds = raw_clouds(views, dev)
     info: dict = {}
-    with first_launch_inputs(nn, spfh) as seen:
+    with first_launch_inputs(nn, spfh) as seen, first_chunk() as chunk:
         for k in kernels:
             k.launches = 0
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1956,9 +2175,10 @@ def run_config4_two_processes(dev, kernels) -> None:
     log(f"config #4, one rank: {CONFIG4_MAPS} views of {sizes[0]} points, capacity "
         f"{clouds[0].capacity}: {wall:.3f} s, launches {launches}, info_out {info}, "
         f"peak device memory {peak_gib:.2f} GiB")
-    for name, n in launches.items():
-        require(n > 0, f"config #4: kernel {name} was not launched")
+    require(launches["spfh"] > 0, "config #4: kernel spfh was not launched")
+    require_route("config #4", launches, "batched", seen["pairs"])
     hold_on_path_inputs("config #4", seen, nn, spfh, launches, exact=True)
+    against_one_pair("config #4", chunk, params, 20)
     require(len(single) == CONFIG4_MAPS and all(
         t.shape == (4, 4) and np.isfinite(t).all() for t in single
     ), "config #4: transforms are not 20 finite 4x4 matrices")
@@ -1998,8 +2218,8 @@ def run_config4_two_processes(dev, kernels) -> None:
                 f"{label}: rank {r}'s transforms differ from the single-rank merge")
         require(x["info"] == want_info,
                 f"{label}: rank {r}'s info_out {x['info']} != single-rank {want_info}")
-        for name, n in x["merge_launches"].items():
-            require(n > 0, f"{label}: kernel {name} not launched on rank {r}")
+        require(x["merge_launches"]["spfh"] > 0, f"{label}: spfh not launched on rank {r}")
+        require_route(f"config #4, rank {r}", x["merge_launches"], "batched")
         PATH_STATS.update(x["kernels"])
     robots = sorted(node_views)
     node_launches = {name: sum(x["node_launches"][name] for x in ranks)
@@ -2014,8 +2234,8 @@ def run_config4_two_processes(dev, kernels) -> None:
         require(nd["merged_points"] == n_alone > 1000,
                 f"node, rank {r}: merged map of {nd['merged_points']} points, one "
                 f"node {n_alone}")
-    for name, n in node_launches.items():
-        require(n > 0, f"node, two processes: kernel {name} was not launched")
+    require(node_launches["spfh"] > 0, "node, two processes: spfh was not launched")
+    require_route("node two processes", node_launches, "batched")
     rot, trans = tf.pose_error(np.linalg.inv(alone["robot_a"]) @ alone["robot_b"],
                                node_truth)
     log(f"{label}: both ranks bitwise equal to the single-rank merge, info_out "
@@ -2071,7 +2291,7 @@ def run_config5(dev, kernels) -> None:
 
     stages = (
         (pair_shard, "extract_features", "features"),
-        (merging, "estimate_transform", "pair registrations"),
+        (merging, "estimate_pairs_batch", "pair registrations"),
         (registration, "find_correspondences", "matching"),
         (registration, "ransac_transform", "RANSAC"),
         (registration, "icp_refine", "ICP"),
@@ -2083,7 +2303,19 @@ def run_config5(dev, kernels) -> None:
     node = MapMergeNode(transport, params, seed=0, device=dev)
     ticks = []
     recorder = stage_recorder(stages, (pair_shard, "extract_features"),
-                              (merging, "estimate_transform"))
+                              (merging, "estimate_pairs_batch"))
+    icp_loops = []  # per chunk: (pairs, loop iterations, iterations summed over pairs)
+
+    def keep_iterations(fn):
+        def wrapper(*args, **kwargs):
+            info = {}
+            out = fn(*args, info_out=info, **kwargs)
+            it = info["iterations"]
+            icp_loops.append((int(it.numel()), int(it.max()), int(it.sum())))
+            return out
+
+        return wrapper
+
     last_call = {}  # the node's last estimate_maps_transforms call
 
     def keep_call(fn):
@@ -2094,9 +2326,9 @@ def run_config5(dev, kernels) -> None:
 
         return wrapper
 
-    with first_launch_inputs(nn, spfh) as seen, recorder as rec, patched(
-        {(node_module, "estimate_maps_transforms"): keep_call}
-    ):
+    with first_launch_inputs(nn, spfh) as seen, recorder as rec, first_chunk() as chunk, \
+            patched({(node_module, "estimate_maps_transforms"): keep_call,
+                     (registration, "icp_refine"): keep_iterations}):
         for k in kernels:
             k.launches = 0
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2114,17 +2346,24 @@ def run_config5(dev, kernels) -> None:
         launches = {k.name: k.launches for k in kernels}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"config5 stream: {wall:.3f} s, {n / wall} maps a second, launches "
-        f"{launches}, {rec['calls'].get('pair registrations', 0)} pair "
-        f"registrations, {rec['calls'].get('features', 0)} feature extractions, "
+        f"{launches}, {len(rec['pairs'])} pair registrations in "
+        f"{rec['calls'].get('pair registrations', 0)} chunks, "
+        f"{rec['calls'].get('features', 0)} feature extractions, "
         f"peak device memory {peak_gib:.2f} GiB")
     log(f"config5 ticks (s; stage ms): {json.dumps(ticks)}")
     log("config5 feature overflow, keypoints truncated, pairs ok: "
         f"{sum(c['scan_overflow'] for c in rec['clouds'])}, "
         f"{sum(c['keypoints_truncated'] for c in rec['clouds'])}, "
         f"{sum(p['ok'] for p in rec['pairs'])} of {len(rec['pairs'])}")
-    require(all(k > 0 for k in launches.values()) and "spfh" in seen,
-            f"config5: launches {launches}, expected both kernels, spfh in shared mode")
+    log("config5 ICP per chunk (pairs, loop iterations, iterations summed over "
+        f"the pairs): {json.dumps(icp_loops)}; batched nn launches expected "
+        f"{sum(it for _, it, _ in icp_loops) + len(icp_loops)} (one an ICP iteration "
+        "and one a score, a chunk)")
+    require(launches["spfh"] > 0 and "spfh" in seen,
+            f"config5: launches {launches}, expected spfh in shared mode")
+    require_route("config5", launches, "batched", seen["pairs"])
     hold_on_path_inputs("config5", seen, nn, spfh, launches, exact=True)
+    against_one_pair("config5, first tick", chunk, params, CONFIG5S_BATCH * (CONFIG5S_BATCH - 1) // 2)
 
     # the last tick is estimate_maps_transforms on the node's clouds: the
     # clouds it passed are those built here from the transport, bit for
@@ -2171,23 +2410,32 @@ def run_config5(dev, kernels) -> None:
         "maps) bitwise equal to the first tick")
 
 
-def kernel_entry(k, launches: dict, stats: dict) -> dict:
-    """A kernel's entry of the line before the last: its numbers on config
-    #1's own inputs (the main path), then per path and on the synthetic
-    shapes. No single PyTorch call computes either kernel's function
-    (torch.cdist gives neither the masked argmin nor its tie order; nothing
-    in PyTorch bins Darboux features), so library_ms is null."""
-    main = PATH_STATS["config #1"][k.name]
+#: the path whose run gives each kernel's launches and main numbers: the
+#: batch route of config #1 for the batched entry and for spfh; the one-pair
+#: entry's dense path, the incremental node on config #1's views (cut to
+#: 32,768 points, config #1's shapes), since config #1's pairs now batch
+MAIN_PATH = {"nearest_neighbor": "node incremental",
+             "nearest_neighbor_batched": "config #1", "spfh": "config #1"}
+
+
+def kernel_entry(k, stats: dict) -> dict:
+    """A kernel's entry of the line before the last: its launches and
+    numbers on its main path's own inputs (MAIN_PATH), then per path and on
+    the synthetic shapes. No single PyTorch call computes either kernel's
+    function (torch.cdist gives neither the masked argmin nor its tie order;
+    nothing in PyTorch bins Darboux features), so library_ms is null."""
+    label = MAIN_PATH[k.name]
+    main = PATH_STATS[label][k.name]
     errs = [stats[k.name]["max_abs_err"]] + [
         ps[k.name]["max_abs_err"] for ps in PATH_STATS.values() if k.name in ps
     ]
     return {
         "name": k.name, "route": k.route, "source": k.source,
-        "replaces": k.replaces, "launches": launches[k.name],
+        "replaces": k.replaces, "launches": main["launches"],
         "max_abs_err": max(errs), "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": None,
-        "shape": main["shape"],
+        "main_path": label, "shape": main["shape"],
         "paths": {label: ps[k.name] for label, ps in PATH_STATS.items()
                   if k.name in ps},
         "synthetic": stats[k.name],
@@ -2248,9 +2496,11 @@ def main() -> int:
         if report.exists():
             log(report.read_text().strip())
 
-    stats = {"nearest_neighbor": check_nn(dev, nn), "spfh": check_spfh(dev, spfh)}
-    kernels = (nn.KERNEL, spfh.KERNEL)
-    launches = phase("4 (config #1)", run_main_path, dev, kernels)
+    stats = {"nearest_neighbor": check_nn(dev, nn),
+             "nearest_neighbor_batched": check_nn_batched(dev, nn),
+             "spfh": check_spfh(dev, spfh)}
+    kernels = (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL)
+    phase("4 (config #1)", run_main_path, dev, kernels)
     phase("5 (config1_pfh)", run_default_operating_point, dev, kernels)
     phase("6 (registry sweep)", run_registry_sweep, dev, kernels)
     config2 = phase("7 (config #2)", run_config2, dev, kernels)
@@ -2268,8 +2518,9 @@ def main() -> int:
                     if m.startswith("jax") or m.startswith("mapmerge_tpu"))
     require(not loaded, f"modules of JAX or mapmerge_tpu were loaded: {loaded}")
 
+    log(f"pair routes per path: {json.dumps(ROUTES)}")
     print(card)
-    print(json.dumps({"kernels": [kernel_entry(k, launches, stats) for k in kernels]}))
+    print(json.dumps({"kernels": [kernel_entry(k, stats) for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -14,7 +14,7 @@
 // Bit parity with the plain version forbids FMA contraction, so the ceiling
 // is the issue rate of ~12 non-FMA instructions a pair, not the FMA peak.
 //
-// Design: the grid is (query tiles, P splits). A block of 128 threads holds
+// Design: the grid is (query tiles, P splits, pairs). A block of 128 threads holds
 // 512 queries, 4 per thread in registers, and sweeps one contiguous split of
 // the targets, staged through shared memory as float4 (x, y, z, penalty); all
 // threads read the same element at once (a broadcast) and each read feeds 4
@@ -27,7 +27,12 @@
 // increasing order with a strict `<`. Each split keeps its first occurrence
 // the same way, so ties resolve to the first index and the result is
 // deterministic. Ragged edges of Q and P are masked here; no padding rows
-// are needed. The arithmetic goes through __fsub_rn / __fmul_rn /
+// are needed. mm_nearest_neighbor_batched runs B independent (q, p,
+// mask) problems of one shape in one launch, each pair on the grid's z
+// index with its own slices of the operands and scratch, so a pair's row is
+// the same bits in a batch or alone (the minimum over splits, ties to the first index, does not
+// depend on how many splits the wrapper picks). The wrapper's single entry
+// launches a batch of one. The arithmetic goes through __fsub_rn / __fmul_rn /
 // __fadd_rn, which nvcc never contracts into FMAs, so every product and sum
 // is rounded exactly as the plain PyTorch version (kernels/nn.py:
 // nearest_neighbor_ref) rounds it.
@@ -76,6 +81,13 @@ nn_split_kernel(const float* __restrict__ q, int nq,
                 int split_len, int* __restrict__ part_idx,
                 float* __restrict__ part_d2) {
   __shared__ float4 tile[kTile];
+  // pair b of the batch: its queries, targets, mask and (splits, nq) scratch
+  const long long b = blockIdx.z;
+  q += b * nq * 3;
+  p += b * np * 3;
+  if (p_mask != nullptr) p_mask += b * np;
+  part_idx += b * gridDim.y * static_cast<long long>(nq);
+  part_d2 += b * gridDim.y * static_cast<long long>(nq);
   const int split = blockIdx.y;
   const int p_begin = split * split_len;
   const int p_end = min(np, p_begin + split_len);
@@ -126,6 +138,11 @@ nn_reduce_kernel(int nq, int splits, const int* __restrict__ part_idx,
                  float* __restrict__ d2_out) {
   const int qi = blockIdx.x * kReduceThreads + threadIdx.x;
   if (qi >= nq) return;
+  const long long b = blockIdx.y;  // pair b of the batch
+  part_idx += b * splits * static_cast<long long>(nq);
+  part_d2 += b * splits * static_cast<long long>(nq);
+  idx_out += b * nq;
+  d2_out += b * nq;
   float best = __int_as_float(0x7f800000);  // +inf
   int best_i = 0;
   for (int s = 0; s < splits; ++s) {
@@ -141,24 +158,28 @@ nn_reduce_kernel(int nq, int splits, const int* __restrict__ part_idx,
 
 }  // namespace
 
-// q (nq, 3) f32, p (np, 3) f32, p_mask (np,) bool or null; part_idx,
-// part_d2 (splits, nq) scratch; idx_out (nq,) i32, d2_out (nq,) f32.
-// Returns cudaGetLastError() after the two launches.
-extern "C" int mm_nearest_neighbor(const float* q, int nq, const float* p,
-                                   const unsigned char* p_mask, int np,
-                                   int splits, int* part_idx, float* part_d2,
-                                   int* idx_out, float* d2_out,
-                                   void* stream) {
-  if (splits < 1 || splits > 65535) return static_cast<int>(cudaErrorInvalidValue);
+// q (batch, nq, 3) f32, p (batch, np, 3) f32, p_mask (batch, np) bool or
+// null; part_idx, part_d2 (batch, splits, nq) scratch; idx_out (batch, nq)
+// i32, d2_out (batch, nq) f32. Returns cudaGetLastError() after the two
+// launches.
+extern "C" int mm_nearest_neighbor_batched(const float* q, int batch, int nq,
+                                           const float* p,
+                                           const unsigned char* p_mask, int np,
+                                           int splits, int* part_idx,
+                                           float* part_d2, int* idx_out,
+                                           float* d2_out, void* stream) {
+  if (splits < 1 || splits > 65535 || batch < 1 || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int split_len = (np + splits - 1) / splits;
-  const dim3 grid((nq + kQueries - 1) / kQueries, splits);
+  const dim3 grid((nq + kQueries - 1) / kQueries, splits, batch);
   nn_split_kernel<<<grid, kThreads, 0, s>>>(q, nq, p, p_mask, np, split_len,
                                             part_idx, part_d2);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  nn_reduce_kernel<<<(nq + kReduceThreads - 1) / kReduceThreads,
-                     kReduceThreads, 0, s>>>(nq, splits, part_idx, part_d2,
-                                             idx_out, d2_out);
+  const dim3 reduce_grid((nq + kReduceThreads - 1) / kReduceThreads, batch);
+  nn_reduce_kernel<<<reduce_grid, kReduceThreads, 0, s>>>(
+      nq, splits, part_idx, part_d2, idx_out, d2_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,7 +35,9 @@ _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: error code of its launches
 SOURCES = {
     "nn.cu": {
-        "mm_nearest_neighbor": [_vp, _ci, _vp, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _vp],
+        "mm_nearest_neighbor_batched": [
+            _vp, _ci, _ci, _vp, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _vp,
+        ],
     },
     "spfh.cu": {
         "mm_spfh_shared": [

@@ -8,6 +8,12 @@ targets, and resolve ties to the first occurrence. The kernel rounds each
 operation as the plain version does, so the two agree bit for bit; see the
 source note in csrc/nn.cu for what bounds the kernel on the card and how
 its grid splits the targets.
+
+`nearest_neighbor_batched` is the same kernel over a leading pair axis: B
+problems of one shape in one launch (the batched pair stage's ICP and
+score), each row the bits `nearest_neighbor` gives on that pair alone. It
+counts its launches apart (`BATCHED_KERNEL`), so a run shows which entry
+it went through.
 """
 
 from __future__ import annotations
@@ -35,6 +41,11 @@ KERNEL = build.Kernel(
     source="mapmerge_torch/csrc/nn.cu",
     replaces="mapmerge_tpu/pallas/nn.py:82",
 )
+BATCHED_KERNEL = build.Kernel(
+    name="nearest_neighbor_batched",
+    source="mapmerge_torch/csrc/nn.cu",
+    replaces="mapmerge_tpu/pallas/nn.py:82",
+)
 
 
 def nearest_neighbor(
@@ -43,36 +54,62 @@ def nearest_neighbor(
     """Exact 1-NN: (idx (Q,) int32, squared distance (Q,) float32).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    (a batch of one) or raises."""
     if q.device.type == "cpu":
         return nearest_neighbor_ref(q, p, p_mask)
+    idx, d2 = _launch(
+        KERNEL, q[None], p[None], None if p_mask is None else p_mask[None]
+    )
+    return idx[0], d2[0]
+
+
+def nearest_neighbor_batched(
+    q: torch.Tensor, p: torch.Tensor, p_mask: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact 1-NN of each pair of a batch: q (B, Q, 3), p (B, P, 3), p_mask
+    (B, P) -> (idx (B, Q) int32, squared distance (B, Q) float32), in one
+    launch.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises."""
+    if q.device.type == "cpu":
+        return nearest_neighbor_batched_ref(q, p, p_mask)
+    return _launch(BATCHED_KERNEL, q, p, p_mask)
+
+
+def _launch(
+    kernel: build.Kernel, q: torch.Tensor, p: torch.Tensor,
+    p_mask: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of mm_nearest_neighbor_batched on (B, Q, 3) x (B, P, 3),
+    counted on `kernel`."""
     if q.device.type != "cuda":
-        raise ValueError(f"nearest_neighbor: unsupported device {q.device}")
+        raise ValueError(f"{kernel.name}: unsupported device {q.device}")
     dev = q.device
-    nq, np_ = q.shape[0], p.shape[0]
-    build.require("q", q, torch.float32, (None, 3), dev)
-    build.require("p", p, torch.float32, (None, 3), dev)
+    nb, nq, np_ = q.shape[0], q.shape[1], p.shape[1]
+    build.require("q", q, torch.float32, (None, None, 3), dev)
+    build.require("p", p, torch.float32, (nb, None, 3), dev)
     if p_mask is not None:
-        build.require("p_mask", p_mask, torch.bool, (np_,), dev)
-    if np_ == 0 or max(nq, np_) >= 2**31 // 3:
-        raise ValueError(f"nearest_neighbor: unsupported sizes Q={nq} P={np_}")
-    idx = torch.empty((nq,), dtype=torch.int32, device=dev)
-    d2 = torch.empty((nq,), dtype=torch.float32, device=dev)
+        build.require("p_mask", p_mask, torch.bool, (nb, np_), dev)
+    if np_ == 0 or not 1 <= nb <= 65535 or max(nq, np_) >= 2**31 // 3:
+        raise ValueError(f"{kernel.name}: unsupported sizes B={nb} Q={nq} P={np_}")
+    idx = torch.empty((nb, nq), dtype=torch.int32, device=dev)
+    d2 = torch.empty((nb, nq), dtype=torch.float32, device=dev)
     if nq == 0:
         return idx, d2
-    splits = _splits(nq, np_, _sm_count(dev.index))
-    part_idx = torch.empty((splits, nq), dtype=torch.int32, device=dev)
-    part_d2 = torch.empty((splits, nq), dtype=torch.float32, device=dev)
+    splits = _splits(nb * nq, np_, _sm_count(dev.index))
+    part_idx = torch.empty((nb, splits, nq), dtype=torch.int32, device=dev)
+    part_d2 = torch.empty((nb, splits, nq), dtype=torch.float32, device=dev)
     lib = build.load()
     with torch.cuda.device(dev):
-        err = lib.mm_nearest_neighbor(
-            q.data_ptr(), nq, p.data_ptr(),
+        err = lib.mm_nearest_neighbor_batched(
+            q.data_ptr(), nb, nq, p.data_ptr(),
             None if p_mask is None else p_mask.data_ptr(), np_, splits,
             part_idx.data_ptr(), part_d2.data_ptr(),
             idx.data_ptr(), d2.data_ptr(), build.stream_handle(dev),
         )
-    KERNEL.launched()
-    build.check_launch(KERNEL, err)
+    kernel.launched()
+    build.check_launch(kernel, err)
     return idx, d2
 
 
@@ -83,7 +120,8 @@ def _sm_count(index: int) -> int:
 
 def _splits(nq: int, np_: int, sms: int) -> int:
     """Target splits for about _BLOCKS_PER_SM blocks per SM, each split
-    at least _MIN_SPLIT targets."""
+    at least _MIN_SPLIT targets (`nq`: the queries of the whole batch, so a
+    batch that fills the card already takes one split)."""
     tiles = -(-nq // _BLOCK_QUERIES)
     want = -(-_BLOCKS_PER_SM * sms // tiles)
     return max(1, min(want, -(-np_ // _MIN_SPLIT), 65535))
@@ -112,3 +150,17 @@ def nearest_neighbor_ref(
         best_idx = torch.where(better, a.to(torch.int32) + s, best_idx)
         best_d2 = torch.where(better, m, best_d2)
     return best_idx, best_d2
+
+
+def nearest_neighbor_batched_ref(
+    q: torch.Tensor, p: torch.Tensor, p_mask: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch batched 1-NN: `nearest_neighbor_ref` on each pair."""
+    rows = [
+        nearest_neighbor_ref(q[b], p[b], None if p_mask is None else p_mask[b])
+        for b in range(q.shape[0])
+    ]
+    if not rows:
+        return (torch.empty(q.shape[:2], dtype=torch.int32, device=q.device),
+                torch.empty(q.shape[:2], dtype=torch.float32, device=q.device))
+    return torch.stack([r[0] for r in rows]), torch.stack([r[1] for r in rows])

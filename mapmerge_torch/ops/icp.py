@@ -13,6 +13,16 @@ The correspondences are the bounded exact 1-NN: the nearest-neighbour kernel
 on the dense engine, or, for targets of GRID_NN_THRESHOLD points or more, a
 cell grid of the target at the correspondence bound, built once before the
 loop (the target never moves) and queried every iteration.
+
+With a leading pair axis (clouds (B, N, ...), `initial` (B, 4, 4)) the
+same loop runs every pair of a batch on the dense engine, the counterpart of
+the reference's while_loop under vmap: every pair steps together, each with
+its own transform, previous MSE and flags, on the iteration index that sets
+the shared annealing ladder; a pair that has stopped is frozen with
+`torch.where`, so it ends with the transform it would have ended with alone.
+One launch of the batched 1-NN serves every pair of an iteration, and the
+loop reads one flag an iteration (is any pair still running?) for the whole
+batch.
 """
 
 from __future__ import annotations
@@ -23,10 +33,12 @@ import torch
 from mapmerge_torch.core import transforms as tf
 from mapmerge_torch.core.cloud import PointCloud
 from mapmerge_torch.ops.grid import build_grid, grid_nn_query
+from mapmerge_torch.ops.matching import take
 from mapmerge_torch.ops.neighbors import (
     GRID_NN_THRESHOLD,
     _resolve_engine,
     nearest_neighbor,
+    nearest_neighbor_batch,
 )
 from mapmerge_torch.ops.rigid import kabsch
 
@@ -42,7 +54,8 @@ def icp_refine(
     anneal: float = 0.85,
     min_correspondence_distance: float | None = None,
     scan_cap: int = 256,
-) -> tuple[torch.Tensor, bool, torch.Tensor]:
+    info_out: dict | None = None,
+) -> tuple[torch.Tensor, bool | torch.Tensor, torch.Tensor]:
     """Refine `initial` (source -> target). Returns (transform, converged,
     scan_overflow).
 
@@ -50,7 +63,13 @@ def icp_refine(
     correspondences; callers then keep the unrefined transform.
     `scan_overflow` is the worst per-iteration count of valid source points
     the grid's query-side bucket cap dropped (they lose their
-    correspondence); 0 on the dense engine."""
+    correspondence); 0 on the dense engine.
+
+    With a leading pair axis (`initial` (B, 4, 4)), every field has it:
+    transforms (B, 4, 4), converged (B,) bool, scan_overflow (B,) zeros;
+    targets that would take the grid raise (`nearest_neighbor_batch`).
+    `info_out`, when given, receives the iterations each pair ran
+    ("iterations", int32 of the lead shape)."""
     f32 = np.float32
     d_hi = f32(max_correspondence_distance)
     d_lo = f32(
@@ -62,12 +81,17 @@ def icp_refine(
     eps = float(f32(transform_epsilon))
 
     t = initial.to(torch.float32)
-    dev = t.device
-    prev_mse = torch.tensor(1.0e30, dtype=torch.float32, device=dev)
-    ever_ok = torch.zeros((), dtype=torch.bool, device=dev)
-    worst = torch.zeros((), dtype=torch.int32, device=dev)
+    batched = t.dim() == 3
+    dev, lead = t.device, t.shape[:-2]
+    prev_mse = torch.full(lead, 1.0e30, dtype=torch.float32, device=dev)
+    ever_ok = torch.zeros(lead, dtype=torch.bool, device=dev)
+    running = torch.ones(lead, dtype=torch.bool, device=dev)
+    iterations = torch.zeros(lead, dtype=torch.int32, device=dev)
+    worst = torch.zeros(lead, dtype=torch.int32, device=dev)
     grid = None
-    if _resolve_engine("auto", target.capacity, GRID_NN_THRESHOLD) == "grid":
+    if not batched and (
+        _resolve_engine("auto", target.capacity, GRID_NN_THRESHOLD) == "grid"
+    ):
         grid = build_grid(
             target.xyz, target.mask, float(max_correspondence_distance),
             cap=scan_cap,
@@ -82,28 +106,36 @@ def icp_refine(
             )
             worst = torch.maximum(worst, overflow)
         else:
-            idx, d2, _ = nearest_neighbor(
+            nn = nearest_neighbor_batch if batched else nearest_neighbor
+            idx, d2, _ = nn(
                 moved, target.xyz, p_mask=target.mask,
                 bound=float(max_correspondence_distance),
             )
         w = (source.mask & (d2 <= float(dist * dist))).to(torch.float32)
-        matched = target.xyz[idx.to(torch.int64)]
+        matched = take(target.xyz, idx.to(torch.int64), batched)
         delta, ok = kabsch(moved, matched, w)
         if outlier_rejection_threshold > 0:
             # trimmed refit on the pairs the first fit calls inliers
             resid2 = ((tf.apply(delta, moved) - matched) ** 2).sum(dim=-1)
             delta2, ok2 = kabsch(moved, matched, w * (resid2 <= reject2))
-            delta = torch.where(ok2, delta2, delta)
+            delta = torch.where(ok2[..., None, None], delta2, delta)
             ok = ok | ok2
-        t_new = torch.where(ok, tf.compose(delta, t), t)
-        change = torch.sqrt(((t_new - t) ** 2).sum())
-        mse = torch.where(w > 0, d2, 0.0).sum() / w.sum().clamp_min(1.0)
+        t_new = torch.where(ok[..., None, None], tf.compose(delta, t), t)
+        change = torch.sqrt(((t_new - t) ** 2).sum(dim=(-2, -1)))
+        mse = torch.where(w > 0, d2, 0.0).sum(dim=-1) / w.sum(dim=-1).clamp_min(1.0)
         rel_mse = (mse - prev_mse).abs() / prev_mse.clamp_min(1e-12)
         at_floor = bool(anneal >= 1.0 or ladder <= d_lo)
         done = torch.where(
             ok, (change < eps) & (rel_mse < 1e-4) & at_floor, True
         )
-        t, prev_mse, ever_ok = t_new, mse, ever_ok | ok
-        if bool(done):
+        # a stopped pair keeps what it had: its own loop ended before this step
+        t = torch.where(running[..., None, None], t_new, t)
+        prev_mse = torch.where(running, mse, prev_mse)
+        ever_ok = ever_ok | (running & ok)
+        iterations = iterations + running.to(torch.int32)
+        running = running & ~done
+        if not bool(running.any()):
             break
-    return t, bool(ever_ok), worst
+    if info_out is not None:
+        info_out["iterations"] = iterations
+    return t, ever_ok if batched else bool(ever_ok), worst

@@ -56,8 +56,9 @@ def _center(q: torch.Tensor, p: torch.Tensor, p_mask: torch.Tensor | None):
 
 
 def sq_dists(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """(..., Q, 3) x (P, 3) -> (..., Q, P) squared distances, by the direct
-    expansion sum_c (q_c - p_c)^2.
+    """(..., Q, 3) x ([...,] P, 3) -> (..., Q, P) squared distances, by the
+    direct expansion sum_c (q_c - p_c)^2 (p's leading axes broadcast
+    against q's).
 
     The reference uses the identity |q|^2 + |p|^2 - 2 q.p. PyTorch's matmul
     rounds q.p differently from |q|^2, leaving up to ~1e-6 m^2 for a point
@@ -65,9 +66,9 @@ def sq_dists(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     exactly 0; FPFH's zero-distance self-hit test (dist > 1e-9) then weights
     the self SPFH by ~1e3. The direct expansion is exact for coincident
     points and at least as accurate elsewhere."""
-    d2 = torch.zeros(q.shape[:-1] + (p.shape[0],), dtype=q.dtype, device=q.device)
+    d2 = torch.zeros(q.shape[:-1] + (p.shape[-2],), dtype=q.dtype, device=q.device)
     for c in range(3):
-        dc = q[..., c : c + 1] - p[:, c]
+        dc = q[..., c : c + 1] - p[..., None, :, c]
         d2 += dc * dc
     return d2
 
@@ -185,6 +186,32 @@ def nearest_neighbor(
             q, p, bound=bound, p_mask=p_mask, scan_cap=scan_cap, q_mask=q_mask,
         )
     idx, d2 = nn_kernel.nearest_neighbor(
+        q.contiguous(), p.contiguous(),
+        None if p_mask is None else p_mask.contiguous(),
+    )
+    return idx, d2, 0
+
+
+def nearest_neighbor_batch(
+    q: torch.Tensor,
+    p: torch.Tensor,
+    p_mask: torch.Tensor | None = None,
+    bound: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Exact 1-NN of each pair of a batch: q (B, Q, 3), p (B, P, 3), p_mask
+    (B, P) -> (idx (B, Q) int32, squared distance (B, Q), overflow 0), with
+    `nearest_neighbor`'s dense semantics for each pair, through one launch
+    of the kernel's batched entry. Dense engine only: a `bound` whose
+    targets would take the grid under "auto" raises (such pairs register
+    one by one, through `nearest_neighbor`)."""
+    if bound is not None and (
+        _resolve_engine("auto", p.shape[-2], GRID_NN_THRESHOLD) == "grid"
+    ):
+        raise ValueError(
+            f"nearest_neighbor_batch: {p.shape[-2]} targets take the grid "
+            "engine; the batch runs the dense engine only"
+        )
+    idx, d2 = nn_kernel.nearest_neighbor_batched(
         q.contiguous(), p.contiguous(),
         None if p_mask is None else p_mask.contiguous(),
     )

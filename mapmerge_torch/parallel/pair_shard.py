@@ -6,7 +6,8 @@ features of the clouds it owns, on the owning slot's device; every cloud's
 `CloudFeatures` are gathered to every rank, bit for bit (the pair stage
 reads them replicated); each rank registers the pairs it owns; the pair
 results are gathered to every rank, which all run the same host graph
-solve.
+solve. Pairs are dealt in chunks (one pair each on the grid engine, a
+batch each on the dense engine; `pipeline/merging.py`).
 
 The JAX package pads clouds with empty ones and pairs with discarded
 (0, 0) self-pairs, because `shard_map` needs equal shares; here shares may
@@ -117,15 +118,21 @@ def extract_features_sharded(
 
 def estimate_pairs_sharded(
     features: list[CloudFeatures], pairs: list[tuple[int, int]],
-    register: Callable, mesh: Mesh, stats: dict | None = None,
+    register: Callable, mesh: Mesh, stats: dict | None = None, chunk: int = 1,
 ) -> list:
-    """`register(m, source features, target features)` for every pair m of
-    `pairs` ((source, target) cloud indices) on every rank: pair m
-    registered by the rank and on the device of slot m, its host result
-    gathered. `stats["pairs"]` gets the pairs this rank registered."""
-    mine = mesh.mine(len(pairs))
+    """Every pair of `pairs` ((source, target) cloud indices) registered on
+    every rank, `chunk` pairs at a time: chunk c, pairs [c*chunk,
+    (c+1)*chunk), is registered by the rank and on the device of slot c,
+    as `register(c, its sources' features, its targets' features)` (lists,
+    placed on that device), which returns one host result a pair; the
+    results are gathered and returned in pair order. A chunk is the same
+    pairs whatever the mesh, so each pair is computed in the same batch on
+    one rank or many. `stats["pairs"]` gets the pairs this rank registered."""
+    n_chunks = -(-len(pairs) // chunk)
+    mine = mesh.mine(n_chunks)
+    members = [pairs[c * chunk : (c + 1) * chunk] for c in range(n_chunks)]
     if stats is not None:
-        stats["pairs"] = [pairs[m] for m in mine]
+        stats["pairs"] = [p for c in mine for p in members[c]]
     on_device: dict = {}  # (cloud, device) -> features there
 
     def placed(i: int, dev: torch.device) -> CloudFeatures:
@@ -134,12 +141,12 @@ def estimate_pairs_sharded(
             on_device[key] = to_device(features[i], dev)
         return on_device[key]
 
-    def one(m: int, dev: torch.device):
-        i, j = pairs[m]
-        return register(m, placed(i, dev), placed(j, dev))
+    def one(c: int, dev: torch.device):
+        return register(c, [placed(i, dev) for i, _ in members[c]],
+                        [placed(j, dev) for _, j in members[c]])
 
     merged = gather(mesh, run_local(mesh, mine, one), stats)
-    return [merged[m] for m in range(len(pairs))]
+    return [r for c in range(n_chunks) for r in merged[c]]
 
 
 def pad_pairs(pairs: list[tuple[int, int]], n_devices: int):

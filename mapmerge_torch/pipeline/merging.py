@@ -5,16 +5,28 @@ empty input -> [], a single cloud -> [identity], per-map failure -> zero
 matrix; pairs are registered only where both keypoint sets are non-empty;
 compose skips zero transforms and re-voxelizes at the output resolution.
 
-The clouds and pairs are dealt over a mesh's devices and ranks
+The clouds are dealt over a mesh's devices and ranks for the feature stage
 (`parallel/pair_shard.py`; without one, a mesh of the clouds' device alone,
-which runs them in order there), then one host graph solve (`mapmerge_torch.graph`, numpy). That is the
-reference's big-cloud path (merging.py:312-326, 404-410: per-cloud stages,
-per-pair registration at a common capacity) at every size, so the port needs
-no separate branch for it. `MergeParams` is importable from here.
+which runs them in order there), then the pairs, then one host graph solve
+(`mapmerge_torch.graph`, numpy). The reference registers all pairs of a
+small-cloud merge in one device program with one fetch
+(`_merge_all_pairs_fused`, `estimate_pairs_batch`, merging.py:87-139,
+327-380) and takes per-pair programs only at or above `STAGED_THRESHOLD`
+(merging.py:312). Here the branch is re-decided for the card on the engine
+the pair stage's 1-NN takes: when the registration clouds take the dense
+engine (below GRID_NN_THRESHOLD points), the pairs register in chunks of
+`pair_chunk_size` through `registration.estimate_pairs_batch`, one packed
+host fetch a chunk, since one pair of a few thousand points leaves most of
+the card idle; clouds that take the grid 1-NN register pair by pair
+(`register_pair`). Chunk c is always pairs [c*C, (c+1)*C) of the registered
+pair list, C set by the clouds' capacity and the params alone, so every
+pair is computed in the same batch on one rank or many. `MergeParams` is
+importable from here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Sequence
 
@@ -23,6 +35,7 @@ import torch
 
 from mapmerge_torch.core import transforms as tf
 from mapmerge_torch.core.cloud import PointCloud
+from mapmerge_torch.core.enums import EstimationMethod
 from mapmerge_torch.core.params import MergeParams
 from mapmerge_torch.graph.merge_graph import (
     TransformEstimate,
@@ -30,10 +43,20 @@ from mapmerge_torch.graph.merge_graph import (
 )
 from mapmerge_torch.graph.pose_graph import refine_global_transforms
 from mapmerge_torch.ops.downsample import voxel_downsample
+from mapmerge_torch.ops.neighbors import GRID_NN_THRESHOLD, _resolve_engine
 from mapmerge_torch.parallel import pair_shard
 from mapmerge_torch.parallel.mesh import make_mesh
 from mapmerge_torch.pipeline.features import CloudFeatures
-from mapmerge_torch.pipeline.registration import estimate_transform
+from mapmerge_torch.pipeline.registration import (
+    estimate_pairs_batch,
+    estimate_transform,
+)
+
+#: registration-cloud points (sources) in one chunk of the batched pair
+#: stage: a chunk's (C, N, 3) clouds and 1-NN planes stay small
+PAIR_CHUNK_POINTS = 1 << 20
+#: hypothesis x keypoint slots in one chunk: RANSAC's (C, H, S) planes
+PAIR_CHUNK_SLOTS = 1 << 24
 
 
 def seeded_generator(entropy: Sequence[int], device) -> torch.Generator:
@@ -51,6 +74,47 @@ def pair_generator(seed: int, pair_index: int, device) -> torch.Generator:
     full i<j enumeration), so a pair draws the same hypotheses whichever
     other pairs are skipped."""
     return seeded_generator([seed, pair_index], device)
+
+
+def stack_features(features: Sequence[CloudFeatures]) -> CloudFeatures:
+    """Features of one capacity stacked on a leading axis, field by field."""
+
+    def stack(parts):
+        first = parts[0]
+        if torch.is_tensor(first):
+            return torch.stack(parts)
+        return dataclasses.replace(first, **{
+            f.name: stack([getattr(p, f.name) for p in parts])
+            for f in dataclasses.fields(first)
+        })
+
+    return stack(list(features))
+
+
+def extract_features_batch(
+    clouds: Sequence[PointCloud], params: MergeParams
+) -> CloudFeatures:
+    """The feature stage of each cloud, in order, at the clouds' common
+    capacity, stacked on a leading axis (the reference's lax.map over the
+    stacked batch is sequential too). It is the merge's own feature stage
+    on a mesh of the first cloud's device; the merge keeps the features
+    unstacked and each chunk stacks its pairs' (`register_chunk`)."""
+    mesh = make_mesh([clouds[0].device])
+    return stack_features(pair_shard.extract_features_sharded(clouds, params, mesh))
+
+
+def pair_chunk_size(features: CloudFeatures, params: MergeParams) -> int:
+    """Pairs in one chunk of the batched pair stage: as many as fit
+    PAIR_CHUNK_POINTS registration points and PAIR_CHUNK_SLOTS hypothesis
+    x keypoint slots, at least one. It depends on the clouds' capacity and
+    the params alone (a registration cloud holds min(capacity, max_points)
+    slots), never on the pairs or the ranks."""
+    hyp = (params.ransac_hypotheses
+           if params.estimation_method == EstimationMethod.MATCHING
+           else params.sacia_hypotheses)
+    slots = hyp * features.keypoints.xyz.shape[-2]
+    return max(1, min(PAIR_CHUNK_POINTS // features.cloud.capacity,
+                      PAIR_CHUNK_SLOTS // slots))
 
 
 def _warn_feature_caps(
@@ -123,6 +187,38 @@ def register_pair(
     ), int(est.scan_overflow)
 
 
+def register_chunk(
+    sources: Sequence[CloudFeatures], targets: Sequence[CloudFeatures],
+    params: MergeParams, seed: int, pairs: Sequence[tuple[int, int, int]],
+) -> list[tuple[TransformEstimate, int]]:
+    """Register `pairs` ((index among all pairs, i, j) for each source
+    onto its target) in one batch on the features' device, each pair drawing
+    from its own generator: register_pair's results, fetched to the host in
+    one packed copy."""
+    dev = sources[0].cloud.device
+    est = estimate_pairs_batch(
+        stack_features(sources), stack_features(targets), params,
+        generators=[pair_generator(seed, k, dev) for k, _, _ in pairs],
+    )
+    packed = torch.cat([
+        est.transform.reshape(-1, 16),
+        torch.stack([
+            est.confidence, est.ambiguous().to(torch.float32),
+            est.scan_overflow.to(torch.float32),
+        ], dim=1),
+    ], dim=1).cpu().numpy()
+    return [
+        (TransformEstimate(
+            source_idx=i,
+            target_idx=j,
+            transform=packed[b, :16].reshape(4, 4).copy(),
+            confidence=float(packed[b, 16]),
+            ambiguous=bool(packed[b, 17]),
+        ), int(packed[b, 18]))
+        for b, (_, i, j) in enumerate(pairs)
+    ]
+
+
 def estimate_maps_transforms(
     clouds: Sequence[PointCloud],
     params: MergeParams | None = None,
@@ -171,12 +267,21 @@ def estimate_maps_transforms(
         if kp_counts[i] > 0 and kp_counts[j] > 0
     ]
 
-    def register(m: int, source: CloudFeatures, target: CloudFeatures):
-        k, i, j = pairs[m]
-        return register_pair(source, target, params, seed, i, j, k)
+    # the dense engine's pairs register in batches; the grid's one by one
+    batched = _resolve_engine(
+        "auto", features[0].cloud.capacity, GRID_NN_THRESHOLD
+    ) == "dense"
+    chunk = pair_chunk_size(features[0], params) if batched else 1
+
+    def register(c: int, sources: list, targets: list):
+        members = pairs[c * chunk : (c + 1) * chunk]
+        if batched:
+            return register_chunk(sources, targets, params, seed, members)
+        (k, i, j), = members
+        return [register_pair(sources[0], targets[0], params, seed, i, j, k)]
 
     results = pair_shard.estimate_pairs_sharded(
-        features, [(i, j) for _, i, j in pairs], register, mesh, stats
+        features, [(i, j) for _, i, j in pairs], register, mesh, stats, chunk
     )
     estimates = [est for est, _ in results]
     _warn_pair_overflow(np.array([o for _, o in results], dtype=np.int64))

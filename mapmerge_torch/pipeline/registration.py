@@ -3,6 +3,15 @@
 The reference's estimateTransform (matching.cpp:223-257): an initial pose by
 MATCHING (reciprocal k-NN matching, then RANSAC + SVD) or by SAC_IA, then
 optional ICP refinement and the transformScore confidence.
+
+`estimate_transform` registers one pair; `estimate_pairs_batch` (the
+reference's function of that name) registers a batch of pairs whose
+features are stacked on a leading pair axis, through the same steps run on
+all of them at once: batched matching, RANSAC or SAC-IA (each pair drawing
+from its own generator, so it gets its draws of the one-pair call),
+ICP and the batched score. The batch runs the dense engine only (the
+batched 1-NN refuses targets that take the grid); `pipeline/merging.py`
+decides which pairs register in batches.
 """
 
 from __future__ import annotations
@@ -30,6 +39,9 @@ AMBIGUITY_MIN_SUPPORT = 0.1
 
 @dataclasses.dataclass(frozen=True)
 class PairEstimate:
+    """One pair's estimate, or a batch's with a leading pair axis on every
+    field (`estimate_pairs_batch`)."""
+
     transform: torch.Tensor  # (4, 4); zeros on failure
     ok: torch.Tensor  # () bool
     confidence: torch.Tensor  # () float32
@@ -74,6 +86,33 @@ def estimate_transform(
     """Reference matching.cpp:223-257. RANSAC or SAC-IA draws from
     `generator`, or takes `samples` (H, 3) (and SAC-IA's `pick` (H, 3))
     when given."""
+    return _estimate(source, target, params, generator, samples, pick)
+
+
+def estimate_pairs_batch(
+    sources: CloudFeatures,
+    targets: CloudFeatures,
+    params: MergeParams,
+    generators=None,
+    samples: torch.Tensor | None = None,
+    pick: torch.Tensor | None = None,
+) -> PairEstimate:
+    """Register source b onto target b for every pair b of a batch: features
+    stacked on a leading pair axis (`merging.stack_features`), one
+    generator a pair in `generators` (or `samples` (B, H, 3) and SAC-IA's
+    `pick` (B, H, 3)). Every field of the estimate has the pair axis, and
+    each pair keeps estimate_transform's contract: ok flag, zero matrix on
+    failure, ambiguity evidence, scan overflow. Raises for targets that take
+    the grid 1-NN (GRID_NN_THRESHOLD points or more under "auto";
+    `neighbors.nearest_neighbor_batch`)."""
+    return _estimate(sources, targets, params, generators, samples, pick)
+
+
+def _estimate(source, target, params, generator, samples, pick) -> PairEstimate:
+    """estimate_transform's steps, on one pair or on a batch (features with
+    a leading pair axis, `generator` then a sequence, one a pair)."""
+    lead = source.cloud.xyz.shape[:-2]
+    dev = source.cloud.device
     if params.estimation_method == EstimationMethod.MATCHING:
         corr = find_correspondences(
             source.descriptors.data,
@@ -93,12 +132,12 @@ def estimate_transform(
         )
         transform, ok, inliers = res.transform, res.ok, res.inlier_count
         purity = res.consensus_purity
-        support = inliers / corr.valid.sum().clamp_min(1)
+        support = inliers / corr.valid.sum(dim=-1).clamp_min(1)
     elif params.estimation_method == EstimationMethod.SAC_IA:
         # the reference's SAC_IA branch reports no consensus evidence
         # (registration.py:127), so a SAC_IA pair is never ambiguous: a
         # known fault of the reference, ported as is
-        purity = support = torch.ones((), device=source.cloud.device)
+        purity = support = torch.ones(lead, device=dev)
         transform, ok, inliers = sacia_transform(
             source.keypoints,
             source.descriptors,
@@ -114,13 +153,12 @@ def estimate_transform(
     else:
         raise ValueError(f"unknown estimation method: {params.estimation_method}")
 
-    dev = source.cloud.device
-    icp_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    icp_overflow = torch.zeros(lead, dtype=torch.int32, device=dev)
     if params.refine_transform:
         refined, icp_ok, icp_overflow = icp_refine(
             source.cloud,
             target.cloud,
-            initial=transform,
+            transform,
             max_correspondence_distance=params.max_correspondence_distance,
             outlier_rejection_threshold=params.inlier_threshold,
             max_iterations=params.max_iterations,
@@ -130,9 +168,9 @@ def estimate_transform(
             min_correspondence_distance=params.resolution,
             scan_cap=params.registration_scan_cap,
         )
-        transform = torch.where(ok & icp_ok, refined, transform)
+        transform = torch.where((ok & icp_ok)[..., None, None], refined, transform)
 
-    transform = torch.where(ok, transform, tf.zero(transform.device))
+    transform = torch.where(ok[..., None, None], transform, tf.zero(dev))
     score, coverage, score_overflow = transform_score(
         source.cloud, target.cloud, transform,
         params.max_correspondence_distance,

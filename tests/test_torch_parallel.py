@@ -178,9 +178,10 @@ def test_multihost_single_process():
 
 
 def test_sharded_merge_two_ranks_is_bitwise(views, single):
-    """Two ranks: clouds 0, 2 and pairs (0, 1), (1, 2) on rank 0, cloud 1
-    and pair (0, 2) on rank 1; both get the single-rank transforms and
-    info_out, bit for bit."""
+    """Two ranks: clouds 0, 2 on rank 0, cloud 1 on rank 1; the three
+    pairs are one chunk of the batched pair stage (dense engine), dealt to
+    rank 0; both get the single-rank transforms and info_out, bit for bit
+    (tests/test_torch_pairs_batch.py deals several chunks)."""
     want, want_info = single
 
     def rank(r, group):
@@ -196,7 +197,7 @@ def test_sharded_merge_two_ranks_is_bitwise(views, single):
         assert info == want_info
         assert took["rank"] == r and took["gather_s"] > 0
         assert took["clouds"] == [[0, 2], [1]][r]
-        assert took["pairs"] == [[(0, 1), (1, 2)], [(0, 2)]][r]
+        assert took["pairs"] == [[(0, 1), (0, 2), (1, 2)], []][r]
     assert want_info["n_pairs"] == 3 and want_info["n_failed"] == 0
 
 
