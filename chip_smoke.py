@@ -5,7 +5,8 @@
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the hand-written kernels from csrc/ and print the build time;
+  2. build the native host library (csrc/mapmerge_native.cpp, g++) and the
+     hand-written kernels from csrc/ and print each build time;
   3. hold each kernel against its plain PyTorch version at the main path's
      shapes, with the stated tolerances, and time both (CUDA events); kernel
      A's batched entry at config5's shape (45 pairs of 4,096 points),
@@ -64,7 +65,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      points against compose_maps, gated at 1 deg / 0.1 m; then
      tools/registration_visualisation.main with --dump-dir: its dump files,
      its printed counts and its StageTimes table (nn bypassed there: the
-     views' own sizes take the grid 1-NN);
+     views' own sizes take the grid 1-NN); then the same views written as
+     binary_compressed files (testing/lzf.py's compressor): merge_tool on
+     them bit for bit its run on the binary files, the native LZF decoder
+     called, and native.lzf_decompress held byte for byte against the plain
+     decoder on both payloads and on one of config5_big's view size
+     (459,685 points, 7,354,960 bytes), both timed;
   12. eval config #2 over a two-rank mesh on the one card (two threads, each
      a gloo group of one HashStore): both ranks' transforms and info_out bit
      for bit phase 7's, phase 7's gates, spfh exactly 5 launches (grid) and
@@ -106,7 +112,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      m, drift under 10 deg / 0.5 m and more than 1,000 merged points; the
      last tick bit for bit estimate_maps_transforms on the node's clouds, a
      second node's first batch bit for bit the first tick; each tick's
-     time with the host graph solve split out, maps a second, peak memory,
+     time with the tree solve (native) and the pose-graph refinement split
+     out, maps a second, peak memory,
      ICP's loop iterations per chunk; the first tick's 45 pairs (one chunk)
      registered again one at a time, held as in phase 15.
 Pair routes: where the registration clouds take the dense engine,
@@ -132,6 +139,16 @@ on each kernel's main path (MAIN_PATH: config #1 for the batched entry and
 kernel B, the incremental node on config #1's views for the one-pair
 entry), and the same for every path and for the synthetic shapes; the last
 line is {"ok": true, "device": {...}}.
+The native host library (native/, csrc/mapmerge_native.cpp): on every path
+that solves a graph (4-8, 11-13, 15 in this process and in each rank
+process, 16) the call counts are reset just before the path and
+merge_graph_solve required after it, once a tree solve, and each solve's
+result held against compute_global_transforms_plain on the path's own
+estimates (the same maps registered, within 1e-5), both timed on the
+largest (host clock, median of 20); the incremental node (9, 10), config
+#3 (14) and the debugger (11) must solve none, as in the JAX package.
+Config #2's stage times (7) and config5's ticks (16) split the tree solve
+from the refinement. A `native` JSON line comes before the card's line.
 Imports nothing of JAX and nothing of mapmerge_tpu, and checks at its end
 that no such module was loaded.
 """
@@ -507,14 +524,19 @@ def first_launch_inputs(nn, spfh):
     their modules at call time, so they see the recording ones. Also
     records the merge's pair stage (`seen["pairs"]`): its host seconds
     between two synchronisations, the batched chunks and their pairs, and
-    the pairs registered one at a time through merging.register_pair."""
+    the pairs registered one at a time through merging.register_pair. The
+    native call counts are set to 0 on entry and read on exit
+    (`seen["native"]`), and every tree solve
+    (merging.compute_global_transforms) is kept with its estimates,
+    threshold and result (`seen["graph"]`, for hold_graph)."""
     import threading
 
+    from mapmerge_torch import native
     from mapmerge_torch.parallel import pair_shard
     from mapmerge_torch.pipeline import merging
 
     seen: dict = {"pairs": {"stage_s": 0.0, "chunks": 0, "batched_pairs": 0,
-                            "one_pair_calls": 0}}
+                            "one_pair_calls": 0}, "graph": []}
     lock = threading.Lock()
 
     def add(key, value):
@@ -551,6 +573,15 @@ def first_launch_inputs(nn, spfh):
 
         return wrapper
 
+    def solve(fn):
+        def wrapper(estimates, threshold):
+            out = fn(estimates, threshold)
+            with lock:
+                seen["graph"].append((list(estimates), threshold, out))
+            return out
+
+        return wrapper
+
     def record(name, dev=None):
         def make(fn):
             def wrapper(*args, **kwargs):
@@ -567,11 +598,16 @@ def first_launch_inputs(nn, spfh):
                   (pair_shard, "estimate_pairs_sharded"): stage,
                   (merging, "register_chunk"): chunk,
                   (merging, "register_pair"): one_pair,
+                  (merging, "compute_global_transforms"): solve,
                   (spfh, "spfh_tile"): record("spfh"),
                   # a grid sweep's arguments are ~200 MB at config #2's size:
                   # kept in host memory, out of the run's peak device memory
                   (spfh, "spfh_grid"): record("spfh_grid", torch.device("cpu"))}):
+        counters = (native.GRAPH_SOLVE, native.LZF_DECOMPRESS)
+        for c in counters:
+            c.launches = 0
         yield seen
+        seen["native"] = {c.name: c.launches for c in counters}
 
 
 #: per path, per kernel: shape, max error, times and bound on the path's
@@ -683,6 +719,86 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
     log(f"{label}: kernels on the path's own inputs: {json.dumps(stats)}")
 
 
+#: the native tree solve against its plain version: the same maps
+#: registered and transforms within tests/test_torch_graph.py's tolerance
+#: (the plain chain rounds to float32 at every step, the native one in double)
+GRAPH_TOL = 1e-5
+#: per path: its native tree solves held against the plain version (hold_graph)
+GRAPH_STATS: dict[str, dict] = {}
+#: per payload: the native LZF decoder held against the plain one (hold_lzf)
+LZF_STATS: dict[str, dict] = {}
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host ms of `fn` (host code: no device work) over `reps` runs
+    after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def hold_graph(label: str, seen: dict, solves: bool = True) -> None:
+    """The path's tree solves, as first_launch_inputs recorded them. With
+    `solves`: native.merge_graph_solve ran once a solve during the path, and
+    each solve's result is held against compute_global_transforms_plain on
+    the same estimates (the same maps registered, max abs difference within
+    GRAPH_TOL); both are timed on the largest (host clock, median of 20).
+    Without (the incremental node and config #3 solve no tree, as in the
+    JAX package): no solve ran. Kept in GRAPH_STATS and logged."""
+    from mapmerge_torch.graph import merge_graph
+
+    calls, solved = seen["native"]["merge_graph_solve"], seen["graph"]
+    if not solves:
+        require(calls == 0 and not solved,
+                f"{label}: {calls} native tree solves on a path that solves none")
+        GRAPH_STATS[label] = {"calls": 0}
+        log(f"{label}: no tree solve on this path (native merge_graph_solve calls 0)")
+        return
+    require(calls > 0 and calls == len(solved),
+            f"{label}: {calls} native merge_graph_solve calls for {len(solved)} tree solves")
+    worst = 0.0
+    for est, threshold, out in solved:
+        plain = merge_graph.compute_global_transforms_plain(est, threshold)
+        require(len(plain) == len(out) and [bool(t.any()) for t in plain]
+                == [bool(t.any()) for t in out],
+                f"{label}: the plain tree solve registers other maps than the native one")
+        worst = max([worst] + [float(np.abs(a - b).max()) for a, b in zip(out, plain)])
+    require(worst <= GRAPH_TOL,
+            f"{label}: native and plain tree solves differ by {worst} > {GRAPH_TOL}")
+    est, threshold, out = max(solved, key=lambda x: len(x[0]))
+    stats = GRAPH_STATS[label] = {
+        "calls": calls, "maps": len(out), "edges": len(est),
+        "registered": sum(bool(t.any()) for t in out), "max_abs_diff": worst,
+        "native_ms": host_ms(lambda: merge_graph.compute_global_transforms(est, threshold)),
+        "plain_ms": host_ms(
+            lambda: merge_graph.compute_global_transforms_plain(est, threshold)),
+    }
+    log(f"{label}: tree solves native against plain (the largest timed): "
+        f"{json.dumps(stats)}")
+
+
+def hold_lzf(label: str, payload: bytes, raw: bytes) -> None:
+    """native.lzf_decompress against the plain decoder on one payload: both
+    give `raw`, byte for byte; both timed (host clock, median of 20 and of
+    3). Kept in LZF_STATS and logged."""
+    from mapmerge_torch import native
+    from mapmerge_torch.io.pcd import _lzf_decompress
+
+    got, plain = native.lzf_decompress(payload, len(raw)), _lzf_decompress(payload, len(raw))
+    require(got == raw and plain == raw,
+            f"{label}: the decoders' bytes differ (native {got == raw}, plain {plain == raw})")
+    stats = LZF_STATS[label] = {
+        "points": len(raw) // 16, "raw_bytes": len(raw), "compressed_bytes": len(payload),
+        "native_ms": host_ms(lambda: native.lzf_decompress(payload, len(raw))),
+        "plain_ms": host_ms(lambda: _lzf_decompress(payload, len(raw)), reps=3),
+    }
+    log(f"{label}: LZF decoders byte for byte: {json.dumps(stats)}")
+
+
 def config1_params():
     from mapmerge_torch.pipeline.merging import MergeParams
 
@@ -739,6 +855,7 @@ def run_main_path(dev, kernels) -> None:
     require(launches["spfh"] > 0, "kernel spfh was not launched by the main path")
     require_route("config #1", launches, "batched", seen["pairs"])
     hold_on_path_inputs("config #1", seen, nn, spfh, launches)
+    hold_graph("config #1", seen)
 
     require(len(out) == 2 and all(
         t.shape == (4, 4) and np.isfinite(t).all() for t in out
@@ -817,6 +934,7 @@ def drive(label: str, clouds, params, kernels, truth, rot_gate, trans_gate):
             f"{label}: pose gate {rot_gate} deg / {trans_gate} m failed")
     require_route(label, launches, "batched", seen["pairs"])
     hold_on_path_inputs(label, seen, nn, spfh, launches)
+    hold_graph(label, seen)
     return out, launches, wall, (rot, trans)
 
 
@@ -1055,7 +1173,8 @@ def config2_stages():
         (registration, "ransac_transform", "RANSAC"),
         (registration, "icp_refine", "ICP"),
         (registration, "transform_score", "score"),
-        (merging, "_solve_graph", "graph"),
+        (merging, "compute_global_transforms", "tree solve (native)"),
+        (merging, "refine_global_transforms", "refinement"),
     )
 
 
@@ -1175,6 +1294,7 @@ def run_config2(dev, kernels):
     require_route("config #2", launches, "grid", seen["pairs"])
     hold_on_path_inputs("config #2", seen, nn, spfh, launches,
                         exact=True)
+    hold_graph("config #2", seen)
 
     require(len(cold) == CONFIG2_MAPS and all(
         t.shape == (4, 4) and np.isfinite(t).all() for t in cold
@@ -1284,6 +1404,7 @@ def run_node_config1(dev, kernels) -> None:
     require(launches["spfh"] > 0, f"{label}: kernel spfh was not launched")
     require_route(label, launches, "batched", seen["pairs"])
     hold_on_path_inputs(label, seen, nn, spfh, launches)
+    hold_graph(label, seen)
     require(rot < 1.0 and trans < 0.1, f"{label}: pose gate 1 deg / 0.1 m failed")
     _, clouds = stateless_clouds(node)
     cap = clouds[0].capacity
@@ -1308,6 +1429,7 @@ def run_node_config1(dev, kernels) -> None:
         f"{trans} m, world edges {len(node._world.edges)}")
     require_route(label, launches, "one pair", seen["pairs"])
     hold_on_path_inputs(label, seen, nn, spfh, launches)
+    hold_graph(label, seen, solves=False)
     require(rot < 1.0 and trans < 0.1, f"{label}: pose gate 1 deg / 0.1 m failed")
     require(all(np.array_equal(a, b) for a, b in zip(out, runs[1][1])),
             f"{label}: the second run gave other poses than the first")
@@ -1451,6 +1573,7 @@ def run_config5_big(dev, kernels) -> None:
     require_route("config5_big", launches, "grid", seen["pairs"])
     hold_on_path_inputs("config5_big", seen, nn, spfh, launches,
                         exact=True)
+    hold_graph("config5_big", seen, solves=False)
 
     poses = node.get_transforms()
     ordered = [poses[f"robot_{i:02d}"] for i in range(n)]
@@ -1530,11 +1653,12 @@ def captured(fn, *args, **kwargs):
     return result, text
 
 
-def launched_on(label: str, dev, kernels, fn, route: str):
+def launched_on(label: str, dev, kernels, fn, route: str, solves: bool):
     """fn() with the launch counts reset just before and read just after,
-    spfh required to have launched and the pairs to have taken `route`, and
-    the kernels held against their plain versions on the inputs of their
-    first launch there. Returns (fn's result, launches, wall s)."""
+    spfh required to have launched and the pairs to have taken `route`, the
+    kernels held against their plain versions on the inputs of their first
+    launch there, and its tree solves (`solves`) or none (hold_graph).
+    Returns (fn's result, launches, wall s, the native call counts)."""
     from mapmerge_torch.kernels import nn, spfh
 
     with first_launch_inputs(nn, spfh) as seen:
@@ -1549,7 +1673,8 @@ def launched_on(label: str, dev, kernels, fn, route: str):
     require(launches["spfh"] > 0, f"{label}: kernel spfh was not launched")
     require_route(label, launches, route, seen["pairs"])
     hold_on_path_inputs(label, seen, nn, spfh, launches, exact=True)
-    return result, launches, wall
+    hold_graph(label, seen, solves)
+    return result, launches, wall, seen["native"]
 
 
 def run_offline_tools(dev, kernels) -> None:
@@ -1562,6 +1687,7 @@ def run_offline_tools(dev, kernels) -> None:
     from mapmerge_torch.io.pcd import read_pcd_arrays, write_pcd
     from mapmerge_torch.ops import neighbors
     from mapmerge_torch.pipeline import merging
+    from mapmerge_torch.testing.lzf import lzf_compress, pcd_payload, write_pcd_compressed
     from mapmerge_torch.testing.scene import config1_scene
     from mapmerge_torch.tools import merge_tool, registration_visualisation
 
@@ -1582,11 +1708,11 @@ def run_offline_tools(dev, kernels) -> None:
             return wrapper
 
         with patched({(merging, "estimate_maps_transforms"): keep}):
-            (rc, text), _, _ = launched_on(
+            (rc, text), _, _, _ = launched_on(
                 "merge_tool", dev, kernels,
                 lambda: captured(merge_tool.main, [a, b, "--output", out, *argv],
                                  device=dev),
-                "batched",
+                "batched", solves=True,
             )
         require(rc == 0 and len(returned) == 1, f"merge_tool: exit code {rc}")
         tool_t = returned[0]
@@ -1608,17 +1734,54 @@ def run_offline_tools(dev, kernels) -> None:
             f"vs truth {rot} deg, {trans} m")
         require(rot < 1.0 and trans < 0.1, "merge_tool: pose gate 1 deg / 0.1 m failed")
 
+        # the same views as binary_compressed files, read through the native
+        # LZF decoder: the same transforms bit for bit
+        ca, cb = (str(Path(d) / f) for f in ("a_lzf.pcd", "b_lzf.pcd"))
+        t0 = time.perf_counter()
+        payloads = [write_pcd_compressed(p, *v) for p, v in ((ca, va), (cb, vb))]
+        log(f"binary_compressed files written in {time.perf_counter() - t0:.3f} s "
+            f"(the test fixture's Python LZF compressor): payloads "
+            f"{[len(x) for x in payloads]} bytes")
+        returned.clear()
+        with patched({(merging, "estimate_maps_transforms"): keep}):
+            (rc, _), _, wall, calls = launched_on(
+                "merge_tool (binary_compressed)", dev, kernels,
+                lambda: captured(merge_tool.main, [ca, cb, *argv], device=dev),
+                "batched", solves=True,
+            )
+        require(rc == 0 and len(returned) == 1,
+                f"merge_tool (binary_compressed): exit code {rc}")
+        require(calls["lzf_decompress"] > 0,
+                f"merge_tool (binary_compressed): native decoder calls {calls}")
+        require(len(returned[0]) == 2 and all(
+            np.array_equal(x, y) for x, y in zip(returned[0], tool_t)
+        ), "merge_tool (binary_compressed): transforms differ from the binary files' run")
+        log(f"merge_tool (binary_compressed): {wall:.3f} s, native calls {calls}; "
+            "transforms bitwise equal to the binary files' run")
+        for name, payload, view in zip(("a", "b"), payloads, (va, vb)):
+            hold_lzf(f"config #1 view {name}", payload, pcd_payload(*view))
+        # one payload of config5_big's view size: view a tiled to 459,685
+        # points, each copy moved 100 m along x
+        reps = -(-CONFIG5_VIEW_POINTS // len(va[0]))
+        xyz = np.concatenate([va[0] + np.float32([100.0 * k, 0, 0]) for k in range(reps)])
+        rgb = np.concatenate([va[1]] * reps)
+        big = pcd_payload(xyz[:CONFIG5_VIEW_POINTS], rgb[:CONFIG5_VIEW_POINTS])
+        t0 = time.perf_counter()
+        payload = lzf_compress(big)
+        log(f"config5_big-size payload compressed in {time.perf_counter() - t0:.3f} s")
+        hold_lzf("config5_big view size", payload, big)
+
         # the debugger keeps each view's own size (no max_points cut, as the
         # reference tool does): at 55,425 and 62,499 points ICP and the score
         # resolve the bounded 1-NN to the grid, so kernel A is bypassed
         require(min(len(x) for x, _ in raw) >= neighbors.GRID_NN_THRESHOLD,
                 "config #1's views are below the grid 1-NN threshold")
         dump = str(Path(d) / "dump")
-        (rc, text), _, wall = launched_on(
+        (rc, text), _, wall, _ = launched_on(
             "registration_visualisation", dev, kernels,
             lambda: captured(registration_visualisation.main,
                              [a, b, "--dump-dir", dump, *argv], device=dev),
-            "grid",
+            "grid", solves=False,
         )
         require(rc == 0, f"registration_visualisation: exit code {rc}")
         lines = text.splitlines()
@@ -1716,6 +1879,7 @@ def run_config2_two_ranks(dev, kernels, views, truths, single, single_info) -> N
     require_route("config #2, two ranks", launches, "grid", seen["pairs"])
     hold_on_path_inputs("config #2, two ranks", seen, nn, spfh, launches,
                         exact=True)
+    hold_graph("config #2, two ranks", seen)
     for r, (out, info) in enumerate(ranks):
         require(len(out) == len(single) and all(
             np.array_equal(a, b) for a, b in zip(out, single)
@@ -1793,6 +1957,7 @@ def run_node_two_ranks(dev, kernels) -> None:
     require(launches["spfh"] > 0, f"{label}: kernel spfh was not launched")
     require_route(label, launches, "batched", seen["pairs"])
     hold_on_path_inputs(label, seen, nn, spfh, launches, exact=True)
+    hold_graph(label, seen)
     (s0, p0, n0, _), (s1, p1, n1, _) = ranks
     require([s0, s1] == [robots[:1], robots[1:]], f"{label}: ranks ingested {s0}, {s1}")
     require(sorted(p0) == sorted(p1) == robots and all(
@@ -1897,6 +2062,7 @@ def run_config3(dev, kernels) -> None:
             "(one a cloud) and nearest_neighbor 0")
     require_route("config #3", launches, "grid", seen["pairs"])
     hold_on_path_inputs("config #3", seen, nn, spfh, launches, exact=True)
+    hold_graph("config #3", seen, solves=False)
 
     require(cold.shape == (4, 4) and np.isfinite(cold).all() and bool(est.ok),
             "config #3: no finite registration")
@@ -2007,6 +2173,7 @@ def rank_job(rank: int, world: int, address, dev, workdir, merge, node) -> None:
             launches = {k.name: k.launches for k in kernels}
         if on_card:
             hold_on_path_inputs(label, seen, nn, spfh, launches, exact=True)
+        hold_graph(label, seen)
         return result, launches, wall
 
     views, params = merge
@@ -2030,6 +2197,7 @@ def rank_job(rank: int, world: int, address, dev, workdir, merge, node) -> None:
     out["node"] = dict(zip(("robots", "poses", "merged_points", "estimation_s"), tick))
     out["node"]["poses"] = {r: t.tolist() for r, t in tick[1].items()}
     out["kernels"] = {label: PATH_STATS[label] for label in PATH_STATS}
+    out["graph"] = GRAPH_STATS
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
     out["loaded"] = sorted(m for m in sys.modules
                            if m.startswith("jax") or m.startswith("mapmerge_tpu"))
@@ -2178,6 +2346,7 @@ def run_config4_two_processes(dev, kernels) -> None:
     require(launches["spfh"] > 0, "config #4: kernel spfh was not launched")
     require_route("config #4", launches, "batched", seen["pairs"])
     hold_on_path_inputs("config #4", seen, nn, spfh, launches, exact=True)
+    hold_graph("config #4", seen)
     against_one_pair("config #4", chunk, params, 20)
     require(len(single) == CONFIG4_MAPS and all(
         t.shape == (4, 4) and np.isfinite(t).all() for t in single
@@ -2221,6 +2390,10 @@ def run_config4_two_processes(dev, kernels) -> None:
         require(x["merge_launches"]["spfh"] > 0, f"{label}: spfh not launched on rank {r}")
         require_route(f"config #4, rank {r}", x["merge_launches"], "batched")
         PATH_STATS.update(x["kernels"])
+        require(sorted(x["graph"]) == [f"config #4, rank {r}",
+                                       f"node two processes, rank {r}"],
+                f"rank {r}: tree solves held on {sorted(x['graph'])}")
+        GRAPH_STATS.update(x["graph"])
     robots = sorted(node_views)
     node_launches = {name: sum(x["node_launches"][name] for x in ranks)
                      for name in launches}
@@ -2296,7 +2469,8 @@ def run_config5(dev, kernels) -> None:
         (registration, "ransac_transform", "RANSAC"),
         (registration, "icp_refine", "ICP"),
         (registration, "transform_score", "score"),
-        (merging, "_solve_graph", "graph solve (host)"),
+        (merging, "compute_global_transforms", "tree solve (native)"),
+        (merging, "refine_global_transforms", "refinement"),
         (node_module, "compose_maps", "compositing"),
     )
     transport = InProcTransport()
@@ -2363,6 +2537,7 @@ def run_config5(dev, kernels) -> None:
             f"config5: launches {launches}, expected spfh in shared mode")
     require_route("config5", launches, "batched", seen["pairs"])
     hold_on_path_inputs("config5", seen, nn, spfh, launches, exact=True)
+    hold_graph("config5", seen)
     against_one_pair("config5, first tick", chunk, params, CONFIG5S_BATCH * (CONFIG5S_BATCH - 1) // 2)
 
     # the last tick is estimate_maps_transforms on the node's clouds: the
@@ -2479,6 +2654,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     import mapmerge_torch  # noqa: F401  (sets the TF32 flags off)
+    from mapmerge_torch import native
     from mapmerge_torch.kernels import build, nn, spfh
 
     require(
@@ -2488,10 +2664,14 @@ def main() -> int:
     )
 
     t0 = time.perf_counter()
+    build.load(build.HOST_SOURCES)
+    log(f"native library build (g++) + load: {time.perf_counter() - t0:.2f} s "
+        f"({', '.join(build.library_path(s).name for s in build.HOST_SOURCES)})")
+    t0 = time.perf_counter()
     build.load()
     log(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
-        f"({', '.join(build.library_path(s).name for s in build.SOURCES)})")
-    for source in build.SOURCES:
+        f"({', '.join(build.library_path(s).name for s in build.KERNEL_SOURCES)})")
+    for source in build.KERNEL_SOURCES:
         report = build.library_path(source).with_suffix(".log")
         if report.exists():
             log(report.read_text().strip())
@@ -2519,6 +2699,11 @@ def main() -> int:
     require(not loaded, f"modules of JAX or mapmerge_tpu were loaded: {loaded}")
 
     log(f"pair routes per path: {json.dumps(ROUTES)}")
+    print(json.dumps({"native": {
+        "functions": [{"name": c.name, "source": c.source, "replaces": c.replaces}
+                      for c in (native.GRAPH_SOLVE, native.LZF_DECOMPRESS)],
+        "graph": GRAPH_STATS, "lzf": LZF_STATS,
+    }}))
     print(card)
     print(json.dumps({"kernels": [kernel_entry(k, stats) for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 
 The module tree mirrors `mapmerge_tpu/` name for name. Plain tensor code is
 PyTorch; the two Pallas kernels of the reference are hand-written CUDA C++
-kernels for Hopper (`csrc/`, bound in `kernels/`). Nothing here imports jax
+kernels for Hopper (`csrc/`, bound in `kernels/`), and its g++ host library
+(the merge-graph solve and the LZF decoder) is the port's own
+`csrc/mapmerge_native.cpp`, bound in `native/`. Nothing here imports jax
 or any module of `mapmerge_tpu`: the port keeps its own copies of the
 reference's framework-free modules (`core/params.py`, `core/enums.py`,
 `graph/merge_graph.py`, `graph/pose_graph.py`).

@@ -3,7 +3,10 @@
 The reference's pcl::io::loadPCDFile / savePCDFileBinary
 (map_merge_3d/src/map_merge_tool.cpp:27,52): reads ascii, binary and
 binary_compressed (LZF) files, writes ascii and binary, for XYZ(+RGB/RGBA)
-clouds. Host numpy; `read_pcd` puts the cloud on a device.
+clouds. Host numpy; `read_pcd` puts the cloud on a device. A
+binary_compressed payload is decoded by the native decoder
+(`native.lzf_decompress`, csrc/mapmerge_native.cpp), as the JAX package
+does by default; `_lzf_decompress` is its plain Python version.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Optional
 
 import numpy as np
 
+from mapmerge_torch import native
 from mapmerge_torch.core.cloud import PointCloud
 
 _DTYPES = {
@@ -47,25 +51,42 @@ def _parse_header(f: io.BufferedReader) -> dict:
 
 
 def _lzf_decompress(data: bytes, expected: int) -> bytes:
-    """Decompress PCL's LZF (the liblzf format of binary_compressed)."""
+    """Decompress PCL's LZF (the liblzf format of binary_compressed): the
+    plain version of native.lzf_decompress, with its checks. Raises
+    ValueError for a malformed or truncated payload, or one that decodes to
+    more than `expected` bytes."""
     out = bytearray(expected)
     i, o, n = 0, 0, len(data)
+
+    def malformed():
+        return ValueError(
+            f"malformed LZF payload ({n} bytes, at most {expected} expected)"
+        )
+
     while i < n:
         ctrl = data[i]
         i += 1
         if ctrl < 32:  # literal run of ctrl + 1 bytes
             length = ctrl + 1
+            if i + length > n or o + length > expected:
+                raise malformed()
             out[o : o + length] = data[i : i + length]
             i += length
             o += length
         else:  # back reference
             length = ctrl >> 5
             if length == 7:
+                if i >= n:
+                    raise malformed()
                 length += data[i]
                 i += 1
+            if i >= n:
+                raise malformed()
             ref = o - ((ctrl & 0x1F) << 8) - data[i] - 1
             i += 1
             length += 2
+            if ref < 0 or o + length > expected:
+                raise malformed()
             if o - ref >= length:  # source and destination do not overlap
                 out[o : o + length] = out[ref : ref + length]
                 o += length
@@ -119,7 +140,10 @@ def read_pcd_arrays(path: str | os.PathLike) -> tuple[np.ndarray, Optional[np.nd
             rec = np.frombuffer(buf, dtype=dtype, count=n_points)
         elif data_mode == "binary_compressed":
             comp_size, uncomp_size = np.frombuffer(f.read(8), dtype=np.uint32)
-            raw = _lzf_decompress(f.read(int(comp_size)), int(uncomp_size))
+            raw = native.lzf_decompress(f.read(int(comp_size)), int(uncomp_size))
+            if len(raw) != uncomp_size:
+                raise ValueError(f"LZF payload decodes to {len(raw)} bytes, the "
+                                 f"header says {uncomp_size}")
             # binary_compressed stores the fields one after another (all x,
             # then all y, ...)
             rec = np.zeros(n_points, dtype=dtype)

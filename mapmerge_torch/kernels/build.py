@@ -1,11 +1,15 @@
-"""Build, load and guard the hand-written CUDA kernels of `csrc/`.
+"""Build, load and guard the hand-written code of `csrc/`: the CUDA kernels
+and the host C++ library.
 
-Each source is compiled with nvcc for sm_90a into its own shared library
-with a plain C interface, loaded with ctypes; the nvcc processes of all
-sources run at once. The build runs at first use, into
+Each source is compiled into its own shared library with a plain C
+interface, loaded with ctypes: a `.cu` kernel source with nvcc for sm_90a,
+the host library `mapmerge_native.cpp` with g++ (which needs no nvcc, so it
+builds on a machine without CUDA too). The compilers of all the sources a
+build needs run at once. The build runs at first use, into
 `build/mapmerge_torch/` beside the package (listed in .gitignore), and each
-library is keyed on a hash of its source and the flags, so a fresh checkout
-builds them on its first kernel launch and a changed source is rebuilt.
+library is keyed on a hash of its source and its flags, so a fresh checkout
+builds them on first use and a changed source is rebuilt. There is no
+fallback: a compiler that is missing or fails raises.
 """
 
 from __future__ import annotations
@@ -30,9 +34,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
 )
+#: the host library's flags, the JAX package's own (mapmerge_tpu/native/
+#: __init__.py): no fast-math and no -march, so both libraries built on one
+#: host give the same bits
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: source -> {C function: argument types}; every function returns the CUDA
-#: error code of its launches
+#: source -> {C function: argument types}; every function returns an int,
+#: for a kernel the CUDA error code of its launches
 SOURCES = {
     "nn.cu": {
         "mm_nearest_neighbor_batched": [
@@ -49,19 +57,31 @@ SOURCES = {
             _vp, _vp,
         ],
     },
+    "mapmerge_native.cpp": {
+        # the decoded size, or -1 for a malformed payload
+        "lzf_decompress": [ctypes.c_char_p, _ci, _vp, _ci],
+        # the number of maps, or -1 if the output is too small
+        "merge_graph_solve": [_vp, _vp, _vp, _vp, _ci, _cf, _vp, _ci],
+    },
 }
+#: the CUDA kernels' sources and the host library's
+KERNEL_SOURCES = ("nn.cu", "spfh.cu")
+HOST_SOURCES = ("mapmerge_native.cpp",)
 
 _lock = threading.Lock()
-_lib: types.SimpleNamespace | None = None
+#: sources -> their C functions, loaded
+_loaded: dict[tuple[str, ...], types.SimpleNamespace] = {}
 
 
 @dataclasses.dataclass
 class Kernel:
-    """A hand-written kernel and its launch count.
+    """A hand-written kernel, or a function of the host library, and its
+    launch count.
 
-    `launches` grows by one each time the wrapper launches the kernel, and
-    nowhere else, so a run can show that it went through the kernel. It is
-    one count for the whole process: rank threads add to it under a lock."""
+    `launches` grows by one each time the wrapper launches the kernel (calls
+    the host function), and nowhere else, so a run can show that it went
+    through it. It is one count for the whole process: rank threads add to
+    it under a lock."""
 
     name: str
     source: str  # path in the repository
@@ -89,59 +109,82 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(
+            "g++ not found (PATH): the host library of mapmerge_torch "
+            "(csrc/mapmerge_native.cpp) is built from source on first use"
+        )
+    return gxx
+
+
+def _flags(source: str) -> tuple[str, ...]:
+    return NVCC_FLAGS if source.endswith(".cu") else GXX_FLAGS
+
+
 def library_path(source: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(source)).encode())
     h.update((CSRC / source).read_bytes())
     return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict[str, Path]:
-    """Compile every source whose library does not exist yet, all at once.
+def build(sources=KERNEL_SOURCES) -> dict[str, Path]:
+    """Compile every one of `sources` whose library does not exist yet, all
+    at once, each with its own compiler: nvcc for a `.cu`, g++ otherwise.
 
-    The compiler's report (-Xptxas -v: registers, shared memory, spills per
-    kernel) is kept beside each library as `<name>.log`."""
-    paths = {s: library_path(s) for s in SOURCES}
+    The compiler's report (for nvcc -Xptxas -v: registers, shared memory,
+    spills per kernel) is kept beside each library as `<name>.log`."""
+    paths = {s: library_path(s) for s in sources}
     todo = {s: p for s, p in paths.items() if not p.exists()}
     if not todo:
         return paths
+    # every compiler is found before any starts, so a missing one leaves no
+    # process behind
+    cmds = {
+        s: ("nvcc", [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"]) if s.endswith(".cu")
+        else ("g++", [_gxx(), *GXX_FLAGS])
+        for s in todo
+    }
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     procs = {}
-    for source, path in todo.items():
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC / source)]
-        procs[source] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    for source, (compiler, cmd) in cmds.items():
+        tmp = todo[source].with_name(f"{todo[source].name}.{os.getpid()}.tmp")
+        procs[source] = (compiler, tmp, subprocess.Popen(
+            [*cmd, "-o", str(tmp), str(CSRC / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
-    failed = []
-    for source, (tmp, proc) in procs.items():
+    failed = {}
+    for source, (compiler, tmp, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{source}: nvcc exit code {proc.returncode}:\n{out}")
+            failed[f"{source}: {compiler} exit code {proc.returncode}:\n{out}"] = compiler
             continue
         path = todo[source]
         path.with_suffix(".log").write_text(out)
         os.replace(tmp, path)  # atomic: another process never loads a partial file
     if failed:
-        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+        raise RuntimeError(" and ".join(sorted(set(failed.values()))) + " failed\n"
+                           + "\n".join(failed))
     return paths
 
 
-def load() -> types.SimpleNamespace:
-    """The kernels' C functions, as attributes, built on first use."""
-    global _lib
+def load(sources=KERNEL_SOURCES) -> types.SimpleNamespace:
+    """The C functions of `sources` (the CUDA kernels unless named), as
+    attributes, built on first use."""
+    sources = tuple(sources)
     with _lock:
-        if _lib is None:
+        if sources not in _loaded:
             fns = {}
-            for source, path in build().items():
+            for source, path in build(sources).items():
                 lib = ctypes.CDLL(str(path))
                 for name, argtypes in SOURCES[source].items():
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes
                     fn.restype = _ci
                     fns[name] = fn
-            _lib = types.SimpleNamespace(**fns)
-    return _lib
+            _loaded[sources] = types.SimpleNamespace(**fns)
+        return _loaded[sources]
 
 
 def check_launch(kernel: Kernel, err: int) -> None:

@@ -102,3 +102,8 @@ def test_rank_job_at_world_one(views, tmp_path, capsys):
     assert line["mesh"]["clouds"] == [0, 1, 2] and line["info"]["n_pairs"] == 3
     assert line["node"]["robots"] == sorted(node_views) == sorted(line["node"]["poses"])
     assert line["node"]["merged_points"] > 1000 and line["peak_gib"] is None
+    # each path's tree solves ran natively and were held against the plain
+    # version
+    assert sorted(line["graph"]) == ["config #4, rank 0", "node two processes, rank 0"]
+    assert all(g["calls"] > 0 and g["max_abs_diff"] <= chip_smoke.GRAPH_TOL
+               for g in line["graph"].values())

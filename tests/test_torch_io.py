@@ -19,6 +19,7 @@ from mapmerge_tpu.runtime import transport as jtr
 from mapmerge_tpu.utils import metrics as jmet
 from mapmerge_torch.io import pcd as tpcd
 from mapmerge_torch.runtime import transport as ttr
+from mapmerge_torch.testing.lzf import lzf_compress, write_pcd_compressed
 from mapmerge_torch.utils import metrics as tmet
 
 
@@ -27,64 +28,6 @@ def cloud(rng):
     xyz = (rng.normal(size=(500, 3)) * 10).astype(np.float32)
     rgb = rng.integers(0, 256, size=(500, 3)).astype(np.float32) / 255.0
     return xyz, rgb
-
-
-def _lzf_compress(data: bytes) -> bytes:
-    """A greedy LZF compressor (liblzf's format): literal runs of up to 32
-    bytes and back references of 3-264 bytes within 8 KiB, overlapping
-    ones included."""
-    out, lit, table = bytearray(), bytearray(), {}
-
-    def flush():
-        for s in range(0, len(lit), 32):
-            chunk = lit[s : s + 32]
-            out.append(len(chunk) - 1)
-            out.extend(chunk)
-        lit.clear()
-
-    i, n = 0, len(data)
-    while i < n:
-        ref = table.get(data[i : i + 3]) if i + 3 <= n else None
-        if i + 3 <= n:
-            table[data[i : i + 3]] = i
-        if ref is not None and i - ref - 1 < 8192:
-            length = 3
-            while i + length < n and length < 264 and data[ref + length] == data[i + length]:
-                length += 1
-            flush()
-            off, code = i - ref - 1, length - 2
-            if code < 7:
-                out.append((code << 5) | (off >> 8))
-            else:
-                out.extend([(7 << 5) | (off >> 8), code - 7])
-            out.append(off & 0xFF)
-            i += length
-        else:
-            lit.append(data[i])
-            i += 1
-    flush()
-    return bytes(out)
-
-
-def _write_lzf_pcd(path, xyz, rgb):
-    """A binary_compressed PCD (fields x y z rgb, stored one after another)."""
-    rgb8 = np.clip(rgb * 255.0 + 0.5, 0, 255).astype(np.uint32)
-    packed = ((rgb8[:, 0] << 16) | (rgb8[:, 1] << 8) | rgb8[:, 2]).view(np.float32)
-    raw = b"".join(
-        np.ascontiguousarray(a, np.float32).tobytes()
-        for a in (xyz[:, 0], xyz[:, 1], xyz[:, 2], packed)
-    )
-    payload = _lzf_compress(raw)
-    n = len(xyz)
-    header = (
-        "VERSION 0.7\nFIELDS x y z rgb\nSIZE 4 4 4 4\nTYPE F F F F\n"
-        f"COUNT 1 1 1 1\nWIDTH {n}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\n"
-        f"POINTS {n}\nDATA binary_compressed\n"
-    )
-    with open(path, "wb") as f:
-        f.write(header.encode("ascii"))
-        f.write(np.array([len(payload), len(raw)], np.uint32).tobytes())
-        f.write(payload)
 
 
 def _assert_same(a, b):
@@ -111,7 +54,7 @@ def test_pcd_lzf(tmp_path, cloud):
     xyz, rgb = cloud
     xyz[100:300] = xyz[100]
     path = tmp_path / "map.pcd"
-    _write_lzf_pcd(path, xyz, rgb)
+    write_pcd_compressed(path, xyz, rgb)
     got, ref = tpcd.read_pcd_arrays(path), jpcd.read_pcd_arrays(path)
     _assert_same(got, ref)
     np.testing.assert_array_equal(got[0], xyz)
@@ -119,7 +62,7 @@ def test_pcd_lzf(tmp_path, cloud):
 
 def test_lzf_decompress_matches_reference(rng):
     data = bytes(rng.integers(0, 4, size=20000, dtype=np.uint8)) + b"\x07" * 3000
-    comp = _lzf_compress(data)
+    comp = lzf_compress(data)
     assert len(comp) < len(data)
     assert tpcd._lzf_decompress(comp, len(data)) == data
     assert jpcd._lzf_decompress(comp, len(data)) == data

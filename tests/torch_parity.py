@@ -7,6 +7,8 @@ to the card), and is handed the port's own MergeParams (`port_params`).
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -50,6 +52,23 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def jax_native():
+    """mapmerge_tpu.native with its library loaded. That package builds the
+    library in place on first use, so a test process that loads it while
+    another process builds it gets None, and the package then takes its
+    pure-Python path for the rest of the process: wait for the other build
+    instead (a minute at most), so the JAX side is its default, native path."""
+    from mapmerge_tpu import native
+
+    for _ in range(60):
+        if native.get_lib() is not None:
+            return native
+        native._tried = False
+        time.sleep(1.0)
+    raise RuntimeError("mapmerge_tpu's native library did not build (g++?)")
 
 
 def both_clouds(xyz, rgb=None, capacity=None):
