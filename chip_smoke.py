@@ -14,8 +14,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   4. eval config #1 (bench.py:49-77) through estimate_maps_transforms on the
      card: reset the kernels' launch counts, run once, require every kernel
      to have launched; gate the poses against the ground truth and against
-     golden/config1.json at 1 deg / 0.1 m; time 5 warm repetitions; run
-     compose_maps at the output resolution;
+     golden/config1.json at 1 deg / 0.1 m; on the card, is_zero of the
+     transforms against `not t.any()`, rigid_inverse within 1e-5 of float64
+     numpy.linalg.inv and compose(t, rigid_inverse(t)) within 1e-6 of the
+     identity; time 5 warm repetitions; run compose_maps at the output
+     resolution;
   4b. the repeat check: every warm repetition gives transforms bitwise equal
      to the first run's, and compose_maps run twice gives the same points;
   5. the reference's default operating point at config #1's size
@@ -133,7 +136,12 @@ plain version on the inputs of its first launch in that run (the path's own
 shapes, ragged edges included), and both are timed there (CUDA events,
 warm, median), beside the kernel's bound: the larger of the bytes it must move over 3.35 TB/s and
 the float32 operations these inputs need over 67 TFLOP/s (H100 SXM data
-sheet). The line before the last is a JSON object of the kernels (kernel
+sheet). Kernel A's entries are also timed against one PyTorch route to the
+same 1-NN (torch.cdist, the masked targets set to inf, a min over the
+targets; library_ms), with the share of queries whose index it matches, of
+all and of those not parked at FAR; it rounds otherwise, so it is a
+yardstick, not held for bits.
+The line before the last is a JSON object of the kernels (kernel
 A's one-pair and batched entries and kernel B): launches, times and bound
 on each kernel's main path (MAIN_PATH: config #1 for the batched entry and
 kernel B, the incremental node on config #1's views for the one-pair
@@ -638,12 +646,43 @@ def require_route(label: str, launches: dict, route: str, pairs: dict | None = N
     log(f"{label}: pairs took the {route} route; pair stage {json.dumps(pairs)}")
 
 
+def nn_library(q, p, mask=None):
+    """Kernel A's function by one PyTorch route, batched where q and p are:
+    torch.cdist, the masked targets set to inf in place, and a min over the
+    targets. It rounds otherwise than the kernel (cdist expands the
+    distance through a matmul), so it is timed as a yardstick only."""
+    d = torch.cdist(q, p)
+    if mask is not None:
+        d.masked_fill_(~mask.unsqueeze(-2), math.inf)
+    return d.min(-1)
+
+
+def nn_library_stats(nn_fn, args) -> dict:
+    """nn_library on a kernel entry's inputs `args`: its time (time_ms, as
+    the kernel's) and the share of queries whose index equals the kernel's
+    (`nn_fn`), over all queries and over those not parked at FAR (padding,
+    or padding moved by ICP's pose: a coordinate of 1e8 leaves cdist's
+    matmul expansion no bits for the distance). Its (..., Q, P) distances
+    are released afterwards."""
+    from mapmerge_torch.core.cloud import FAR
+
+    ms = time_ms(lambda: nn_library(*args))
+    agree = nn_library(*args).indices == nn_fn(*args)[0].long()
+    real = args[0].abs().amax(-1) < FAR / 2
+    stats = {"library_ms": ms, "library_index_agreement": float(agree.double().mean()),
+             "library_index_agreement_unparked": float(agree[real].double().mean())
+             if bool(real.any()) else None}
+    torch.cuda.empty_cache()
+    return stats
+
+
 def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
                         exact: bool = False) -> None:
     """Each kernel a path launched against its plain version on the inputs
     of its first launch there, with check_nn's and check_spfh's
     tolerances (with `exact`: no difference at all), then timed on them
-    (CUDA events, warm, median), and the plain version too.
+    (CUDA events, warm, median), and the plain version too; kernel A's
+    entries beside nn_library's time as well (nn_library_stats).
     These launches come after the path's counts were read."""
     stats = PATH_STATS[label] = {}
     if "nearest_neighbor" in seen:
@@ -657,6 +696,7 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
             "tie_mismatches": ties,
             "ms": time_ms(lambda: nn.nearest_neighbor(*args)),
             "plain_ms": time_ms(lambda: nn.nearest_neighbor_ref(*args), reps=5),
+            **nn_library_stats(nn.nearest_neighbor, args),
             **nn_bound(args[0], args[1]),
         }
     if "nearest_neighbor_batched" in seen:
@@ -668,6 +708,7 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
             "indices_differing": diff,
             "ms": time_ms(lambda: nn.nearest_neighbor_batched(*args)),
             "plain_ms": time_ms(lambda: nn.nearest_neighbor_batched_ref(*args), reps=5),
+            **nn_library_stats(nn.nearest_neighbor_batched, args),
             **nn_batched_bound(args[0], args[1]),
         }
     if "spfh" in seen:
@@ -820,6 +861,32 @@ def rel_pose(transforms) -> np.ndarray:
     return np.linalg.inv(transforms[0]) @ transforms[1]
 
 
+def check_transforms(label: str, out, dev) -> None:
+    """The transform helpers on the card, on a merge's transforms: is_zero of
+    the stacked transforms equals `not t.any()` for each map; rigid_inverse
+    of the registered ones is within 1e-5 of numpy.linalg.inv in float64 on
+    the host, and compose(t, rigid_inverse(t)) within 1e-6 of the identity."""
+    from mapmerge_torch.core import transforms as tf
+
+    stacked = torch.stack([torch.from_numpy(np.asarray(t, np.float32)) for t in out]).to(dev)
+    zero = tf.is_zero(stacked)
+    flags = zero.tolist()
+    require(flags == [not t.any() for t in out],
+            f"{label}: is_zero gave {flags} on the card")
+    registered = stacked[~zero]
+    require(registered.shape[0] > 0, f"{label}: no map registered")
+    inv = tf.rigid_inverse(registered)
+    host = np.stack([np.linalg.inv(np.asarray(t, np.float64))
+                     for t, z in zip(out, flags) if not z])
+    inv_err = float(np.abs(inv.cpu().double().numpy() - host).max())
+    eye_err = float((tf.compose(registered, inv) - torch.eye(4, device=dev)).abs().max())
+    log(f"{label}: transforms on the card: is_zero {flags} (= not t.any()); "
+        f"rigid_inverse max err {inv_err} against float64 numpy.linalg.inv; "
+        f"compose(t, rigid_inverse(t)) max err {eye_err} from the identity")
+    require(inv_err <= 1e-5, f"{label}: rigid_inverse off by {inv_err} > 1e-5")
+    require(eye_err <= 1e-6, f"{label}: compose(t, rigid_inverse(t)) off by {eye_err} > 1e-6")
+
+
 def run_main_path(dev, kernels) -> None:
     from mapmerge_torch.core import transforms as tf
     from mapmerge_torch.core.cloud import PointCloud
@@ -870,6 +937,7 @@ def run_main_path(dev, kernels) -> None:
         f"{g_rot} deg, {g_trans} m")
     require(rot < 1.0 and trans < 0.1, "pose gate against truth failed")
     require(g_rot < 1.0 and g_trans < 0.1, "pose gate against golden failed")
+    check_transforms("config #1", out, dev)
 
     walls = warm_runs(clouds, params, out, "config #1")
     log(f"estimate_maps_transforms wall s (5 warm reps): median "
@@ -2596,9 +2664,9 @@ MAIN_PATH = {"nearest_neighbor": "node incremental",
 def kernel_entry(k, stats: dict) -> dict:
     """A kernel's entry of the line before the last: its launches and
     numbers on its main path's own inputs (MAIN_PATH), then per path and on
-    the synthetic shapes. No single PyTorch call computes either kernel's
-    function (torch.cdist gives neither the masked argmin nor its tie order;
-    nothing in PyTorch bins Darboux features), so library_ms is null."""
+    the synthetic shapes. library_ms is nn_library's time on kernel A's
+    main-path inputs (one route to the same 1-NN, not held for bits), and
+    null for kernel B: nothing in PyTorch bins Darboux features."""
     label = MAIN_PATH[k.name]
     main = PATH_STATS[label][k.name]
     errs = [stats[k.name]["max_abs_err"]] + [
@@ -2609,7 +2677,7 @@ def kernel_entry(k, stats: dict) -> dict:
         "replaces": k.replaces, "launches": main["launches"],
         "max_abs_err": max(errs), "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "library_ms": None,
+        "bound_by": main["bound_by"], "library_ms": main.get("library_ms"),
         "main_path": label, "shape": main["shape"],
         "paths": {label: ps[k.name] for label, ps in PATH_STATS.items()
                   if k.name in ps},

@@ -22,6 +22,12 @@ def zero(device=None) -> torch.Tensor:
     return torch.zeros((4, 4), dtype=torch.float32, device=resolve(device))
 
 
+def is_zero(t: torch.Tensor, tol: float = 0.0) -> torch.Tensor:
+    """The reference's failure test (Eigen isZero, map_merging.cpp:293):
+    (..., 4, 4) -> (...,) bool, whether every entry is within `tol` of 0."""
+    return t.abs().amax(dim=(-2, -1)) <= tol
+
+
 def from_rotation_translation(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) + (..., 3) -> (..., 4, 4)."""
     batch = torch.broadcast_shapes(r.shape[:-2], t.shape[:-1])
@@ -40,6 +46,13 @@ def rotation(t: torch.Tensor) -> torch.Tensor:
 
 def translation(t: torch.Tensor) -> torch.Tensor:
     return t[..., :3, 3]
+
+
+def rigid_inverse(t: torch.Tensor) -> torch.Tensor:
+    """The exact inverse of rigid (..., 4, 4) transforms:
+    [R|p]^-1 = [R^T | -R^T p]."""
+    rt = rotation(t).transpose(-1, -2)
+    return from_rotation_translation(rt, -(rt @ translation(t)[..., None])[..., 0])
 
 
 def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

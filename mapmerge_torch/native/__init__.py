@@ -31,6 +31,14 @@ LZF_DECOMPRESS = build.Kernel(
 _INT_MAX = 2**31 - 1
 
 
+def get_lib():
+    """The host library's C functions (`lzf_decompress`, `merge_graph_solve`)
+    as attributes, built with g++ on the first call. Where the JAX package's
+    `get_lib` returns None, this raises: there is no fallback and no switch
+    to turn the library off, so a missing or failing g++ is a RuntimeError."""
+    return build.load(build.HOST_SOURCES)
+
+
 def lzf_decompress(data: bytes, expected: int) -> bytes:
     """Decode a liblzf payload (PCD binary_compressed) of at most `expected`
     bytes. Raises ValueError for a malformed or truncated payload, or one
@@ -39,9 +47,7 @@ def lzf_decompress(data: bytes, expected: int) -> bytes:
     if not 0 <= expected <= _INT_MAX or len(data) > _INT_MAX:
         raise ValueError(f"LZF sizes out of range: {len(data)} -> {expected} bytes")
     out = np.empty(expected, np.uint8)
-    n = build.load(build.HOST_SOURCES).lzf_decompress(
-        data, len(data), out.ctypes.data, expected
-    )
+    n = get_lib().lzf_decompress(data, len(data), out.ctypes.data, expected)
     LZF_DECOMPRESS.launched()
     if n < 0:
         raise ValueError(
@@ -76,7 +82,7 @@ def merge_graph_solve(
         raise ValueError("negative map index")
     cap = int(max(src.max(), tgt.max())) + 1 if n_edges else 0
     out = np.zeros((max(cap, 1), 16), np.float32)
-    n = build.load(build.HOST_SOURCES).merge_graph_solve(
+    n = get_lib().merge_graph_solve(
         src.ctypes.data, tgt.ctypes.data, conf.ctypes.data, transforms.ctypes.data,
         n_edges, float(conf_threshold), out.ctypes.data, out.shape[0],
     )

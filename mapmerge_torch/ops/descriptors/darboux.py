@@ -73,3 +73,16 @@ def bin_index(
     span = torch.tensor(hi - lo, dtype=torch.float32, device=value.device)
     idx = torch.floor((value - lo_t) / span * bins).to(torch.int32)
     return idx.clamp(0, bins - 1)
+
+
+def one_hot_histogram(
+    idx: torch.Tensor, weights: torch.Tensor, bins: int
+) -> torch.Tensor:
+    """Weighted histogram over the last axis: (..., M) idx and weights ->
+    (..., bins) float32. An index outside [0, bins) adds nothing, as in the
+    reference's `jax.nn.one_hot`. The sum is a contraction, not a scatter, so
+    it gives the same bits on every run."""
+    one_hot = idx[..., None] == torch.arange(bins, device=idx.device)
+    return torch.einsum(
+        "...m,...mb->...b", weights.to(torch.float32), one_hot.to(torch.float32)
+    )

@@ -44,8 +44,6 @@ def detect_keypoints(
     octaves, scales, min_contrast=threshold) or HARRIS(threshold, radius)
     with non-max suppression and refinement."""
     if kind == Keypoint.HARRIS:
-        from mapmerge_torch.ops.keypoints.harris import detect_keypoints_harris
-
         return detect_keypoints_harris(
             cloud, normals, threshold=threshold, radius=radius,
             max_keypoints=max_keypoints, tile=tile, engine=engine,
@@ -66,3 +64,9 @@ def detect_keypoints(
             scan_cap=scan_cap,
         )
     raise ValueError(f"unknown keypoint type: {kind}")
+
+
+# harris.py imports Keypoints from this package, so it comes after the class
+from mapmerge_torch.ops.keypoints.harris import detect_keypoints_harris  # noqa: E402
+
+__all__ = ["Keypoints", "detect_keypoints", "detect_keypoints_harris"]

@@ -8,14 +8,17 @@ queued, and an optional `torch.profiler` trace.
 The JAX package reduces every result to a host scalar at a stage's end,
 because its relay returned from `block_until_ready` before the work was
 done; on the card the synchronisation is the barrier, and a stage needs no
-handle on its results.
+handle on its results. `device_sync` keeps that package's call on a tree of
+results: it synchronises the cards the tree's tensors live on.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
+from typing import Any, Iterator
 
 import torch
 
@@ -32,6 +35,30 @@ def synchronize(device=None) -> None:
     is nothing to wait for on the CPU."""
     if _on_card(device):
         torch.cuda.synchronize(device)
+
+
+def _tensors(tree: Any) -> Iterator[torch.Tensor]:
+    """The tensor leaves of nested lists, tuples, dicts and dataclasses."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for value in tree.values():
+            yield from _tensors(value)
+    elif isinstance(tree, (list, tuple)):
+        for value in tree:
+            yield from _tensors(value)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for field in dataclasses.fields(tree):
+            yield from _tensors(getattr(tree, field.name))
+
+
+def device_sync(tree: Any) -> Any:
+    """Wait for the work queued on every card that a tensor of `tree` (nested
+    lists, tuples, dicts and dataclasses) lives on, and return `tree`. With
+    no tensor on a card it does nothing."""
+    for device in {t.device for t in _tensors(tree) if t.is_cuda}:
+        torch.cuda.synchronize(device)
+    return tree
 
 
 class StageTimes:

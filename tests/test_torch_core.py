@@ -108,6 +108,76 @@ class TestTransforms:
         rot, trans = ttf.pose_error(a[0].numpy(), a[0].numpy())
         assert rot < 1e-2 and trans == 0.0
 
+    @pytest.mark.parametrize("case", ["zero", "identity", "tiny", "batched"])
+    def test_is_zero_matches_reference(self, rng, case):
+        """Exactly the reference's flags, at the default tolerance and at
+        tolerances just below and just above the largest entry."""
+        x = {
+            "zero": np.zeros((4, 4)),
+            "identity": np.eye(4),
+            "tiny": np.where(rng.random((4, 4)) < 0.3, 3e-7, 0.0),
+            "batched": rng.normal(size=(5, 4, 4)) * (rng.random((5, 1, 1)) < 0.5),
+        }[case].astype(np.float32)
+        largest = float(np.abs(x).max())
+        tols = {0.0, largest, float(np.nextafter(np.float32(largest), np.float32(0))),
+                float(np.nextafter(np.float32(largest), np.float32(1)))}
+        for tol in sorted(tols):
+            got = ttf.is_zero(t(x), tol)
+            assert got.dtype == torch.bool and got.shape == x.shape[:-2]
+            np.testing.assert_array_equal(
+                got.numpy(), np.asarray(jtf.is_zero(jnp.asarray(x), tol))
+            )
+
+    def test_rigid_inverse_matches_reference(self, rng):
+        """The rotation block exactly (a transpose), the translation within
+        1e-6 m of the reference's for |p| <= 10 m, batched (2, 8); and
+        compose(t, rigid_inverse(t)) within 1e-6 of the identity, as
+        tests/test_core.py holds the reference's."""
+        r, p = _random_rigid(rng, 16)
+        p = p / np.linalg.norm(p, axis=1, keepdims=True) * rng.uniform(0, 10, (16, 1))
+        x = ttf.from_rotation_translation(t(r), t(p.astype(np.float32))).reshape(2, 8, 4, 4)
+        got = ttf.rigid_inverse(x)
+        ref = np.asarray(jtf.rigid_inverse(jnp.asarray(x.numpy())))
+        assert got.shape == (2, 8, 4, 4) and got.dtype == torch.float32
+        np.testing.assert_array_equal(got[..., :3, :3].numpy(), ref[..., :3, :3])
+        np.testing.assert_array_equal(got[..., 3, :].numpy(), ref[..., 3, :])
+        np.testing.assert_allclose(got[..., :3, 3].numpy(), ref[..., :3, 3],
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_allclose(
+            ttf.compose(x, got).numpy(), np.broadcast_to(np.eye(4), (2, 8, 4, 4)),
+            rtol=0, atol=1e-6,
+        )
+
+
+class TestDeviceSync:
+    def test_returns_its_tree_as_the_reference_does(self, rng, monkeypatch):
+        """Both packages return the tree they were given; with CPU tensors
+        only, the port synchronises no card."""
+        import dataclasses
+
+        from mapmerge_tpu.utils.profiling import device_sync as j_sync
+        from mapmerge_torch.utils import profiling as tprof
+
+        @dataclasses.dataclass
+        class Pair:
+            a: object
+            b: object
+
+        x = rng.normal(size=(3, 4)).astype(np.float32)
+        mask = rng.random(5) > 0.5
+        synced = []
+        monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
+        jtree = {"x": jnp.asarray(x), "rest": [jnp.asarray(mask), (1.5, "s")]}
+        ttree = {"x": t(x), "rest": [t(mask), (1.5, "s")], "pair": Pair(t(x), [t(mask)])}
+        assert j_sync(jtree) is jtree
+        assert tprof.device_sync(ttree) is ttree
+        assert synced == []
+        assert [a.data_ptr() for a in tprof._tensors(ttree)] == [
+            a.data_ptr() for a in (ttree["x"], ttree["rest"][0], ttree["pair"].a,
+                                   ttree["pair"].b[0])
+        ]
+        assert list(tprof._tensors(Pair)) == [] and tprof.device_sync(None) is None
+
 
 class TestScene:
     """mapmerge_torch/testing/scene.py makes the same RNG calls as
@@ -231,7 +301,7 @@ class TestOutsideTheSlice:
         assert feats.descriptors.data.shape == (16, 125)
         assert int(feats.scan_overflow) == 0
 
-    def test_mesh_is_not_ported(self):
+    def test_mesh_is_ported(self):
         """The mesh is ported: both entry points take one and no longer
         raise (tests/test_torch_parallel.py holds the sharded path)."""
         from mapmerge_torch.parallel.mesh import make_mesh

@@ -1,7 +1,8 @@
 """Descriptor parity beyond FPFH: PFH-125, PFHRGB-250, RSD, SHOT1344 (its
 local reference frames and CIELab conversion too) and SC3D-1980, each
 against mapmerge_tpu on the same cloud, normals and keypoints; and the
-registry with `descriptor_kind_from_dim`.
+registry (`register`, `descriptor_kind_from_dim`, the error of a kind
+with no function) and `darboux.one_hot_histogram`.
 
 Keypoints are cloud points chosen so that no valid point lies within 1e-4
 m^2 of the radius and the neighbour caps (48, and SC3D's 128) do not cut
@@ -15,6 +16,8 @@ import pytest
 import torch
 
 from mapmerge_tpu.core.enums import DESCRIPTOR_DIMS, Descriptor
+from mapmerge_tpu.ops import descriptors as jdescriptors
+from mapmerge_tpu.ops.descriptors import darboux as jdarboux
 from mapmerge_tpu.ops.descriptors import compute_descriptors as j_desc
 from mapmerge_tpu.ops.descriptors import descriptor_kind_from_dim as j_kind
 from mapmerge_tpu.ops.descriptors import shot as jshot
@@ -24,6 +27,7 @@ from mapmerge_tpu.ops.normals import compute_surface_normals as j_normals
 from mapmerge_tpu.ops.outliers import remove_outliers as j_outliers
 from mapmerge_torch import convert
 from mapmerge_torch.ops import descriptors as tdesc
+from mapmerge_torch.ops.descriptors import darboux as tdarboux
 from mapmerge_torch.ops.descriptors import pfh as tpfh
 from mapmerge_torch.ops.descriptors import rsd as trsd
 from mapmerge_torch.ops.descriptors import sc3d as tsc3d
@@ -167,5 +171,57 @@ def test_registry_and_kind_from_dim(surface):
         assert tdesc.descriptor_kind_from_dim(dim) == j_kind(dim) == kind
     with pytest.raises(ValueError, match="dimensionality 7"):
         tdesc.descriptor_kind_from_dim(7)
-    with pytest.raises(ValueError, match="descriptor type"):
+    with pytest.raises(NotImplementedError, match="descriptor RIFT not implemented"):
         tdesc.compute_descriptors(tc, tn, tk, "RIFT", RADIUS)
+
+
+def test_one_hot_histogram_matches_reference(rng):
+    """(3, 7, 48) indices and weights into 11 bins, to 1e-6 relative;
+    indices outside [0, 11) add nothing in both packages."""
+    idx = rng.integers(-1, 12, (3, 7, 48)).astype(np.int32)
+    weights = rng.random((3, 7, 48)).astype(np.float32)
+    got = tdarboux.one_hot_histogram(t(idx), t(weights), 11)
+    ref = np.asarray(jdarboux.one_hot_histogram(jnp.asarray(idx), jnp.asarray(weights), 11))
+    assert got.shape == (3, 7, 11) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=0)
+
+
+@pytest.fixture
+def registries():
+    """Both packages' descriptor registries, restored after the test."""
+    saved = [(m, dict(m._REGISTRY)) for m in (jdescriptors, tdesc)]
+    yield jdescriptors, tdesc
+    for module, registry in saved:
+        module._REGISTRY.clear()
+        module._REGISTRY.update(registry)
+
+
+def test_registered_function_reaches_compute_descriptors(registries):
+    """A stub registered under a kind receives the same arguments from
+    compute_descriptors in both packages, and `register` returns it."""
+    calls = {}
+    args = (object(), object(), object())
+    for module in registries:
+        def stub(*a, _name=module.__name__, **kw):
+            calls[_name] = (a, kw)
+            return _name
+
+        assert module.register(Descriptor.SHOT)(stub) is stub
+        assert module.compute_descriptors(
+            *args, Descriptor.SHOT, 0.3, max_neighbors=16, tile=256
+        ) == module.__name__
+    ref, got = calls[jdescriptors.__name__], calls[tdesc.__name__]
+    assert got == ref and got[0] == (*args, 0.3)
+
+
+def test_kind_without_function_raises_not_implemented(registries, monkeypatch):
+    """With a kind removed from the registry, both packages raise
+    NotImplementedError with the same message."""
+    messages = []
+    for module in registries:
+        monkeypatch.delitem(module._REGISTRY, Descriptor.SC3D)
+        with pytest.raises(NotImplementedError) as err:
+            module.compute_descriptors(None, None, None, Descriptor.SC3D, 0.3)
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]
+    assert messages[1].startswith("descriptor SC3D not implemented yet")

@@ -7,10 +7,15 @@ solve (the same source, flags and host) on every case; against the plain
 version (`compute_global_transforms_plain`, float32 chaining) the same maps
 are registered and the transforms agree within 1e-5. The LZF decoder gives
 the same bytes as the plain decoder and the JAX package's, and both port
-decoders raise ValueError on a malformed payload.
+decoders raise ValueError on a malformed payload. `get_lib` exposes the JAX
+binding's functions, and every source the port builds ships as package
+data, so an installed port can build it.
 """
 
+import fnmatch
 import hashlib
+import pathlib
+import tomllib
 
 import numpy as np
 import pytest
@@ -288,3 +293,28 @@ def test_failed_gxx_raises_with_its_output(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "GXX_FLAGS", (*build.GXX_FLAGS, "--no-such-flag"))
     with pytest.raises(RuntimeError, match=r"(?s)g\+\+ failed.*no-such-flag"):
         native.lzf_decompress(_literals(b"abc"), 3)
+
+
+def test_get_lib_exposes_the_reference_functions(jax_native):
+    """The port's library has the C functions of the JAX package's, and the
+    port's bindings call through it."""
+    lib = native.get_lib()
+    for name in ("lzf_decompress", "merge_graph_solve"):
+        assert callable(getattr(lib, name))
+        assert callable(getattr(jax_native.get_lib(), name))
+    assert lib is native.get_lib() is build.load(build.HOST_SOURCES)
+
+
+def test_every_source_ships_as_package_data():
+    """Every source of kernels/build.SOURCES matches a package-data pattern
+    of mapmerge_torch in pyproject.toml: an installed port reads its sources
+    from csrc/ at first use, with no fallback."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    config = tomllib.loads((root / "pyproject.toml").read_text())
+    patterns = config["tool"]["setuptools"]["package-data"]["mapmerge_torch"]
+    assert build.CSRC == root / "mapmerge_torch" / "csrc"
+    for source in build.SOURCES:
+        assert (build.CSRC / source).is_file()
+        assert any(fnmatch.fnmatch(f"csrc/{source}", pat) for pat in patterns), (
+            f"csrc/{source} is not shipped: {patterns}"
+        )
