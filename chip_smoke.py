@@ -10,7 +10,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   3. hold each kernel against its plain PyTorch version at the main path's
      shapes, with the stated tolerances, and time both (CUDA events); kernel
      A's batched entry at config5's shape (45 pairs of 4,096 points),
-     exactly, and against the unbatched kernel on each pair;
+     exactly, and against the unbatched kernel on each pair; SIFT's kernels
+     C (scale space) and D (26-NN) at config #1's octave-0 shape, C within
+     its tolerance and D exactly, D also on lattice ties and both on a small
+     Q whose points they split;
   4. eval config #1 (bench.py:49-77) through estimate_maps_transforms on the
      card: reset the kernels' launch counts, run once, require every kernel
      to have launched; gate the poses against the ground truth and against
@@ -18,7 +21,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      transforms against `not t.any()`, rigid_inverse within 1e-5 of float64
      numpy.linalg.inv and compose(t, rigid_inverse(t)) within 1e-6 of the
      identity; time 5 warm repetitions; run compose_maps at the output
-     resolution;
+     resolution; the first cloud's SIFT keypoints through kernels C and D
+     against those of their plain versions (at least 99% of the plain
+     route's found at the same point, response within 1e-3 relative); one
+     merge timed stage by stage through the kernels and one through their
+     plain versions, SIFT's ms split into scale space and 26-NN;
   4b. the repeat check: every warm repetition gives transforms bitwise equal
      to the first run's, and compose_maps run twice gives the same points;
   5. the reference's default operating point at config #1's size
@@ -141,12 +148,18 @@ same 1-NN (torch.cdist, the masked targets set to inf, a min over the
 targets; library_ms), with the share of queries whose index it matches, of
 all and of those not parked at FAR; it rounds otherwise, so it is a
 yardstick, not held for bits.
+SIFT's dense octaves (kernels C and D, one launch each a dense octave:
+three an extraction, one on config5_big, whose octaves 0-1 take the grid;
+none on the Harris paths) are required per path from the extractions and
+dense octaves counted there, and both are held on every SIFT path's first
+launch: C within its tolerance, D exactly, D also timed against torch.cdist
++ torch.topk (knn_library).
 The line before the last is a JSON object of the kernels (kernel
-A's one-pair and batched entries and kernel B): launches, times and bound
-on each kernel's main path (MAIN_PATH: config #1 for the batched entry and
-kernel B, the incremental node on config #1's views for the one-pair
-entry), and the same for every path and for the synthetic shapes; the last
-line is {"ok": true, "device": {...}}.
+A's one-pair and batched entries, kernel B, kernels C and D): launches,
+times and bound on each kernel's main path (MAIN_PATH: config #1 for the
+batched entry, B, C and D, the incremental node on config #1's views for
+the one-pair entry), and the same for every path and for the synthetic
+shapes; the last line is {"ok": true, "device": {...}}.
 The native host library (native/, csrc/mapmerge_native.cpp): on every path
 that solves a graph (4-8, 11-13, 15 in this process and in each rank
 process, 16) the call counts are reset just before the path and
@@ -194,6 +207,15 @@ PEAK_BYTES_S = 3.35e12
 #: float32 operations of one nn (query, target) pair: 3 subtractions, 3
 #: products, 2 sums and the penalty add
 NN_PAIR_OPS = 9
+#: SIFT's dense octave 0 on config #1 (kernels C and D): Q = P = max_points,
+#: S = 6 sigmas from the resolution, 0.1 m, the 26-NN
+SIFT_N, SIFT_BASE, SIFT_SCALES, SIFT_K = 32768, 0.1, 3, 26
+#: float32 operations of one (query, point) pair of kernels C and D: the
+#: distance 8 and the bound or list compare 1 (NN_PAIR_OPS' count)
+SIFT_PAIR_OPS = 9
+#: and of each sigma of a pair within C's bound: the division, exp (special
+#: functions count 1), the product and the two sums
+SIFT_SIGMA_OPS = 5
 #: float32 operations of one counted SPFH pair (csrc/spfh.cu): the distance
 #: 8, square root and radius product 2, unit vector 3, the two cosines 10,
 #: v = d x u 9, its norm and scaling 9, w = u x v 9, alpha 5, theta's two
@@ -353,14 +375,16 @@ def check_nn(dev, nn) -> dict:
 
     ms = time_ms(lambda: nn.nearest_neighbor(q, p, mask))
     plain_ms = time_ms(lambda: nn.nearest_neighbor_ref(q, p, mask), reps=5)
+    library = nn_library_stats(nn.nearest_neighbor, (q, p, mask))
     bound = nn_bound(q, p)
     log(
         f"kernel nearest_neighbor Q=P={NN_Q}: max|d2 err| {err}"
         f", idx mismatches at ties {n_tie_mismatch}, tie/all-masked ok; "
-        f"kernel {ms} ms, plain {plain_ms} ms, bound {bound['bound_ms']} ms"
+        f"kernel {ms} ms, plain {plain_ms} ms, library {library['library_ms']} ms, "
+        f"bound {bound['bound_ms']} ms"
     )
     return {"shape": f"Q={NN_Q} P={NN_P}", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, **bound}
+            "plain_ms": plain_ms, **library, **bound}
 
 
 def _nn_batched_compare(name, nn, q, p, mask=None):
@@ -399,12 +423,14 @@ def check_nn_batched(dev, nn) -> dict:
     require(bool((it == 0).all()) and bool((dt == 0).all()), "nn batched: tie break")
     ms = time_ms(lambda: nn.nearest_neighbor_batched(q, p, mask))
     plain_ms = time_ms(lambda: nn.nearest_neighbor_batched_ref(q, p, mask), reps=5)
+    library = nn_library_stats(nn.nearest_neighbor_batched, (q, p, mask))
     bound = nn_batched_bound(q, p)
     log(f"kernel nearest_neighbor_batched B={nb} Q=P={n}: max|d2 err| {err}, "
         f"indices differing {diff}, each pair = the unbatched kernel, ties ok; "
-        f"kernel {ms} ms, plain {plain_ms} ms, bound {bound['bound_ms']} ms")
+        f"kernel {ms} ms, plain {plain_ms} ms, library {library['library_ms']} ms, "
+        f"bound {bound['bound_ms']} ms")
     return {"shape": f"B={nb} Q={n} P={n}", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, **bound}
+            "plain_ms": plain_ms, **library, **bound}
 
 
 def _spfh_inputs(g, dev, b, cq, bc, m):
@@ -495,6 +521,190 @@ def check_spfh(dev, spfh) -> dict:
             **bound}
 
 
+def sift_octave0(g, dev):
+    """Config #1's octave-0 shape, surface-like: n slots of which 20% are
+    padding at FAR, the rest on four planes 1 m apart over 16 x 16 m at
+    about the voxel grid's density, in voxel order (by x, as the grid sorts
+    its keys), with 8-bit intensities; centred as the octave centres them.
+    Returns (qc, pc, vals, mask)."""
+    from mapmerge_torch.core.cloud import FAR
+    from mapmerge_torch.ops.neighbors import _center
+
+    n = SIFT_N
+
+    xyz = torch.rand((n, 3), generator=g, device=dev) * 16.0
+    xyz[:, 2] = torch.round(xyz[:, 2] / 4.0)
+    xyz = xyz[torch.argsort(xyz[:, 0])]
+    mask = torch.arange(n, device=dev) < n - n // 5
+    xyz[~mask] = FAR
+    vals = torch.where(mask, torch.rand((n,), generator=g, device=dev) * 255.0, 0.0)
+    qc, pc = _center(xyz, xyz, mask)
+    return qc, pc, vals, mask
+
+
+def sift_sigmas(base: float = SIFT_BASE, scales: int = SIFT_SCALES) -> list[float]:
+    """One octave's sigmas (ops/keypoints/sift.py)."""
+    return [base * (2.0 ** (s / scales)) for s in range(scales + 3)]
+
+
+def scale_space_in_bound(args, tile: int = 1024) -> int:
+    """The (query, valid point) pairs within kernel C's bound on its
+    arguments `args`: the pairs whose sigmas these inputs make it compute
+    (sq_dists' d2, the kernel's bits)."""
+    from mapmerge_torch.ops.neighbors import sq_dists
+
+    qc, pc, _, mask, _, r2_bound = args[:6]
+    return sum(int(((sq_dists(qc[s : s + tile], pc) <= r2_bound) & mask[None]).sum())
+               for s in range(0, qc.shape[0], tile))
+
+
+def scale_space_bound(args, in_bound: int) -> dict:
+    """Queries (12 B) and points (12 B, the value 4 B, the mask 1 B) read
+    once, the (S, Q) field written once; SIFT_PAIR_OPS for every pair and
+    SIFT_SIGMA_OPS for each sigma of each pair within the bound."""
+    qc, pc, _, _, sigmas = args[:5]
+    nq, np_, ns = qc.shape[0], pc.shape[0], len(sigmas)
+    return _bound(nq * 12 + np_ * 17 + ns * nq * 4,
+                  nq * np_ * SIFT_PAIR_OPS + in_bound * ns * SIFT_SIGMA_OPS)
+
+
+def knn_bound(args) -> dict:
+    """Queries (12 B) and targets (12 B, the mask 1 B) read once, the (Q, k)
+    indices and flags written once; SIFT_PAIR_OPS for every pair."""
+    q, p, _, k = args[:4]
+    nq, np_ = q.shape[0], p.shape[0]
+    return _bound(nq * 12 + np_ * 13 + nq * k * 5, nq * np_ * SIFT_PAIR_OPS)
+
+
+def _scale_space_compare(name, ksift, args):
+    """Kernel C against scale_space_ref on the same inputs. Tolerance: the
+    largest difference within ksift.SCALE_SPACE_RTOL of the field's largest
+    magnitude (exp, the division and the sums' order round apart; the
+    points each query takes are the same bits); the queries parked at FAR
+    exactly 0; a second launch the same bits. Returns (max abs err, that
+    error over the field's largest magnitude)."""
+    from mapmerge_torch.core.cloud import FAR
+
+    got = ksift.scale_space(*args)
+    ref = ksift.scale_space_ref(*args)
+    again = ksift.scale_space(*args)
+    torch.cuda.synchronize()
+    require(got.shape == ref.shape == (len(args[4]), args[0].shape[0]), f"{name}: shapes")
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
+    err = float((got - ref).abs().max())
+    rel = err / max(float(ref.abs().max()), 1e-30)
+    require(rel <= ksift.SCALE_SPACE_RTOL,
+            f"{name}: off by {err} ({rel} of the field) > {ksift.SCALE_SPACE_RTOL}")
+    parked = args[0].abs().amax(-1) >= FAR / 2
+    require(bool((got[:, parked] == 0).all()), f"{name}: a parked query is not 0")
+    require(torch.equal(got, again), f"{name}: a second launch gave other bits")
+    return err, rel
+
+
+def _knn_compare(name, ksift, args):
+    """Kernel D against knn_ref on the same inputs: indices and valid flags
+    exactly (the k smallest (d2, index) pairs are unique). Returns the
+    number of differing entries, 0."""
+    idx, valid = ksift.knn(*args)
+    ridx, rvalid = ksift.knn_ref(*args)
+    torch.cuda.synchronize()
+    diff = int((idx != ridx).sum()) + int((valid != rvalid).sum())
+    require(idx.shape == ridx.shape and diff == 0,
+            f"{name}: {diff} entries differ from the plain version; exact required")
+    return diff
+
+
+def knn_library(q, p, mask, k):
+    """Kernel D's function by one PyTorch route: torch.cdist, the masked
+    targets set to inf in place, torch.topk of the k smallest. Timed as a
+    yardstick only: cdist rounds otherwise, topk orders ties as it likes,
+    and a masked target sits at inf, not at BIG."""
+    d = torch.cdist(q, p)
+    if mask is not None:
+        d.masked_fill_(~mask.unsqueeze(-2), math.inf)
+    return d.topk(k, dim=-1, largest=False, sorted=True)
+
+
+def knn_library_stats(ksift, args) -> dict:
+    """knn_library on kernel D's inputs `args`: its time (time_ms, as the
+    kernel's) and the share of (query, slot) entries whose index equals
+    the kernel's, over all queries and over those not parked at FAR."""
+    from mapmerge_torch.core.cloud import FAR
+
+    q, p, mask, k = args[:4]
+    ms = time_ms(lambda: knn_library(q, p, mask, k))
+    agree = knn_library(q, p, mask, k).indices == ksift.knn(*args)[0].long()
+    real = q.abs().amax(-1) < FAR / 2
+    stats = {"library_ms": ms, "library_index_agreement": float(agree.double().mean()),
+             "library_index_agreement_unparked": float(agree[real].double().mean())
+             if bool(real.any()) else None}
+    torch.cuda.empty_cache()
+    return stats
+
+
+def sift_stats(label: str, ksift, seen: dict) -> dict:
+    """Kernels C and D on the inputs of their first launch on a path (the
+    path's own shapes): held against their plain versions (_scale_space_
+    compare, _knn_compare), then both timed (CUDA events, warm, median),
+    beside the bound and, for D, knn_library."""
+    stats = {}
+    if "sift_scale_space" in seen:
+        args, _ = seen["sift_scale_space"]
+        err, rel = _scale_space_compare(f"{label} sift_scale_space", ksift, args)
+        in_bound = scale_space_in_bound(args)
+        stats["sift_scale_space"] = {
+            "shape": f"Q={args[0].shape[0]} P={args[1].shape[0]} S={len(args[4])}",
+            "max_abs_err": err,
+            "err_of_field": rel, "pairs_in_bound": in_bound,
+            "ms": time_ms(lambda: ksift.scale_space(*args)),
+            "plain_ms": time_ms(lambda: ksift.scale_space_ref(*args), reps=3, warmup=1),
+            "library_ms": None, **scale_space_bound(args, in_bound),
+        }
+    if "sift_knn" in seen:
+        args, _ = seen["sift_knn"]
+        diff = _knn_compare(f"{label} sift_knn", ksift, args)
+        stats["sift_knn"] = {
+            "shape": f"Q={args[0].shape[0]} P={args[1].shape[0]} k={args[3]}",
+            "max_abs_err": 0.0,
+            "entries_differing": diff,
+            "ms": time_ms(lambda: ksift.knn(*args)),
+            "plain_ms": time_ms(lambda: ksift.knn_ref(*args), reps=3, warmup=1),
+            **knn_library_stats(ksift, args), **knn_bound(args),
+        }
+    return stats
+
+
+def check_sift(dev, ksift) -> dict:
+    """Kernels C and D against their plain versions at config #1's octave-0
+    shape (sift_octave0: Q = P = 32,768, six sigmas, the 26-NN), C within
+    its tolerance and D exactly; then D on lattice points (ties everywhere)
+    and both with a small Q whose points the kernels split."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    from mapmerge_torch.ops.neighbors import _f32
+
+    qc, pc, vals, mask = sift_octave0(g, dev)
+    sigmas = sift_sigmas()
+    c_args = (qc, pc, vals, mask, sigmas, _f32((3.0 * max(sigmas)) ** 2))
+    d_args = (qc, pc, mask, SIFT_K, _f32(1.0e12))
+    stats = sift_stats("synthetic", ksift,
+                       {"sift_scale_space": (c_args, {}), "sift_knn": (d_args, {})})
+    # ties: lattice points of 1/8 m; a small Q against all the points
+    lattice = torch.round(pc * 8.0) / 8.0
+    _knn_compare("sift_knn lattice", ksift, (lattice, lattice, mask, SIFT_K, _f32(1.0e12)))
+    _knn_compare("sift_knn small Q", ksift, (lattice[:300], lattice, mask, SIFT_K, 0.25))
+    _scale_space_compare("sift_scale_space small Q", ksift,
+                         (qc[:300], pc, vals, mask, sigmas, c_args[5]))
+    c, d = stats["sift_scale_space"], stats["sift_knn"]
+    log(f"kernel sift_scale_space {c['shape']}: max err {c['max_abs_err']} "
+        f"({c['err_of_field']} of the field), {c['pairs_in_bound']} pairs in bound; "
+        f"kernel {c['ms']} ms, plain {c['plain_ms']} ms, bound {c['bound_ms']} ms")
+    log(f"kernel sift_knn {d['shape']}: exact, and on lattice ties and a small Q; "
+        f"kernel {d['ms']} ms, plain {d['plain_ms']} ms, library {d['library_ms']} ms "
+        f"(index agreement {d['library_index_agreement_unparked']} unparked), "
+        f"bound {d['bound_ms']} ms")
+    return stats
+
+
 @contextlib.contextmanager
 def patched(targets):
     """Replace each (module, attribute) of `targets` by make(original) for
@@ -536,15 +746,22 @@ def first_launch_inputs(nn, spfh):
     native call counts are set to 0 on entry and read on exit
     (`seen["native"]`), and every tree solve
     (merging.compute_global_transforms) is kept with its estimates,
-    threshold and result (`seen["graph"]`, for hold_graph)."""
+    threshold and result (`seen["graph"]`, for hold_graph). SIFT's
+    extractions and the octaves among them that resolve to the dense engine
+    are counted (`seen["sift"]`), and the first extraction's arguments kept
+    (`seen["sift_detect"]`, for hold_sift_keypoints)."""
     import threading
 
     from mapmerge_torch import native
+    from mapmerge_torch.kernels import sift as ksift
+    from mapmerge_torch.ops.keypoints import sift as sift_ops
+    from mapmerge_torch.ops.neighbors import _resolve_engine
     from mapmerge_torch.parallel import pair_shard
     from mapmerge_torch.pipeline import merging
 
     seen: dict = {"pairs": {"stage_s": 0.0, "chunks": 0, "batched_pairs": 0,
-                            "one_pair_calls": 0}, "graph": []}
+                            "one_pair_calls": 0}, "graph": [],
+                  "sift": {"extractions": 0, "dense_octaves": 0}}
     lock = threading.Lock()
 
     def add(key, value):
@@ -590,6 +807,26 @@ def first_launch_inputs(nn, spfh):
 
         return wrapper
 
+    def extraction(fn):
+        def wrapper(*args, **kwargs):
+            with lock:
+                seen["sift"]["extractions"] += 1
+                if "sift_detect" not in seen:
+                    seen["sift_detect"] = ([_copied(a) for a in args], dict(kwargs))
+            return fn(*args, **kwargs)
+
+        return wrapper
+
+    def octave(fn):
+        def wrapper(cloud, *args, **kwargs):
+            engine = args[3] if len(args) > 3 else kwargs.get("engine", "auto")
+            if _resolve_engine(engine, cloud.capacity) == "dense":
+                with lock:
+                    seen["sift"]["dense_octaves"] += 1
+            return fn(cloud, *args, **kwargs)
+
+        return wrapper
+
     def record(name, dev=None):
         def make(fn):
             def wrapper(*args, **kwargs):
@@ -608,6 +845,10 @@ def first_launch_inputs(nn, spfh):
                   (merging, "register_pair"): one_pair,
                   (merging, "compute_global_transforms"): solve,
                   (spfh, "spfh_tile"): record("spfh"),
+                  (ksift, "scale_space"): record("sift_scale_space"),
+                  (ksift, "knn"): record("sift_knn"),
+                  (sift_ops, "detect_keypoints_sift"): extraction,
+                  (sift_ops, "_scale_space"): octave,
                   # a grid sweep's arguments are ~200 MB at config #2's size:
                   # kept in host memory, out of the run's peak device memory
                   (spfh, "spfh_grid"): record("spfh_grid", torch.device("cpu"))}):
@@ -676,14 +917,33 @@ def nn_library_stats(nn_fn, args) -> dict:
     return stats
 
 
+def require_sift(label: str, seen: dict, launches: dict, per_extraction: int) -> None:
+    """Kernels C and D launched once a dense SIFT octave each, and
+    `per_extraction` times an extraction (3 where every octave is dense, 1
+    on config5_big, whose octaves 0-1 take the grid); none on a Harris
+    path. Logged."""
+    ext, dense = seen["sift"]["extractions"], seen["sift"]["dense_octaves"]
+    c, d = launches["sift_scale_space"], launches["sift_knn"]
+    log(f"{label}: SIFT extractions {ext}, dense octaves {dense}; launches "
+        f"sift_scale_space {c}, sift_knn {d}")
+    require(c == d == dense == per_extraction * ext,
+            f"{label}: sift_scale_space {c} and sift_knn {d} launches for {ext} "
+            f"extractions and {dense} dense octaves, expected {per_extraction} an extraction")
+
+
 def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
-                        exact: bool = False) -> None:
+                        exact: bool = False, sift_per_extraction: int = 3) -> None:
     """Each kernel a path launched against its plain version on the inputs
-    of its first launch there, with check_nn's and check_spfh's
-    tolerances (with `exact`: no difference at all), then timed on them
-    (CUDA events, warm, median), and the plain version too; kernel A's
-    entries beside nn_library's time as well (nn_library_stats).
-    These launches come after the path's counts were read."""
+    of its first launch there, with check_nn's, check_spfh's and
+    check_sift's tolerances (with `exact`: no difference at all for A and
+    B; C is held within its tolerance and D exactly on every path), then
+    timed on them (CUDA events, warm, median), and the plain version too;
+    kernel A's entries beside nn_library's time as well (nn_library_stats),
+    D beside knn_library's. SIFT's launches are required first
+    (require_sift). These launches come after the path's counts were read."""
+    from mapmerge_torch.kernels import sift as ksift
+
+    require_sift(label, seen, launches, sift_per_extraction)
     stats = PATH_STATS[label] = {}
     if "nearest_neighbor" in seen:
         args, _ = seen["nearest_neighbor"]
@@ -756,6 +1016,8 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
                                 reps=3, warmup=1),
             **spfh_grid_bound(grid, q_ok, normals, ref[1]),
         }
+    for name, entry in sift_stats(label, ksift, seen).items():
+        stats[name] = {"launches": launches[name], **entry}
     require(stats, f"{label}: no kernel input was recorded")
     log(f"{label}: kernels on the path's own inputs: {json.dumps(stats)}")
 
@@ -923,6 +1185,7 @@ def run_main_path(dev, kernels) -> None:
     require_route("config #1", launches, "batched", seen["pairs"])
     hold_on_path_inputs("config #1", seen, nn, spfh, launches)
     hold_graph("config #1", seen)
+    hold_sift_keypoints("config #1", seen)
 
     require(len(out) == 2 and all(
         t.shape == (4, 4) and np.isfinite(t).all() for t in out
@@ -942,6 +1205,7 @@ def run_main_path(dev, kernels) -> None:
     walls = warm_runs(clouds, params, out, "config #1")
     log(f"estimate_maps_transforms wall s (5 warm reps): median "
         f"{statistics.median(walls)}, min {min(walls)}, max {max(walls)}")
+    sift_split("config #1", clouds, params, out)
 
     merged = compose_maps(clouds, out, params.output_resolution)
     n_merged = int(merged.mask.sum())
@@ -954,6 +1218,88 @@ def run_main_path(dev, kernels) -> None:
     require(again == n_merged, f"compose_maps gave {n_merged} then {again} points")
     log("repeat check (config #1): 5 warm runs bitwise equal to the first; "
         f"compose_maps {n_merged} points twice")
+
+
+#: the share of the plain route's keypoints the kernels' route must find at
+#: the same point with a response within 1e-3 relative (a DoG extremum at a
+#: near-tie may flip where C's field rounds otherwise)
+KEYPOINT_AGREEMENT = 0.99
+
+
+def plain_sift():
+    """Patches that send SIFT's dense octave through the plain versions of
+    kernels C and D (the parent's route on the card), for `patched`."""
+    from mapmerge_torch.kernels import sift as ksift
+
+    return {(ksift, "scale_space"): lambda fn: ksift.scale_space_ref,
+            (ksift, "knn"): lambda fn: ksift.knn_ref}
+
+
+def hold_sift_keypoints(label: str, seen: dict) -> None:
+    """The path's first SIFT extraction again on the same cloud, through
+    the kernels and through their plain versions: at least
+    KEYPOINT_AGREEMENT of the plain route's keypoints found at the same point
+    (1e-6 m) with a response within 1e-3 relative; the keypoints that differ
+    are counted and logged. These launches come after the path's counts
+    were read."""
+    from mapmerge_torch.ops.keypoints import sift as sift_ops
+
+    args, kwargs = seen["sift_detect"]
+    got = sift_ops.detect_keypoints_sift(*args, **kwargs)
+    with patched(plain_sift()):
+        plain = sift_ops.detect_keypoints_sift(*args, **kwargs)
+    pm, km = plain.mask, got.mask
+    pxyz, kxyz = plain.xyz[pm], got.xyz[km]
+    pr, kr = plain.response[pm], got.response[km]
+    same = ((pxyz[:, None] - kxyz[None]).abs().amax(-1) < 1e-6) & (
+        (pr[:, None] - kr[None]).abs() <= 1e-3 * pr[:, None])
+    found = same.any(dim=1)
+    n_plain, n_found = int(pm.sum()), int(found.sum())
+    share = n_found / max(n_plain, 1)
+    log(f"{label}: SIFT keypoints of the first cloud, kernels against plain "
+        f"versions: {int(km.sum())} and {n_plain} keypoints, {n_found} of the plain "
+        f"route's found ({share}), {n_plain - n_found} differ")
+    require(n_plain > 0 and share >= KEYPOINT_AGREEMENT,
+            f"{label}: {share} of the plain route's keypoints found, gate {KEYPOINT_AGREEMENT}")
+
+
+def sift_stages():
+    """SIFT's stage and its scale space and 26-NN, split by the engine each
+    octave's capacity resolves to: (owner, function, label) for
+    stage_recorder."""
+    from mapmerge_torch.ops.keypoints import sift
+    from mapmerge_torch.ops.neighbors import _resolve_engine
+    from mapmerge_torch.pipeline import features
+
+    def octaves(stage, engine, capacity):
+        return f"SIFT {stage}, {_resolve_engine(engine, capacity)} octaves"
+
+    return (
+        (features, "detect_keypoints", "SIFT"),
+        (sift, "_scale_space",
+         lambda *a, **k: octaves("scale space", a[4], a[0].capacity)),
+        (sift, "_knn", lambda *a, **k: octaves("26-NN", a[3], a[0].capacity)),
+    )
+
+
+def sift_split(label: str, clouds, params, first) -> None:
+    """One merge timed stage by stage through the kernels (its transforms
+    bitwise `first`), then one with SIFT's dense octave on the plain
+    versions (the parent's route), each synchronised around every stage;
+    SIFT's ms and its split by engine logged for both."""
+    from mapmerge_torch.parallel import pair_shard
+    from mapmerge_torch.pipeline import merging
+
+    for route, patches in (("kernels", {}), ("plain versions", plain_sift())):
+        recorder = stage_recorder(sift_stages(), (pair_shard, "extract_features"),
+                                  (merging, "estimate_pairs_batch"))
+        with recorder as rec, patched(patches):
+            out = merging.estimate_maps_transforms(clouds, params, seed=0)
+        if route == "kernels":
+            require(all(np.array_equal(a, b) for a, b in zip(out, first)),
+                    f"{label}: the stage-timed run gave other transforms than the first")
+        log(f"{label} SIFT stage ms of one merge ({len(clouds)} clouds), {route}: "
+            f"{json.dumps(rec['ms'])}; calls {json.dumps(rec['calls'])}")
 
 
 def warm_runs(clouds, params, first, label: str, reps: int = 5) -> list[float]:
@@ -1526,14 +1872,9 @@ def config5_big_params(cap: int):
 def config5_stages():
     """The stages timed in the config5_big stream: (owner, function, label);
     SIFT's scale space and 26-NN are split by the engine each octave's
-    capacity resolves to."""
-    from mapmerge_torch.ops.keypoints import sift
-    from mapmerge_torch.ops.neighbors import _resolve_engine
+    capacity resolves to (sift_stages)."""
     from mapmerge_torch.pipeline import features, incremental
     from mapmerge_torch.runtime import node
-
-    def octaves(stage, engine, capacity):
-        return f"SIFT {stage}, {_resolve_engine(engine, capacity)} octaves"
 
     return (
         (node, "features_for", "features"),
@@ -1541,11 +1882,7 @@ def config5_stages():
         (features, "overflow_probe", "probe"),
         (features, "remove_outliers", "outliers"),
         (features, "compute_surface_normals", "normals"),
-        (features, "detect_keypoints", "SIFT"),
-        (sift, "_scale_space",
-         lambda *a, **k: octaves("scale space", a[4], a[0].capacity)),
-        (sift, "radius_neighbors",
-         lambda *a, **k: octaves("26-NN", k["engine"], a[1].shape[0])),
+        *sift_stages(),
         (features, "compute_descriptors", "FPFH"),
         (incremental, "_vote", "vote"),
         (incremental, "estimate_transform", "pair registrations"),
@@ -1640,7 +1977,7 @@ def run_config5_big(dev, kernels) -> None:
             f"{n_features} feature extractions, expected one each through spfh_grid")
     require_route("config5_big", launches, "grid", seen["pairs"])
     hold_on_path_inputs("config5_big", seen, nn, spfh, launches,
-                        exact=True)
+                        exact=True, sift_per_extraction=1)
     hold_graph("config5_big", seen, solves=False)
 
     poses = node.get_transforms()
@@ -2218,11 +2555,13 @@ def rank_job(rank: int, world: int, address, dev, workdir, merge, node) -> None:
     mapmerge_tpu loaded."""
     from mapmerge_torch.io.pcd import write_pcd
     from mapmerge_torch.kernels import nn, spfh
+    from mapmerge_torch.kernels import sift as ksift
     from mapmerge_torch.parallel import multihost
     from mapmerge_torch.pipeline.merging import estimate_maps_transforms
 
     t_start = time.perf_counter()
-    kernels = (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL)
+    kernels = (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL,
+               ksift.SCALE_SPACE_KERNEL, ksift.KNN_KERNEL)
     on_card = dev.type == "cuda"
     multihost.initialize(address, world, rank, timeout=RANK_TIMEOUT_S)
     mesh = multihost.global_mesh(None if on_card else [dev])
@@ -2658,15 +2997,18 @@ def run_config5(dev, kernels) -> None:
 #: entry's dense path, the incremental node on config #1's views (cut to
 #: 32,768 points, config #1's shapes), since config #1's pairs now batch
 MAIN_PATH = {"nearest_neighbor": "node incremental",
-             "nearest_neighbor_batched": "config #1", "spfh": "config #1"}
+             "nearest_neighbor_batched": "config #1", "spfh": "config #1",
+             "sift_scale_space": "config #1", "sift_knn": "config #1"}
 
 
 def kernel_entry(k, stats: dict) -> dict:
     """A kernel's entry of the line before the last: its launches and
     numbers on its main path's own inputs (MAIN_PATH), then per path and on
     the synthetic shapes. library_ms is nn_library's time on kernel A's
-    main-path inputs (one route to the same 1-NN, not held for bits), and
-    null for kernel B: nothing in PyTorch bins Darboux features."""
+    main-path inputs (one route to the same 1-NN, not held for bits) and
+    knn_library's on kernel D's; null for kernel B (nothing in PyTorch bins
+    Darboux features) and kernel C (no single call smooths over a
+    radius)."""
     label = MAIN_PATH[k.name]
     main = PATH_STATS[label][k.name]
     errs = [stats[k.name]["max_abs_err"]] + [
@@ -2715,6 +3057,7 @@ def main() -> int:
         return rank_main(sys.argv[2:])
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs a GPU")
+    t_main = time.perf_counter()
     dev = torch.device("cuda", torch.cuda.current_device())
     card = card_line()
     log(f"card: {card}")
@@ -2724,6 +3067,7 @@ def main() -> int:
     import mapmerge_torch  # noqa: F401  (sets the TF32 flags off)
     from mapmerge_torch import native
     from mapmerge_torch.kernels import build, nn, spfh
+    from mapmerge_torch.kernels import sift as ksift
 
     require(
         not torch.backends.cuda.matmul.allow_tf32
@@ -2746,8 +3090,9 @@ def main() -> int:
 
     stats = {"nearest_neighbor": check_nn(dev, nn),
              "nearest_neighbor_batched": check_nn_batched(dev, nn),
-             "spfh": check_spfh(dev, spfh)}
-    kernels = (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL)
+             "spfh": check_spfh(dev, spfh), **check_sift(dev, ksift)}
+    kernels = (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL,
+               ksift.SCALE_SPACE_KERNEL, ksift.KNN_KERNEL)
     phase("4 (config #1)", run_main_path, dev, kernels)
     phase("5 (config1_pfh)", run_default_operating_point, dev, kernels)
     phase("6 (registry sweep)", run_registry_sweep, dev, kernels)
@@ -2767,6 +3112,7 @@ def main() -> int:
     require(not loaded, f"modules of JAX or mapmerge_tpu were loaded: {loaded}")
 
     log(f"pair routes per path: {json.dumps(ROUTES)}")
+    log(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from the start of main")
     print(json.dumps({"native": {
         "functions": [{"name": c.name, "source": c.source, "replaces": c.replaces}
                       for c in (native.GRAPH_SOLVE, native.LZF_DECOMPRESS)],

@@ -5,11 +5,15 @@ Each source is compiled into its own shared library with a plain C
 interface, loaded with ctypes: a `.cu` kernel source with nvcc for sm_90a,
 the host library `mapmerge_native.cpp` with g++ (which needs no nvcc, so it
 builds on a machine without CUDA too). The compilers of all the sources a
-build needs run at once. The build runs at first use, into
-`build/mapmerge_torch/` beside the package (listed in .gitignore), and each
-library is keyed on a hash of its source and its flags, so a fresh checkout
-builds them on first use and a changed source is rebuilt. There is no
-fallback: a compiler that is missing or fails raises.
+build needs run at once. The build runs at first use, into `BUILD_DIR`:
+`build/mapmerge_torch/` of a source checkout (listed in .gitignore), or, for
+an installed package, the user's cache directory
+(`$XDG_CACHE_HOME/mapmerge_torch/`, `~/.cache/mapmerge_torch/` when that is
+unset), since a site-packages may not be writable. Each library is keyed on
+a hash of its source and its flags, so a fresh checkout builds them on first
+use and a changed source is rebuilt. There is no fallback: a compiler that
+is missing or fails raises, and so does a build directory that cannot be
+created.
 """
 
 from __future__ import annotations
@@ -26,8 +30,24 @@ from pathlib import Path
 
 import torch
 
+
+def build_dir(package_root: Path) -> Path:
+    """Where the libraries of the package at `package_root` are built: in a
+    source checkout (the package's parent directory holds the repository's
+    pyproject.toml, which names the package) `build/mapmerge_torch/` there;
+    otherwise `mapmerge_torch/` in the user's cache directory, the
+    platform's $XDG_CACHE_HOME (an absolute path) or ~/.cache."""
+    pyproject = package_root.parent / "pyproject.toml"
+    if pyproject.is_file() and "mapmerge_torch" in pyproject.read_text():
+        return package_root.parent / "build" / "mapmerge_torch"
+    cache = os.environ.get("XDG_CACHE_HOME", "")
+    if not os.path.isabs(cache):
+        cache = os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "mapmerge_torch"
+
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mapmerge_torch"
+BUILD_DIR = build_dir(CSRC.parent)
 #: -fmad=false: no FMA contraction, so the kernels round every product and
 #: sum as the plain PyTorch versions do (see the notes in csrc/)
 NVCC_FLAGS = (
@@ -57,6 +77,14 @@ SOURCES = {
             _vp, _vp,
         ],
     },
+    "sift.cu": {
+        "mm_sift_scale_space": [
+            _vp, _ci, _vp, _vp, _vp, _ci, _vp, _ci, _cf, _ci, _vp, _vp, _vp, _vp,
+        ],
+        "mm_sift_knn": [
+            _vp, _ci, _vp, _vp, _ci, _ci, _cf, _ci, _vp, _vp, _vp, _vp, _vp,
+        ],
+    },
     "mapmerge_native.cpp": {
         # the decoded size, or -1 for a malformed payload
         "lzf_decompress": [ctypes.c_char_p, _ci, _vp, _ci],
@@ -65,7 +93,7 @@ SOURCES = {
     },
 }
 #: the CUDA kernels' sources and the host library's
-KERNEL_SOURCES = ("nn.cu", "spfh.cu")
+KERNEL_SOURCES = ("nn.cu", "spfh.cu", "sift.cu")
 HOST_SOURCES = ("mapmerge_native.cpp",)
 
 _lock = threading.Lock()
@@ -146,7 +174,13 @@ def build(sources=KERNEL_SOURCES) -> dict[str, Path]:
         else ("g++", [_gxx(), *GXX_FLAGS])
         for s in todo
     }
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    except OSError as e:
+        raise RuntimeError(
+            f"cannot create the build directory {BUILD_DIR} of mapmerge_torch's "
+            f"kernels and host library: {e}"
+        ) from e
     procs = {}
     for source, (compiler, cmd) in cmds.items():
         tmp = todo[source].with_name(f"{todo[source].name}.{os.getpid()}.tmp")

@@ -11,8 +11,10 @@ pooled and the top `max_keypoints` by |DoG| kept.
 Each octave resolves its neighbour engine on its own capacity, as the
 reference does. On the cell grid the scale space is
 `grid.grid_gaussian_smooth` and the 25-NN is bounded at
-_GRID_KNN_RADIUS_SCALES octave scales; on the dense engine both are exact
-tiled sweeps (the 25-NN unbounded, PCL's semantics).
+_GRID_KNN_RADIUS_SCALES octave scales (`radius_neighbors`); on the dense
+engine both are exact sweeps over every point, the 25-NN unbounded (PCL's
+semantics): the hand-written kernels of kernels/sift.py, `scale_space`
+(kernel C) and `knn` (kernel D), each launched once per dense octave.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from mapmerge_torch.core.cloud import FAR, PointCloud
+from mapmerge_torch.kernels import sift as sift_kernels
 from mapmerge_torch.ops import grid
 from mapmerge_torch.ops.downsample import voxel_downsample
 from mapmerge_torch.ops.keypoints import Keypoints
@@ -29,8 +32,6 @@ from mapmerge_torch.ops.neighbors import (
     _f32,
     _resolve_engine,
     radius_neighbors,
-    sq_dists,
-    tiled_query,
 )
 
 _KNN = 25  # PCL's spatial neighborhood for extremum tests
@@ -67,20 +68,36 @@ def _scale_space(
     r2_bound = _f32((3.0 * max(sigmas)) ** 2)
     qc, pc = _center(cloud.xyz, cloud.xyz, cloud.mask)
     vals = torch.where(cloud.mask, intensity, 0.0)
-    maskf = cloud.mask.to(torch.float32)
+    return sift_kernels.scale_space(
+        qc, pc, vals, cloud.mask, sigmas, r2_bound, tile
+    )  # (S, P)
 
-    def tile_fn(q_slab):
-        d2 = sq_dists(q_slab, pc)
-        bounded = (d2 <= r2_bound).to(torch.float32) * maskf[None, :]
-        outs = []
-        for s in sigmas:
-            w = torch.exp(-d2 / (2.0 * s * s)) * bounded
-            num = w @ vals
-            den = w.sum(dim=-1)
-            outs.append(num / den.clamp_min(1e-12))
-        return torch.stack(outs, dim=-1)  # (tile, S)
 
-    return tiled_query(qc, tile_fn, tile).T  # (S, P)
+def _knn(
+    cloud: PointCloud,
+    base: float,
+    tile: int,
+    engine: str = "auto",
+    scan_cap: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 25-NN of every point for the extremum test: (indices (P, 25)
+    int64, valid (P, 25) bool), the point itself (slot 0) left out. On the
+    grid, `radius_neighbors` bounded at _GRID_KNN_RADIUS_SCALES octave
+    scales; on the dense engine kernel D, unbounded (a radius of 1e6, which
+    the masked targets at BIG meet, as in the reference)."""
+    p_oct = cloud.capacity
+    k = min(_KNN + 1, p_oct)
+    if _resolve_engine(engine, p_oct) == "grid":
+        idx, _, nmask, _ = radius_neighbors(
+            cloud.xyz, cloud.xyz, radius=_GRID_KNN_RADIUS_SCALES * base, k=k,
+            p_mask=cloud.mask, tile=tile, engine=engine, scan_cap=scan_cap,
+        )
+    else:
+        qc, pc = _center(cloud.xyz, cloud.xyz, cloud.mask)
+        idx, nmask = sift_kernels.knn(
+            qc, pc, cloud.mask, k, _f32(1.0e6 * 1.0e6), tile
+        )
+    return idx[:, 1:].to(torch.int64), nmask[:, 1:]
 
 
 def detect_keypoints_sift(
@@ -102,20 +119,7 @@ def detect_keypoints_sift(
     oct_cloud = cloud
     for octave in range(octaves):
         p_oct = oct_cloud.capacity
-        # slot 0 is the point itself; the radius is unbounded on the dense
-        # engine and _GRID_KNN_RADIUS_SCALES octave scales on the grid
-        knn_radius = (
-            _GRID_KNN_RADIUS_SCALES * base
-            if _resolve_engine(engine, p_oct) == "grid"
-            else 1.0e6
-        )
-        idx, _, nmask, _ = radius_neighbors(
-            oct_cloud.xyz, oct_cloud.xyz, radius=knn_radius,
-            k=min(_KNN + 1, p_oct), p_mask=oct_cloud.mask, tile=tile,
-            engine=engine, scan_cap=scan_cap,
-        )
-        nbr_idx = idx[:, 1:].to(torch.int64)
-        nbr_ok = nmask[:, 1:]
+        nbr_idx, nbr_ok = _knn(oct_cloud, base, tile, engine, scan_cap)
         intensity = _intensity(oct_cloud.rgb)
 
         n_s = scales_per_octave + 3
