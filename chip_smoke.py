@@ -150,12 +150,19 @@ all and of those not parked at FAR; it rounds otherwise, so it is a
 yardstick, not held for bits.
 SIFT's dense octaves (kernels C and D, one launch each a dense octave:
 three an extraction, one on config5_big, whose octaves 0-1 take the grid;
-none on the Harris paths) are required per path from the extractions and
-dense octaves counted there, and both are held on every SIFT path's first
-launch: C within its tolerance, D exactly, D also timed against torch.cdist
-+ torch.topk (knn_library).
+none on the Harris paths; their pre-pass `pack` twice a dense octave) are
+required per path from the extractions and dense octaves counted there, and
+all three are held on every SIFT path's first launch: C within its
+tolerance, D and the pre-pass exactly, D also timed against torch.cdist +
+torch.topk (knn_library); check_sift holds them on adversarial inputs too
+(sift_adversarial). C's and D's bounds count the work their inputs need
+(the pairs within C's radius, D's k a query), the dense sweep's beside.
+Config #1's merge is also timed stage by stage and profiled once
+(profile_merge: the device busy share), and config5_big's octave 0 (2^19
+points, on the grid) is timed through C and D beside the grid route
+(big_octave_stats), held on sampled queries.
 The line before the last is a JSON object of the kernels (kernel
-A's one-pair and batched entries, kernel B, kernels C and D): launches,
+A's one-pair and batched entries, kernel B, the pre-pass, kernels C and D): launches,
 times and bound on each kernel's main path (MAIN_PATH: config #1 for the
 batched entry, B, C and D, the incremental node on config #1's views for
 the one-pair entry), and the same for every path and for the synthetic
@@ -560,20 +567,56 @@ def scale_space_in_bound(args, tile: int = 1024) -> int:
 
 def scale_space_bound(args, in_bound: int) -> dict:
     """Queries (12 B) and points (12 B, the value 4 B, the mask 1 B) read
-    once, the (S, Q) field written once; SIFT_PAIR_OPS for every pair and
-    SIFT_SIGMA_OPS for each sigma of each pair within the bound."""
+    once, the (S, Q) field written once; the work these inputs need: for
+    each pair within the bound SIFT_PAIR_OPS and SIFT_SIGMA_OPS a sigma (a
+    kernel that culls need compute no other pair). Beside it
+    `dense_bound_ms`, the count of a sweep over every pair (SIFT_PAIR_OPS
+    each, the bound of the kernel that swept them all)."""
     qc, pc, _, _, sigmas = args[:5]
     nq, np_, ns = qc.shape[0], pc.shape[0], len(sigmas)
-    return _bound(nq * 12 + np_ * 17 + ns * nq * 4,
-                  nq * np_ * SIFT_PAIR_OPS + in_bound * ns * SIFT_SIGMA_OPS)
+    n_bytes = nq * 12 + np_ * 17 + ns * nq * 4
+    dense = _bound(n_bytes, nq * np_ * SIFT_PAIR_OPS + in_bound * ns * SIFT_SIGMA_OPS)
+    return {**_bound(n_bytes, in_bound * (SIFT_PAIR_OPS + ns * SIFT_SIGMA_OPS)),
+            "dense_bound_ms": dense["bound_ms"]}
 
 
 def knn_bound(args) -> dict:
     """Queries (12 B) and targets (12 B, the mask 1 B) read once, the (Q, k)
-    indices and flags written once; SIFT_PAIR_OPS for every pair."""
+    indices and flags written once; the work these inputs need: the k
+    pairs each query keeps, SIFT_PAIR_OPS each. Beside it `dense_bound_ms`,
+    every pair's (the bound of the kernel that swept them all)."""
     q, p, _, k = args[:4]
     nq, np_ = q.shape[0], p.shape[0]
-    return _bound(nq * 12 + np_ * 13 + nq * k * 5, nq * np_ * SIFT_PAIR_OPS)
+    n_bytes = nq * 12 + np_ * 13 + nq * k * 5
+    return {**_bound(n_bytes, nq * k * SIFT_PAIR_OPS),
+            "dense_bound_ms": _bound(n_bytes, nq * np_ * SIFT_PAIR_OPS)["bound_ms"]}
+
+
+def pack_bound(args) -> dict:
+    """The pre-pass: points (12 B, the value 4 B where given, the mask 1 B
+    where given) read once, the packed points (16 B a slot) and the boxes
+    (32 B a tile) written once; a min and a max a coordinate a point."""
+    p, vals, mask = args[:3]
+    n = p.shape[0]
+    tiles = -(-n // 32)
+    n_bytes = n * (12 + (vals is not None) * 4 + (mask is not None)) + tiles * (32 * 16 + 32)
+    return _bound(n_bytes, n * 6)
+
+
+def _pack_compare(name, ksift, args):
+    """The pre-pass against pack_ref on the same inputs: the same values
+    (NaN where NaN; -0 and +0 alike in a box) and the int bits of the
+    fourth columns exactly. Returns 0.0, the max abs error."""
+    pts, boxes = ksift.pack(*args)
+    rpts, rboxes = ksift.pack_ref(*args)
+    torch.cuda.synchronize()
+    same = bool(((pts == rpts) | (pts.isnan() & rpts.isnan())).all())
+    same = same and torch.equal(boxes[..., :3], rboxes[..., :3]) and torch.equal(
+        boxes[..., 3].contiguous().view(torch.int32),
+        rboxes[..., 3].contiguous().view(torch.int32))
+    require(same and pts.shape == rpts.shape,
+            f"{name}: the packed points or boxes differ from pack_ref")
+    return 0.0
 
 
 def _scale_space_compare(name, ksift, args):
@@ -643,11 +686,21 @@ def knn_library_stats(ksift, args) -> dict:
 
 
 def sift_stats(label: str, ksift, seen: dict) -> dict:
-    """Kernels C and D on the inputs of their first launch on a path (the
-    path's own shapes): held against their plain versions (_scale_space_
-    compare, _knn_compare), then both timed (CUDA events, warm, median),
-    beside the bound and, for D, knn_library."""
+    """The pre-pass and kernels C and D on the inputs of their first launch
+    on a path (the path's own shapes): held against their plain versions
+    (_pack_compare, _scale_space_compare, _knn_compare), then timed (CUDA
+    events, warm, median), beside the bound and, for D, knn_library. C's
+    and D's times are their wrappers', the pre-pass included."""
     stats = {}
+    if "sift_pack" in seen:
+        args, _ = seen["sift_pack"]
+        stats["sift_pack"] = {
+            "shape": f"P={args[0].shape[0]}, vals {args[1] is not None}",
+            "max_abs_err": _pack_compare(f"{label} sift_pack", ksift, args),
+            "ms": time_ms(lambda: ksift.pack(*args)),
+            "plain_ms": time_ms(lambda: ksift.pack_ref(*args), reps=5),
+            "library_ms": None, **pack_bound(args),
+        }
     if "sift_scale_space" in seen:
         args, _ = seen["sift_scale_space"]
         err, rel = _scale_space_compare(f"{label} sift_scale_space", ksift, args)
@@ -674,11 +727,38 @@ def sift_stats(label: str, ksift, seen: dict) -> dict:
     return stats
 
 
+def sift_adversarial(g, qc, pc, vals, mask) -> dict:
+    """Inputs on which the culling of kernels C and D must stay exact, made
+    from sift_octave0's (qc, pc, vals, mask): name -> (q, p, vals, mask).
+    Shuffled (no voxel order: every tile spans the cloud), lattice points
+    of 1/8 m (ties everywhere), every point masked, half the slots masked
+    and their queries parked at FAR, a small Q against every point, and
+    one tile (20 points)."""
+    from mapmerge_torch.core.cloud import FAR
+    from mapmerge_torch.ops.neighbors import _center
+
+    n = pc.shape[0]
+    perm = torch.randperm(n, generator=g, device=pc.device)
+    lattice = torch.round(pc * 8.0) / 8.0
+    half = torch.arange(n, device=pc.device) < n // 2
+    parked = torch.where(half[:, None], pc, FAR)
+    pq, pp = _center(parked, parked, half)
+    none = torch.zeros_like(mask)
+    return {
+        "shuffled": (qc[perm], pc[perm], vals[perm], mask[perm]),
+        "lattice ties": (lattice, lattice, vals, mask),
+        "all masked": (qc, pc, torch.zeros_like(vals), none),
+        "half parked": (pq, pp, torch.where(half, vals, 0.0), half),
+        "small Q": (qc[:300], pc, vals, mask),
+        "one tile": (qc[:20], pc[:20].contiguous(), vals[:20], mask[:20]),
+    }
+
+
 def check_sift(dev, ksift) -> dict:
-    """Kernels C and D against their plain versions at config #1's octave-0
-    shape (sift_octave0: Q = P = 32,768, six sigmas, the 26-NN), C within
-    its tolerance and D exactly; then D on lattice points (ties everywhere)
-    and both with a small Q whose points the kernels split."""
+    """The pre-pass and kernels C and D against their plain versions at
+    config #1's octave-0 shape (sift_octave0: Q = P = 32,768, six sigmas,
+    the 26-NN), C within its tolerance and D exactly; then all three on the
+    inputs of sift_adversarial, D also at k = 9 and a bounded radius."""
     g = torch.Generator(device=dev).manual_seed(14)
     from mapmerge_torch.ops.neighbors import _f32
 
@@ -687,18 +767,22 @@ def check_sift(dev, ksift) -> dict:
     c_args = (qc, pc, vals, mask, sigmas, _f32((3.0 * max(sigmas)) ** 2))
     d_args = (qc, pc, mask, SIFT_K, _f32(1.0e12))
     stats = sift_stats("synthetic", ksift,
-                       {"sift_scale_space": (c_args, {}), "sift_knn": (d_args, {})})
-    # ties: lattice points of 1/8 m; a small Q against all the points
-    lattice = torch.round(pc * 8.0) / 8.0
-    _knn_compare("sift_knn lattice", ksift, (lattice, lattice, mask, SIFT_K, _f32(1.0e12)))
-    _knn_compare("sift_knn small Q", ksift, (lattice[:300], lattice, mask, SIFT_K, 0.25))
-    _scale_space_compare("sift_scale_space small Q", ksift,
-                         (qc[:300], pc, vals, mask, sigmas, c_args[5]))
+                       {"sift_pack": ((pc, vals, mask), {}),
+                        "sift_scale_space": (c_args, {}), "sift_knn": (d_args, {})})
+    adversarial = sift_adversarial(g, qc, pc, vals, mask)
+    for name, (q, p, v, m) in adversarial.items():
+        _pack_compare(f"sift_pack {name}", ksift, (p, v, m))
+        _scale_space_compare(f"sift_scale_space {name}", ksift,
+                             (q, p, v, m, sigmas, c_args[5]))
+        for k, r2 in ((SIFT_K, _f32(1.0e12)), (9, 0.25)):
+            _knn_compare(f"sift_knn {name} k={k}", ksift, (q, p, m, min(k, p.shape[0]), r2))
     c, d = stats["sift_scale_space"], stats["sift_knn"]
     log(f"kernel sift_scale_space {c['shape']}: max err {c['max_abs_err']} "
         f"({c['err_of_field']} of the field), {c['pairs_in_bound']} pairs in bound; "
         f"kernel {c['ms']} ms, plain {c['plain_ms']} ms, bound {c['bound_ms']} ms")
-    log(f"kernel sift_knn {d['shape']}: exact, and on lattice ties and a small Q; "
+    log(f"kernels sift_pack, sift_scale_space and sift_knn held on {sorted(adversarial)} "
+        "(sift_knn at k = 26 and 9)")
+    log(f"kernel sift_knn {d['shape']}: exact; "
         f"kernel {d['ms']} ms, plain {d['plain_ms']} ms, library {d['library_ms']} ms "
         f"(index agreement {d['library_index_agreement_unparked']} unparked), "
         f"bound {d['bound_ms']} ms")
@@ -845,6 +929,7 @@ def first_launch_inputs(nn, spfh):
                   (merging, "register_pair"): one_pair,
                   (merging, "compute_global_transforms"): solve,
                   (spfh, "spfh_tile"): record("spfh"),
+                  (ksift, "pack"): record("sift_pack"),
                   (ksift, "scale_space"): record("sift_scale_space"),
                   (ksift, "knn"): record("sift_knn"),
                   (sift_ops, "detect_keypoints_sift"): extraction,
@@ -921,14 +1006,16 @@ def require_sift(label: str, seen: dict, launches: dict, per_extraction: int) ->
     """Kernels C and D launched once a dense SIFT octave each, and
     `per_extraction` times an extraction (3 where every octave is dense, 1
     on config5_big, whose octaves 0-1 take the grid); none on a Harris
-    path. Logged."""
+    path; their pre-pass twice a dense octave (once for each). Logged."""
     ext, dense = seen["sift"]["extractions"], seen["sift"]["dense_octaves"]
     c, d = launches["sift_scale_space"], launches["sift_knn"]
+    packs = launches["sift_pack"]
     log(f"{label}: SIFT extractions {ext}, dense octaves {dense}; launches "
-        f"sift_scale_space {c}, sift_knn {d}")
-    require(c == d == dense == per_extraction * ext,
-            f"{label}: sift_scale_space {c} and sift_knn {d} launches for {ext} "
-            f"extractions and {dense} dense octaves, expected {per_extraction} an extraction")
+        f"sift_scale_space {c}, sift_knn {d}, sift_pack {packs}")
+    require(c == d == dense == per_extraction * ext and packs == 2 * dense,
+            f"{label}: sift_scale_space {c}, sift_knn {d} and sift_pack {packs} "
+            f"launches for {ext} extractions and {dense} dense octaves, expected "
+            f"{per_extraction} an extraction (the pre-pass two a dense octave)")
 
 
 def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
@@ -1206,6 +1293,7 @@ def run_main_path(dev, kernels) -> None:
     log(f"estimate_maps_transforms wall s (5 warm reps): median "
         f"{statistics.median(walls)}, min {min(walls)}, max {max(walls)}")
     sift_split("config #1", clouds, params, out)
+    profile_merge("config #1", clouds, params, out, config1_stages())
 
     merged = compose_maps(clouds, out, params.output_resolution)
     n_merged = int(merged.mask.sum())
@@ -1300,6 +1388,63 @@ def sift_split(label: str, clouds, params, first) -> None:
                     f"{label}: the stage-timed run gave other transforms than the first")
         log(f"{label} SIFT stage ms of one merge ({len(clouds)} clouds), {route}: "
             f"{json.dumps(rec['ms'])}; calls {json.dumps(rec['calls'])}")
+
+
+def config1_stages():
+    """The stages of a config #1 merge: config2_stages with SIFT, split by
+    engine into its scale space and 26-NN (sift_stages), for Harris."""
+    return tuple(s for s in config2_stages() if s[2] != "Harris") + sift_stages()
+
+
+def device_busy(fn) -> dict:
+    """fn() under torch.profiler, ending in a synchronisation: its host wall,
+    the device busy ms (the union of the intervals of the CUDA events: a
+    kernel and the op that launched it each carry device time, so summing
+    them counts twice), their share of the wall, and device ms by kernel
+    name (the 12 largest)."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    by_name: dict = {}
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / 1e3 / wall_ms, "device_ms_by_kernel": dict(top)}
+
+
+def profile_merge(label: str, clouds, params, first, stages) -> None:
+    """One warm merge with every stage of `stages` between two
+    synchronisations (stage_recorder: host ms a stage, summed over the
+    clouds and pairs), then one under torch.profiler with none
+    (device_busy). Both must give `first`'s transforms bit for bit."""
+    from mapmerge_torch.parallel import pair_shard
+    from mapmerge_torch.pipeline import merging
+    from mapmerge_torch.pipeline.merging import estimate_maps_transforms
+
+    with stage_recorder(stages, (pair_shard, "extract_features"),
+                        (merging, "estimate_pairs_batch")) as rec:
+        runs = [list(estimate_maps_transforms(clouds, params, seed=0))]
+    busy = device_busy(lambda: runs.append(list(estimate_maps_transforms(
+        clouds, params, seed=0))))
+    require(all(len(r) == len(first) and all(np.array_equal(a, b) for a, b in zip(r, first))
+                for r in runs), f"{label}: a profiled merge gave other transforms")
+    log(f"{label} stage ms of one warm merge (each stage between two "
+        f"synchronisations): {json.dumps(rec['ms'])}; calls {json.dumps(rec['calls'])}")
+    log(f"{label} one warm merge under torch.profiler: {json.dumps(busy)}")
 
 
 def warm_runs(clouds, params, first, label: str, reps: int = 5) -> list[float]:
@@ -1912,6 +2057,7 @@ def run_config5_big(dev, kernels) -> None:
     from mapmerge_torch.core import transforms as tf
     from mapmerge_torch.kernels import nn, spfh
     from mapmerge_torch.ops import grid
+    from mapmerge_torch.ops.keypoints import sift as sift_ops
     from mapmerge_torch.pipeline import incremental
     from mapmerge_torch.runtime import node as node_module
     from mapmerge_torch.runtime.node import MapMergeNode
@@ -1938,6 +2084,15 @@ def run_config5_big(dev, kernels) -> None:
     # query overflow, which counts the parked padding too, and the valid
     # points its bucket cap drops, from a second build of the same grid)
     smooth_overflow = []
+    big_octave = []  # the first map's octave 0: _scale_space's arguments
+
+    def keep_big_octave(fn):
+        def wrapper(cloud, *args, **kwargs):
+            if not big_octave and cloud.capacity == cap:
+                big_octave.append([_copied(cloud), *(_copied(a) for a in args)])
+            return fn(cloud, *args, **kwargs)
+
+        return wrapper
 
     def record_overflow(fn):
         def wrapper(q, p, values, sigmas, p_mask=None, scan_cap=128, **kwargs):
@@ -1954,7 +2109,8 @@ def run_config5_big(dev, kernels) -> None:
     recorder = stage_recorder(config5_stages(), (node_module, "features_for"),
                               (incremental, "estimate_transform"))
     with first_launch_inputs(nn, spfh) as seen, recorder as rec, patched(
-        {(grid, "grid_gaussian_smooth"): record_overflow}
+        {(grid, "grid_gaussian_smooth"): record_overflow,
+         (sift_ops, "_scale_space"): keep_big_octave}
     ):
         for k in kernels:
             k.launches = 0
@@ -2021,6 +2177,10 @@ def run_config5_big(dev, kernels) -> None:
         "cap drops, each summed over the maps: " + json.dumps(
             {c: [len(v)] + [sum(x) for x in zip(*v)] for c, v in by_cap.items()}))
 
+    require(big_octave, f"config5_big: no SIFT octave at capacity {cap} was recorded")
+    log("config5_big octave 0, kernels C and D against the grid route: "
+        + json.dumps(big_octave_stats(*big_octave[0])))
+
     # repeatability: a second node streams the first batch
     again, again_transport = new_node()
     stream(again, again_transport, views, CONFIG5_BATCH)
@@ -2030,6 +2190,81 @@ def run_config5_big(dev, kernels) -> None:
     ), "config5_big: a second node's first batch gave other poses than the first tick")
     log(f"repeat check (config5_big): a second node's first batch "
         f"({CONFIG5_BATCH} maps) bitwise equal to the first tick")
+
+
+#: config5_big's octave-0 queries on which kernels C and D are held against
+#: their plain versions: each query's row is independent of the others, so
+#: a sample of rows is held exactly as the whole would be
+BIG_OCTAVE_SAMPLE = 4096
+
+
+def big_octave_stats(cloud, intensity, sigmas, tile, engine, scan_cap) -> dict:
+    """Kernels C and D, culled, on config5_big's octave 0 (the first map's
+    own cloud at capacity 2^19, whose octave the grid serves: `engine`
+    resolves to it), beside that route's grid_gaussian_smooth and
+    radius_neighbors on the same octave, as ops/keypoints/sift.py calls
+    them. D held exactly and C within SCALE_SPACE_RTOL (0 at the parked
+    queries, a second launch the same bits) against their plain versions
+    on BIG_OCTAVE_SAMPLE sampled queries; all four timed (CUDA events, warm,
+    median of 5, the grid route's of 3). Measured only: no routing
+    changes."""
+    from mapmerge_torch.core.cloud import FAR
+    from mapmerge_torch.kernels import sift as ksift
+    from mapmerge_torch.ops import grid
+    from mapmerge_torch.ops.keypoints import sift as sift_ops
+    from mapmerge_torch.ops.neighbors import _center, _f32, _resolve_engine, radius_neighbors
+
+    require(_resolve_engine(engine, cloud.capacity) == "grid",
+            "config5_big: octave 0 does not take the grid")
+    qc, pc = _center(cloud.xyz, cloud.xyz, cloud.mask)
+    vals = torch.where(cloud.mask, intensity, 0.0)
+    c_args = (qc, pc, vals, cloud.mask, sigmas, _f32((3.0 * max(sigmas)) ** 2))
+    k = min(sift_ops._KNN + 1, cloud.capacity)
+    d_args = (qc, pc, cloud.mask, k, _f32(1.0e6 * 1.0e6))
+    g = torch.Generator(device=qc.device).manual_seed(19)
+    sample = torch.randperm(qc.shape[0], generator=g, device=qc.device)
+    sample = sample[:BIG_OCTAVE_SAMPLE].sort().values
+    field = ksift.scale_space(*c_args)
+    ref = ksift.scale_space_ref(qc[sample], *c_args[1:])
+    err = float((field[:, sample] - ref).abs().max())
+    rel = err / max(float(ref.abs().max()), 1e-30)
+    parked = qc[sample].abs().amax(-1) >= FAR / 2
+    require(rel <= ksift.SCALE_SPACE_RTOL and bool((field[:, sample][:, parked] == 0).all())
+            and torch.equal(field, ksift.scale_space(*c_args)),
+            f"config5_big octave 0 sift_scale_space: off by {rel} of the field on "
+            "the sample, or a parked query not 0, or a second launch other bits")
+    idx, valid = ksift.knn(*d_args)
+    ridx, rvalid = ksift.knn_ref(qc[sample], *d_args[1:])
+    require(torch.equal(idx[sample], ridx) and torch.equal(valid[sample], rvalid),
+            "config5_big octave 0 sift_knn: the sample differs from knn_ref")
+    del ref, ridx, rvalid
+    torch.cuda.empty_cache()
+    in_bound = scale_space_in_bound(c_args)
+
+    def grid_smooth():
+        return grid.grid_gaussian_smooth(cloud.xyz, cloud.xyz, intensity, sigmas,
+                                         p_mask=cloud.mask, scan_cap=scan_cap)
+
+    def grid_knn():
+        return radius_neighbors(cloud.xyz, cloud.xyz,
+                                radius=sift_ops._GRID_KNN_RADIUS_SCALES * sigmas[0], k=k,
+                                p_mask=cloud.mask, tile=tile, engine=engine,
+                                scan_cap=scan_cap)
+
+    c_bound, d_bound = scale_space_bound(c_args, in_bound), knn_bound(d_args)
+    return {
+        "shape": f"Q=P={qc.shape[0]} ({int(cloud.mask.sum())} valid) S={len(sigmas)} k={k}",
+        "sample": BIG_OCTAVE_SAMPLE, "sift_scale_space_err_of_field": rel,
+        "sift_knn_exact": True, "pairs_in_bound": in_bound,
+        "sift_scale_space_ms": time_ms(lambda: ksift.scale_space(*c_args), reps=5, warmup=1),
+        "sift_knn_ms": time_ms(lambda: ksift.knn(*d_args), reps=5, warmup=1),
+        "grid_gaussian_smooth_ms": time_ms(grid_smooth, reps=3, warmup=1),
+        "grid_radius_neighbors_ms": time_ms(grid_knn, reps=3, warmup=1),
+        "sift_scale_space_bound_ms": c_bound["bound_ms"],
+        "sift_scale_space_dense_bound_ms": c_bound["dense_bound_ms"],
+        "sift_knn_bound_ms": d_bound["bound_ms"],
+        "sift_knn_dense_bound_ms": d_bound["dense_bound_ms"],
+    }
 
 
 def config1_argv() -> list[str]:
@@ -2560,7 +2795,7 @@ def rank_job(rank: int, world: int, address, dev, workdir, merge, node) -> None:
     from mapmerge_torch.pipeline.merging import estimate_maps_transforms
 
     t_start = time.perf_counter()
-    kernels = (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL,
+    kernels = (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL, ksift.PACK_KERNEL,
                ksift.SCALE_SPACE_KERNEL, ksift.KNN_KERNEL)
     on_card = dev.type == "cuda"
     multihost.initialize(address, world, rank, timeout=RANK_TIMEOUT_S)
@@ -2998,7 +3233,8 @@ def run_config5(dev, kernels) -> None:
 #: 32,768 points, config #1's shapes), since config #1's pairs now batch
 MAIN_PATH = {"nearest_neighbor": "node incremental",
              "nearest_neighbor_batched": "config #1", "spfh": "config #1",
-             "sift_scale_space": "config #1", "sift_knn": "config #1"}
+             "sift_pack": "config #1", "sift_scale_space": "config #1",
+             "sift_knn": "config #1"}
 
 
 def kernel_entry(k, stats: dict) -> dict:
@@ -3007,8 +3243,8 @@ def kernel_entry(k, stats: dict) -> dict:
     the synthetic shapes. library_ms is nn_library's time on kernel A's
     main-path inputs (one route to the same 1-NN, not held for bits) and
     knn_library's on kernel D's; null for kernel B (nothing in PyTorch bins
-    Darboux features) and kernel C (no single call smooths over a
-    radius)."""
+    Darboux features), kernel C (no single call smooths over a radius) and
+    the pre-pass (no single call packs points and tile boxes)."""
     label = MAIN_PATH[k.name]
     main = PATH_STATS[label][k.name]
     errs = [stats[k.name]["max_abs_err"]] + [
@@ -3091,7 +3327,7 @@ def main() -> int:
     stats = {"nearest_neighbor": check_nn(dev, nn),
              "nearest_neighbor_batched": check_nn_batched(dev, nn),
              "spfh": check_spfh(dev, spfh), **check_sift(dev, ksift)}
-    kernels = (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL,
+    kernels = (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL, ksift.PACK_KERNEL,
                ksift.SCALE_SPACE_KERNEL, ksift.KNN_KERNEL)
     phase("4 (config #1)", run_main_path, dev, kernels)
     phase("5 (config1_pfh)", run_default_operating_point, dev, kernels)

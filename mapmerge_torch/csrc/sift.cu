@@ -1,270 +1,587 @@
-// SIFT's dense octave for Hopper (sm_90a): the Gaussian scale space
-// (kernel C) and the 26 nearest neighbours of the extremum test (kernel D).
+// SIFT's dense octave for Hopper (sm_90a): a packing pre-pass, the Gaussian
+// scale space (kernel C) and the 26 nearest neighbours of the extremum test
+// (kernel D).
 //
-// Neither replaces a Pallas kernel: the JAX package leaves both to XLA.
-// Kernel C replaces the dense branch of mapmerge_tpu/ops/keypoints/sift.py
-// `_scale_space`; kernel D the dense `radius_neighbors` (mapmerge_tpu/ops/
-// neighbors.py) that sift.py calls for the 26-NN. Their plain PyTorch
-// versions are kernels/sift.py: scale_space_ref and knn_ref.
+// Neither C nor D replaces a Pallas kernel: the JAX package leaves both to
+// XLA. Kernel C replaces the dense branch of mapmerge_tpu/ops/keypoints/
+// sift.py `_scale_space`; kernel D the dense `radius_neighbors` (mapmerge_tpu/
+// ops/neighbors.py) that sift.py calls for the 26-NN. Their plain PyTorch
+// versions are kernels/sift.py: pack_ref, scale_space_ref and knn_ref.
 //
+// What they compute.
 // Kernel C (mm_sift_scale_space): for each query and each of the S sigmas,
 // num / max(den, 1e-12) with num = sum w * val and den = sum w over the
 // valid points within r2_bound of the query, w = exp(-d2 / (2 s^2)). d2 is
 // the direct expansion of ops/neighbors.sq_dists, ((dx^2 + dy^2) + dz^2) on
 // centred float32 coordinates, through __fsub_rn / __fmul_rn / __fadd_rn,
 // so it is sq_dists' value bit for bit and the bound test takes the same
-// points as the plain version. A point outside the bound, or masked, is
-// skipped: the plain version multiplies its weight by 0, which adds nothing.
-// The division is IEEE (__fdiv_rn) by the float32 value of 2 s^2 that
-// PyTorch uses, and expf (not __expf). num and den are summed in point order
-// within a split and the splits in order, so a run repeats bit for bit; the
-// plain version's matrix-vector product sums in another order, so the two
-// agree to rounding (kernels/sift.py states the tolerance).
-//
+// points as the plain version. The exponent is -d2 times the float32
+// reciprocal of 2 s^2 (the product PyTorch's division by a scalar makes on
+// the card), then expf; num and den are summed in point order in G parts
+// and the parts added in a fixed tree (design 3), so a run repeats bit for
+// bit. The plain version's matrix-vector product sums in another order, so
+// the two agree to rounding (kernels/sift.py states the tolerance).
 // Kernel D (mm_sift_knn): for each query the k <= 26 smallest (d2, index)
 // pairs in lexicographic order, nearest first, with masked targets at d2 =
 // BIG (1e12) as in ops/neighbors.radius_neighbors; valid = d2 <= r2. Ties go
 // to the lower index, as lax.top_k's order and the plain version's stable
-// sort have it. Each thread keeps its query's list sorted in registers and
-// sweeps the targets in index order, so a candidate enters only if its d2
-// is strictly below the 26th (an equal d2 has the higher index) and goes
-// after every held entry of equal d2. Splits of the targets are merged in
-// split order by the same rule: the result is exact and does not depend on
-// the number of splits.
+// sort have it. Each lane keeps its query's list sorted by (d2, index) in
+// registers, and a candidate enters when it comes before the 26th in that
+// order, so the list does not depend on the order in which points arrive.
 //
-// What bounds them on the card: FP32 issue on the CUDA cores. Each (query,
-// point) pair costs the distance (3 subtractions, 3 products, 2 sums), a
-// compare and a select; C adds S divisions, expf, a product and two sums for
-// each pair within the bound (about 1% at config #1's octave 0), D a
-// 26-slot register insertion for each candidate below the current 26th.
-// The bytes are small (16 B a point a block, mostly from L2). No FMA
-// contraction (-fmad=false), no atomics, no fast-math.
+// What bounds them. Swept densely, FP32 issue on the CUDA cores: every
+// (query, point) pair costs the distance (3 subtractions, 3 products, 2
+// sums) and a compare, though under 1% of the pairs lie within C's bound at
+// config #1's octave 0, and D keeps 26 of P. Tensor cores do not serve: the
+// bound test and the neighbour order need sq_dists' exact direct-expansion
+// bits, and a TF32 or bf16 product of the matmul expansion would move
+// points across r2_bound and reorder near-ties.
 //
-// Design (as csrc/nn.cu): the grid is (query tiles, P splits[, sigma
-// groups]). A block stages a tile of points (x, y, z, value or mask) in
-// shared memory as float4 and every thread reads the same element at once (a
-// broadcast). C holds 4 queries a thread, each with the num and den of up to
-// kGroup sigmas in registers; larger S runs ceil(S / kGroup) groups on the
-// grid's z axis, each recomputing the distances. D holds one query a thread
-// and its 26 (d2, index) pairs. Each split writes its partial results to
-// scratch that the wrapper allocates; a second kernel merges the splits in
-// order. The wrapper picks the splits from Q and P alone, so the bits of C
-// do not depend on the card. Masked points are staged with a NaN x for C
-// (d2 is NaN and fails the bound test) and a flag in w for D.
+// What the design does about it.
+// 1. Exact culling by tile boxes. The pre-pass (mm_sift_pack) writes the
+//    points once as float4 (x, y, z, value), x = NaN for a masked point (it
+//    fails C's bound test, and D reads it as masked), and for each tile of
+//    kT = 32 consecutive points the box of its valid points (lo, hi), the
+//    first masked index of the tile (lo.w, as int bits; INT_MAX if none) and
+//    the tile's first point index (hi.w). Octaves come out of the voxel grid
+//    in lexicographic key order, so a tile is a compact box in space. For a
+//    query q the box bound clamps q into the box and takes sq_dist to that
+//    point with the same rounded operations: rounding is monotone, so the
+//    bound is <= the kernel's own d2 for every point of the box, with no
+//    epsilon, and a tile whose bound exceeds the threshold of every query
+//    of a warp holds no point that any of them takes. A warp tests 32 tiles
+//    at once, one a lane: against the box of its queries (a bound below
+//    every query's own), then, where that passes, against each query (kept
+//    in shared memory). C's threshold is r2_bound; D's is each query's
+//    current bound on its 26th (kernel D below), compared as (d2, index),
+//    and a tile that holds a masked point counts at (BIG, its first masked
+//    index). On clouds that are not in voxel order culling stays exact and
+//    only stops paying.
+// 2. An asynchronous tile ring. Each warp works on its own queries with its
+//    own ring of kStages shared-memory stages: the surviving tiles come in by
+//    cp.async (16 bytes a lane) while the warp computes on the one before,
+//    and the scan for the next surviving tile runs while copies are in
+//    flight. A stage also carries the tile's box, so D checks a tile again
+//    against its bounds as they are when it arrives.
+// 3. Latency, not issue, bounds a warp once culling has removed most of the
+//    work: its tiles, and within them its points within the bound (C) or
+//    its candidates (D), are a dependent chain. So G lanes share a query,
+//    lane g of them the points j = g (mod G) of each tile (C: G = 1, 2, 4
+//    or 8; D: 1, 2 or 4; chosen from Q alone, kernels/sift.py): the chain
+//    of each lane is 1 / G as long, and a small octave fills the card. Each lane first tests
+//    all its points of a tile at once, with no branch, then works only on
+//    those that pass, in index order: the branch of one lane no longer
+//    stalls a warp point by point. C's reciprocals of 2 s^2 come by value
+//    (no copy to the card, no division in the loop), and the G partial sums
+//    are added in a fixed tree, so C's bits depend on Q and P and not on the
+//    card. D's lanes keep a list each; a query's bound is the largest of its
+//    lanes' ceil(26 / G)-th entries (their first entries hold 26 points no
+//    later than it), and the lists are merged at the end.
+// 4. D visits its warp's own tile and the two beside it first (the queries
+//    are the points in SIFT, so in voxel order these are their
+//    neighbourhood), together, so its bounds are finite and near before the
+//    first scan; then every other tile in index order. A query parked at
+//    FAR (1e8) finds its masked targets in the first tiles that hold them.
+// No splits and no second pass: a warp sweeps every surviving tile itself.
+// No FMA contraction (-fmad=false), no atomics, no fast-math.
 
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 1024;  // points per stage
-constexpr int kReduceThreads = 256;
+constexpr int kT = 32;         // points a tile: one a lane
+constexpr int kStages = 4;     // ring stages a warp (a power of two)
+constexpr int kWarps = 4;      // warps a block, each on its own queries
+constexpr int kThreads = kWarps * 32;
+constexpr int kSigLane = 8;    // sigmas a lane of kernel C holds
+constexpr int kMaxSigma = 64;  // sigmas a launch of kernel C takes
+constexpr int kK = 26;         // list length: the 25-NN plus the point itself
 constexpr float kBig = 1.0e12f;
+constexpr unsigned kAll = 0xffffffffu;
 
-// ---- kernel C ----
-constexpr int kPerThread = 4;
-constexpr int kQueries = kThreads * kPerThread;  // queries per block
-constexpr int kGroup = 8;                        // sigmas per block
+struct Recips {
+  float v[kMaxSigma];
+};
 
-__device__ __forceinline__ float sq_dist(float qx, float qy, float qz, float4 t) {
-  const float dx = __fsub_rn(qx, t.x);
-  const float dy = __fsub_rn(qy, t.y);
-  const float dz = __fsub_rn(qz, t.z);
+// one tile in shared memory: its points and its box
+struct Stage {
+  float4 pt[kT];
+  float4 lo;  // w: first masked index of the tile (int bits), INT_MAX if none
+  float4 hi;  // w: the tile's first point index (int bits)
+};
+
+struct Box {
+  float lx, ly, lz, hx, hy, hz;
+};
+
+__device__ __forceinline__ float sq_dist(float qx, float qy, float qz, float px,
+                                         float py, float pz) {
+  const float dx = __fsub_rn(qx, px);
+  const float dy = __fsub_rn(qy, py);
+  const float dz = __fsub_rn(qz, pz);
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
 }
 
-__global__ void __launch_bounds__(kThreads)
-scale_space_split_kernel(const float* __restrict__ q, int nq,
-                         const float* __restrict__ p,
-                         const float* __restrict__ vals,
-                         const unsigned char* __restrict__ p_mask, int np,
-                         const float* __restrict__ two_s2, int n_sigma,
-                         float r2_bound, int split_len,
-                         float* __restrict__ part_num,
-                         float* __restrict__ part_den) {
-  __shared__ float4 tile[kTile];
-  const int split = blockIdx.y;
-  const int p_begin = split * split_len;
-  const int p_end = min(np, p_begin + split_len);
-  const int g0 = blockIdx.z * kGroup;
-  const int ng = min(kGroup, n_sigma - g0);
-  float denom[kGroup];
-#pragma unroll
-  for (int g = 0; g < kGroup; ++g) denom[g] = g < ng ? two_s2[g0 + g] : 1.f;
+// <= sq_dist(q, t) for every t in [lo, hi]: the same operations on the
+// point of the box nearest to q (an empty box, lo > hi, gives +inf)
+__device__ __forceinline__ float box_bound(float qx, float qy, float qz, float4 lo,
+                                           float4 hi) {
+  return sq_dist(qx, qy, qz, fminf(fmaxf(qx, lo.x), hi.x),
+                 fminf(fmaxf(qy, lo.y), hi.y), fminf(fmaxf(qz, lo.z), hi.z));
+}
 
-  // thread t holds queries base + t + k * kThreads: coalesced loads, stores
-  const int base = blockIdx.x * kQueries + threadIdx.x;
-  float qx[kPerThread], qy[kPerThread], qz[kPerThread];
-  float num[kPerThread][kGroup], den[kPerThread][kGroup];
+// the gap between [alo, ahi] and [blo, bhi], rounded as sq_dist's
+// subtraction rounds q - t for q in the one and t in the other: no larger
+__device__ __forceinline__ float gap(float alo, float ahi, float blo, float bhi) {
+  return ahi < blo ? __fsub_rn(blo, ahi) : (bhi < alo ? __fsub_rn(alo, bhi) : 0.f);
+}
+
+// <= box_bound(q, lo, hi) for every q in the query box `b`
+__device__ __forceinline__ float boxes_bound(const Box& b, float4 lo, float4 hi) {
+  const float gx = gap(b.lx, b.hx, lo.x, hi.x);
+  const float gy = gap(b.ly, b.hy, lo.y, hi.y);
+  const float gz = gap(b.lz, b.hz, lo.z, hi.z);
+  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
+                   __fmul_rn(gz, gz));
+}
+
+// the box of the active lanes' queries (empty, lx = +inf, if none)
+__device__ __forceinline__ Box warp_box(bool active, float x, float y, float z) {
+  const float inf = __int_as_float(0x7f800000);
+  Box b{active ? x : inf, active ? y : inf, active ? z : inf,
+        active ? x : -inf, active ? y : -inf, active ? z : -inf};
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const long long qi = base + k * kThreads;
-    const bool active = qi < nq;
-    qx[k] = active ? q[3 * qi] : 0.f;
-    qy[k] = active ? q[3 * qi + 1] : 0.f;
-    qz[k] = active ? q[3 * qi + 2] : 0.f;
-#pragma unroll
-    for (int g = 0; g < kGroup; ++g) num[k][g] = den[k][g] = 0.f;
+  for (int o = 16; o > 0; o >>= 1) {
+    b.lx = fminf(b.lx, __shfl_xor_sync(kAll, b.lx, o));
+    b.ly = fminf(b.ly, __shfl_xor_sync(kAll, b.ly, o));
+    b.lz = fminf(b.lz, __shfl_xor_sync(kAll, b.lz, o));
+    b.hx = fmaxf(b.hx, __shfl_xor_sync(kAll, b.hx, o));
+    b.hy = fmaxf(b.hy, __shfl_xor_sync(kAll, b.hy, o));
+    b.hz = fmaxf(b.hz, __shfl_xor_sync(kAll, b.hz, o));
   }
+  return b;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// tile t (its points, and its box) into stage `st`, one float4 a lane
+__device__ __forceinline__ void issue(Stage& st, const float4* __restrict__ pts,
+                                      const float4* __restrict__ boxes, int t,
+                                      int lane) {
+  cp_async16(&st.pt[lane], pts + static_cast<long long>(t) * kT + lane);
+  if (lane < 2) cp_async16(lane == 0 ? &st.lo : &st.hi, boxes + 2LL * t + lane);
+}
+
+// The warp's ring: next() gives the next tile to visit (warp-uniform, -1
+// when none is left), consume(stage) computes on a tile that has arrived.
+// While the warp computes on one tile, kStages - 1 more are in flight.
+// Every lane commits one copy group a step, empty or not, so wait_group
+// kStages - 1 finds the oldest tile in.
+template <class Next, class Consume>
+__device__ __forceinline__ void sweep(Stage* ring, const float4* __restrict__ pts,
+                                      const float4* __restrict__ boxes, int lane,
+                                      Next next, Consume consume) {
+  int issued = 0;
+#pragma unroll 1
+  for (int s = 0; s < kStages - 1; ++s) {
+    const int t = next();
+    if (t >= 0) issue(ring[issued++ & (kStages - 1)], pts, boxes, t, lane);
+    cp_async_commit();
+  }
+  for (int done = 0; done < issued; ++done) {
+    const int t = next();
+    if (t >= 0) issue(ring[issued++ & (kStages - 1)], pts, boxes, t, lane);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    consume(ring[done & (kStages - 1)]);
+    __syncwarp();  // the stage is refilled next
+  }
+}
+
+// ---- the pre-pass ----
+
+__global__ void __launch_bounds__(kThreads)
+pack_kernel(const float* __restrict__ p, const float* __restrict__ vals,
+            const unsigned char* __restrict__ mask, int np, int ntiles,
+            float4* __restrict__ pts, float4* __restrict__ boxes) {
+  const int tile = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (tile >= ntiles) return;  // the whole warp
+  const int lane = threadIdx.x % 32;
+  const long long g = static_cast<long long>(tile) * kT + lane;
+  const bool in = g < np;
+  const bool valid = in && (mask == nullptr || mask[g] != 0);
   const float nan = __int_as_float(0x7fc00000);
-  for (int t0 = p_begin; t0 < p_end; t0 += kTile) {
-    const int n = min(kTile, p_end - t0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int j = threadIdx.x; j < n; j += kThreads) {
-      const long long g = t0 + j;
-      const bool off = p_mask != nullptr && p_mask[g] == 0;
-      tile[j] = make_float4(off ? nan : p[3 * g], p[3 * g + 1], p[3 * g + 2],
-                            vals[g]);
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float4 t = tile[j];
+  const float inf = __int_as_float(0x7f800000);
+  float x = 0.f, y = 0.f, z = 0.f;
+  if (in) {
+    x = p[3 * g];
+    y = p[3 * g + 1];
+    z = p[3 * g + 2];
+  }
+  pts[g] = make_float4(valid ? x : nan, y, z, in && vals != nullptr ? vals[g] : 0.f);
+  Box b{valid ? x : inf, valid ? y : inf, valid ? z : inf,
+        valid ? x : -inf, valid ? y : -inf, valid ? z : -inf};
+  int first_masked = in && !valid ? static_cast<int>(g) : INT_MAX;
 #pragma unroll
-      for (int k = 0; k < kPerThread; ++k) {
-        const float d2 = sq_dist(qx[k], qy[k], qz[k], t);
-        if (d2 <= r2_bound) {  // false for NaN: a masked point
-          const float neg = -d2;
+  for (int o = 16; o > 0; o >>= 1) {
+    b.lx = fminf(b.lx, __shfl_xor_sync(kAll, b.lx, o));
+    b.ly = fminf(b.ly, __shfl_xor_sync(kAll, b.ly, o));
+    b.lz = fminf(b.lz, __shfl_xor_sync(kAll, b.lz, o));
+    b.hx = fmaxf(b.hx, __shfl_xor_sync(kAll, b.hx, o));
+    b.hy = fmaxf(b.hy, __shfl_xor_sync(kAll, b.hy, o));
+    b.hz = fmaxf(b.hz, __shfl_xor_sync(kAll, b.hz, o));
+    first_masked = min(first_masked, __shfl_xor_sync(kAll, first_masked, o));
+  }
+  if (lane == 0) {
+    boxes[2 * tile] = make_float4(b.lx, b.ly, b.lz, __int_as_float(first_masked));
+    boxes[2 * tile + 1] = make_float4(b.hx, b.hy, b.hz, __int_as_float(tile * kT));
+  }
+}
+
+// ---- kernel C ----
+
+// G lanes share a query, lane g of them the points j = g (mod G) of each
+// tile, with all the sigmas of the launch's group (blockIdx.y) in registers;
+// their sums are added at the end in a fixed tree order.
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+scale_space_kernel(const float4* __restrict__ pts, const float4* __restrict__ boxes,
+                   int ntiles, const float* __restrict__ q, int nq,
+                   const Recips recips, int n_sigma, float r2_bound,
+                   float* __restrict__ out) {
+  constexpr int kPerWarp = 32 / G, kMine = kT / G;
+  __shared__ Stage ring[kWarps][kStages];
+  __shared__ float4 queries[kWarps][kPerWarp];  // the warp's queries; w = 1 if active
+  __shared__ float recip_sh[kMaxSigma];
+  if (threadIdx.x == 0) {
 #pragma unroll
-          for (int g = 0; g < kGroup; ++g) {
-            if (g < ng) {
-              const float w = expf(__fdiv_rn(neg, denom[g]));
-              num[k][g] = __fadd_rn(num[k][g], __fmul_rn(w, t.w));
-              den[k][g] = __fadd_rn(den[k][g], w);
-            }
+    for (int s = 0; s < kMaxSigma; ++s) recip_sh[s] = recips.v[s];
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int slot = lane / G, g = lane % G;
+  const long long qi =
+      (static_cast<long long>(blockIdx.x) * kWarps + warp) * kPerWarp + slot;
+  const bool active = qi < nq;
+  const float nan = __int_as_float(0x7fc00000);
+  const float qx = active ? q[3 * qi] : nan;  // NaN: nothing is within the bound
+  const float qy = active ? q[3 * qi + 1] : nan;
+  const float qz = active ? q[3 * qi + 2] : nan;
+  const int s0 = blockIdx.y * kSigLane;
+  const int mine = min(kSigLane, n_sigma - s0);
+  float recip[kSigLane], num[kSigLane], den[kSigLane];
+#pragma unroll
+  for (int i = 0; i < kSigLane; ++i) {
+    recip[i] = i < mine ? recip_sh[s0 + i] : 0.f;
+    num[i] = den[i] = 0.f;
+  }
+  const Box qb = warp_box(active, qx, qy, qz);
+  if (!(qb.lx <= qb.hx)) return;  // no query in this warp
+  float4* const table = queries[warp];
+  if (g == 0) table[slot] = make_float4(qx, qy, qz, active ? 1.f : 0.f);
+  __syncwarp();
+
+  // tiles in index order, so each lane sums its points in index order. A
+  // chunk of 32 tiles, one a lane: the box test against the warp's query
+  // box, then, where it passes, the lane's tile against each query.
+  int pos = 0, base = 0;
+  unsigned keep = 0;
+  auto next = [&]() -> int {
+    while (keep == 0) {
+      if (pos >= ntiles) return -1;
+      const int t = pos + lane;
+      bool reach = false;
+      if (t < ntiles) {
+        const float4 lo = boxes[2LL * t], hi = boxes[2LL * t + 1];
+        if (boxes_bound(qb, lo, hi) <= r2_bound) {
+          for (int k = 0; k < kPerWarp && !reach; ++k) {
+            const float4 e = table[k];
+            reach = e.w != 0.f && box_bound(e.x, e.y, e.z, lo, hi) <= r2_bound;
           }
         }
       }
+      keep = __ballot_sync(kAll, reach);
+      base = pos;
+      pos += 32;
     }
-  }
+    const int b = __ffs(static_cast<int>(keep)) - 1;
+    keep &= keep - 1;
+    return base + b;
+  };
+  // this lane's points within the bound first, all at once (no branch),
+  // then each of them in index order
+  auto consume = [&](const Stage& st) {
+    unsigned in = 0;
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int qi = base + k * kThreads;
-    if (qi >= nq) continue;
+    for (int i = 0; i < kMine; ++i) {
+      const float4 t = st.pt[g + i * G];
+      // false for NaN: a masked point, or an idle lane
+      in |= static_cast<unsigned>(sq_dist(qx, qy, qz, t.x, t.y, t.z) <= r2_bound) << i;
+    }
+    while (in != 0) {
+      const int i = __ffs(static_cast<int>(in)) - 1;
+      in &= in - 1;
+      const float4 t = st.pt[g + i * G];
+      const float neg = -sq_dist(qx, qy, qz, t.x, t.y, t.z);
 #pragma unroll
-    for (int g = 0; g < kGroup; ++g) {
-      if (g < ng) {
-        const long long at =
-            (static_cast<long long>(split) * n_sigma + g0 + g) * nq + qi;
-        part_num[at] = num[k][g];
-        part_den[at] = den[k][g];
+      for (int s = 0; s < kSigLane; ++s) {
+        if (s < mine) {
+          const float w = expf(__fmul_rn(neg, recip[s]));
+          num[s] = __fadd_rn(num[s], __fmul_rn(w, t.w));
+          den[s] = __fadd_rn(den[s], w);
+        }
       }
     }
+  };
+  sweep(ring[warp], pts, boxes, lane, next, consume);
+  // the G partial sums, in a tree every lane of the query computes alike
+#pragma unroll
+  for (int o = 1; o < G; o <<= 1) {
+#pragma unroll
+    for (int s = 0; s < kSigLane; ++s) {
+      num[s] = __fadd_rn(num[s], __shfl_xor_sync(kAll, num[s], o));
+      den[s] = __fadd_rn(den[s], __shfl_xor_sync(kAll, den[s], o));
+    }
   }
-}
-
-__global__ void __launch_bounds__(kReduceThreads)
-scale_space_reduce_kernel(int nq, int n_sigma, int splits,
-                          const float* __restrict__ part_num,
-                          const float* __restrict__ part_den,
-                          float* __restrict__ out) {
-  const int qi = blockIdx.x * kReduceThreads + threadIdx.x;
-  if (qi >= nq) return;
-  const int s = blockIdx.y;
-  float num = part_num[static_cast<long long>(s) * nq + qi];
-  float den = part_den[static_cast<long long>(s) * nq + qi];
-  for (int sp = 1; sp < splits; ++sp) {  // in split order
-    const long long at = (static_cast<long long>(sp) * n_sigma + s) * nq + qi;
-    num = __fadd_rn(num, part_num[at]);
-    den = __fadd_rn(den, part_den[at]);
+  if (!active || g != 0) return;
+#pragma unroll
+  for (int s = 0; s < kSigLane; ++s) {
+    if (s < mine) {
+      out[static_cast<long long>(s0 + s) * nq + qi] =
+          __fdiv_rn(num[s], fmaxf(den[s], 1e-12f));
+    }
   }
-  out[static_cast<long long>(s) * nq + qi] = __fdiv_rn(num, fmaxf(den, 1e-12f));
 }
 
 // ---- kernel D ----
-constexpr int kK = 26;  // list length: the 25-NN plus the point itself
 
-// (d, j) into a list sorted by (d2, index) whose indices are all below j
-// (the caller has checked d < dist[kK - 1]): it goes after every entry with
-// d2 <= d, and the entries after it move down one slot. Each slot reads the
-// old values of itself and its predecessor, so the slots are written from
-// the last to the first.
-__device__ __forceinline__ void insert(float (&dist)[kK], int (&idx)[kK],
-                                       float d, int j) {
+// (da, ia) before (db, ib) in the lists' order: by d2, then by index
+__device__ __forceinline__ bool before(float da, int ia, float db, int ib) {
+  return da < db || (da == db && ia < ib);
+}
+
+// (d, j) into a list sorted by (d2, index) (the caller has checked that it
+// comes before the last entry): it goes after every entry before it, and
+// the entries after it move down one slot. Each slot reads the old values of
+// itself and its predecessor, so the slots are written from the last to the
+// first.
+__device__ __forceinline__ void insert(float (&dist)[kK], int (&idx)[kK], float d,
+                                       int j) {
 #pragma unroll
   for (int i = kK - 1; i > 0; --i) {
-    const bool shift = dist[i - 1] > d;
-    const bool here = !shift && dist[i] > d;
+    const bool shift = before(d, j, dist[i - 1], idx[i - 1]);
+    const bool here = !shift && before(d, j, dist[i], idx[i]);
     dist[i] = shift ? dist[i - 1] : (here ? d : dist[i]);
     idx[i] = shift ? idx[i - 1] : (here ? j : idx[i]);
   }
-  if (dist[0] > d) {
+  if (before(d, j, dist[0], idx[0])) {
     dist[0] = d;
     idx[0] = j;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-knn_split_kernel(const float* __restrict__ q, int nq,
-                 const float* __restrict__ p,
-                 const unsigned char* __restrict__ p_mask, int np,
-                 int split_len, float* __restrict__ part_d2,
-                 int* __restrict__ part_idx) {
-  __shared__ float4 tile[kTile];
-  const int split = blockIdx.y;
-  const int p_begin = split * split_len;
-  const int p_end = min(np, p_begin + split_len);
-  const long long qi = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-  const bool active = qi < nq;
-  const float qx = active ? q[3 * qi] : 0.f;
-  const float qy = active ? q[3 * qi + 1] : 0.f;
-  const float qz = active ? q[3 * qi + 2] : 0.f;
-  float dist[kK];
-  int idx[kK];
+// whether a point of the tile [lo, hi] may come before (d26, i26): a valid
+// one within the box bound, or its first masked one at BIG
+__device__ __forceinline__ bool reaches(float qx, float qy, float qz, float4 lo,
+                                        float4 hi, float d26, int i26) {
+  const int first_masked = __float_as_int(lo.w);
+  return box_bound(qx, qy, qz, lo, hi) <= d26 ||
+         (first_masked != INT_MAX && before(kBig, first_masked, d26, i26));
+}
+
+// G lanes share a query, lane g of them the points j = g (mod G) of each
+// tile, each with its own list; the query's bound is the largest, in the
+// lists' order, of their ceil(26 / G)-th entries: the union of the G lists'
+// first ceil(26 / G) entries holds 26 points no later than it, so no point
+// after it is among the query's 26 (for G = 1, the 26th itself). At the end
+// the G lists are merged, every lane of the query alike.
+template <int G>
+__device__ __forceinline__ void group_bound(const float (&dist)[kK], const int (&idx)[kK],
+                                            float& d, int& i) {
+  constexpr int m = (kK + G - 1) / G;
+  d = dist[m - 1];
+  i = idx[m - 1];
 #pragma unroll
-  for (int i = 0; i < kK; ++i) {
-    dist[i] = __int_as_float(0x7f800000);  // +inf: filled by the first kK
-    idx[i] = -1;
-  }
-  for (int t0 = p_begin; t0 < p_end; t0 += kTile) {
-    const int n = min(kTile, p_end - t0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int j = threadIdx.x; j < n; j += kThreads) {
-      const long long g = t0 + j;
-      const bool off = p_mask != nullptr && p_mask[g] == 0;
-      tile[j] = make_float4(p[3 * g], p[3 * g + 1], p[3 * g + 2], off ? 1.f : 0.f);
+  for (int o = 1; o < G; o <<= 1) {
+    const float od = __shfl_xor_sync(kAll, d, o);
+    const int oi = __shfl_xor_sync(kAll, i, o);
+    if (before(d, i, od, oi)) {
+      d = od;
+      i = oi;
     }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float4 t = tile[j];
-      float d2 = sq_dist(qx, qy, qz, t);
-      d2 = t.w != 0.f ? kBig : d2;  // a masked target: BIG, not added
-      if (d2 < dist[kK - 1]) insert(dist, idx, d2, t0 + j);
-    }
-  }
-  if (!active) return;
-#pragma unroll
-  for (int i = 0; i < kK; ++i) {
-    const long long at = (static_cast<long long>(split) * kK + i) * nq + qi;
-    part_d2[at] = dist[i];
-    part_idx[at] = idx[i];
   }
 }
 
+template <int G>
 __global__ void __launch_bounds__(kThreads)
-knn_merge_kernel(int nq, int splits, int k, float r2,
-                 const float* __restrict__ part_d2,
-                 const int* __restrict__ part_idx, int* __restrict__ idx_out,
-                 unsigned char* __restrict__ valid_out) {
-  const long long qi = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-  if (qi >= nq) return;
+knn_kernel(const float4* __restrict__ pts, const float4* __restrict__ boxes,
+           int ntiles, const float* __restrict__ q, int nq, int np, int k, float r2,
+           int* __restrict__ idx_out, unsigned char* __restrict__ valid_out) {
+  constexpr int kPerWarp = 32 / G, kMine = kT / G;
+  __shared__ Stage ring[kWarps][kStages];
+  __shared__ float4 queries[kWarps][kPerWarp];  // the queries, w: their bound's d2
+  __shared__ int bound_idx[kWarps][kPerWarp];   // and its index
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int slot = lane / G, g = lane % G;
+  const long long q0 = (static_cast<long long>(blockIdx.x) * kWarps + warp) * kPerWarp;
+  if (q0 >= nq) return;  // the whole warp
+  const long long qi = q0 + slot;
+  const bool active = qi < nq;
+  const float nan = __int_as_float(0x7fc00000);
+  const float inf = __int_as_float(0x7f800000);
+  const float qx = active ? q[3 * qi] : nan;
+  const float qy = active ? q[3 * qi + 1] : nan;
+  const float qz = active ? q[3 * qi + 2] : nan;
   float dist[kK];
   int idx[kK];
 #pragma unroll
   for (int i = 0; i < kK; ++i) {
-    dist[i] = part_d2[i * nq + qi];
-    idx[i] = part_idx[i * nq + qi];
+    dist[i] = inf;  // filled by the first kK
+    idx[i] = INT_MAX;
   }
-  // a later split's entries all have higher indices than the list's, and
-  // come sorted: the first that does not enter ends that split
-  for (int sp = 1; sp < splits; ++sp) {
-    for (int i = 0; i < kK; ++i) {
-      const long long at = (static_cast<long long>(sp) * kK + i) * nq + qi;
-      const float d = part_d2[at];
-      if (!(d < dist[kK - 1])) break;
-      insert(dist, idx, d, part_idx[at]);
+  const Box qb = warp_box(active, qx, qy, qz);
+  Stage* const my = ring[warp];
+  float4* const table = queries[warp];
+  int* const table_idx = bound_idx[warp];
+
+  // this lane's candidates all at once against the query's bound as it is
+  // (no branch; the bound only falls, so no point that enters is missed),
+  // then each of them in index order against the lane's list as it is then
+  auto consume = [&](const Stage& st) {
+    const int t0 = __float_as_int(st.hi.w);
+    const int n = min(kT, np - t0);
+    float bd;
+    int bi;
+    group_bound<G>(dist, idx, bd, bi);
+    unsigned cand = 0;
+#pragma unroll
+    for (int i = 0; i < kMine; ++i) {
+      const int j = g + i * G;
+      const float4 t = st.pt[j];
+      const float d2 = isnan(t.x) ? kBig : sq_dist(qx, qy, qz, t.x, t.y, t.z);
+      cand |= static_cast<unsigned>(j < n && before(d2, t0 + j, bd, bi)) << i;
+    }
+    while (cand != 0) {
+      const int i = __ffs(static_cast<int>(cand)) - 1;
+      cand &= cand - 1;
+      const int j = g + i * G;
+      const float4 t = st.pt[j];
+      // a masked target: BIG
+      const float d2 = isnan(t.x) ? kBig : sq_dist(qx, qy, qz, t.x, t.y, t.z);
+      if (before(d2, t0 + j, dist[kK - 1], idx[kK - 1])) insert(dist, idx, d2, t0 + j);
+    }
+  };
+
+  // first the warp's own tile and its two neighbours in index order (where
+  // its queries lie among the points when the queries are the points, as in
+  // SIFT: in voxel order, their neighbourhood), together and at once, so
+  // the lists hold near points before the first scan
+  const int own = static_cast<int>(
+      min(static_cast<long long>(ntiles - 1), q0 * np / nq / kT));
+  const int w_lo = max(0, own - 1), w_hi = min(ntiles - 1, own + 1);
+  for (int t = w_lo; t <= w_hi; ++t) issue(my[t - w_lo], pts, boxes, t, lane);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+  consume(my[own - w_lo]);
+  for (int t = w_lo; t <= w_hi; ++t) {
+    if (t != own) consume(my[t - w_lo]);
+  }
+  __syncwarp();
+
+  // then every other tile in index order: position p is tile p below the
+  // window, p + its width above it. A chunk of 32 tiles, one a lane: the
+  // box test against the warp's query box and loosest bound, then, where it
+  // passes, the lane's tile against each query's bound
+  const int width = w_hi - w_lo + 1;
+  int pos = 0;
+  unsigned keep = 0;
+  int chunk_tile = 0;  // this lane's tile of the scanned chunk
+  auto next = [&]() -> int {
+    while (keep == 0) {
+      if (pos >= ntiles - width) return -1;
+      float bd;
+      int bi;
+      group_bound<G>(dist, idx, bd, bi);
+      if (g == 0) {
+        table[slot] = make_float4(qx, qy, qz, active ? bd : -inf);
+        table_idx[slot] = bi;
+      }
+      float worst = active ? bd : -inf;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        worst = fmaxf(worst, __shfl_xor_sync(kAll, worst, o));
+      }
+      __syncwarp();
+      const int p = pos + lane;
+      chunk_tile = p < w_lo ? p : p + width;
+      bool reach = false;
+      if (p < ntiles - width) {
+        const float4 lo = boxes[2LL * chunk_tile], hi = boxes[2LL * chunk_tile + 1];
+        if (boxes_bound(qb, lo, hi) <= worst ||
+            (__float_as_int(lo.w) != INT_MAX && kBig <= worst)) {
+          for (int j = 0; j < kPerWarp && !reach; ++j) {
+            const float4 e = table[j];
+            reach = reaches(e.x, e.y, e.z, lo, hi, e.w, table_idx[j]);
+          }
+        }
+      }
+      keep = __ballot_sync(kAll, reach);
+      pos += 32;
+      __syncwarp();  // the table is written again at the next scan
+    }
+    const int b = __ffs(static_cast<int>(keep)) - 1;
+    keep &= keep - 1;
+    return __shfl_sync(kAll, chunk_tile, b);
+  };
+  sweep(my, pts, boxes, lane, next, [&](const Stage& st) {
+    // again, against the bounds as they are when the tile arrives
+    float bd;
+    int bi;
+    group_bound<G>(dist, idx, bd, bi);
+    if (__any_sync(kAll, active && reaches(qx, qy, qz, st.lo, st.hi, bd, bi))) {
+      consume(st);
+    }
+  });
+
+  // the G lists of a query merged in a tree, a partner's list (as it was
+  // before this round, through shared memory) into each lane's: lists of
+  // disjoint points, so each round leaves both partners the first 26 of
+  // their union, and the last round every lane of the query its 26
+  if constexpr (G > 1) {
+    __shared__ int2 exchange[kWarps][kK][32];
+    int2 (&x)[kK][32] = exchange[warp];
+#pragma unroll
+    for (int o = 1; o < G; o <<= 1) {
+#pragma unroll
+      for (int i = 0; i < kK; ++i) x[i][lane] = make_int2(__float_as_int(dist[i]), idx[i]);
+      __syncwarp();
+      for (int i = 0; i < kK; ++i) {
+        const int2 e = x[i][lane ^ o];
+        const float d = __int_as_float(e.x);
+        if (!before(d, e.y, dist[kK - 1], idx[kK - 1])) break;  // and all after it
+        insert(dist, idx, d, e.y);
+      }
+      __syncwarp();
     }
   }
+  if (!active || g != 0) return;
 #pragma unroll
   for (int i = 0; i < kK; ++i) {
     if (i < k) {
@@ -276,55 +593,95 @@ knn_merge_kernel(int nq, int splits, int k, float r2,
 
 }  // namespace
 
-// q (nq, 3), p (np, 3) f32, centred alike; vals (np,) f32; p_mask (np,)
-// bool or null; two_s2 (n_sigma,) f32 on the card; part_num, part_den
-// (splits, n_sigma, nq) scratch; out (n_sigma, nq) f32. Returns
-// cudaGetLastError() after the two launches.
-extern "C" int mm_sift_scale_space(const float* q, int nq, const float* p,
-                                   const float* vals,
-                                   const unsigned char* p_mask, int np,
-                                   const float* two_s2, int n_sigma,
-                                   float r2_bound, int splits, float* part_num,
-                                   float* part_den, float* out, void* stream) {
-  const int groups = (n_sigma + kGroup - 1) / kGroup;
-  if (splits < 1 || splits > 65535 || n_sigma < 1 || n_sigma > 65535 ||
-      groups > 65535 || nq < 1 || np < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int split_len = (np + splits - 1) / splits;
-  const dim3 grid((nq + kQueries - 1) / kQueries, splits, groups);
-  scale_space_split_kernel<<<grid, kThreads, 0, s>>>(
-      q, nq, p, vals, p_mask, np, two_s2, n_sigma, r2_bound, split_len,
-      part_num, part_den);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 reduce_grid((nq + kReduceThreads - 1) / kReduceThreads, n_sigma);
-  scale_space_reduce_kernel<<<reduce_grid, kReduceThreads, 0, s>>>(
-      nq, n_sigma, splits, part_num, part_den, out);
+// p (np, 3) f32; vals (np,) f32 or null (0); mask (np,) bool or null (all
+// valid); pts (ceil(np / 32) * 32, 4) f32 and boxes (ceil(np / 32), 2, 4)
+// f32 written. Returns cudaGetLastError() after the launch.
+extern "C" int mm_sift_pack(const float* p, const float* vals,
+                            const unsigned char* mask, int np, float* pts,
+                            float* boxes, void* stream) {
+  if (np < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int ntiles = (np + kT - 1) / kT;
+  pack_kernel<<<(ntiles + kWarps - 1) / kWarps, kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      p, vals, mask, np, ntiles, reinterpret_cast<float4*>(pts),
+      reinterpret_cast<float4*>(boxes));
   return static_cast<int>(cudaGetLastError());
 }
 
-// q (nq, 3), p (np, 3) f32, centred alike; p_mask (np,) bool or null;
-// 1 <= k <= 26; part_d2, part_idx (splits, 26, nq) scratch; idx_out (nq, k)
-// i32, valid_out (nq, k) bool. Returns cudaGetLastError() after the two
-// launches.
-extern "C" int mm_sift_knn(const float* q, int nq, const float* p,
-                           const unsigned char* p_mask, int np, int k, float r2,
-                           int splits, float* part_d2, int* part_idx,
-                           int* idx_out, unsigned char* valid_out,
-                           void* stream) {
-  if (splits < 1 || splits > 65535 || k < 1 || k > kK || k > np || nq < 1) {
+// pts, boxes from mm_sift_pack of the np centred points (values in w); q
+// (nq, 3) f32 centred alike; recips (n_sigma <= 64,) f32 in host memory,
+// the reciprocals of 2 s^2, passed by value; lanes_per_query 1, 2, 4 or 8;
+// out (n_sigma, nq) f32. Returns cudaGetLastError() after the launch.
+extern "C" int mm_sift_scale_space(const float* pts, const float* boxes, int np,
+                                   const float* q, int nq, const float* recips,
+                                   int n_sigma, int lanes_per_query,
+                                   float r2_bound, float* out, void* stream) {
+  const int g = lanes_per_query;
+  if (n_sigma < 1 || n_sigma > kMaxSigma || (g != 1 && g != 2 && g != 4 && g != 8) ||
+      nq < 1 || np < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int split_len = (np + splits - 1) / splits;
-  const dim3 grid((nq + kThreads - 1) / kThreads, splits);
-  knn_split_kernel<<<grid, kThreads, 0, s>>>(q, nq, p, p_mask, np, split_len,
-                                             part_d2, part_idx);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  knn_merge_kernel<<<(nq + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      nq, splits, k, r2, part_d2, part_idx, idx_out, valid_out);
+  Recips r{};
+  for (int s = 0; s < n_sigma; ++s) r.v[s] = recips[s];
+  const long long per_block = 32LL / g * kWarps;
+  const dim3 grid(static_cast<unsigned>((nq + per_block - 1) / per_block),
+                  (n_sigma + kSigLane - 1) / kSigLane);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* p4 = reinterpret_cast<const float4*>(pts);
+  const auto* b4 = reinterpret_cast<const float4*>(boxes);
+  const int ntiles = (np + kT - 1) / kT;
+  switch (g) {
+    case 1:
+      scale_space_kernel<1><<<grid, kThreads, 0, st>>>(p4, b4, ntiles, q, nq, r, n_sigma,
+                                                         r2_bound, out);
+      break;
+    case 2:
+      scale_space_kernel<2><<<grid, kThreads, 0, st>>>(p4, b4, ntiles, q, nq, r, n_sigma,
+                                                         r2_bound, out);
+      break;
+    case 4:
+      scale_space_kernel<4><<<grid, kThreads, 0, st>>>(p4, b4, ntiles, q, nq, r, n_sigma,
+                                                         r2_bound, out);
+      break;
+    default:
+      scale_space_kernel<8><<<grid, kThreads, 0, st>>>(p4, b4, ntiles, q, nq, r, n_sigma,
+                                                         r2_bound, out);
+      break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pts, boxes from mm_sift_pack of the np centred targets and their mask; q
+// (nq, 3) f32 centred alike; 1 <= k <= min(26, np); lanes_per_query 1, 2
+// or 4; idx_out (nq, k) i32, valid_out (nq, k) bool. Returns
+// cudaGetLastError() after the launch.
+extern "C" int mm_sift_knn(const float* pts, const float* boxes, int np,
+                           const float* q, int nq, int k, float r2,
+                           int lanes_per_query, int* idx_out,
+                           unsigned char* valid_out, void* stream) {
+  const int g = lanes_per_query;
+  if (k < 1 || k > kK || k > np || nq < 1 || (g != 1 && g != 2 && g != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long per_block = 32LL / g * kWarps;
+  const unsigned blocks = static_cast<unsigned>((nq + per_block - 1) / per_block);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* p4 = reinterpret_cast<const float4*>(pts);
+  const auto* b4 = reinterpret_cast<const float4*>(boxes);
+  const int ntiles = (np + kT - 1) / kT;
+  switch (g) {
+    case 1:
+      knn_kernel<1><<<blocks, kThreads, 0, st>>>(p4, b4, ntiles, q, nq, np, k, r2, idx_out,
+                                                  valid_out);
+      break;
+    case 2:
+      knn_kernel<2><<<blocks, kThreads, 0, st>>>(p4, b4, ntiles, q, nq, np, k, r2, idx_out,
+                                                  valid_out);
+      break;
+    default:
+      knn_kernel<4><<<blocks, kThreads, 0, st>>>(p4, b4, ntiles, q, nq, np, k, r2, idx_out,
+                                                  valid_out);
+      break;
+  }
   return static_cast<int>(cudaGetLastError());
 }

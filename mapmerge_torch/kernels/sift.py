@@ -7,26 +7,37 @@ mapmerge_tpu/ops/keypoints/sift.py `_scale_space`). Kernel D, `knn`: the
 26 nearest neighbours of the extremum test, by (d2, index) with masked
 targets at d2 = BIG (the dense `radius_neighbors` that the reference's
 sift.py calls with k = 26). Neither is a TPU kernel: the JAX package leaves
-both to XLA.
+both to XLA. Each first runs the pre-pass `pack` on its points: float4
+(x, y, z, value) with x = NaN where masked, and the box of each tile of
+TILE consecutive points, by which C and D skip, exactly, the tiles no query
+of a warp can reach (`tile_bound` is the plain version of that bound).
 
 Both take coordinates centred on the valid mean (ops/neighbors._center)
 and compute d2 as `ops/neighbors.sq_dists` does, bit for bit.
 
 - `scale_space` agrees with `scale_space_ref` to rounding: the kernel
-  divides by 2 s^2 and sums in point order, the plain version's exp, product
-  and matrix-vector product round and sum otherwise on each device. A
-  point's inclusion (d2 <= r2_bound, valid) is the same bits on both. The
-  tolerance held on the card is SCALE_SPACE_RTOL of the field's largest
-  magnitude.
+  multiplies by the float32 reciprocal of 2 s^2 and sums in point order in
+  the parts its lanes take (_lanes_per_query), the plain version's exp,
+  product and matrix-vector product round and sum otherwise on each
+  device. A point's inclusion (d2 <= r2_bound, valid) is the same bits on
+  both. The tolerance held on the card is SCALE_SPACE_RTOL of the field's
+  largest magnitude.
 - `knn` equals `knn_ref` exactly: the k smallest (d2, index) pairs are
   unique, and both break ties by the lower index, as lax.top_k does.
+- `pack` equals `pack_ref`: the same values, NaN where NaN, the int bits
+  of its fourth column exactly.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. The plain versions serve CPU tensors and the checks of the kernels.
+raises. The wrappers copy nothing to the card and never synchronise: the
+reciprocals of 2 s^2 go to the kernel by value. The plain versions serve
+CPU tensors and the checks of the kernels.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from mapmerge_torch.kernels import build
@@ -34,19 +45,28 @@ from mapmerge_torch.ops.neighbors import BIG, sq_dists, tiled_query
 
 #: the kernel's scale space against its plain version, on the card: the
 #: largest difference within this share of the field's largest magnitude
-#: (float32 rounding of exp, the division and the sums' order)
+#: (float32 rounding of exp, the reciprocal and the sums' order)
 SCALE_SPACE_RTOL = 1e-5
 #: the longest neighbour list kernel D keeps (csrc/sift.cu: kK)
 MAX_K = 26
-#: blocks the point splits aim at: the splits depend on Q and P alone, so
-#: the kernels' bits do not depend on the card's SM count
-_TARGET_BLOCKS = 2048
-#: fewest points per split
-_MIN_SPLIT = 256
-#: queries per block (csrc/sift.cu: kQueries for C, kThreads for D)
-_C_BLOCK_QUERIES = 512
-_D_BLOCK_QUERIES = 128
+#: points a tile of the pre-pass (csrc/sift.cu: kT)
+TILE = 32
+#: the most sigmas kernel C takes in a launch (csrc/sift.cu: kMaxSigma)
+MAX_SIGMAS = 64
+#: kernels C and D: the most lanes that share a query (csrc/sift.cu), and
+#: the warps each aims at (_lanes_per_query); on one H100 at config #1's,
+#: config #4's, config5's and config5_big's octaves C ran fastest with 8
+#: lanes a query everywhere, D with 4 up to 32,768 queries and 2 at 58,254
+#: (PERF.md, section 6)
+_C_LANES, _D_LANES = (8, 8192), (4, 3500)
+#: a tile holding no masked point: its first masked index (csrc/sift.cu)
+_NO_MASKED = 2**31 - 1
 
+PACK_KERNEL = build.Kernel(
+    name="sift_pack",
+    source="mapmerge_torch/csrc/sift.cu",
+    replaces="mapmerge_tpu/ops/keypoints/sift.py:59",
+)
 SCALE_SPACE_KERNEL = build.Kernel(
     name="sift_scale_space",
     source="mapmerge_torch/csrc/sift.cu",
@@ -57,6 +77,39 @@ KNN_KERNEL = build.Kernel(
     source="mapmerge_torch/csrc/sift.cu",
     replaces="mapmerge_tpu/ops/neighbors.py:151",
 )
+
+
+def pack(
+    p: torch.Tensor, vals: torch.Tensor | None, mask: torch.Tensor | None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pre-pass of kernels C and D: (pts (n_tiles * TILE, 4), boxes
+    (n_tiles, 2, 4)) float32, as pack_ref defines them. A CPU tensor takes
+    pack_ref; a CUDA tensor launches the kernel or raises."""
+    if p.device.type == "cpu":
+        return pack_ref(p, vals, mask)
+    kernel = PACK_KERNEL
+    dev = _cuda(kernel, p)
+    np_ = p.shape[0]
+    build.require("p", p, torch.float32, (None, 3), dev)
+    if vals is not None:
+        build.require("vals", vals, torch.float32, (np_,), dev)
+    if mask is not None:
+        build.require("mask", mask, torch.bool, (np_,), dev)
+    if not 1 <= np_ < 2**31 // 4 - TILE:
+        raise ValueError(f"{kernel.name}: unsupported size P={np_}")
+    n_tiles = -(-np_ // TILE)
+    pts = torch.empty((n_tiles * TILE, 4), dtype=torch.float32, device=dev)
+    boxes = torch.empty((n_tiles, 2, 4), dtype=torch.float32, device=dev)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = lib.mm_sift_pack(
+            p.data_ptr(), None if vals is None else vals.data_ptr(),
+            None if mask is None else mask.data_ptr(), np_, pts.data_ptr(),
+            boxes.data_ptr(), build.stream_handle(dev),
+        )
+    kernel.launched()
+    build.check_launch(kernel, err)
+    return pts, boxes
 
 
 def scale_space(
@@ -74,32 +127,26 @@ def scale_space(
     mask (P,) bool. Each query's weights exp(-d2 / (2 s^2)) over the valid
     points with d2 <= r2_bound; out = sum(w * val) / max(sum(w), 1e-12). A
     CPU tensor takes the plain version (in query tiles of `tile`); a CUDA
-    tensor launches the kernel or raises."""
+    tensor launches the pre-pass and the kernel or raises."""
     if qc.device.type == "cpu":
         return scale_space_ref(qc, pc, vals, mask, sigmas, r2_bound, tile)
     kernel = SCALE_SPACE_KERNEL
     dev = _cuda(kernel, qc)
     nq, np_, ns = qc.shape[0], pc.shape[0], len(sigmas)
     build.require("qc", qc, torch.float32, (None, 3), dev)
-    build.require("pc", pc, torch.float32, (None, 3), dev)
-    build.require("vals", vals, torch.float32, (np_,), dev)
-    build.require("mask", mask, torch.bool, (np_,), dev)
-    if np_ == 0 or not 1 <= ns <= 65535 or max(nq, np_) >= 2**31 // 3:
+    if np_ == 0 or not 1 <= ns <= MAX_SIGMAS or nq >= 2**31 // 3:
         raise ValueError(f"{kernel.name}: unsupported sizes Q={nq} P={np_} S={ns}")
     out = torch.empty((ns, nq), dtype=torch.float32, device=dev)
     if nq == 0:
         return out
-    # the float32 value of 2 s^2 that `-d2 / (2.0 * s * s)` divides by
-    two_s2 = torch.tensor([2.0 * s * s for s in sigmas], dtype=torch.float32).to(dev)
-    splits = _splits(nq, np_, _C_BLOCK_QUERIES)
-    part_num = torch.empty((splits, ns, nq), dtype=torch.float32, device=dev)
-    part_den = torch.empty_like(part_num)
+    pts, boxes = pack(pc, vals, mask)
+    recips = (ctypes.c_float * ns)(*_recips(sigmas))
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.mm_sift_scale_space(
-            qc.data_ptr(), nq, pc.data_ptr(), vals.data_ptr(), mask.data_ptr(),
-            np_, two_s2.data_ptr(), ns, r2_bound, splits, part_num.data_ptr(),
-            part_den.data_ptr(), out.data_ptr(), build.stream_handle(dev),
+            pts.data_ptr(), boxes.data_ptr(), np_, qc.data_ptr(), nq, recips, ns,
+            _lanes_per_query(nq, *_C_LANES), r2_bound, out.data_ptr(),
+            build.stream_handle(dev),
         )
     kernel.launched()
     build.check_launch(kernel, err)
@@ -118,32 +165,26 @@ def knn(
     masked targets at d2 = BIG: (idx (Q, k) int32, valid (Q, k) bool, d2 <=
     r2). q and p centred alike; k <= min(MAX_K, P). A CPU tensor takes the
     plain version (in query tiles of `tile`); a CUDA tensor launches the
-    kernel or raises."""
+    pre-pass and the kernel or raises."""
     if q.device.type == "cpu":
         return knn_ref(q, p, p_mask, k, r2, tile)
     kernel = KNN_KERNEL
     dev = _cuda(kernel, q)
     nq, np_ = q.shape[0], p.shape[0]
     build.require("q", q, torch.float32, (None, 3), dev)
-    build.require("p", p, torch.float32, (None, 3), dev)
-    if p_mask is not None:
-        build.require("p_mask", p_mask, torch.bool, (np_,), dev)
     if not 1 <= k <= min(MAX_K, np_) or max(nq, np_) >= 2**31 // MAX_K:
         raise ValueError(f"{kernel.name}: unsupported sizes Q={nq} P={np_} k={k}")
     idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
     valid = torch.empty((nq, k), dtype=torch.bool, device=dev)
     if nq == 0:
         return idx, valid
-    splits = _splits(nq, np_, _D_BLOCK_QUERIES)
-    part_d2 = torch.empty((splits, MAX_K, nq), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((splits, MAX_K, nq), dtype=torch.int32, device=dev)
+    pts, boxes = pack(p, None, p_mask)
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.mm_sift_knn(
-            q.data_ptr(), nq, p.data_ptr(),
-            None if p_mask is None else p_mask.data_ptr(), np_, k, r2, splits,
-            part_d2.data_ptr(), part_idx.data_ptr(), idx.data_ptr(),
-            valid.data_ptr(), build.stream_handle(dev),
+            pts.data_ptr(), boxes.data_ptr(), np_, q.data_ptr(), nq, k, r2,
+            _lanes_per_query(nq, *_D_LANES), idx.data_ptr(), valid.data_ptr(),
+            build.stream_handle(dev),
         )
     kernel.launched()
     build.check_launch(kernel, err)
@@ -156,13 +197,66 @@ def _cuda(kernel: build.Kernel, t: torch.Tensor) -> torch.device:
     return t.device
 
 
-def _splits(nq: int, np_: int, block_queries: int) -> int:
-    """Point splits for about _TARGET_BLOCKS blocks, each split at least
-    _MIN_SPLIT points: many where Q is small (config5's octaves of a few
-    thousand points), few at config #1's 32,768."""
-    tiles = -(-nq // block_queries)
-    want = -(-_TARGET_BLOCKS // tiles)
-    return max(1, min(want, -(-np_ // _MIN_SPLIT), 65535))
+def _recips(sigmas: list[float]) -> list[float]:
+    """The float32 reciprocal of the float32 value of 2 s^2 for each sigma:
+    what PyTorch multiplies by on the card for `-d2 / (2.0 * s * s)`."""
+    return [float(np.float32(1.0) / np.float32(2.0 * s * s)) for s in sigmas]
+
+
+def _lanes_per_query(nq: int, most: int, target_warps: int) -> int:
+    """The lanes that share a query in kernel C or D, G: the fewest powers of
+    two that give `target_warps` warps of 32 // G queries, at most `most`.
+    Lane g of a query takes the points j = g (mod G) of every tile, so C's
+    sums run in another order for another G: G depends on Q alone, and so
+    the bits do not depend on the card."""
+    g = 1
+    while g < most and -(-nq // (32 // g)) < target_warps:
+        g *= 2
+    return g
+
+
+def pack_ref(
+    p: torch.Tensor, vals: torch.Tensor | None, mask: torch.Tensor | None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch pre-pass. pts (n_tiles * TILE, 4): (x, y, z, value)
+    per point, x = NaN where masked, value 0 where `vals` is None; the rows
+    past P are (NaN, 0, 0, 0). boxes (n_tiles, 2, 4), for each tile of TILE
+    consecutive points: lo = (the least x, y, z of its valid points, its
+    first masked index as int32 bits, 2^31 - 1 if none), hi = (the largest,
+    its first point index as int32 bits); a tile with no valid point has lo
+    = +inf and hi = -inf."""
+    np_, dev = p.shape[0], p.device
+    n_tiles = -(-np_ // TILE)
+    pad = n_tiles * TILE - np_
+    valid = torch.ones(np_, dtype=torch.bool, device=dev) if mask is None else mask
+    valid = torch.cat([valid, torch.zeros(pad, dtype=torch.bool, device=dev)])
+    xyz = torch.cat([p, torch.zeros((pad, 3), dtype=torch.float32, device=dev)])
+    w = torch.zeros(np_, dtype=torch.float32, device=dev) if vals is None else vals
+    w = torch.cat([w, torch.zeros(pad, dtype=torch.float32, device=dev)])
+    x = torch.where(valid, xyz[:, 0], torch.nan)
+    pts = torch.stack([x, xyz[:, 1], xyz[:, 2], w], dim=1)
+    v = valid.view(n_tiles, TILE, 1)
+    tiles = xyz.view(n_tiles, TILE, 3)
+    lo = torch.where(v, tiles, torch.inf).amin(dim=1)
+    hi = torch.where(v, tiles, -torch.inf).amax(dim=1)
+    index = torch.arange(n_tiles * TILE, dtype=torch.int32, device=dev).view(n_tiles, TILE)
+    masked = ~valid.view(n_tiles, TILE) & (index < np_)
+    first = torch.where(masked, index, _NO_MASKED).amin(dim=1)
+    lo = torch.cat([lo, first.view(torch.float32)[:, None]], dim=1)
+    hi = torch.cat([hi, index[:, 0].contiguous().view(torch.float32)[:, None]], dim=1)
+    return pts, torch.stack([lo, hi], dim=1)
+
+
+def tile_bound(q: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """(Q, n_tiles) lower bounds of sq_dists from each query to the valid
+    points of each tile of `boxes` (pack_ref's): q clamped into the box and
+    the distance to that point taken as sq_dists takes it. Rounding is
+    monotone, so each bound is <= sq_dists to every valid point of its
+    tile: the plain version of kernels C and D's culling bound (+inf for a
+    tile with no valid point)."""
+    lo, hi = boxes[None, :, 0, :3], boxes[None, :, 1, :3]
+    d = q[:, None] - torch.minimum(torch.maximum(q[:, None], lo), hi)
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
 
 
 def scale_space_ref(

@@ -2,32 +2,55 @@
 inputs, on one card, for a before/after comparison.
 
     python3 mapmerge_torch/testing/kernel_ab.py record INPUTS.pt
-    python3 mapmerge_torch/testing/kernel_ab.py time INPUTS.pt ROOT
+    python3 mapmerge_torch/testing/kernel_ab.py time INPUTS.pt ROOT [PREFIX]
+    python3 mapmerge_torch/testing/kernel_ab.py lanes INPUTS.pt
+    python3 mapmerge_torch/testing/kernel_ab.py config5 ROOT
+    python3 mapmerge_torch/testing/kernel_ab.py features5 ROOT
 
 `record` drives config #1 and the registry sweep's FPFH + SAC_IA path
 (chip_smoke.py's scenes and parameters) through this checkout and saves the
-arguments of each kernel's first launch in each, beside chip_smoke.py's
+arguments of each kernel's first launch in each (kernel A's batched entry,
+which their pairs take), beside chip_smoke.py's
 synthetic inputs; it also saves the inputs of the FPFH stage's grid sweep
 on eval config #2's first view (the cloud, its normals, the needed points,
-the radius and the bucket cap). `time` imports `mapmerge_torch` from the
-checkout at ROOT (this one, or an earlier commit unpacked with `git archive`
-into a directory that .gitignore lists), holds each kernel against that
-checkout's plain version bit for bit on every saved input, builds that
-checkout's grid of the config #2 view outside the timing and times its
-`fpfh._spfh_grid` on it, and prints one JSON line: the card, and per input
-three medians of 20 timed calls (CUDA events around the call, after 3
-warm-up calls), with a digest of the grid sweep's rows so that two
-checkouts can be seen to agree bit for bit. Compare in one process order on
-one card: parent, change, change, parent.
+the radius and the bucket cap), and the arguments of SIFT's kernels C
+(`scale_space`) and D (`knn`) on the dense octaves of the first extraction
+of config #1 (octaves 0-2), config #4 and config5 (octaves 0-2 each) and of
+config5_big's first map (octave 2, its only dense one). `time` imports
+`mapmerge_torch` from the checkout at ROOT (this one, or an earlier commit
+unpacked with `git archive` into a directory that .gitignore lists), holds
+each kernel against that checkout's plain version on every saved input
+whose name starts with PREFIX (all by default): bit for bit, C within
+SCALE_SPACE_RTOL of the field; builds that checkout's grid of the config #2
+view outside the timing and times its `fpfh._spfh_grid` on it, and prints
+one JSON line: the card, and per input three medians of 20 timed calls
+(CUDA events around the call, after 3 warm-up calls), with a digest of the
+grid sweep's rows and of C's and D's outputs so that two checkouts can be
+seen to agree bit for bit. Compare in one process order on one card:
+parent, change, change, parent. `lanes` times this checkout's kernels C and
+D on every saved SIFT input at each number of lanes a query (1, 2, 4, 8;
+the wrapper's choice printed beside), each held against its plain version.
+`config5` runs chip_smoke.py's config5 phase (the stateless node's 50-map
+stream, its gates included) from the checkout at ROOT twice in one process
+and prints the second run's stream seconds, per-tick stage ms and a digest
+of its adjacent-hop errors (equal digests: the same poses): an end to end
+comparison of two checkouts, in the same order. `features5` runs the feature
+stage of config5's first tick (ten clouds, as the stateless node builds
+them) from the checkout at ROOT: host ms of ten warm runs, then one under
+torch.profiler: device ms, SIFT's kernels' device ms, kernel launches and
+pageable host-to-device copies.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -76,11 +99,17 @@ def record(out: Path) -> None:
     inputs = {}
     for label, (views, c, params) in paths.items():
         clouds = [PointCloud.from_numpy(*v, capacity=c, device=dev) for v in views]
-        with cs.first_launch_inputs(nn, spfh) as seen:
+        with cs.first_launch_inputs(nn, spfh) as seen, sift_octaves(cs, label) as sift:
             estimate_maps_transforms(clouds, params, seed=0)
             torch.cuda.synchronize()
-        inputs[f"nn {label}"] = seen["nearest_neighbor"]
+        # config #1's and the sweep's pairs take kernel A's batched entry
+        for entry, key in (("nearest_neighbor", "nn"), ("nearest_neighbor_batched", "nn_batched")):
+            if entry in seen:
+                inputs[f"{key} {label}"] = seen[entry]
         inputs[f"spfh {label}"] = seen["spfh"]
+        if label == "config #1":
+            inputs.update(sift)
+    inputs.update(record_sift_paths(cs, dev))
     g = torch.Generator(device=dev).manual_seed(11)
     q = torch.rand((cs.NN_Q, 3), generator=g, device=dev) * 16.0
     p = torch.rand((cs.NN_P, 3), generator=g, device=dev) * 16.0
@@ -93,6 +122,72 @@ def record(out: Path) -> None:
     inputs["fpfh grid config #2"] = record_config2_sweep(cs, dev)
     torch.save(inputs, out)
     print(f"recorded {sorted(inputs)} to {out}")
+
+
+@contextlib.contextmanager
+def sift_octaves(cs, label: str, octaves=(0, 1, 2)):
+    """Keep the arguments of the first len(octaves) calls of kernels C and
+    D (one a dense octave, in octave order: the first extraction's) while a
+    path runs, under "sift_scale_space LABEL octave N" and "sift_knn ...";
+    the dict fills as the path runs."""
+    from mapmerge_torch.kernels import sift as ksift
+
+    kept: dict = {}
+
+    def make(name):
+        def wrap(fn):
+            def wrapper(*args, **kwargs):
+                n = sum(key.startswith(f"{name} ") for key in kept)
+                if n < len(octaves):
+                    kept[f"{name} {label} octave {octaves[n]}"] = (
+                        [cs._copied(a) for a in args], dict(kwargs))
+                return fn(*args, **kwargs)
+
+            return wrapper
+
+        return wrap
+
+    with cs.patched({(ksift, "scale_space"): make("sift_scale_space"),
+                     (ksift, "knn"): make("sift_knn")}):
+        yield kept
+
+
+def record_sift_paths(cs, dev) -> dict:
+    """Kernels C's and D's arguments on the first extraction of config #4
+    (one rank: the 20-map merge), of config5 (the stateless node's first
+    tick, ten maps) and of config5_big (the incremental node's first map:
+    octave 2, the only dense one), each path run as chip_smoke.py runs it."""
+    from mapmerge_torch.pipeline.merging import estimate_maps_transforms
+    from mapmerge_torch.runtime.node import MapMergeNode
+    from mapmerge_torch.runtime.transport import InProcTransport
+    from mapmerge_torch.testing.scene import town_views
+
+    kept: dict = {}
+    views, _ = town_views(cs.CONFIG4_MAPS, 4096, seed=3)
+    with sift_octaves(cs, "config #4") as sift:
+        estimate_maps_transforms(cs.raw_clouds(views, dev), cs.config4_params(), seed=0)
+    kept.update(sift)
+
+    views, _ = town_views(cs.CONFIG5S_MAPS, 2048, seed=5)
+    transport = InProcTransport()
+    node = MapMergeNode(transport, cs.config5_params(), seed=0, device=dev)
+    for i in range(cs.CONFIG5S_BATCH):
+        transport.publish(f"robot_{i:02d}", *views[i])
+    with sift_octaves(cs, "config5") as sift:
+        node.discovery()
+        node.transforms_estimation()
+    kept.update(sift)
+
+    views, _ = town_views(cs.CONFIG5_MAPS, cs.CONFIG5_VIEW_TARGET, keep=0.8, seed=5)
+    cap = 1 << int(np.ceil(np.log2(len(views[0][0]))))
+    transport = InProcTransport()
+    node = MapMergeNode(transport, cs.config5_big_params(cap), seed=0, incremental=True,
+                        max_robots=64, device=dev)
+    with sift_octaves(cs, "config5_big", octaves=(2,)) as sift:
+        cs.stream(node, transport, views, 1)
+    kept.update(sift)
+    torch.cuda.synchronize()
+    return kept
 
 
 def record_config2_sweep(cs, dev) -> tuple:
@@ -156,9 +251,34 @@ def time_config2_sweep(args, kwargs) -> dict:
     }
 
 
-def time_root(inputs_path: Path, root: Path) -> None:
+def time_sift(ksift, name: str, args, kwargs) -> dict:
+    """Kernel C or D of the checkout on one saved input: held against its
+    plain version (D bit for bit, C within SCALE_SPACE_RTOL of the field),
+    a digest of its output, three medians of 20 timed calls."""
+    if name.startswith("sift_knn"):
+        kernel = ksift.knn
+        got, want = kernel(*args, **kwargs), ksift.knn_ref(*args, **kwargs)
+        ok, err = all(torch.equal(a, b) for a, b in zip(got, want)), 0.0
+    else:
+        kernel = ksift.scale_space
+        got, want = kernel(*args, **kwargs), ksift.scale_space_ref(*args, **kwargs)
+        err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        ok = err <= ksift.SCALE_SPACE_RTOL
+        got = (got,)
+    digest = hashlib.sha256()
+    for a in got:
+        digest.update(a.cpu().numpy().tobytes())
+    return {
+        "shape": f"Q={args[0].shape[0]} P={args[1].shape[0]}",
+        "held": ok, "err_of_field": err, "digest": digest.hexdigest()[:16],
+        "ms": [time_ms(lambda: kernel(*args, **kwargs)) for _ in range(3)],
+    }
+
+
+def time_root(inputs_path: Path, root: Path, prefix: str = "") -> None:
     sys.path.insert(0, str(root.resolve()))
     from mapmerge_torch.kernels import nn, spfh
+    from mapmerge_torch.kernels import sift as ksift
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -167,13 +287,19 @@ def time_root(inputs_path: Path, root: Path) -> None:
     inputs = torch.load(inputs_path, map_location=f"cuda:{torch.cuda.current_device()}")
     result = {"root": str(root), "card": card, "kernels": {}}
     for name, (args, kwargs) in sorted(inputs.items()):
+        if not name.startswith(prefix):
+            continue
+        if name.startswith("sift"):
+            result["kernels"][name] = time_sift(ksift, name, args, kwargs)
+            continue
         if name.startswith("fpfh grid"):
             result["kernels"][name] = time_config2_sweep(args, kwargs)
             continue
-        kernel, ref = (
-            (nn.nearest_neighbor, nn.nearest_neighbor_ref)
-            if name.startswith("nn") else (spfh.spfh_tile, spfh.spfh_ref)
-        )
+        kernel, ref = {
+            "nn": (nn.nearest_neighbor, nn.nearest_neighbor_ref),
+            "nn_batched": (nn.nearest_neighbor_batched, nn.nearest_neighbor_batched_ref),
+            "spfh": (spfh.spfh_tile, spfh.spfh_ref),
+        }[name.split()[0]]
         got, want = kernel(*args, **kwargs), ref(*args, **kwargs)
         exact = all(torch.equal(a, b) for a, b in zip(got, want))
         result["kernels"][name] = {
@@ -182,8 +308,117 @@ def time_root(inputs_path: Path, root: Path) -> None:
             "ms": [time_ms(lambda: kernel(*args, **kwargs)) for _ in range(3)],
         }
     print(json.dumps(result))
-    if not all(k.get("exact", True) for k in result["kernels"].values()):
+    if not all(k.get("exact", k.get("held", True)) for k in result["kernels"].values()):
         raise SystemExit("kernel_ab: a kernel disagrees with its plain version")
+
+
+def time_lanes(inputs_path: Path) -> None:
+    """Kernels C and D of this checkout at each lane count on the saved SIFT
+    inputs: one JSON line per input, the median of 20 timed calls each."""
+    sys.path.insert(0, str(REPO))
+    from mapmerge_torch.kernels import sift as ksift
+
+    inputs = torch.load(inputs_path, map_location=f"cuda:{torch.cuda.current_device()}")
+    chosen = ksift._lanes_per_query
+    try:
+        for name, (args, kwargs) in sorted(inputs.items()):
+            if not name.startswith("sift"):
+                continue
+            c = name.startswith("sift_scale_space")
+            lanes = ksift._C_LANES if c else ksift._D_LANES
+            row = {"input": name, "chosen": chosen(args[0].shape[0], *lanes), "ms": {}}
+            for g in (1, 2, 4, 8)[: lanes[0].bit_length()]:
+                ksift._lanes_per_query = lambda nq, most, target, g=g: g
+                held = time_sift(ksift, name, args, kwargs)
+                if not held["held"]:
+                    raise SystemExit(f"kernel_ab: {name} at {g} lanes disagrees")
+                row["ms"][g] = held["ms"][0]
+            print(json.dumps(row), flush=True)
+    finally:
+        ksift._lanes_per_query = chosen
+
+
+def time_config5(root: Path) -> None:
+    """chip_smoke.run_config5 of the checkout at ROOT, twice (the first warms
+    the process: library builds, cuBLAS, the caching allocator); one JSON
+    line with the second run's stream seconds and ticks."""
+    sys.path.insert(0, str(root.resolve()))
+    import chip_smoke as cs
+    from mapmerge_torch.kernels import build, nn, spfh
+    from mapmerge_torch.kernels import sift as ksift
+
+    build.load()
+    kernels = [nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL, getattr(ksift, "PACK_KERNEL", None),
+               ksift.SCALE_SPACE_KERNEL, ksift.KNN_KERNEL]
+    kernels = tuple(k for k in kernels if k is not None)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = io.StringIO()
+    for _ in range(2):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cs.run_config5(dev, kernels)
+    lines = out.getvalue().splitlines()
+    stream = next(line for line in lines if line.startswith("config5 stream:"))
+    ticks = next(line for line in lines if line.startswith("config5 ticks"))
+    hops = next(line for line in lines if line.startswith("config5 adjacent hop errors"))
+    print(json.dumps({"root": str(root), "chip_smoke": cs.__file__,
+                      "stream_s": float(stream.split()[2]),
+                      "hops_digest": hashlib.sha256(hops.encode()).hexdigest()[:16],
+                      "ticks": json.loads(ticks[ticks.index("["):])}), flush=True)
+
+
+def time_features5(root: Path) -> None:
+    """The feature stage of config5's first tick from the checkout at ROOT:
+    ten warm runs over its ten clouds (host ms, each ending in a
+    synchronisation), then one under torch.profiler: device ms in all and in
+    SIFT's kernels (csrc/sift.cu), CUDA kernel launches and pageable
+    host-to-device copies. One JSON line."""
+    sys.path.insert(0, str(root.resolve()))
+    import chip_smoke as cs
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from mapmerge_torch.kernels import build
+    from mapmerge_torch.pipeline.features import extract_features
+    from mapmerge_torch.runtime.node import MapMergeNode
+    from mapmerge_torch.runtime.transport import InProcTransport
+    from mapmerge_torch.testing.scene import town_views
+
+    build.load()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    views, _ = town_views(cs.CONFIG5S_MAPS, 2048, seed=5)
+    params = cs.config5_params()
+    transport = InProcTransport()
+    node = MapMergeNode(transport, params, seed=0, device=dev)
+    for i in range(cs.CONFIG5S_BATCH):
+        transport.publish(f"robot_{i:02d}", *views[i])
+    node.discovery()
+    _, clouds = cs.stateless_clouds(node)
+
+    def run():
+        for cloud in clouds:
+            extract_features(cloud, params)
+        torch.cuda.synchronize()
+
+    for _ in range(3):
+        run()
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        run()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    sift = ("pack_kernel", "scale_space", "knn_")
+    counts = {e.key: e.count for e in prof.key_averages()}
+    print(json.dumps({
+        "root": str(root), "host_ms": sorted(walls),
+        "device_ms": sum(e.time_range.end - e.time_range.start for e in device) / 1e3,
+        "sift_device_ms": sum(e.time_range.end - e.time_range.start for e in device
+                              if any(k in e.name for k in sift)) / 1e3,
+        "kernel_launches": counts.get("cudaLaunchKernel", 0),
+        "pageable_h2d_copies": counts.get("Memcpy HtoD (Pageable -> Device)", 0),
+    }), flush=True)
 
 
 def main(argv: list[str]) -> int:
@@ -191,8 +426,14 @@ def main(argv: list[str]) -> int:
         raise SystemExit("kernel_ab: no CUDA device; this script needs a GPU")
     if len(argv) == 2 and argv[0] == "record":
         record(Path(argv[1]))
-    elif len(argv) == 3 and argv[0] == "time":
-        time_root(Path(argv[1]), Path(argv[2]))
+    elif len(argv) in (3, 4) and argv[0] == "time":
+        time_root(Path(argv[1]), Path(argv[2]), *argv[3:])
+    elif len(argv) == 2 and argv[0] == "lanes":
+        time_lanes(Path(argv[1]))
+    elif len(argv) == 2 and argv[0] == "config5":
+        time_config5(Path(argv[1]))
+    elif len(argv) == 2 and argv[0] == "features5":
+        time_features5(Path(argv[1]))
     else:
         raise SystemExit(__doc__)
     return 0

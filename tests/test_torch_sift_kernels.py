@@ -218,7 +218,8 @@ def test_forced_build_or_launch_failure_raises(monkeypatch, entry):
     """A tensor off the CPU never gets the plain version: a device that is
     not a card is refused, a build that fails raises its error, and a launch
     that returns a CUDA error raises it. The card's entry points are stood in
-    for by the meta device (no data), so the wrapper's own path runs here."""
+    for by the meta device (no data), so the wrapper's own path runs here;
+    the pre-pass `pack` launches first and succeeds."""
     meta = torch.device("meta")
     q = torch.empty((64, 3), device=meta)
     mask = torch.ones((64,), dtype=torch.bool, device=meta)
@@ -244,7 +245,8 @@ def test_forced_build_or_launch_failure_raises(monkeypatch, entry):
         call()
     assert kernel.launches == before
     monkeypatch.setattr(build, "load", lambda *a: types.SimpleNamespace(
-        mm_sift_scale_space=lambda *args: 700, mm_sift_knn=lambda *args: 700))
+        mm_sift_pack=lambda *args: 0, mm_sift_scale_space=lambda *args: 700,
+        mm_sift_knn=lambda *args: 700))
     with pytest.raises(RuntimeError, match=f"{kernel.name}: CUDA launch failed with error 700"):
         call()
 
@@ -359,8 +361,8 @@ def _field_err(got, ref):
 def test_scale_space_kernel_within_tolerance(cuda, nq, np_, scales):
     """Kernel C against its plain version: within SCALE_SPACE_RTOL of the
     field's largest magnitude, 0 at the FAR queries, one launch, and the
-    same bits on a second launch. A small Q against a large P splits the
-    points; nine and twelve sigmas run two sigma groups."""
+    same bits on a second launch. A small Q against a large P; twelve
+    sigmas take two lanes a query or more."""
     q, p, mask, vals = _card_case(cuda, nq, np_, nq + np_)
     sigmas = sigmas_of(0.5, scales)
     r2 = tn._f32((3.0 * max(sigmas)) ** 2)
@@ -394,8 +396,9 @@ def test_knn_kernel_exact(cuda, nq, np_, k):
 
 @pytest.mark.cuda
 def test_knn_kernel_all_equal_and_all_masked(cuda):
-    """Every target at one point: the first 26 indices in order, across
-    splits; every target masked: the first 26 indices at BIG, valid."""
+    """Every target at one point: the first 26 indices in order, though
+    every tile reaches every query; every target masked: the first 26
+    indices at BIG, valid."""
     q = torch.zeros((200, 3), device=cuda)
     p = torch.zeros((30000, 3), device=cuda)
     idx, valid = ksift.knn(q, p, None, 26, 1.0)
@@ -413,7 +416,8 @@ def test_kernels_raise_on_a_forced_failure_on_the_card(cuda, monkeypatch):
     never returned."""
     q, p, mask, vals = _card_case(cuda, 100, 100, 1)
     monkeypatch.setattr(build, "load", lambda *a: types.SimpleNamespace(
-        mm_sift_scale_space=lambda *args: 1, mm_sift_knn=lambda *args: 1))
+        mm_sift_pack=lambda *args: 0, mm_sift_scale_space=lambda *args: 1,
+        mm_sift_knn=lambda *args: 1))
     with pytest.raises(RuntimeError, match="CUDA launch failed with error 1"):
         ksift.scale_space(q, p, vals, mask, [0.5, 0.7], 4.0)
     with pytest.raises(RuntimeError, match="CUDA launch failed with error 1"):
