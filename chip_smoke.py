@@ -150,7 +150,8 @@ all and of those not parked at FAR; it rounds otherwise, so it is a
 yardstick, not held for bits.
 SIFT's dense octaves (kernels C and D, one launch each a dense octave:
 three an extraction, one on config5_big, whose octaves 0-1 take the grid;
-none on the Harris paths; their pre-pass `pack` twice a dense octave) are
+none on the Harris paths; their pre-pass `pack` once a dense octave, for
+both) are
 required per path from the extractions and dense octaves counted there, and
 all three are held on every SIFT path's first launch: C within its
 tolerance, D and the pre-pass exactly, D also timed against torch.cdist +
@@ -619,18 +620,19 @@ def _pack_compare(name, ksift, args):
     return 0.0
 
 
-def _scale_space_compare(name, ksift, args):
-    """Kernel C against scale_space_ref on the same inputs. Tolerance: the
-    largest difference within ksift.SCALE_SPACE_RTOL of the field's largest
-    magnitude (exp, the division and the sums' order round apart; the
-    points each query takes are the same bits); the queries parked at FAR
-    exactly 0; a second launch the same bits. Returns (max abs err, that
-    error over the field's largest magnitude)."""
+def _scale_space_compare(name, ksift, args, kwargs=None):
+    """Kernel C (given `kwargs`: the path's own `packed`) against
+    scale_space_ref on the same inputs. Tolerance: the largest difference
+    within ksift.SCALE_SPACE_RTOL of the field's largest magnitude (exp, the
+    division and the sums' order round apart; the points each query takes
+    are the same bits); the queries parked at FAR exactly 0; a second launch
+    the same bits. Returns (max abs err, that error over the field's largest
+    magnitude)."""
     from mapmerge_torch.core.cloud import FAR
 
-    got = ksift.scale_space(*args)
+    got = ksift.scale_space(*args, **(kwargs or {}))
     ref = ksift.scale_space_ref(*args)
-    again = ksift.scale_space(*args)
+    again = ksift.scale_space(*args, **(kwargs or {}))
     torch.cuda.synchronize()
     require(got.shape == ref.shape == (len(args[4]), args[0].shape[0]), f"{name}: shapes")
     require(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
@@ -644,11 +646,11 @@ def _scale_space_compare(name, ksift, args):
     return err, rel
 
 
-def _knn_compare(name, ksift, args):
-    """Kernel D against knn_ref on the same inputs: indices and valid flags
-    exactly (the k smallest (d2, index) pairs are unique). Returns the
-    number of differing entries, 0."""
-    idx, valid = ksift.knn(*args)
+def _knn_compare(name, ksift, args, kwargs=None):
+    """Kernel D (given `kwargs`: the path's own `packed`) against knn_ref on
+    the same inputs: indices and valid flags exactly (the k smallest (d2,
+    index) pairs are unique). Returns the number of differing entries, 0."""
+    idx, valid = ksift.knn(*args, **(kwargs or {}))
     ridx, rvalid = ksift.knn_ref(*args)
     torch.cuda.synchronize()
     diff = int((idx != ridx).sum()) + int((valid != rvalid).sum())
@@ -689,8 +691,10 @@ def sift_stats(label: str, ksift, seen: dict) -> dict:
     """The pre-pass and kernels C and D on the inputs of their first launch
     on a path (the path's own shapes): held against their plain versions
     (_pack_compare, _scale_space_compare, _knn_compare), then timed (CUDA
-    events, warm, median), beside the bound and, for D, knn_library. C's
-    and D's times are their wrappers', the pre-pass included."""
+    events, warm, median), beside the bound and, for D, knn_library. C and
+    D take the buffer the path packed for them where it was recorded (their
+    times are then the kernels' alone; the pre-pass has its own row), else
+    pack their own points first."""
     stats = {}
     if "sift_pack" in seen:
         args, _ = seen["sift_pack"]
@@ -702,25 +706,25 @@ def sift_stats(label: str, ksift, seen: dict) -> dict:
             "library_ms": None, **pack_bound(args),
         }
     if "sift_scale_space" in seen:
-        args, _ = seen["sift_scale_space"]
-        err, rel = _scale_space_compare(f"{label} sift_scale_space", ksift, args)
+        args, kwargs = seen["sift_scale_space"]
+        err, rel = _scale_space_compare(f"{label} sift_scale_space", ksift, args, kwargs)
         in_bound = scale_space_in_bound(args)
         stats["sift_scale_space"] = {
             "shape": f"Q={args[0].shape[0]} P={args[1].shape[0]} S={len(args[4])}",
             "max_abs_err": err,
             "err_of_field": rel, "pairs_in_bound": in_bound,
-            "ms": time_ms(lambda: ksift.scale_space(*args)),
+            "ms": time_ms(lambda: ksift.scale_space(*args, **kwargs)),
             "plain_ms": time_ms(lambda: ksift.scale_space_ref(*args), reps=3, warmup=1),
             "library_ms": None, **scale_space_bound(args, in_bound),
         }
     if "sift_knn" in seen:
-        args, _ = seen["sift_knn"]
-        diff = _knn_compare(f"{label} sift_knn", ksift, args)
+        args, kwargs = seen["sift_knn"]
+        diff = _knn_compare(f"{label} sift_knn", ksift, args, kwargs)
         stats["sift_knn"] = {
             "shape": f"Q={args[0].shape[0]} P={args[1].shape[0]} k={args[3]}",
             "max_abs_err": 0.0,
             "entries_differing": diff,
-            "ms": time_ms(lambda: ksift.knn(*args)),
+            "ms": time_ms(lambda: ksift.knn(*args, **kwargs)),
             "plain_ms": time_ms(lambda: ksift.knn_ref(*args), reps=3, warmup=1),
             **knn_library_stats(ksift, args), **knn_bound(args),
         }
@@ -776,12 +780,16 @@ def check_sift(dev, ksift) -> dict:
                              (q, p, v, m, sigmas, c_args[5]))
         for k, r2 in ((SIFT_K, _f32(1.0e12)), (9, 0.25)):
             _knn_compare(f"sift_knn {name} k={k}", ksift, (q, p, m, min(k, p.shape[0]), r2))
+    # as SIFT runs them: both on one buffer, packed with C's values
+    shared = {"packed": ksift.pack(pc, vals, mask)}
+    _scale_space_compare("sift_scale_space on a shared buffer", ksift, c_args, shared)
+    _knn_compare("sift_knn on a shared buffer", ksift, d_args, shared)
     c, d = stats["sift_scale_space"], stats["sift_knn"]
     log(f"kernel sift_scale_space {c['shape']}: max err {c['max_abs_err']} "
         f"({c['err_of_field']} of the field), {c['pairs_in_bound']} pairs in bound; "
         f"kernel {c['ms']} ms, plain {c['plain_ms']} ms, bound {c['bound_ms']} ms")
     log(f"kernels sift_pack, sift_scale_space and sift_knn held on {sorted(adversarial)} "
-        "(sift_knn at k = 26 and 9)")
+        "(sift_knn at k = 26 and 9), and C and D on one shared buffer")
     log(f"kernel sift_knn {d['shape']}: exact; "
         f"kernel {d['ms']} ms, plain {d['plain_ms']} ms, library {d['library_ms']} ms "
         f"(index agreement {d['library_index_agreement_unparked']} unparked), "
@@ -1006,16 +1014,16 @@ def require_sift(label: str, seen: dict, launches: dict, per_extraction: int) ->
     """Kernels C and D launched once a dense SIFT octave each, and
     `per_extraction` times an extraction (3 where every octave is dense, 1
     on config5_big, whose octaves 0-1 take the grid); none on a Harris
-    path; their pre-pass twice a dense octave (once for each). Logged."""
+    path; their pre-pass once a dense octave, for both. Logged."""
     ext, dense = seen["sift"]["extractions"], seen["sift"]["dense_octaves"]
     c, d = launches["sift_scale_space"], launches["sift_knn"]
     packs = launches["sift_pack"]
     log(f"{label}: SIFT extractions {ext}, dense octaves {dense}; launches "
         f"sift_scale_space {c}, sift_knn {d}, sift_pack {packs}")
-    require(c == d == dense == per_extraction * ext and packs == 2 * dense,
+    require(c == d == dense == packs == per_extraction * ext,
             f"{label}: sift_scale_space {c}, sift_knn {d} and sift_pack {packs} "
             f"launches for {ext} extractions and {dense} dense octaves, expected "
-            f"{per_extraction} an extraction (the pre-pass two a dense octave)")
+            f"{per_extraction} an extraction (and the pre-pass one a dense octave)")
 
 
 def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
@@ -1316,11 +1324,16 @@ KEYPOINT_AGREEMENT = 0.99
 
 def plain_sift():
     """Patches that send SIFT's dense octave through the plain versions of
-    kernels C and D (the parent's route on the card), for `patched`."""
+    kernels C and D (the parent's route on the card), for `patched`: no
+    pre-pass, whose buffer the plain versions do not read."""
     from mapmerge_torch.kernels import sift as ksift
 
-    return {(ksift, "scale_space"): lambda fn: ksift.scale_space_ref,
-            (ksift, "knn"): lambda fn: ksift.knn_ref}
+    def plain(ref):
+        return lambda fn: lambda *args, packed=None, **kwargs: ref(*args, **kwargs)
+
+    return {(ksift, "pack"): lambda fn: lambda *args: None,
+            (ksift, "scale_space"): plain(ksift.scale_space_ref),
+            (ksift, "knn"): plain(ksift.knn_ref)}
 
 
 def hold_sift_keypoints(label: str, seen: dict) -> None:

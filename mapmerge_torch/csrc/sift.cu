@@ -43,20 +43,21 @@
 //    fails C's bound test, and D reads it as masked), and for each tile of
 //    kT = 32 consecutive points the box of its valid points (lo, hi), the
 //    first masked index of the tile (lo.w, as int bits; INT_MAX if none) and
-//    the tile's first point index (hi.w). Octaves come out of the voxel grid
-//    in lexicographic key order, so a tile is a compact box in space. For a
-//    query q the box bound clamps q into the box and takes sq_dist to that
-//    point with the same rounded operations: rounding is monotone, so the
-//    bound is <= the kernel's own d2 for every point of the box, with no
-//    epsilon, and a tile whose bound exceeds the threshold of every query
-//    of a warp holds no point that any of them takes. A warp tests 32 tiles
-//    at once, one a lane: against the box of its queries (a bound below
-//    every query's own), then, where that passes, against each query (kept
-//    in shared memory). C's threshold is r2_bound; D's is each query's
-//    current bound on its 26th (kernel D below), compared as (d2, index),
-//    and a tile that holds a masked point counts at (BIG, its first masked
-//    index). On clouds that are not in voxel order culling stays exact and
-//    only stops paying.
+//    the tile's first point index (hi.w). SIFT packs each dense octave once
+//    and hands the buffer to both kernels (D ignores w). Octaves come out of
+//    the voxel grid in lexicographic key order, so a tile is a compact box in
+//    space. For a query q the box bound clamps q into the box and takes
+//    sq_dist to that point with the same rounded operations: rounding is
+//    monotone, so the bound is <= the kernel's own d2 for every point of the
+//    box, with no epsilon, and a tile whose bound exceeds the threshold of
+//    every query of a warp holds no point that any of them takes. A warp
+//    tests 32 tiles at once, one a lane: against the box of its queries (a
+//    bound below every query's own), then, where that passes, against each
+//    query (kept in shared memory). C's threshold is r2_bound; D's is each
+//    query's current bound on its 26th (kernel D below), compared as (d2,
+//    index), and a tile that holds a masked point counts at (BIG, its first
+//    masked index). On clouds that are not in voxel order culling stays exact
+//    and only stops paying.
 // 2. An asynchronous tile ring. Each warp works on its own queries with its
 //    own ring of kStages shared-memory stages: the surviving tiles come in by
 //    cp.async (16 bytes a lane) while the warp computes on the one before,
@@ -64,19 +65,19 @@
 //    flight. A stage also carries the tile's box, so D checks a tile again
 //    against its bounds as they are when it arrives.
 // 3. Latency, not issue, bounds a warp once culling has removed most of the
-//    work: its tiles, and within them its points within the bound (C) or
-//    its candidates (D), are a dependent chain. So G lanes share a query,
-//    lane g of them the points j = g (mod G) of each tile (C: G = 1, 2, 4
-//    or 8; D: 1, 2 or 4; chosen from Q alone, kernels/sift.py): the chain
-//    of each lane is 1 / G as long, and a small octave fills the card. Each lane first tests
+//    work: its tiles, and within them its points within the bound (C) or its
+//    candidates (D), are a dependent chain. So G lanes share a query, lane g
+//    of them the points j = g (mod G) of each tile (C: G = 8 always; D: 1, 2
+//    or 4, chosen from Q alone, kernels/sift.py): the chain of each lane is 1
+//    / G as long, and a small octave fills the card. Each lane first tests
 //    all its points of a tile at once, with no branch, then works only on
-//    those that pass, in index order: the branch of one lane no longer
-//    stalls a warp point by point. C's reciprocals of 2 s^2 come by value
-//    (no copy to the card, no division in the loop), and the G partial sums
-//    are added in a fixed tree, so C's bits depend on Q and P and not on the
-//    card. D's lanes keep a list each; a query's bound is the largest of its
-//    lanes' ceil(26 / G)-th entries (their first entries hold 26 points no
-//    later than it), and the lists are merged at the end.
+//    those that pass, in index order: the branch of one lane no longer stalls
+//    a warp point by point. C's reciprocals of 2 s^2 come by value (no copy
+//    to the card, no division in the loop), and its 8 partial sums are added
+//    in a fixed tree, so C's bits do not depend on the card. D's lanes keep a
+//    list each; a query's bound is the largest of its lanes' ceil(26 / G)-th
+//    entries (their first entries hold 26 points no later than it), and the
+//    lists are merged at the end.
 // 4. D visits its warp's own tile and the two beside it first (the queries
 //    are the points in SIFT, so in voxel order these are their
 //    neighbourhood), together, so its bounds are finite and near before the
@@ -95,6 +96,7 @@ constexpr int kStages = 4;     // ring stages a warp (a power of two)
 constexpr int kWarps = 4;      // warps a block, each on its own queries
 constexpr int kThreads = kWarps * 32;
 constexpr int kSigLane = 8;    // sigmas a lane of kernel C holds
+constexpr int kCLanes = 8;     // lanes of kernel C that share a query
 constexpr int kMaxSigma = 64;  // sigmas a launch of kernel C takes
 constexpr int kK = 26;         // list length: the 25-NN plus the point itself
 constexpr float kBig = 1.0e12f;
@@ -256,16 +258,16 @@ pack_kernel(const float* __restrict__ p, const float* __restrict__ vals,
 
 // ---- kernel C ----
 
-// G lanes share a query, lane g of them the points j = g (mod G) of each
-// tile, with all the sigmas of the launch's group (blockIdx.y) in registers;
-// their sums are added at the end in a fixed tree order.
-template <int G>
+// kCLanes lanes share a query, lane g of them the points j = g (mod
+// kCLanes) of each tile, with all the sigmas of the launch's group
+// (blockIdx.y) in registers; their sums are added at the end in a fixed tree
+// order.
 __global__ void __launch_bounds__(kThreads)
 scale_space_kernel(const float4* __restrict__ pts, const float4* __restrict__ boxes,
                    int ntiles, const float* __restrict__ q, int nq,
                    const Recips recips, int n_sigma, float r2_bound,
                    float* __restrict__ out) {
-  constexpr int kPerWarp = 32 / G, kMine = kT / G;
+  constexpr int G = kCLanes, kPerWarp = 32 / G, kMine = kT / G;
   __shared__ Stage ring[kWarps][kStages];
   __shared__ float4 queries[kWarps][kPerWarp];  // the warp's queries; w = 1 if active
   __shared__ float recip_sh[kMaxSigma];
@@ -610,44 +612,23 @@ extern "C" int mm_sift_pack(const float* p, const float* vals,
 
 // pts, boxes from mm_sift_pack of the np centred points (values in w); q
 // (nq, 3) f32 centred alike; recips (n_sigma <= 64,) f32 in host memory,
-// the reciprocals of 2 s^2, passed by value; lanes_per_query 1, 2, 4 or 8;
-// out (n_sigma, nq) f32. Returns cudaGetLastError() after the launch.
+// the reciprocals of 2 s^2, passed by value; out (n_sigma, nq) f32.
+// Returns cudaGetLastError() after the launch.
 extern "C" int mm_sift_scale_space(const float* pts, const float* boxes, int np,
                                    const float* q, int nq, const float* recips,
-                                   int n_sigma, int lanes_per_query,
-                                   float r2_bound, float* out, void* stream) {
-  const int g = lanes_per_query;
-  if (n_sigma < 1 || n_sigma > kMaxSigma || (g != 1 && g != 2 && g != 4 && g != 8) ||
-      nq < 1 || np < 1) {
+                                   int n_sigma, float r2_bound, float* out,
+                                   void* stream) {
+  if (n_sigma < 1 || n_sigma > kMaxSigma || nq < 1 || np < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Recips r{};
   for (int s = 0; s < n_sigma; ++s) r.v[s] = recips[s];
-  const long long per_block = 32LL / g * kWarps;
+  const long long per_block = 32LL / kCLanes * kWarps;
   const dim3 grid(static_cast<unsigned>((nq + per_block - 1) / per_block),
                   (n_sigma + kSigLane - 1) / kSigLane);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* p4 = reinterpret_cast<const float4*>(pts);
-  const auto* b4 = reinterpret_cast<const float4*>(boxes);
-  const int ntiles = (np + kT - 1) / kT;
-  switch (g) {
-    case 1:
-      scale_space_kernel<1><<<grid, kThreads, 0, st>>>(p4, b4, ntiles, q, nq, r, n_sigma,
-                                                         r2_bound, out);
-      break;
-    case 2:
-      scale_space_kernel<2><<<grid, kThreads, 0, st>>>(p4, b4, ntiles, q, nq, r, n_sigma,
-                                                         r2_bound, out);
-      break;
-    case 4:
-      scale_space_kernel<4><<<grid, kThreads, 0, st>>>(p4, b4, ntiles, q, nq, r, n_sigma,
-                                                         r2_bound, out);
-      break;
-    default:
-      scale_space_kernel<8><<<grid, kThreads, 0, st>>>(p4, b4, ntiles, q, nq, r, n_sigma,
-                                                         r2_bound, out);
-      break;
-  }
+  scale_space_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(pts), reinterpret_cast<const float4*>(boxes),
+      (np + kT - 1) / kT, q, nq, r, n_sigma, r2_bound, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -81,7 +81,7 @@ SOURCES = {
         "mm_sift_pack": [_vp, _vp, _vp, _ci, _vp, _vp, _vp],
         # the reciprocals of 2 s^2 in host memory (a ctypes float array)
         "mm_sift_scale_space": [
-            _vp, _vp, _ci, _vp, _ci, ctypes.POINTER(_cf), _ci, _ci, _cf, _vp, _vp,
+            _vp, _vp, _ci, _vp, _ci, ctypes.POINTER(_cf), _ci, _cf, _vp, _vp,
         ],
         "mm_sift_knn": [_vp, _vp, _ci, _vp, _ci, _ci, _cf, _ci, _vp, _vp, _vp],
     },

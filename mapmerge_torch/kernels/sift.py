@@ -7,18 +7,20 @@ mapmerge_tpu/ops/keypoints/sift.py `_scale_space`). Kernel D, `knn`: the
 26 nearest neighbours of the extremum test, by (d2, index) with masked
 targets at d2 = BIG (the dense `radius_neighbors` that the reference's
 sift.py calls with k = 26). Neither is a TPU kernel: the JAX package leaves
-both to XLA. Each first runs the pre-pass `pack` on its points: float4
-(x, y, z, value) with x = NaN where masked, and the box of each tile of
-TILE consecutive points, by which C and D skip, exactly, the tiles no query
-of a warp can reach (`tile_bound` is the plain version of that bound).
+both to XLA. Both read the output of the pre-pass `pack`: float4 (x, y, z,
+value) with x = NaN where masked, and the box of each tile of TILE
+consecutive points, by which C and D skip, exactly, the tiles no query of a
+warp can reach (`tile_bound` is the plain version of that bound). SIFT
+packs each dense octave once and hands the buffer to both (`packed`); a
+wrapper given none packs its own points first.
 
 Both take coordinates centred on the valid mean (ops/neighbors._center)
 and compute d2 as `ops/neighbors.sq_dists` does, bit for bit.
 
 - `scale_space` agrees with `scale_space_ref` to rounding: the kernel
   multiplies by the float32 reciprocal of 2 s^2 and sums in point order in
-  the parts its lanes take (_lanes_per_query), the plain version's exp,
-  product and matrix-vector product round and sum otherwise on each
+  the 8 parts its lanes take (csrc/sift.cu: kCLanes), the plain version's
+  exp, product and matrix-vector product round and sum otherwise on each
   device. A point's inclusion (d2 <= r2_bound, valid) is the same bits on
   both. The tolerance held on the card is SCALE_SPACE_RTOL of the field's
   largest magnitude.
@@ -53,12 +55,10 @@ MAX_K = 26
 TILE = 32
 #: the most sigmas kernel C takes in a launch (csrc/sift.cu: kMaxSigma)
 MAX_SIGMAS = 64
-#: kernels C and D: the most lanes that share a query (csrc/sift.cu), and
-#: the warps each aims at (_lanes_per_query); on one H100 at config #1's,
-#: config #4's, config5's and config5_big's octaves C ran fastest with 8
-#: lanes a query everywhere, D with 4 up to 32,768 queries and 2 at 58,254
-#: (PERF.md, section 6)
-_C_LANES, _D_LANES = (8, 8192), (4, 3500)
+#: kernel D: the most lanes that share a query (csrc/sift.cu), and the warps
+#: it aims at (_lanes_per_query); on one H100 D ran fastest with 4 lanes a
+#: query up to 32,768 queries and with 2 at 58,254 (PERF.md, section 6)
+_D_LANES = (4, 3500)
 #: a tile holding no masked point: its first masked index (csrc/sift.cu)
 _NO_MASKED = 2**31 - 1
 
@@ -120,6 +120,8 @@ def scale_space(
     sigmas: list[float],
     r2_bound: float,
     tile: int = 1024,
+    *,
+    packed: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Gaussian-smoothed values for every sigma: (S, Q) float32.
 
@@ -127,7 +129,8 @@ def scale_space(
     mask (P,) bool. Each query's weights exp(-d2 / (2 s^2)) over the valid
     points with d2 <= r2_bound; out = sum(w * val) / max(sum(w), 1e-12). A
     CPU tensor takes the plain version (in query tiles of `tile`); a CUDA
-    tensor launches the pre-pass and the kernel or raises."""
+    tensor launches the kernel or raises, after the pre-pass where `packed`
+    is None (else `packed` must be `pack(pc, vals, mask)`)."""
     if qc.device.type == "cpu":
         return scale_space_ref(qc, pc, vals, mask, sigmas, r2_bound, tile)
     kernel = SCALE_SPACE_KERNEL
@@ -139,14 +142,13 @@ def scale_space(
     out = torch.empty((ns, nq), dtype=torch.float32, device=dev)
     if nq == 0:
         return out
-    pts, boxes = pack(pc, vals, mask)
+    pts, boxes = _packed(packed, pc, vals, mask, dev)
     recips = (ctypes.c_float * ns)(*_recips(sigmas))
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.mm_sift_scale_space(
             pts.data_ptr(), boxes.data_ptr(), np_, qc.data_ptr(), nq, recips, ns,
-            _lanes_per_query(nq, *_C_LANES), r2_bound, out.data_ptr(),
-            build.stream_handle(dev),
+            r2_bound, out.data_ptr(), build.stream_handle(dev),
         )
     kernel.launched()
     build.check_launch(kernel, err)
@@ -160,12 +162,15 @@ def knn(
     k: int,
     r2: float,
     tile: int = 1024,
+    *,
+    packed: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The k nearest p-points of each query by (d2, index), nearest first,
     masked targets at d2 = BIG: (idx (Q, k) int32, valid (Q, k) bool, d2 <=
     r2). q and p centred alike; k <= min(MAX_K, P). A CPU tensor takes the
     plain version (in query tiles of `tile`); a CUDA tensor launches the
-    pre-pass and the kernel or raises."""
+    kernel or raises, after the pre-pass where `packed` is None (else
+    `packed` must be `pack(p, vals, p_mask)`, any vals)."""
     if q.device.type == "cpu":
         return knn_ref(q, p, p_mask, k, r2, tile)
     kernel = KNN_KERNEL
@@ -178,7 +183,7 @@ def knn(
     valid = torch.empty((nq, k), dtype=torch.bool, device=dev)
     if nq == 0:
         return idx, valid
-    pts, boxes = pack(p, None, p_mask)
+    pts, boxes = _packed(packed, p, None, p_mask, dev)
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.mm_sift_knn(
@@ -197,6 +202,18 @@ def _cuda(kernel: build.Kernel, t: torch.Tensor) -> torch.device:
     return t.device
 
 
+def _packed(packed, p, vals, mask, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """`packed` checked against the P points it must hold, or pack(p, vals,
+    mask) where it is None."""
+    if packed is None:
+        return pack(p, vals, mask)
+    pts, boxes = packed
+    n_tiles = -(-p.shape[0] // TILE)
+    build.require("packed points", pts, torch.float32, (n_tiles * TILE, 4), dev)
+    build.require("packed boxes", boxes, torch.float32, (n_tiles, 2, 4), dev)
+    return pts, boxes
+
+
 def _recips(sigmas: list[float]) -> list[float]:
     """The float32 reciprocal of the float32 value of 2 s^2 for each sigma:
     what PyTorch multiplies by on the card for `-d2 / (2.0 * s * s)`."""
@@ -204,11 +221,10 @@ def _recips(sigmas: list[float]) -> list[float]:
 
 
 def _lanes_per_query(nq: int, most: int, target_warps: int) -> int:
-    """The lanes that share a query in kernel C or D, G: the fewest powers of
-    two that give `target_warps` warps of 32 // G queries, at most `most`.
-    Lane g of a query takes the points j = g (mod G) of every tile, so C's
-    sums run in another order for another G: G depends on Q alone, and so
-    the bits do not depend on the card."""
+    """The lanes that share a query in kernel D, G: the fewest powers of two
+    that give `target_warps` warps of 32 // G queries, at most `most`. Lane g
+    of a query takes the points j = g (mod G) of every tile; D's lists are
+    merged exactly, so G moves its time, never its result."""
     g = 1
     while g < most and -(-nq // (32 // g)) < target_warps:
         g *= 2

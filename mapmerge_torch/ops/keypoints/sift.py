@@ -14,7 +14,8 @@ reference does. On the cell grid the scale space is
 _GRID_KNN_RADIUS_SCALES octave scales (`radius_neighbors`); on the dense
 engine both are exact sweeps over every point, the 25-NN unbounded (PCL's
 semantics): the hand-written kernels of kernels/sift.py, `scale_space`
-(kernel C) and `knn` (kernel D), each launched once per dense octave.
+(kernel C) and `knn` (kernel D), each launched once per dense octave on the
+points that `_dense_octave` centres and packs once for both.
 """
 
 from __future__ import annotations
@@ -47,6 +48,16 @@ def _intensity(rgb: torch.Tensor) -> torch.Tensor:
     return (299.0 * r + 587.0 * g + 114.0 * b) * (255.0 / 1000.0)
 
 
+def _dense_octave(cloud: PointCloud, intensity: torch.Tensor | None = None) -> tuple:
+    """A dense octave's operands of kernels C and D, made once for both:
+    (pc, vals, packed), the points centred on their valid mean (queries and
+    targets alike), the intensities zeroed where masked (None without
+    `intensity`) and the pre-pass `sift_kernels.pack` of the two."""
+    _, pc = _center(cloud.xyz, cloud.xyz, cloud.mask)
+    vals = None if intensity is None else torch.where(cloud.mask, intensity, 0.0)
+    return pc, vals, sift_kernels.pack(pc, vals, cloud.mask)
+
+
 def _scale_space(
     cloud: PointCloud,
     intensity: torch.Tensor,
@@ -54,11 +65,13 @@ def _scale_space(
     tile: int,
     engine: str = "auto",
     scan_cap: int = 128,
+    dense: tuple | None = None,
 ) -> torch.Tensor:
     """Gaussian-smoothed intensities for every sigma: (S, P), each bounded at
     3 sigma_max. The grid's query overflow is dropped here, as in the
     reference: the query grid is the point grid, so it equals the build
-    overflow that the feature stage's probe reports."""
+    overflow that the feature stage's probe reports. A dense octave takes
+    `dense`, its _dense_octave(cloud, intensity), or makes it."""
     if _resolve_engine(engine, cloud.capacity) == "grid":
         out, _ = grid.grid_gaussian_smooth(
             cloud.xyz, cloud.xyz, intensity, sigmas, p_mask=cloud.mask,
@@ -66,10 +79,9 @@ def _scale_space(
         )  # (P, S)
         return out.T
     r2_bound = _f32((3.0 * max(sigmas)) ** 2)
-    qc, pc = _center(cloud.xyz, cloud.xyz, cloud.mask)
-    vals = torch.where(cloud.mask, intensity, 0.0)
+    pc, vals, packed = dense if dense is not None else _dense_octave(cloud, intensity)
     return sift_kernels.scale_space(
-        qc, pc, vals, cloud.mask, sigmas, r2_bound, tile
+        pc, pc, vals, cloud.mask, sigmas, r2_bound, tile, packed=packed
     )  # (S, P)
 
 
@@ -79,12 +91,14 @@ def _knn(
     tile: int,
     engine: str = "auto",
     scan_cap: int = 128,
+    dense: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The 25-NN of every point for the extremum test: (indices (P, 25)
     int64, valid (P, 25) bool), the point itself (slot 0) left out. On the
     grid, `radius_neighbors` bounded at _GRID_KNN_RADIUS_SCALES octave
     scales; on the dense engine kernel D, unbounded (a radius of 1e6, which
-    the masked targets at BIG meet, as in the reference)."""
+    the masked targets at BIG meet, as in the reference), on `dense`
+    (_dense_octave's) or on its own."""
     p_oct = cloud.capacity
     k = min(_KNN + 1, p_oct)
     if _resolve_engine(engine, p_oct) == "grid":
@@ -93,9 +107,9 @@ def _knn(
             p_mask=cloud.mask, tile=tile, engine=engine, scan_cap=scan_cap,
         )
     else:
-        qc, pc = _center(cloud.xyz, cloud.xyz, cloud.mask)
+        pc, _, packed = dense if dense is not None else _dense_octave(cloud)
         idx, nmask = sift_kernels.knn(
-            qc, pc, cloud.mask, k, _f32(1.0e6 * 1.0e6), tile
+            pc, pc, cloud.mask, k, _f32(1.0e6 * 1.0e6), tile, packed=packed
         )
     return idx[:, 1:].to(torch.int64), nmask[:, 1:]
 
@@ -119,13 +133,16 @@ def detect_keypoints_sift(
     oct_cloud = cloud
     for octave in range(octaves):
         p_oct = oct_cloud.capacity
-        nbr_idx, nbr_ok = _knn(oct_cloud, base, tile, engine, scan_cap)
         intensity = _intensity(oct_cloud.rgb)
+        dense = None
+        if _resolve_engine(engine, p_oct) == "dense":
+            dense = _dense_octave(oct_cloud, intensity)
+        nbr_idx, nbr_ok = _knn(oct_cloud, base, tile, engine, scan_cap, dense=dense)
 
         n_s = scales_per_octave + 3
         sigmas = [base * (2.0 ** (s / scales_per_octave)) for s in range(n_s)]
         smoothed = _scale_space(
-            oct_cloud, intensity, sigmas, tile, engine, scan_cap
+            oct_cloud, intensity, sigmas, tile, engine, scan_cap, dense=dense
         )
         dog = smoothed[1:] - smoothed[:-1]  # (S-1, P)
 

@@ -3,9 +3,6 @@ inputs, on one card, for a before/after comparison.
 
     python3 mapmerge_torch/testing/kernel_ab.py record INPUTS.pt
     python3 mapmerge_torch/testing/kernel_ab.py time INPUTS.pt ROOT [PREFIX]
-    python3 mapmerge_torch/testing/kernel_ab.py lanes INPUTS.pt
-    python3 mapmerge_torch/testing/kernel_ab.py config5 ROOT
-    python3 mapmerge_torch/testing/kernel_ab.py features5 ROOT
 
 `record` drives config #1 and the registry sweep's FPFH + SAC_IA path
 (chip_smoke.py's scenes and parameters) through this checkout and saves the
@@ -27,30 +24,19 @@ one JSON line: the card, and per input three medians of 20 timed calls
 (CUDA events around the call, after 3 warm-up calls), with a digest of the
 grid sweep's rows and of C's and D's outputs so that two checkouts can be
 seen to agree bit for bit. Compare in one process order on one card:
-parent, change, change, parent. `lanes` times this checkout's kernels C and
-D on every saved SIFT input at each number of lanes a query (1, 2, 4, 8;
-the wrapper's choice printed beside), each held against its plain version.
-`config5` runs chip_smoke.py's config5 phase (the stateless node's 50-map
-stream, its gates included) from the checkout at ROOT twice in one process
-and prints the second run's stream seconds, per-tick stage ms and a digest
-of its adjacent-hop errors (equal digests: the same poses): an end to end
-comparison of two checkouts, in the same order. `features5` runs the feature
-stage of config5's first tick (ten clouds, as the stateless node builds
-them) from the checkout at ROOT: host ms of ten warm runs, then one under
-torch.profiler: device ms, SIFT's kernels' device ms, kernel launches and
-pageable host-to-device copies.
+parent, change, change, parent. C and D are timed through their wrappers
+with no `packed` buffer, so each time holds the pre-pass, as an earlier
+checkout's wrapper, which takes no such buffer, is timed.
 """
 
 from __future__ import annotations
 
 import contextlib
 import hashlib
-import io
 import json
 import statistics
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -128,8 +114,8 @@ def record(out: Path) -> None:
 def sift_octaves(cs, label: str, octaves=(0, 1, 2)):
     """Keep the arguments of the first len(octaves) calls of kernels C and
     D (one a dense octave, in octave order: the first extraction's) while a
-    path runs, under "sift_scale_space LABEL octave N" and "sift_knn ...";
-    the dict fills as the path runs."""
+    path runs, under "sift_scale_space LABEL octave N" and "sift_knn ...",
+    all but the shared `packed` buffer; the dict fills as the path runs."""
     from mapmerge_torch.kernels import sift as ksift
 
     kept: dict = {}
@@ -140,7 +126,8 @@ def sift_octaves(cs, label: str, octaves=(0, 1, 2)):
                 n = sum(key.startswith(f"{name} ") for key in kept)
                 if n < len(octaves):
                     kept[f"{name} {label} octave {octaves[n]}"] = (
-                        [cs._copied(a) for a in args], dict(kwargs))
+                        [cs._copied(a) for a in args],
+                        {k: v for k, v in kwargs.items() if k != "packed"})
                 return fn(*args, **kwargs)
 
             return wrapper
@@ -312,115 +299,6 @@ def time_root(inputs_path: Path, root: Path, prefix: str = "") -> None:
         raise SystemExit("kernel_ab: a kernel disagrees with its plain version")
 
 
-def time_lanes(inputs_path: Path) -> None:
-    """Kernels C and D of this checkout at each lane count on the saved SIFT
-    inputs: one JSON line per input, the median of 20 timed calls each."""
-    sys.path.insert(0, str(REPO))
-    from mapmerge_torch.kernels import sift as ksift
-
-    inputs = torch.load(inputs_path, map_location=f"cuda:{torch.cuda.current_device()}")
-    chosen = ksift._lanes_per_query
-    try:
-        for name, (args, kwargs) in sorted(inputs.items()):
-            if not name.startswith("sift"):
-                continue
-            c = name.startswith("sift_scale_space")
-            lanes = ksift._C_LANES if c else ksift._D_LANES
-            row = {"input": name, "chosen": chosen(args[0].shape[0], *lanes), "ms": {}}
-            for g in (1, 2, 4, 8)[: lanes[0].bit_length()]:
-                ksift._lanes_per_query = lambda nq, most, target, g=g: g
-                held = time_sift(ksift, name, args, kwargs)
-                if not held["held"]:
-                    raise SystemExit(f"kernel_ab: {name} at {g} lanes disagrees")
-                row["ms"][g] = held["ms"][0]
-            print(json.dumps(row), flush=True)
-    finally:
-        ksift._lanes_per_query = chosen
-
-
-def time_config5(root: Path) -> None:
-    """chip_smoke.run_config5 of the checkout at ROOT, twice (the first warms
-    the process: library builds, cuBLAS, the caching allocator); one JSON
-    line with the second run's stream seconds and ticks."""
-    sys.path.insert(0, str(root.resolve()))
-    import chip_smoke as cs
-    from mapmerge_torch.kernels import build, nn, spfh
-    from mapmerge_torch.kernels import sift as ksift
-
-    build.load()
-    kernels = [nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL, getattr(ksift, "PACK_KERNEL", None),
-               ksift.SCALE_SPACE_KERNEL, ksift.KNN_KERNEL]
-    kernels = tuple(k for k in kernels if k is not None)
-    dev = torch.device("cuda", torch.cuda.current_device())
-    out = io.StringIO()
-    for _ in range(2):
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            cs.run_config5(dev, kernels)
-    lines = out.getvalue().splitlines()
-    stream = next(line for line in lines if line.startswith("config5 stream:"))
-    ticks = next(line for line in lines if line.startswith("config5 ticks"))
-    hops = next(line for line in lines if line.startswith("config5 adjacent hop errors"))
-    print(json.dumps({"root": str(root), "chip_smoke": cs.__file__,
-                      "stream_s": float(stream.split()[2]),
-                      "hops_digest": hashlib.sha256(hops.encode()).hexdigest()[:16],
-                      "ticks": json.loads(ticks[ticks.index("["):])}), flush=True)
-
-
-def time_features5(root: Path) -> None:
-    """The feature stage of config5's first tick from the checkout at ROOT:
-    ten warm runs over its ten clouds (host ms, each ending in a
-    synchronisation), then one under torch.profiler: device ms in all and in
-    SIFT's kernels (csrc/sift.cu), CUDA kernel launches and pageable
-    host-to-device copies. One JSON line."""
-    sys.path.insert(0, str(root.resolve()))
-    import chip_smoke as cs
-    from torch.profiler import DeviceType, ProfilerActivity, profile
-
-    from mapmerge_torch.kernels import build
-    from mapmerge_torch.pipeline.features import extract_features
-    from mapmerge_torch.runtime.node import MapMergeNode
-    from mapmerge_torch.runtime.transport import InProcTransport
-    from mapmerge_torch.testing.scene import town_views
-
-    build.load()
-    dev = torch.device("cuda", torch.cuda.current_device())
-    views, _ = town_views(cs.CONFIG5S_MAPS, 2048, seed=5)
-    params = cs.config5_params()
-    transport = InProcTransport()
-    node = MapMergeNode(transport, params, seed=0, device=dev)
-    for i in range(cs.CONFIG5S_BATCH):
-        transport.publish(f"robot_{i:02d}", *views[i])
-    node.discovery()
-    _, clouds = cs.stateless_clouds(node)
-
-    def run():
-        for cloud in clouds:
-            extract_features(cloud, params)
-        torch.cuda.synchronize()
-
-    for _ in range(3):
-        run()
-    walls = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        run()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    sift = ("pack_kernel", "scale_space", "knn_")
-    counts = {e.key: e.count for e in prof.key_averages()}
-    print(json.dumps({
-        "root": str(root), "host_ms": sorted(walls),
-        "device_ms": sum(e.time_range.end - e.time_range.start for e in device) / 1e3,
-        "sift_device_ms": sum(e.time_range.end - e.time_range.start for e in device
-                              if any(k in e.name for k in sift)) / 1e3,
-        "kernel_launches": counts.get("cudaLaunchKernel", 0),
-        "pageable_h2d_copies": counts.get("Memcpy HtoD (Pageable -> Device)", 0),
-    }), flush=True)
-
-
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device; this script needs a GPU")
@@ -428,12 +306,6 @@ def main(argv: list[str]) -> int:
         record(Path(argv[1]))
     elif len(argv) in (3, 4) and argv[0] == "time":
         time_root(Path(argv[1]), Path(argv[2]), *argv[3:])
-    elif len(argv) == 2 and argv[0] == "lanes":
-        time_lanes(Path(argv[1]))
-    elif len(argv) == 2 and argv[0] == "config5":
-        time_config5(Path(argv[1]))
-    elif len(argv) == 2 and argv[0] == "features5":
-        time_features5(Path(argv[1]))
     else:
         raise SystemExit(__doc__)
     return 0

@@ -312,22 +312,17 @@ def test_scale_space_culling_takes_exactly_the_pairs_in_bound(case, warp):
 
 
 def test_lanes_per_query_fill_small_octaves():
-    """The lanes that share a query (each a share of every tile's points):
-    kernel C takes 8 at config #1's, config #4's and config5's octaves and
-    config5_big's octave 2, one at 2^19; kernel D 4 up to 32,768 queries, 2
-    at config5_big's 58,254, one at 2^19; a power of two that depends on Q
+    """The lanes of kernel D that share a query (each a share of every
+    tile's points; kernel C always takes 8): 4 up to 32,768 queries, 2 at
+    config5_big's 58,254, one at 2^19; a power of two that depends on Q
     alone."""
-    for nq in (2048, 4096, 8192, 10922, 32768, 58254):
-        assert ksift._lanes_per_query(nq, *ksift._C_LANES) == 8
-    assert ksift._lanes_per_query(2**19, *ksift._C_LANES) == 1
     for nq in (2048, 4096, 10922, 32768):
         assert ksift._lanes_per_query(nq, *ksift._D_LANES) == 4
     assert ksift._lanes_per_query(58254, *ksift._D_LANES) == 2
     assert ksift._lanes_per_query(2**19, *ksift._D_LANES) == 1
     for nq in (1, 100, 4096, 10922, 2**19):
-        for most, target in (ksift._C_LANES, ksift._D_LANES):
-            g = ksift._lanes_per_query(nq, most, target)
-            assert g in (1, 2, 4, 8) and g <= most
+        g = ksift._lanes_per_query(nq, *ksift._D_LANES)
+        assert g in (1, 2, 4) and g <= ksift._D_LANES[0]
 
 
 # ---- on the card ----
@@ -409,3 +404,23 @@ def test_scale_space_kernel_on_adversarial_inputs(cuda, case):
     parked = qc.abs().amax(-1) >= FAR / 2
     assert bool((got[:, parked] == 0).all())
     assert torch.equal(got, ksift.scale_space(qc, pc, vals, mask, sigmas, r2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_kernels_on_one_shared_buffer(cuda, case):
+    """As SIFT runs them: one pre-pass with C's values, C and D both on its
+    buffer; the same bits as each with its own pre-pass, and one pre-pass
+    launch in all."""
+    qc, pc, mask, vals = _card(case, cuda)
+    sigmas = [0.125 * 2.0 ** (s / 3) for s in range(6)]
+    r2 = tn._f32((3.0 * max(sigmas)) ** 2)
+    k = min(26, pc.shape[0])
+    before = ksift.PACK_KERNEL.launches
+    packed = ksift.pack(pc, vals, mask)
+    field = ksift.scale_space(qc, pc, vals, mask, sigmas, r2, packed=packed)
+    idx, valid = ksift.knn(qc, pc, mask, k, tn._f32(1e12), packed=packed)
+    assert ksift.PACK_KERNEL.launches == before + 1
+    assert torch.equal(field, ksift.scale_space(qc, pc, vals, mask, sigmas, r2))
+    ridx, rvalid = ksift.knn(qc, pc, mask, k, tn._f32(1e12))
+    assert torch.equal(idx, ridx) and torch.equal(valid, rvalid)

@@ -192,6 +192,43 @@ def test_detect_keypoints_sift_dense_keeps_the_gate(surface_cloud, scales, monke
     assert same.any(axis=1).mean() >= 0.95
 
 
+def test_dense_octave_packed_once_for_both_kernels(surface_cloud, monkeypatch):
+    """Each dense octave is centred and packed once, with its intensities,
+    and kernels C and D get that one buffer; the keypoints are the same
+    bits as without the recording."""
+    _, tc = surface_cloud
+    kw = dict(min_scale=0.1, octaves=3, scales_per_octave=3, min_contrast=3.0,
+              max_keypoints=256, tile=512, engine="dense")
+    packs, given = [], {"scale_space": [], "knn": []}
+    pack, scale_space, knn = ksift.pack, ksift.scale_space, ksift.knn
+
+    def counted_pack(p, vals, mask):
+        packs.append((vals is not None, pack(p, vals, mask)))
+        return packs[-1][1]
+
+    def taking(name, fn):
+        def wrapper(*args, packed=None, **kwargs):
+            given[name].append(packed)
+            return fn(*args, **kwargs)
+
+        return wrapper
+
+    monkeypatch.setattr(ksift, "pack", counted_pack)
+    monkeypatch.setattr(ksift, "scale_space", taking("scale_space", scale_space))
+    monkeypatch.setattr(ksift, "knn", taking("knn", knn))
+    got = tsift.detect_keypoints_sift(tc, **kw)
+    # 3 octaves, one pre-pass each (a CPU wrapper takes its plain version,
+    # which packs nothing)
+    assert [with_vals for with_vals, _ in packs] == [True] * 3
+    shared = [buf for _, buf in packs]
+    for name in given:
+        assert [id(b) for b in given[name]] == [id(b) for b in shared], name
+    monkeypatch.undo()
+    want = tsift.detect_keypoints_sift(tc, **kw)
+    for field in ("xyz", "response", "mask", "truncated"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+
+
 def test_wrappers_take_the_plain_version_on_cpu_without_building(monkeypatch):
     """A CPU tensor goes to the plain version: nothing is built or loaded and
     no launch is counted; the results are the plain versions' bits."""
@@ -249,6 +286,70 @@ def test_forced_build_or_launch_failure_raises(monkeypatch, entry):
         mm_sift_knn=lambda *args: 700))
     with pytest.raises(RuntimeError, match=f"{kernel.name}: CUDA launch failed with error 700"):
         call()
+
+
+def _meta_entry(monkeypatch, entry):
+    """The card's path of a wrapper on meta tensors (no data), as
+    test_forced_build_or_launch_failure_raises runs it: (call, kernel)."""
+    meta = torch.device("meta")
+    q = torch.empty((64, 3), device=meta)
+    mask = torch.ones((64,), dtype=torch.bool, device=meta)
+    vals = torch.empty((64,), device=meta)
+    monkeypatch.setattr(ksift, "_cuda", lambda kernel, x: x.device)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(build, "stream_handle", lambda dev: 0)
+    call = {
+        "scale_space": lambda **kw: ksift.scale_space(q, q, vals, mask, [0.1, 0.2], 0.36,
+                                                      **kw),
+        "knn": lambda **kw: ksift.knn(q, q, mask, 26, 1e12, **kw),
+    }[entry]
+    kernel = {"scale_space": ksift.SCALE_SPACE_KERNEL, "knn": ksift.KNN_KERNEL}[entry]
+    return call, kernel
+
+
+def _never(*args):
+    raise AssertionError("launched after a failed pre-pass")
+
+
+@pytest.mark.parametrize("entry", ["scale_space", "knn"])
+def test_forced_pack_failure_raises_before_the_kernel(monkeypatch, entry):
+    """A pre-pass launch that returns a CUDA error raises it under the
+    pre-pass's name; kernel C or D is never launched on its buffer, and its
+    launch count does not move."""
+    call, kernel = _meta_entry(monkeypatch, entry)
+    monkeypatch.setattr(build, "load", lambda *a: types.SimpleNamespace(
+        mm_sift_pack=lambda *args: 700, mm_sift_scale_space=_never, mm_sift_knn=_never))
+    before = (ksift.SCALE_SPACE_KERNEL.launches, ksift.KNN_KERNEL.launches)
+    with pytest.raises(RuntimeError, match="sift_pack: CUDA launch failed with error 700"):
+        call()
+    assert (ksift.SCALE_SPACE_KERNEL.launches, ksift.KNN_KERNEL.launches) == before
+
+
+@pytest.mark.parametrize("entry", ["scale_space", "knn"])
+def test_a_given_buffer_skips_the_pre_pass(monkeypatch, entry):
+    """With `packed`, the wrapper launches its kernel on that buffer and no
+    pre-pass; a buffer of another size is refused before any launch."""
+    call, kernel = _meta_entry(monkeypatch, entry)
+    seen = []
+
+    def launch(*args):
+        seen.append(args)
+        return 0
+
+    monkeypatch.setattr(build, "load", lambda *a: types.SimpleNamespace(
+        mm_sift_pack=_never, mm_sift_scale_space=launch, mm_sift_knn=launch))
+    meta = torch.device("meta")
+    pts = torch.empty((64, 4), device=meta)
+    boxes = torch.empty((2, 2, 4), device=meta)
+    before = (ksift.PACK_KERNEL.launches, kernel.launches)
+    call(packed=(pts, boxes))
+    assert (ksift.PACK_KERNEL.launches, kernel.launches) == (before[0], before[1] + 1)
+    assert len(seen) == 1
+    with pytest.raises(ValueError, match="packed boxes has shape"):
+        call(packed=(pts, torch.empty((3, 2, 4), device=meta)))
+    with pytest.raises(ValueError, match="packed points has shape"):
+        call(packed=(torch.empty((32, 4), device=meta), boxes))
+    assert len(seen) == 1
 
 
 # ---- the build directory (kernels/build.py) ----
