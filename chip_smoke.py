@@ -13,7 +13,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      exactly, and against the unbatched kernel on each pair; SIFT's kernels
      C (scale space) and D (26-NN) at config #1's octave-0 shape, C within
      its tolerance and D exactly, D also on lattice ties and both on a small
-     Q whose points they split;
+     Q whose points they split; the dense radius sweeps, kernels E (count)
+     and F (moments), at config #1's width (Q = P = 32,768, 0.8 / 0.6 m), E
+     exactly and F within its tolerance, then on points exactly on the
+     radius, ties, shuffled, all-masked, half-parked, one-tile clouds and
+     queries that are not the cloud's points;
   4. eval config #1 (bench.py:49-77) through estimate_maps_transforms on the
      card: reset the kernels' launch counts, run once, require every kernel
      to have launched; gate the poses against the ground truth and against
@@ -150,24 +154,36 @@ all and of those not parked at FAR; it rounds otherwise, so it is a
 yardstick, not held for bits.
 SIFT's dense octaves (kernels C and D, one launch each a dense octave:
 three an extraction, one on config5_big, whose octaves 0-1 take the grid;
-none on the Harris paths; their pre-pass `pack` once a dense octave, for
-both) are
-required per path from the extractions and dense octaves counted there, and
-all three are held on every SIFT path's first launch: C within its
-tolerance, D and the pre-pass exactly, D also timed against torch.cdist +
+none on the Harris paths) are required per path from the extractions and
+dense octaves counted there, and both are held on every SIFT path's first
+launch: C within its tolerance, D exactly, D also timed against torch.cdist +
 torch.topk (knn_library); check_sift holds them on adversarial inputs too
 (sift_adversarial). C's and D's bounds count the work their inputs need
 (the pairs within C's radius, D's k a query), the dense sweep's beside.
+The dense radius sweeps (kernels E and F: the outlier pass, SC3D's
+density count and the normals) launch once a dense radius pass, each with
+its own pre-pass: E and F once a dense extraction, E once more on SC3D,
+neither on config #2, #3 or config5_big (require_radius); both are held on
+every dense path's first launch, E exactly and F within its tolerance, F's
+normals' valid flags equal to the plain version's (the ok flips and the
+largest angle logged, and what the angle comes from: moments_precision,
+which also holds TF32 and bfloat16 controls of F's sums to fail F's limit
+on config #1), E also timed against torch.cdist <= r (count_library).
+The tile pre-pass (kernels/tiles.pack, which C, D, E and F read) launches
+once a dense SIFT octave, for both C and D, and once a call of E or F,
+exactly (require_pack), and is held exactly on its first launch on every
+path.
 Config #1's merge is also timed stage by stage and profiled once
 (profile_merge: the device busy share), and config5_big's octave 0 (2^19
 points, on the grid) is timed through C and D beside the grid route
-(big_octave_stats), held on sampled queries.
+(big_octave_stats), its first map's outlier and normal passes through E
+and F beside the grid's (big_radius_stats), held on sampled queries.
 The line before the last is a JSON object of the kernels (kernel
-A's one-pair and batched entries, kernel B, the pre-pass, kernels C and D): launches,
-times and bound on each kernel's main path (MAIN_PATH: config #1 for the
-batched entry, B, C and D, the incremental node on config #1's views for
-the one-pair entry), and the same for every path and for the synthetic
-shapes; the last line is {"ok": true, "device": {...}}.
+A's one-pair and batched entries, kernel B, the pre-pass, kernels C, D, E
+and F): launches, times and bound on each kernel's main path (MAIN_PATH:
+config #1 for the batched entry, B, C, D, E and F, the incremental node on
+config #1's views for the one-pair entry), and the same for every path and
+for the synthetic shapes; the last line is {"ok": true, "device": {...}}.
 The native host library (native/, csrc/mapmerge_native.cpp): on every path
 that solves a graph (4-8, 11-13, 15 in this process and in each rank
 process, 16) the call counts are reset just before the path and
@@ -224,6 +240,15 @@ SIFT_PAIR_OPS = 9
 #: and of each sigma of a pair within C's bound: the division, exp (special
 #: functions count 1), the product and the two sums
 SIFT_SIGMA_OPS = 5
+#: the dense radius sweeps on config #1 (kernels E and F): the outlier
+#: pass's radius (descriptor_radius) and the normals' (normal_radius)
+OUTLIER_R, NORMAL_R = 0.8, 0.6
+#: float32 operations of one (query, point) pair of kernels E and F: the
+#: distance 8 and the radius compare 1
+RADIUS_PAIR_OPS = 9
+#: and of each member of kernel F: 10 sums (the count, 3 coordinates, 6
+#: products) and the 6 products
+MOMENTS_MEMBER_OPS = 16
 #: float32 operations of one counted SPFH pair (csrc/spfh.cu): the distance
 #: 8, square root and radius product 2, unit vector 3, the two cosines 10,
 #: v = d x u 9, its norm and scaling 9, w = u x v 9, alpha 5, theta's two
@@ -604,12 +629,12 @@ def pack_bound(args) -> dict:
     return _bound(n_bytes, n * 6)
 
 
-def _pack_compare(name, ksift, args):
+def _pack_compare(name, ktiles, args):
     """The pre-pass against pack_ref on the same inputs: the same values
     (NaN where NaN; -0 and +0 alike in a box) and the int bits of the
     fourth columns exactly. Returns 0.0, the max abs error."""
-    pts, boxes = ksift.pack(*args)
-    rpts, rboxes = ksift.pack_ref(*args)
+    pts, boxes = ktiles.pack(*args)
+    rpts, rboxes = ktiles.pack_ref(*args)
     torch.cuda.synchronize()
     same = bool(((pts == rpts) | (pts.isnan() & rpts.isnan())).all())
     same = same and torch.equal(boxes[..., :3], rboxes[..., :3]) and torch.equal(
@@ -687,24 +712,32 @@ def knn_library_stats(ksift, args) -> dict:
     return stats
 
 
+def pack_stats(label: str, ktiles, seen: dict) -> dict:
+    """The tile pre-pass on the inputs of its first launch on a path (the
+    path's own shape: E's where outliers come first): held exactly against
+    pack_ref (_pack_compare), then timed (CUDA events, warm, median),
+    beside its bound."""
+    if "tiles_pack" not in seen:
+        return {}
+    args, _ = seen["tiles_pack"]
+    return {"tiles_pack": {
+        "shape": f"P={args[0].shape[0]}, vals {args[1] is not None}",
+        "max_abs_err": _pack_compare(f"{label} tiles_pack", ktiles, args),
+        "ms": time_ms(lambda: ktiles.pack(*args)),
+        "plain_ms": time_ms(lambda: ktiles.pack_ref(*args), reps=5),
+        "library_ms": None, **pack_bound(args),
+    }}
+
+
 def sift_stats(label: str, ksift, seen: dict) -> dict:
-    """The pre-pass and kernels C and D on the inputs of their first launch
-    on a path (the path's own shapes): held against their plain versions
-    (_pack_compare, _scale_space_compare, _knn_compare), then timed (CUDA
-    events, warm, median), beside the bound and, for D, knn_library. C and
-    D take the buffer the path packed for them where it was recorded (their
-    times are then the kernels' alone; the pre-pass has its own row), else
-    pack their own points first."""
+    """Kernels C and D on the inputs of their first launch on a path (the
+    path's own shapes): held against their plain versions
+    (_scale_space_compare, _knn_compare), then timed (CUDA events, warm,
+    median), beside the bound and, for D, knn_library. C and D take the
+    buffer the path packed for them where it was recorded (their times are
+    then the kernels' alone; the pre-pass has its own row), else pack their
+    own points first."""
     stats = {}
-    if "sift_pack" in seen:
-        args, _ = seen["sift_pack"]
-        stats["sift_pack"] = {
-            "shape": f"P={args[0].shape[0]}, vals {args[1] is not None}",
-            "max_abs_err": _pack_compare(f"{label} sift_pack", ksift, args),
-            "ms": time_ms(lambda: ksift.pack(*args)),
-            "plain_ms": time_ms(lambda: ksift.pack_ref(*args), reps=5),
-            "library_ms": None, **pack_bound(args),
-        }
     if "sift_scale_space" in seen:
         args, kwargs = seen["sift_scale_space"]
         err, rel = _scale_space_compare(f"{label} sift_scale_space", ksift, args, kwargs)
@@ -759,41 +792,368 @@ def sift_adversarial(g, qc, pc, vals, mask) -> dict:
 
 
 def check_sift(dev, ksift) -> dict:
-    """The pre-pass and kernels C and D against their plain versions at
+    """The tile pre-pass and kernels C and D against their plain versions at
     config #1's octave-0 shape (sift_octave0: Q = P = 32,768, six sigmas,
     the 26-NN), C within its tolerance and D exactly; then all three on the
     inputs of sift_adversarial, D also at k = 9 and a bounded radius."""
     g = torch.Generator(device=dev).manual_seed(14)
+    from mapmerge_torch.kernels import tiles as ktiles
     from mapmerge_torch.ops.neighbors import _f32
 
     qc, pc, vals, mask = sift_octave0(g, dev)
     sigmas = sift_sigmas()
     c_args = (qc, pc, vals, mask, sigmas, _f32((3.0 * max(sigmas)) ** 2))
     d_args = (qc, pc, mask, SIFT_K, _f32(1.0e12))
-    stats = sift_stats("synthetic", ksift,
-                       {"sift_pack": ((pc, vals, mask), {}),
-                        "sift_scale_space": (c_args, {}), "sift_knn": (d_args, {})})
+    first = {"tiles_pack": ((pc, vals, mask), {}),
+             "sift_scale_space": (c_args, {}), "sift_knn": (d_args, {})}
+    stats = {**pack_stats("synthetic", ktiles, first), **sift_stats("synthetic", ksift, first)}
     adversarial = sift_adversarial(g, qc, pc, vals, mask)
     for name, (q, p, v, m) in adversarial.items():
-        _pack_compare(f"sift_pack {name}", ksift, (p, v, m))
+        _pack_compare(f"tiles_pack {name}", ktiles, (p, v, m))
         _scale_space_compare(f"sift_scale_space {name}", ksift,
                              (q, p, v, m, sigmas, c_args[5]))
         for k, r2 in ((SIFT_K, _f32(1.0e12)), (9, 0.25)):
             _knn_compare(f"sift_knn {name} k={k}", ksift, (q, p, m, min(k, p.shape[0]), r2))
     # as SIFT runs them: both on one buffer, packed with C's values
-    shared = {"packed": ksift.pack(pc, vals, mask)}
+    shared = {"packed": ktiles.pack(pc, vals, mask)}
     _scale_space_compare("sift_scale_space on a shared buffer", ksift, c_args, shared)
     _knn_compare("sift_knn on a shared buffer", ksift, d_args, shared)
     c, d = stats["sift_scale_space"], stats["sift_knn"]
     log(f"kernel sift_scale_space {c['shape']}: max err {c['max_abs_err']} "
         f"({c['err_of_field']} of the field), {c['pairs_in_bound']} pairs in bound; "
         f"kernel {c['ms']} ms, plain {c['plain_ms']} ms, bound {c['bound_ms']} ms")
-    log(f"kernels sift_pack, sift_scale_space and sift_knn held on {sorted(adversarial)} "
+    log(f"kernels tiles_pack, sift_scale_space and sift_knn held on {sorted(adversarial)} "
         "(sift_knn at k = 26 and 9), and C and D on one shared buffer")
     log(f"kernel sift_knn {d['shape']}: exact; "
         f"kernel {d['ms']} ms, plain {d['plain_ms']} ms, library {d['library_ms']} ms "
         f"(index agreement {d['library_index_agreement_unparked']} unparked), "
         f"bound {d['bound_ms']} ms")
+    return stats
+
+
+def radius_count_bound(args, in_bound: int) -> dict:
+    """Kernel E: queries (12 B) and points (12 B, the mask 1 B) read once,
+    the counts (4 B) written once; the work these inputs need: each member
+    pair's RADIUS_PAIR_OPS (a kernel that culls need test no other pair).
+    Beside it `dense_bound_ms`, every pair's (the dense sweep's bound)."""
+    nq, np_ = args[0].shape[0], args[1].shape[0]
+    n_bytes = nq * 12 + np_ * 13 + nq * 4
+    return {**_bound(n_bytes, in_bound * RADIUS_PAIR_OPS),
+            "dense_bound_ms": _bound(n_bytes, nq * np_ * RADIUS_PAIR_OPS)["bound_ms"]}
+
+
+def radius_moments_bound(args, in_bound: int) -> dict:
+    """Kernel F: as E's, the count, mean and covariance (52 B a query)
+    written once; each member pair's RADIUS_PAIR_OPS + MOMENTS_MEMBER_OPS.
+    Beside it `dense_bound_ms`, every pair's distance and compare and the
+    members' sums."""
+    nq, np_ = args[0].shape[0], args[1].shape[0]
+    n_bytes = nq * 12 + np_ * 13 + nq * 52
+    dense = nq * np_ * RADIUS_PAIR_OPS + in_bound * MOMENTS_MEMBER_OPS
+    return {**_bound(n_bytes, in_bound * (RADIUS_PAIR_OPS + MOMENTS_MEMBER_OPS)),
+            "dense_bound_ms": _bound(n_bytes, dense)["bound_ms"]}
+
+
+def count_library(q, p, mask, r2):
+    """Kernel E's function by one PyTorch route: torch.cdist, <= the
+    radius, the masked targets dropped, summed over the targets. Timed as a
+    yardstick only: cdist expands the distance through a matmul and rounds
+    otherwise."""
+    within = torch.cdist(q, p) <= math.sqrt(r2)
+    if mask is not None:
+        within &= mask.unsqueeze(-2)
+    return within.sum(-1)
+
+
+def count_library_stats(kradius, args) -> dict:
+    """count_library on kernel E's inputs `args`: its time (time_ms, as the
+    kernel's) and the share of queries whose count equals the kernel's."""
+    q, p, mask, r2 = args[:4]
+    ms = time_ms(lambda: count_library(q, p, mask, r2))
+    agree = count_library(q, p, mask, r2) == kradius.count(*args).long()
+    stats = {"library_ms": ms, "library_count_agreement": float(agree.double().mean())}
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _count_compare(name, kradius, args):
+    """Kernel E against count_ref on the same inputs: bit for bit, the
+    queries parked at FAR 0. Returns count_ref's counts."""
+    from mapmerge_torch.core.cloud import FAR
+
+    got = kradius.count(*args)
+    ref = kradius.count_ref(*args)
+    torch.cuda.synchronize()
+    diff = int((got != ref).sum())
+    require(got.shape == ref.shape and diff == 0,
+            f"{name}: {diff} counts differ from the plain version; exact required")
+    parked = args[0].abs().amax(-1) >= FAR / 2
+    require(not bool(got[parked].any()), f"{name}: a parked query has members")
+    return ref
+
+
+def normals_hold(got, ref, args) -> dict:
+    """Kernel F's moments and moments_ref's through the normals' eigen
+    solver (ops/eigh3.smallest_eigenpair3), as ops/normals.py takes them: the
+    `valid` flags (ok, count >= 3, and the cloud's mask where the queries
+    are its points) required equal; the points whose `ok` flips, and the
+    largest angle between the two normals over the points valid in both
+    (in degrees, the eigenvectors' sign aside: the viewpoint flip follows),
+    recorded."""
+    from mapmerge_torch.ops.eigh3 import smallest_eigenpair3
+
+    own = args[0].shape[0] == args[1].shape[0] and args[2] is not None
+    flags, vecs, oks = [], [], []
+    for count, _, cov in (got, ref):
+        _, vec, ok = smallest_eigenpair3(cov)
+        valid = ok & (count >= 3.0)
+        flags.append(valid & args[2] if own else valid)
+        vecs.append(vec)
+        oks.append(ok)
+    both = flags[0] & flags[1]
+    cos = (vecs[0][both] * vecs[1][both]).sum(-1).abs().clamp(max=1.0)
+    angle = float(torch.rad2deg(torch.acos(cos)).max()) if bool(both.any()) else 0.0
+    held = {"valid": int(flags[0].sum()), "valid_differing": int((flags[0] != flags[1]).sum()),
+            "ok_flips": int((oks[0] != oks[1]).sum()), "max_angle_deg": angle}
+    require(held["valid_differing"] == 0,
+            f"normals' valid flags differ between kernel F and its plain version: {held}")
+    return held
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 `x` rounded to TF32's 10 mantissa bits (to nearest, ties
+    away from zero), held in float32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _products(pc: torch.Tensor) -> torch.Tensor:
+    return (pc[:, :, None] * pc[:, None, :]).reshape(-1, 9)
+
+
+#: the operands (points, per-point products) of the moments' sums: float64
+#: (the sums' truth over the same members), and the controls of a kernel
+#: that rounds them to TF32 or bfloat16 before it sums in float32
+MOMENTS_OPERANDS = {
+    "float64": lambda pc: (pc.double(), _products(pc.double())),
+    "tf32": lambda pc: (_tf32(pc), _tf32(_products(pc))),
+    "bf16": lambda pc: tuple(x.to(torch.bfloat16).to(torch.float32)
+                             for x in (pc, _products(pc))),
+}
+
+
+def moments_sums(args, operands, tile: int = 1024):
+    """moments_ref's function of F's inputs `args` on moments_ref's own
+    members (its float32 sq_dists and mask: the same bits), with the
+    matrix products' operands `operands(pc)` (MOMENTS_OPERANDS)."""
+    from mapmerge_torch.core.dense import sq_dists, tiled_query
+
+    qc, pc, mask, r2 = args[:4]
+    xc, xpp = operands(pc)
+
+    def tile_fn(q_slab):
+        within = sq_dists(q_slab, pc) <= r2
+        if mask is not None:
+            within = within & mask[None, :]
+        w = within.to(xc.dtype)
+        s0 = w.sum(dim=-1)
+        denom = s0.clamp_min(1.0)[:, None]
+        mean = (w @ xc) / denom
+        e_outer = (w @ xpp) / denom
+        return s0, mean, e_outer.reshape(-1, 3, 3) - mean[:, :, None] * mean[:, None, :]
+
+    return tiled_query(qc, tile_fn, tile)
+
+
+def moments_precision(kradius, args, controls_fail: bool) -> dict:
+    """Where F's limit stands, on F's inputs `args`: F's moments and
+    moments_ref's each against the float64 sums over the same members
+    (kradius.moments_error: the largest share of a query's largest second
+    moment), and the TF32 and bfloat16 controls against moments_ref, both
+    required to fail MOMENTS_RTOL where `controls_fail`. Then what the
+    normals' angle comes from: over the points whose normals are valid in
+    both routes, the smallest eigenvectors (float64 eigh) of F's, the plain
+    version's and the float64 covariance; the largest angles between them,
+    the points over 0.1 deg; at the point of the largest angle between F
+    and the plain version, and at that between the plain version and the
+    float64 sums, its members, float64 eigenvalues, the gap under which the
+    normal turns, the covariance's difference and that over the gap
+    (first-order perturbation: the angle it predicts)."""
+    got = kradius.moments(*args)
+    ref = kradius.moments_ref(*args)
+    truth = moments_sums(args, MOMENTS_OPERANDS["float64"])
+    out = {"kernel_vs_float64": kradius.moments_error(got, truth)[1],
+           "plain_vs_float64": kradius.moments_error(ref, truth)[1]}
+    for name in ("tf32", "bf16"):
+        control = moments_sums(args, MOMENTS_OPERANDS[name])
+        out[f"{name}_control"] = kradius.moments_error(control, ref)[1]
+        require(not controls_fail or out[f"{name}_control"] > kradius.MOMENTS_RTOL,
+                f"radius_moments: a {name} control is within MOMENTS_RTOL "
+                f"({out[f'{name}_control']}): the limit does not tell it from float32")
+    own = args[0].shape[0] == args[1].shape[0] and args[2] is not None
+    valid = (got[0] >= 3.0) & (ref[0] >= 3.0)
+    if own:
+        valid &= args[2]
+    if not bool(valid.any()):
+        return out
+    lams, normals = [], []
+    for _, _, cov in (got, ref, truth):
+        lam, vec = torch.linalg.eigh(cov[valid].double().cpu())
+        lams.append(lam)
+        normals.append(vec[..., :, 0])
+
+    def angle(a, b):
+        return torch.rad2deg(torch.acos((a * b).sum(-1).abs().clamp(max=1.0)))
+
+    kp, kt, pt = (angle(normals[0], normals[1]), angle(normals[0], normals[2]),
+                  angle(normals[1], normals[2]))
+
+    def point(i: int, other) -> dict:
+        """Point i of the valid ones: its members, float64 eigenvalues, the
+        gap, |cov - other's cov| and the angle it predicts over the gap."""
+        lam = lams[2][i]
+        gap = float(lam[1] - lam[0])
+        dcov = float((other[2][valid][i] - ref[2][valid][i]).abs().max())
+        mean = ref[1][valid][i]
+        return {"members": float(ref[0][valid][i]),
+                "eigenvalues_float64": [float(v) for v in lam], "gap": gap,
+                "cov_diff": dcov,
+                "second_moment": float((ref[2][valid][i] + mean[:, None] * mean[None, :])
+                                       .abs().max()),
+                "predicted_deg": math.degrees(dcov / gap) if gap > 0 else None}
+
+    over = kp > 0.1
+    rel_gap = (lams[2][:, 1] - lams[2][:, 0]) / lams[2][:, 2].clamp_min(1e-30)
+    out.update({
+        "points": int(valid.sum()),
+        "max_angle_deg": {"kernel_vs_plain": float(kp.max()),
+                          "kernel_vs_float64": float(kt.max()),
+                          "plain_vs_float64": float(pt.max())},
+        "over_0.1_deg": {"kernel_vs_plain": int(over.sum()),
+                         "kernel_vs_float64": int((kt > 0.1).sum()),
+                         "plain_vs_float64": int((pt > 0.1).sum())},
+        "median_rel_gap": {"all": float(rel_gap.median()),
+                           "over_0.1_deg": float(rel_gap[over].median())
+                           if bool(over.any()) else None},
+        "worst_kernel_vs_plain": point(int(kp.argmax()), got),
+        "worst_plain_vs_float64": point(int(pt.argmax()), truth),
+    })
+    return out
+
+
+def _moments_compare(name, kradius, args):
+    """Kernel F against moments_ref on the same inputs: the count exactly,
+    the mean and covariance within MOMENTS_RTOL of each query's largest
+    second moment (kradius.moments_error), a second launch the same bits,
+    the normals held (normals_hold). Returns (max abs err, that error over
+    the second moment, the members counted, normals_hold's record)."""
+    got = kradius.moments(*args)
+    ref = kradius.moments_ref(*args)
+    again = kradius.moments(*args)
+    torch.cuda.synchronize()
+    require(all(a.shape == b.shape for a, b in zip(got, ref)), f"{name}: shapes")
+    require(all(bool(torch.isfinite(a).all()) for a in got), f"{name}: non-finite values")
+    require(torch.equal(got[0], ref[0]), f"{name}: the counts differ from the plain version")
+    err, rel = kradius.moments_error(got, ref)
+    require(rel <= kradius.MOMENTS_RTOL,
+            f"{name}: off by {err} ({rel} of a second moment) > {kradius.MOMENTS_RTOL}")
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"{name}: a second launch gave other bits")
+    return err, rel, int(ref[0].sum()), normals_hold(got, ref, args)
+
+
+def radius_stats(label: str, kradius, seen: dict) -> dict:
+    """Kernels E and F on the inputs of their first launch on a path (the
+    path's own shapes): held against their plain versions (_count_compare,
+    _moments_compare), then timed (CUDA events, warm, median), each with its
+    own pre-pass, as the path runs it, beside the bound on the members
+    (the dense sweep's beside it) and, for E, count_library."""
+    stats = {}
+    if "radius_count" in seen:
+        args, _ = seen["radius_count"]
+        in_bound = int(_count_compare(f"{label} radius_count", kradius, args).sum())
+        stats["radius_count"] = {
+            "shape": f"Q={args[0].shape[0]} P={args[1].shape[0]} r2={args[3]}",
+            "max_abs_err": 0.0, "pairs_in_bound": in_bound,
+            "ms": time_ms(lambda: kradius.count(*args)),
+            "plain_ms": time_ms(lambda: kradius.count_ref(*args), reps=3, warmup=1),
+            **count_library_stats(kradius, args), **radius_count_bound(args, in_bound),
+        }
+    if "radius_moments" in seen:
+        args, _ = seen["radius_moments"]
+        err, rel, in_bound, normals = _moments_compare(
+            f"{label} radius_moments", kradius, args)
+        stats["radius_moments"] = {
+            "shape": f"Q={args[0].shape[0]} P={args[1].shape[0]} r2={args[3]}",
+            "max_abs_err": err, "err_of_second_moment": rel, "pairs_in_bound": in_bound,
+            "normals": normals,
+            "precision": moments_precision(
+                kradius, args, controls_fail=label in ("synthetic", MAIN_PATH["radius_moments"])),
+            "ms": time_ms(lambda: kradius.moments(*args)),
+            "plain_ms": time_ms(lambda: kradius.moments_ref(*args), reps=3, warmup=1),
+            "library_ms": None, **radius_moments_bound(args, in_bound),
+        }
+    return stats
+
+
+def radius_adversarial(g, qc, pc, mask) -> dict:
+    """Inputs on which the culling of kernels E and F must stay exact, made
+    from sift_octave0's (qc, pc, mask): name -> (q, p, mask, r2 of E, r2 of
+    F). A 1/4 m lattice at radii of 0.5 and 0.75 m (r2 exact in float32:
+    every point has neighbours exactly on the radius, and ties everywhere),
+    shuffled (no voxel order), every point masked, half the slots masked and
+    their queries parked at FAR, queries that are not the cloud's points
+    (a moved sample), and one tile (20 points)."""
+    from mapmerge_torch.core.cloud import FAR
+    from mapmerge_torch.ops.neighbors import _center, _f32
+
+    n = pc.shape[0]
+    r2e, r2f = _f32(OUTLIER_R ** 2), _f32(NORMAL_R ** 2)
+    perm = torch.randperm(n, generator=g, device=pc.device)
+    lattice = torch.round(pc * 4.0) / 4.0
+    half = torch.arange(n, device=pc.device) < n // 2
+    parked = torch.where(half[:, None], pc, FAR)
+    pq, pp = _center(parked, parked, half)
+    moved = qc[: n - n // 5 : 11] + torch.tensor([0.05, -0.03, 0.01], device=qc.device)
+    return {
+        "lattice on the radius": (lattice, lattice, mask, 0.25, 0.5625),
+        "shuffled": (qc[perm], pc[perm], mask[perm], r2e, r2f),
+        "all masked": (qc, pc, torch.zeros_like(mask), r2e, r2f),
+        "half parked": (pq, pp, half, r2e, r2f),
+        "other queries": (moved.contiguous(), pc, mask, r2e, r2f),
+        "one tile": (qc[:20], pc[:20].contiguous(), mask[:20], r2e, r2f),
+    }
+
+
+def check_radius(dev, kradius) -> dict:
+    """Kernels E and F against their plain versions at config #1's width
+    (sift_octave0's points: Q = P = 32,768, 20% padding at FAR; E at the
+    outlier radius, F at the normals'), E exactly and F within its
+    tolerance, both timed; then both on radius_adversarial's inputs."""
+    from mapmerge_torch.ops.neighbors import _f32
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    qc, pc, _, mask = sift_octave0(g, dev)
+    e_args = (qc, pc, mask, _f32(OUTLIER_R ** 2))
+    f_args = (qc, pc, mask, _f32(NORMAL_R ** 2))
+    stats = radius_stats("synthetic", kradius,
+                         {"radius_count": (e_args, {}), "radius_moments": (f_args, {})})
+    worst = 0.0
+    adversarial = radius_adversarial(g, qc, pc, mask)
+    for name, (q, p, m, r2e, r2f) in adversarial.items():
+        _count_compare(f"radius_count {name}", kradius, (q, p, m, r2e))
+        _, rel, _, _ = _moments_compare(f"radius_moments {name}", kradius, (q, p, m, r2f))
+        worst = max(worst, rel)
+    e, f = stats["radius_count"], stats["radius_moments"]
+    log(f"kernel radius_count {e['shape']}: exact, {e['pairs_in_bound']} pairs in bound; "
+        f"kernel {e['ms']} ms, plain {e['plain_ms']} ms, library {e['library_ms']} ms "
+        f"(count agreement {e['library_count_agreement']}), bound {e['bound_ms']} ms")
+    log(f"kernel radius_moments {f['shape']}: max err {f['max_abs_err']} "
+        f"({f['err_of_second_moment']} of a second moment), normals {f['normals']}, "
+        f"precision {json.dumps(f['precision'])}; "
+        f"kernel {f['ms']} ms, plain {f['plain_ms']} ms, bound {f['bound_ms']} ms")
+    log(f"kernels radius_count and radius_moments held on {sorted(adversarial)} (largest "
+        f"moments error {worst} of a second moment)")
     return stats
 
 
@@ -841,19 +1201,29 @@ def first_launch_inputs(nn, spfh):
     threshold and result (`seen["graph"]`, for hold_graph). SIFT's
     extractions and the octaves among them that resolve to the dense engine
     are counted (`seen["sift"]`), and the first extraction's arguments kept
-    (`seen["sift_detect"]`, for hold_sift_keypoints)."""
+    (`seen["sift_detect"]`, for hold_sift_keypoints). The dense radius
+    passes are counted (`seen["radius"]`): the outlier and normal stages
+    (one each an extraction; the pipeline's and the debugger's calls) and
+    SC3D's density count whose cloud resolves to the dense engine."""
+    import inspect
     import threading
 
     from mapmerge_torch import native
+    from mapmerge_torch.kernels import radius as kradius
     from mapmerge_torch.kernels import sift as ksift
+    from mapmerge_torch.kernels import tiles as ktiles
+    from mapmerge_torch.ops import normals as normals_ops
+    from mapmerge_torch.ops import outliers as outliers_ops
+    from mapmerge_torch.ops.descriptors import sc3d
     from mapmerge_torch.ops.keypoints import sift as sift_ops
     from mapmerge_torch.ops.neighbors import _resolve_engine
     from mapmerge_torch.parallel import pair_shard
-    from mapmerge_torch.pipeline import merging
+    from mapmerge_torch.pipeline import features, merging
 
     seen: dict = {"pairs": {"stage_s": 0.0, "chunks": 0, "batched_pairs": 0,
                             "one_pair_calls": 0}, "graph": [],
-                  "sift": {"extractions": 0, "dense_octaves": 0}}
+                  "sift": {"extractions": 0, "dense_octaves": 0},
+                  "radius": {"outliers": 0, "normals": 0, "SC3D density": 0}}
     lock = threading.Lock()
 
     def add(key, value):
@@ -919,6 +1289,26 @@ def first_launch_inputs(nn, spfh):
 
         return wrapper
 
+    def dense_pass(key, size):
+        """Count a call whose operand (`size` of its bound arguments: the
+        capacity) resolves its engine to the dense one."""
+        def make(fn):
+            signature = inspect.signature(fn)
+
+            def wrapper(*args, **kwargs):
+                bound = signature.bind(*args, **kwargs).arguments
+                if _resolve_engine(bound.get("engine", "auto"), size(bound)) == "dense":
+                    with lock:
+                        seen["radius"][key] += 1
+                return fn(*args, **kwargs)
+
+            return wrapper
+
+        return make
+
+    def capacity(bound):
+        return bound["cloud"].capacity
+
     def record(name, dev=None):
         def make(fn):
             def wrapper(*args, **kwargs):
@@ -937,9 +1327,17 @@ def first_launch_inputs(nn, spfh):
                   (merging, "register_pair"): one_pair,
                   (merging, "compute_global_transforms"): solve,
                   (spfh, "spfh_tile"): record("spfh"),
-                  (ksift, "pack"): record("sift_pack"),
+                  (ktiles, "pack"): record("tiles_pack"),
                   (ksift, "scale_space"): record("sift_scale_space"),
                   (ksift, "knn"): record("sift_knn"),
+                  (kradius, "count"): record("radius_count"),
+                  (kradius, "moments"): record("radius_moments"),
+                  (features, "remove_outliers"): dense_pass("outliers", capacity),
+                  (outliers_ops, "remove_outliers"): dense_pass("outliers", capacity),
+                  (features, "compute_surface_normals"): dense_pass("normals", capacity),
+                  (normals_ops, "compute_surface_normals"): dense_pass("normals", capacity),
+                  (sc3d, "radius_count"): dense_pass(
+                      "SC3D density", lambda bound: bound["p"].shape[0]),
                   (sift_ops, "detect_keypoints_sift"): extraction,
                   (sift_ops, "_scale_space"): octave,
                   # a grid sweep's arguments are ~200 MB at config #2's size:
@@ -1014,16 +1412,44 @@ def require_sift(label: str, seen: dict, launches: dict, per_extraction: int) ->
     """Kernels C and D launched once a dense SIFT octave each, and
     `per_extraction` times an extraction (3 where every octave is dense, 1
     on config5_big, whose octaves 0-1 take the grid); none on a Harris
-    path; their pre-pass once a dense octave, for both. Logged."""
+    path. Logged."""
     ext, dense = seen["sift"]["extractions"], seen["sift"]["dense_octaves"]
     c, d = launches["sift_scale_space"], launches["sift_knn"]
-    packs = launches["sift_pack"]
     log(f"{label}: SIFT extractions {ext}, dense octaves {dense}; launches "
-        f"sift_scale_space {c}, sift_knn {d}, sift_pack {packs}")
-    require(c == d == dense == packs == per_extraction * ext,
-            f"{label}: sift_scale_space {c}, sift_knn {d} and sift_pack {packs} "
-            f"launches for {ext} extractions and {dense} dense octaves, expected "
-            f"{per_extraction} an extraction (and the pre-pass one a dense octave)")
+        f"sift_scale_space {c}, sift_knn {d}")
+    require(c == d == dense == per_extraction * ext,
+            f"{label}: sift_scale_space {c} and sift_knn {d} launches for {ext} "
+            f"extractions and {dense} dense octaves, expected {per_extraction} an "
+            "extraction")
+
+
+def require_pack(label: str, seen: dict, launches: dict) -> None:
+    """The tile pre-pass launched exactly once a dense SIFT octave (one
+    buffer for C and D) and once a dense radius pass (the outlier, normal
+    and SC3D density passes: one a call of E or F). Logged."""
+    dense = seen["sift"]["dense_octaves"]
+    radius_passes = sum(seen["radius"].values())
+    packs = launches["tiles_pack"]
+    log(f"{label}: launches tiles_pack {packs} ({dense} dense SIFT octaves, "
+        f"{radius_passes} dense radius passes)")
+    require(packs == dense + radius_passes,
+            f"{label}: tiles_pack {packs} launches, expected {dense} dense SIFT octaves + "
+            f"{radius_passes} dense radius passes {seen['radius']}")
+
+
+def require_radius(label: str, seen: dict, launches: dict) -> None:
+    """Kernel E launched once a dense outlier pass and once a dense SC3D
+    density count, kernel F once a dense normal pass, and the outlier and
+    normal passes alike (one each a dense extraction): so both once a dense
+    extraction, E once more on SC3D, neither on the grid paths. Logged."""
+    passes = seen["radius"]
+    e, f = launches["radius_count"], launches["radius_moments"]
+    log(f"{label}: dense radius passes {passes}; launches radius_count {e}, "
+        f"radius_moments {f}")
+    require(passes["outliers"] == passes["normals"]
+            and e == passes["outliers"] + passes["SC3D density"] and f == passes["normals"],
+            f"{label}: radius_count {e} and radius_moments {f} launches for the dense "
+            f"passes {passes}")
 
 
 def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
@@ -1034,11 +1460,18 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
     B; C is held within its tolerance and D exactly on every path), then
     timed on them (CUDA events, warm, median), and the plain version too;
     kernel A's entries beside nn_library's time as well (nn_library_stats),
-    D beside knn_library's. SIFT's launches are required first
-    (require_sift). These launches come after the path's counts were read."""
+    D beside knn_library's, E beside count_library's; E exactly and F within
+    its tolerance on every path (radius_stats). SIFT's and the radius
+    sweeps' launches and the pre-pass's are required first (require_sift,
+    require_radius, require_pack).
+    These launches come after the path's counts were read."""
+    from mapmerge_torch.kernels import radius as kradius
     from mapmerge_torch.kernels import sift as ksift
+    from mapmerge_torch.kernels import tiles as ktiles
 
     require_sift(label, seen, launches, sift_per_extraction)
+    require_radius(label, seen, launches)
+    require_pack(label, seen, launches)
     stats = PATH_STATS[label] = {}
     if "nearest_neighbor" in seen:
         args, _ = seen["nearest_neighbor"]
@@ -1111,7 +1544,8 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
                                 reps=3, warmup=1),
             **spfh_grid_bound(grid, q_ok, normals, ref[1]),
         }
-    for name, entry in sift_stats(label, ksift, seen).items():
+    for name, entry in {**pack_stats(label, ktiles, seen), **sift_stats(label, ksift, seen),
+                        **radius_stats(label, kradius, seen)}.items():
         stats[name] = {"launches": launches[name], **entry}
     require(stats, f"{label}: no kernel input was recorded")
     log(f"{label}: kernels on the path's own inputs: {json.dumps(stats)}")
@@ -1325,13 +1759,23 @@ KEYPOINT_AGREEMENT = 0.99
 def plain_sift():
     """Patches that send SIFT's dense octave through the plain versions of
     kernels C and D (the parent's route on the card), for `patched`: no
-    pre-pass, whose buffer the plain versions do not read."""
+    pre-pass for SIFT's octaves, whose buffer the plain versions do not
+    read (kernels E and F keep theirs)."""
     from mapmerge_torch.kernels import sift as ksift
+    from mapmerge_torch.kernels import tiles as ktiles
+    from mapmerge_torch.ops.keypoints import sift as sift_ops
 
     def plain(ref):
         return lambda fn: lambda *args, packed=None, **kwargs: ref(*args, **kwargs)
 
-    return {(ksift, "pack"): lambda fn: lambda *args: None,
+    def unpacked(fn):
+        def wrapper(*args, **kwargs):
+            with patched({(ktiles, "pack"): lambda _: lambda *a: None}):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return {(sift_ops, "_dense_octave"): unpacked,
             (ksift, "scale_space"): plain(ksift.scale_space_ref),
             (ksift, "knn"): plain(ksift.knn_ref)}
 
@@ -2071,7 +2515,7 @@ def run_config5_big(dev, kernels) -> None:
     from mapmerge_torch.kernels import nn, spfh
     from mapmerge_torch.ops import grid
     from mapmerge_torch.ops.keypoints import sift as sift_ops
-    from mapmerge_torch.pipeline import incremental
+    from mapmerge_torch.pipeline import features, incremental
     from mapmerge_torch.runtime import node as node_module
     from mapmerge_torch.runtime.node import MapMergeNode
     from mapmerge_torch.runtime.transport import InProcTransport
@@ -2118,12 +2562,27 @@ def run_config5_big(dev, kernels) -> None:
 
         return wrapper
 
+    big_radius = {}  # the first map's outlier and normal stages' clouds (2^19)
+
+    def keep_big_radius(key):
+        def make(fn):
+            def wrapper(cloud, *args, **kwargs):
+                if key not in big_radius and cloud.capacity == cap:
+                    big_radius[key] = _copied(cloud)
+                return fn(cloud, *args, **kwargs)
+
+            return wrapper
+
+        return make
+
     node, transport = new_node()
     recorder = stage_recorder(config5_stages(), (node_module, "features_for"),
                               (incremental, "estimate_transform"))
     with first_launch_inputs(nn, spfh) as seen, recorder as rec, patched(
         {(grid, "grid_gaussian_smooth"): record_overflow,
-         (sift_ops, "_scale_space"): keep_big_octave}
+         (sift_ops, "_scale_space"): keep_big_octave,
+         (features, "remove_outliers"): keep_big_radius("outliers"),
+         (features, "compute_surface_normals"): keep_big_radius("normals")}
     ):
         for k in kernels:
             k.launches = 0
@@ -2193,6 +2652,11 @@ def run_config5_big(dev, kernels) -> None:
     require(big_octave, f"config5_big: no SIFT octave at capacity {cap} was recorded")
     log("config5_big octave 0, kernels C and D against the grid route: "
         + json.dumps(big_octave_stats(*big_octave[0])))
+    require(sorted(big_radius) == ["normals", "outliers"],
+            f"config5_big: the radius stages' clouds at capacity {cap} were not recorded")
+    log("config5_big first map, kernels E and F against the grid route: "
+        + json.dumps(big_radius_stats(big_radius["outliers"], big_radius["normals"],
+                                      params)))
 
     # repeatability: a second node streams the first batch
     again, again_transport = new_node()
@@ -2278,6 +2742,63 @@ def big_octave_stats(cloud, intensity, sigmas, tile, engine, scan_cap) -> dict:
         "sift_knn_bound_ms": d_bound["bound_ms"],
         "sift_knn_dense_bound_ms": d_bound["dense_bound_ms"],
     }
+
+
+def big_radius_stats(outlier_cloud, normal_cloud, params) -> dict:
+    """Kernels E and F, culled, on config5_big's first map at capacity 2^19
+    (the clouds its outlier and normal stages got, which the grid serves),
+    beside that route's grid_radius_count and grid_neighbor_moments on the
+    same clouds, as ops/neighbors.py calls them. E held exactly and F within
+    MOMENTS_RTOL (a second launch the same bits) against their plain
+    versions on BIG_OCTAVE_SAMPLE sampled queries; all four timed (CUDA
+    events, warm, median of 5, the grid's of 3). Measured only: no routing
+    changes."""
+    from mapmerge_torch.kernels import radius as kradius
+    from mapmerge_torch.ops import grid
+    from mapmerge_torch.ops.neighbors import _center, _f32, _resolve_engine
+
+    out = {}
+    for name, cloud, radius in (("radius_count", outlier_cloud, params.descriptor_radius),
+                                ("radius_moments", normal_cloud, params.normal_radius)):
+        require(_resolve_engine(params.neighbor_engine, cloud.capacity) == "grid",
+                f"config5_big: the {name} stage does not take the grid")
+        qc, pc = _center(cloud.xyz, cloud.xyz, cloud.mask)
+        args = (qc, pc, cloud.mask, _f32(radius * radius))
+        g = torch.Generator(device=qc.device).manual_seed(20)
+        sample = torch.randperm(qc.shape[0], generator=g, device=qc.device)
+        sample = sample[:BIG_OCTAVE_SAMPLE].sort().values
+        if name == "radius_count":
+            kernel, grid_fn = kradius.count, grid.grid_radius_count
+            got = kernel(*args)
+            require(torch.equal(got[sample], kradius.count_ref(qc[sample], *args[1:])),
+                    "config5_big radius_count: the sample differs from count_ref")
+            in_bound, held = int(got.to(torch.int64).sum()), {}
+            bound = radius_count_bound(args, in_bound)
+        else:
+            kernel, grid_fn = kradius.moments, grid.grid_neighbor_moments
+            got = kernel(*args)
+            want = kradius.moments_ref(qc[sample], *args[1:])
+            mine = tuple(a[sample] for a in got)
+            _, rel = kradius.moments_error(mine, want)
+            require(torch.equal(mine[0], want[0]) and rel <= kradius.MOMENTS_RTOL
+                    and all(torch.equal(a, b) for a, b in zip(got, kernel(*args))),
+                    f"config5_big radius_moments: off by {rel} of a second moment on the "
+                    "sample, or other counts, or a second launch other bits")
+            in_bound, held = int(got[0].to(torch.int64).sum()), {"err_of_second_moment": rel}
+            bound = radius_moments_bound(args, in_bound)
+        del got
+        torch.cuda.empty_cache()
+        out[name] = {
+            "shape": f"Q=P={qc.shape[0]} ({int(cloud.mask.sum())} valid) r={radius}",
+            "sample": BIG_OCTAVE_SAMPLE, "pairs_in_bound": in_bound, **held,
+            "ms": time_ms(lambda: kernel(*args), reps=5, warmup=1),
+            "grid_ms": time_ms(lambda: grid_fn(cloud.xyz, cloud.xyz, radius,
+                                               p_mask=cloud.mask,
+                                               scan_cap=params.grid_scan_cap),
+                               reps=3, warmup=1),
+            "bound_ms": bound["bound_ms"], "dense_bound_ms": bound["dense_bound_ms"],
+        }
+    return out
 
 
 def config1_argv() -> list[str]:
@@ -2803,13 +3324,11 @@ def rank_job(rank: int, world: int, address, dev, workdir, merge, node) -> None:
     mapmerge_tpu loaded."""
     from mapmerge_torch.io.pcd import write_pcd
     from mapmerge_torch.kernels import nn, spfh
-    from mapmerge_torch.kernels import sift as ksift
     from mapmerge_torch.parallel import multihost
     from mapmerge_torch.pipeline.merging import estimate_maps_transforms
 
     t_start = time.perf_counter()
-    kernels = (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL, ksift.PACK_KERNEL,
-               ksift.SCALE_SPACE_KERNEL, ksift.KNN_KERNEL)
+    kernels = all_kernels()
     on_card = dev.type == "cuda"
     multihost.initialize(address, world, rank, timeout=RANK_TIMEOUT_S)
     mesh = multihost.global_mesh(None if on_card else [dev])
@@ -3246,18 +3765,33 @@ def run_config5(dev, kernels) -> None:
 #: 32,768 points, config #1's shapes), since config #1's pairs now batch
 MAIN_PATH = {"nearest_neighbor": "node incremental",
              "nearest_neighbor_batched": "config #1", "spfh": "config #1",
-             "sift_pack": "config #1", "sift_scale_space": "config #1",
-             "sift_knn": "config #1"}
+             "tiles_pack": "config #1", "sift_scale_space": "config #1",
+             "sift_knn": "config #1", "radius_count": "config #1",
+             "radius_moments": "config #1"}
+
+
+def all_kernels() -> tuple:
+    """Every hand-written kernel, in the order of the `kernels` line: A's
+    one-pair and batched entries, B, the pre-pass, C, D, E and F."""
+    from mapmerge_torch.kernels import nn, spfh
+    from mapmerge_torch.kernels import radius as kradius
+    from mapmerge_torch.kernels import sift as ksift
+    from mapmerge_torch.kernels import tiles as ktiles
+
+    return (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL, ktiles.PACK_KERNEL,
+            ksift.SCALE_SPACE_KERNEL, ksift.KNN_KERNEL, kradius.COUNT_KERNEL,
+            kradius.MOMENTS_KERNEL)
 
 
 def kernel_entry(k, stats: dict) -> dict:
     """A kernel's entry of the line before the last: its launches and
     numbers on its main path's own inputs (MAIN_PATH), then per path and on
     the synthetic shapes. library_ms is nn_library's time on kernel A's
-    main-path inputs (one route to the same 1-NN, not held for bits) and
-    knn_library's on kernel D's; null for kernel B (nothing in PyTorch bins
-    Darboux features), kernel C (no single call smooths over a radius) and
-    the pre-pass (no single call packs points and tile boxes)."""
+    main-path inputs (one route to the same 1-NN, not held for bits),
+    knn_library's on kernel D's and count_library's on kernel E's; null for
+    kernel B (nothing in PyTorch bins Darboux features), kernel C (no single
+    call smooths over a radius), kernel F (none sums neighbourhood moments)
+    and the pre-pass (no single call packs points and tile boxes)."""
     label = MAIN_PATH[k.name]
     main = PATH_STATS[label][k.name]
     errs = [stats[k.name]["max_abs_err"]] + [
@@ -3316,6 +3850,7 @@ def main() -> int:
     import mapmerge_torch  # noqa: F401  (sets the TF32 flags off)
     from mapmerge_torch import native
     from mapmerge_torch.kernels import build, nn, spfh
+    from mapmerge_torch.kernels import radius as kradius
     from mapmerge_torch.kernels import sift as ksift
 
     require(
@@ -3339,9 +3874,9 @@ def main() -> int:
 
     stats = {"nearest_neighbor": check_nn(dev, nn),
              "nearest_neighbor_batched": check_nn_batched(dev, nn),
-             "spfh": check_spfh(dev, spfh), **check_sift(dev, ksift)}
-    kernels = (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL, ksift.PACK_KERNEL,
-               ksift.SCALE_SPACE_KERNEL, ksift.KNN_KERNEL)
+             "spfh": check_spfh(dev, spfh), **check_sift(dev, ksift),
+             **check_radius(dev, kradius)}
+    kernels = all_kernels()
     phase("4 (config #1)", run_main_path, dev, kernels)
     phase("5 (config1_pfh)", run_default_operating_point, dev, kernels)
     phase("6 (registry sweep)", run_registry_sweep, dev, kernels)

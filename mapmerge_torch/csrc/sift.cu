@@ -1,12 +1,12 @@
-// SIFT's dense octave for Hopper (sm_90a): a packing pre-pass, the Gaussian
-// scale space (kernel C) and the 26 nearest neighbours of the extremum test
-// (kernel D).
+// SIFT's dense octave for Hopper (sm_90a): the Gaussian scale space (kernel
+// C) and the 26 nearest neighbours of the extremum test (kernel D), over the
+// tile pre-pass of tiles.cu.
 //
 // Neither C nor D replaces a Pallas kernel: the JAX package leaves both to
 // XLA. Kernel C replaces the dense branch of mapmerge_tpu/ops/keypoints/
 // sift.py `_scale_space`; kernel D the dense `radius_neighbors` (mapmerge_tpu/
 // ops/neighbors.py) that sift.py calls for the 26-NN. Their plain PyTorch
-// versions are kernels/sift.py: pack_ref, scale_space_ref and knn_ref.
+// versions are kernels/sift.py: scale_space_ref and knn_ref.
 //
 // What they compute.
 // Kernel C (mm_sift_scale_space): for each query and each of the S sigmas,
@@ -38,7 +38,7 @@
 // points across r2_bound and reorder near-ties.
 //
 // What the design does about it.
-// 1. Exact culling by tile boxes. The pre-pass (mm_sift_pack) writes the
+// 1. Exact culling by tile boxes. The pre-pass (tiles.cu) writes the
 //    points once as float4 (x, y, z, value), x = NaN for a masked point (it
 //    fails C's bound test, and D reads it as masked), and for each tile of
 //    kT = 32 consecutive points the box of its valid points (lo, hi), the
@@ -85,176 +85,22 @@
 //    FAR (1e8) finds its masked targets in the first tiles that hold them.
 // No splits and no second pass: a warp sweeps every surviving tile itself.
 // No FMA contraction (-fmad=false), no atomics, no fast-math.
+// The tile, its box bounds and the ring (points 1-2) are cull.cuh's, shared
+// with the radius sweeps of radius.cu (kernels E and F).
 
-#include <climits>
-#include <cuda_runtime.h>
+#include "cull.cuh"
 
 namespace {
 
-constexpr int kT = 32;         // points a tile: one a lane
-constexpr int kStages = 4;     // ring stages a warp (a power of two)
-constexpr int kWarps = 4;      // warps a block, each on its own queries
-constexpr int kThreads = kWarps * 32;
 constexpr int kSigLane = 8;    // sigmas a lane of kernel C holds
 constexpr int kCLanes = 8;     // lanes of kernel C that share a query
 constexpr int kMaxSigma = 64;  // sigmas a launch of kernel C takes
 constexpr int kK = 26;         // list length: the 25-NN plus the point itself
 constexpr float kBig = 1.0e12f;
-constexpr unsigned kAll = 0xffffffffu;
 
 struct Recips {
   float v[kMaxSigma];
 };
-
-// one tile in shared memory: its points and its box
-struct Stage {
-  float4 pt[kT];
-  float4 lo;  // w: first masked index of the tile (int bits), INT_MAX if none
-  float4 hi;  // w: the tile's first point index (int bits)
-};
-
-struct Box {
-  float lx, ly, lz, hx, hy, hz;
-};
-
-__device__ __forceinline__ float sq_dist(float qx, float qy, float qz, float px,
-                                         float py, float pz) {
-  const float dx = __fsub_rn(qx, px);
-  const float dy = __fsub_rn(qy, py);
-  const float dz = __fsub_rn(qz, pz);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
-
-// <= sq_dist(q, t) for every t in [lo, hi]: the same operations on the
-// point of the box nearest to q (an empty box, lo > hi, gives +inf)
-__device__ __forceinline__ float box_bound(float qx, float qy, float qz, float4 lo,
-                                           float4 hi) {
-  return sq_dist(qx, qy, qz, fminf(fmaxf(qx, lo.x), hi.x),
-                 fminf(fmaxf(qy, lo.y), hi.y), fminf(fmaxf(qz, lo.z), hi.z));
-}
-
-// the gap between [alo, ahi] and [blo, bhi], rounded as sq_dist's
-// subtraction rounds q - t for q in the one and t in the other: no larger
-__device__ __forceinline__ float gap(float alo, float ahi, float blo, float bhi) {
-  return ahi < blo ? __fsub_rn(blo, ahi) : (bhi < alo ? __fsub_rn(alo, bhi) : 0.f);
-}
-
-// <= box_bound(q, lo, hi) for every q in the query box `b`
-__device__ __forceinline__ float boxes_bound(const Box& b, float4 lo, float4 hi) {
-  const float gx = gap(b.lx, b.hx, lo.x, hi.x);
-  const float gy = gap(b.ly, b.hy, lo.y, hi.y);
-  const float gz = gap(b.lz, b.hz, lo.z, hi.z);
-  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
-                   __fmul_rn(gz, gz));
-}
-
-// the box of the active lanes' queries (empty, lx = +inf, if none)
-__device__ __forceinline__ Box warp_box(bool active, float x, float y, float z) {
-  const float inf = __int_as_float(0x7f800000);
-  Box b{active ? x : inf, active ? y : inf, active ? z : inf,
-        active ? x : -inf, active ? y : -inf, active ? z : -inf};
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    b.lx = fminf(b.lx, __shfl_xor_sync(kAll, b.lx, o));
-    b.ly = fminf(b.ly, __shfl_xor_sync(kAll, b.ly, o));
-    b.lz = fminf(b.lz, __shfl_xor_sync(kAll, b.lz, o));
-    b.hx = fmaxf(b.hx, __shfl_xor_sync(kAll, b.hx, o));
-    b.hy = fmaxf(b.hy, __shfl_xor_sync(kAll, b.hy, o));
-    b.hz = fmaxf(b.hz, __shfl_xor_sync(kAll, b.hz, o));
-  }
-  return b;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// tile t (its points, and its box) into stage `st`, one float4 a lane
-__device__ __forceinline__ void issue(Stage& st, const float4* __restrict__ pts,
-                                      const float4* __restrict__ boxes, int t,
-                                      int lane) {
-  cp_async16(&st.pt[lane], pts + static_cast<long long>(t) * kT + lane);
-  if (lane < 2) cp_async16(lane == 0 ? &st.lo : &st.hi, boxes + 2LL * t + lane);
-}
-
-// The warp's ring: next() gives the next tile to visit (warp-uniform, -1
-// when none is left), consume(stage) computes on a tile that has arrived.
-// While the warp computes on one tile, kStages - 1 more are in flight.
-// Every lane commits one copy group a step, empty or not, so wait_group
-// kStages - 1 finds the oldest tile in.
-template <class Next, class Consume>
-__device__ __forceinline__ void sweep(Stage* ring, const float4* __restrict__ pts,
-                                      const float4* __restrict__ boxes, int lane,
-                                      Next next, Consume consume) {
-  int issued = 0;
-#pragma unroll 1
-  for (int s = 0; s < kStages - 1; ++s) {
-    const int t = next();
-    if (t >= 0) issue(ring[issued++ & (kStages - 1)], pts, boxes, t, lane);
-    cp_async_commit();
-  }
-  for (int done = 0; done < issued; ++done) {
-    const int t = next();
-    if (t >= 0) issue(ring[issued++ & (kStages - 1)], pts, boxes, t, lane);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncwarp();
-    consume(ring[done & (kStages - 1)]);
-    __syncwarp();  // the stage is refilled next
-  }
-}
-
-// ---- the pre-pass ----
-
-__global__ void __launch_bounds__(kThreads)
-pack_kernel(const float* __restrict__ p, const float* __restrict__ vals,
-            const unsigned char* __restrict__ mask, int np, int ntiles,
-            float4* __restrict__ pts, float4* __restrict__ boxes) {
-  const int tile = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (tile >= ntiles) return;  // the whole warp
-  const int lane = threadIdx.x % 32;
-  const long long g = static_cast<long long>(tile) * kT + lane;
-  const bool in = g < np;
-  const bool valid = in && (mask == nullptr || mask[g] != 0);
-  const float nan = __int_as_float(0x7fc00000);
-  const float inf = __int_as_float(0x7f800000);
-  float x = 0.f, y = 0.f, z = 0.f;
-  if (in) {
-    x = p[3 * g];
-    y = p[3 * g + 1];
-    z = p[3 * g + 2];
-  }
-  pts[g] = make_float4(valid ? x : nan, y, z, in && vals != nullptr ? vals[g] : 0.f);
-  Box b{valid ? x : inf, valid ? y : inf, valid ? z : inf,
-        valid ? x : -inf, valid ? y : -inf, valid ? z : -inf};
-  int first_masked = in && !valid ? static_cast<int>(g) : INT_MAX;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    b.lx = fminf(b.lx, __shfl_xor_sync(kAll, b.lx, o));
-    b.ly = fminf(b.ly, __shfl_xor_sync(kAll, b.ly, o));
-    b.lz = fminf(b.lz, __shfl_xor_sync(kAll, b.lz, o));
-    b.hx = fmaxf(b.hx, __shfl_xor_sync(kAll, b.hx, o));
-    b.hy = fmaxf(b.hy, __shfl_xor_sync(kAll, b.hy, o));
-    b.hz = fmaxf(b.hz, __shfl_xor_sync(kAll, b.hz, o));
-    first_masked = min(first_masked, __shfl_xor_sync(kAll, first_masked, o));
-  }
-  if (lane == 0) {
-    boxes[2 * tile] = make_float4(b.lx, b.ly, b.lz, __int_as_float(first_masked));
-    boxes[2 * tile + 1] = make_float4(b.hx, b.hy, b.hz, __int_as_float(tile * kT));
-  }
-}
 
 // ---- kernel C ----
 
@@ -595,22 +441,7 @@ knn_kernel(const float4* __restrict__ pts, const float4* __restrict__ boxes,
 
 }  // namespace
 
-// p (np, 3) f32; vals (np,) f32 or null (0); mask (np,) bool or null (all
-// valid); pts (ceil(np / 32) * 32, 4) f32 and boxes (ceil(np / 32), 2, 4)
-// f32 written. Returns cudaGetLastError() after the launch.
-extern "C" int mm_sift_pack(const float* p, const float* vals,
-                            const unsigned char* mask, int np, float* pts,
-                            float* boxes, void* stream) {
-  if (np < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int ntiles = (np + kT - 1) / kT;
-  pack_kernel<<<(ntiles + kWarps - 1) / kWarps, kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      p, vals, mask, np, ntiles, reinterpret_cast<float4*>(pts),
-      reinterpret_cast<float4*>(boxes));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// pts, boxes from mm_sift_pack of the np centred points (values in w); q
+// pts, boxes from mm_tiles_pack of the np centred points (values in w); q
 // (nq, 3) f32 centred alike; recips (n_sigma <= 64,) f32 in host memory,
 // the reciprocals of 2 s^2, passed by value; out (n_sigma, nq) f32.
 // Returns cudaGetLastError() after the launch.
@@ -632,7 +463,7 @@ extern "C" int mm_sift_scale_space(const float* pts, const float* boxes, int np,
   return static_cast<int>(cudaGetLastError());
 }
 
-// pts, boxes from mm_sift_pack of the np centred targets and their mask; q
+// pts, boxes from mm_tiles_pack of the np centred targets and their mask; q
 // (nq, 3) f32 centred alike; 1 <= k <= min(26, np); lanes_per_query 1, 2
 // or 4; idx_out (nq, k) i32, valid_out (nq, k) bool. Returns
 // cudaGetLastError() after the launch.

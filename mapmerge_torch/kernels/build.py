@@ -10,10 +10,10 @@ build needs run at once. The build runs at first use, into `BUILD_DIR`:
 an installed package, the user's cache directory
 (`$XDG_CACHE_HOME/mapmerge_torch/`, `~/.cache/mapmerge_torch/` when that is
 unset), since a site-packages may not be writable. Each library is keyed on
-a hash of its source and its flags, so a fresh checkout builds them on first
-use and a changed source is rebuilt. There is no fallback: a compiler that
-is missing or fails raises, and so does a build directory that cannot be
-created.
+a hash of its source, its flags and, for a kernel, the headers of `csrc/`,
+so a fresh checkout builds them on first use and a changed source or header
+is rebuilt. There is no fallback: a compiler that is missing or fails
+raises, and so does a build directory that cannot be created.
 """
 
 from __future__ import annotations
@@ -77,13 +77,19 @@ SOURCES = {
             _vp, _vp,
         ],
     },
+    "tiles.cu": {
+        "mm_tiles_pack": [_vp, _vp, _vp, _ci, _vp, _vp, _vp],
+    },
     "sift.cu": {
-        "mm_sift_pack": [_vp, _vp, _vp, _ci, _vp, _vp, _vp],
         # the reciprocals of 2 s^2 in host memory (a ctypes float array)
         "mm_sift_scale_space": [
             _vp, _vp, _ci, _vp, _ci, ctypes.POINTER(_cf), _ci, _cf, _vp, _vp,
         ],
         "mm_sift_knn": [_vp, _vp, _ci, _vp, _ci, _ci, _cf, _ci, _vp, _vp, _vp],
+    },
+    "radius.cu": {
+        "mm_radius_count": [_vp, _vp, _ci, _vp, _ci, _cf, _vp, _vp],
+        "mm_radius_moments": [_vp, _vp, _ci, _vp, _ci, _cf, _vp, _vp, _vp, _vp],
     },
     "mapmerge_native.cpp": {
         # the decoded size, or -1 for a malformed payload
@@ -93,7 +99,7 @@ SOURCES = {
     },
 }
 #: the CUDA kernels' sources and the host library's
-KERNEL_SOURCES = ("nn.cu", "spfh.cu", "sift.cu")
+KERNEL_SOURCES = ("nn.cu", "spfh.cu", "tiles.cu", "sift.cu", "radius.cu")
 HOST_SOURCES = ("mapmerge_native.cpp",)
 
 _lock = threading.Lock()
@@ -152,8 +158,15 @@ def _flags(source: str) -> tuple[str, ...]:
 
 
 def library_path(source: str) -> Path:
+    """Where `source`'s library is built: keyed on its flags, its bytes and,
+    for a kernel source, the names and bytes of every header `csrc/*.cuh`
+    (which it may include), so an edit to any of them builds anew."""
     h = hashlib.sha256(" ".join(_flags(source)).encode())
     h.update((CSRC / source).read_bytes())
+    if source.endswith(".cu"):
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.name.encode())
+            h.update(header.read_bytes())
     return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
@@ -219,6 +232,14 @@ def load(sources=KERNEL_SOURCES) -> types.SimpleNamespace:
                     fns[name] = fn
             _loaded[sources] = types.SimpleNamespace(**fns)
         return _loaded[sources]
+
+
+def cuda_device(kernel: Kernel, t: torch.Tensor) -> torch.device:
+    """The CUDA device of a launch's operand `t`; any other device raises
+    (a wrapper takes its plain version only on the CPU)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel.name}: unsupported device {t.device}")
+    return t.device
 
 
 def check_launch(kernel: Kernel, err: int) -> None:

@@ -7,12 +7,11 @@ mapmerge_tpu/ops/keypoints/sift.py `_scale_space`). Kernel D, `knn`: the
 26 nearest neighbours of the extremum test, by (d2, index) with masked
 targets at d2 = BIG (the dense `radius_neighbors` that the reference's
 sift.py calls with k = 26). Neither is a TPU kernel: the JAX package leaves
-both to XLA. Both read the output of the pre-pass `pack`: float4 (x, y, z,
-value) with x = NaN where masked, and the box of each tile of TILE
-consecutive points, by which C and D skip, exactly, the tiles no query of a
-warp can reach (`tile_bound` is the plain version of that bound). SIFT
-packs each dense octave once and hands the buffer to both (`packed`); a
-wrapper given none packs its own points first.
+both to XLA. Both read the output of the tile pre-pass (`kernels/tiles.pack`:
+the points, x = NaN where masked, and the box of each tile), by which C
+and D skip, exactly, the tiles no query of a warp can reach. SIFT packs
+each dense octave once, with its values, and hands the buffer to both
+(`packed`); a wrapper given none packs its own points first.
 
 Both take coordinates centred on the valid mean (ops/neighbors._center)
 and compute d2 as `ops/neighbors.sq_dists` does, bit for bit.
@@ -26,8 +25,6 @@ and compute d2 as `ops/neighbors.sq_dists` does, bit for bit.
   largest magnitude.
 - `knn` equals `knn_ref` exactly: the k smallest (d2, index) pairs are
   unique, and both break ties by the lower index, as lax.top_k does.
-- `pack` equals `pack_ref`: the same values, NaN where NaN, the int bits
-  of its fourth column exactly.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. The wrappers copy nothing to the card and never synchronise: the
@@ -42,7 +39,7 @@ import ctypes
 import numpy as np
 import torch
 
-from mapmerge_torch.kernels import build
+from mapmerge_torch.kernels import build, tiles
 from mapmerge_torch.ops.neighbors import BIG, sq_dists, tiled_query
 
 #: the kernel's scale space against its plain version, on the card: the
@@ -51,22 +48,13 @@ from mapmerge_torch.ops.neighbors import BIG, sq_dists, tiled_query
 SCALE_SPACE_RTOL = 1e-5
 #: the longest neighbour list kernel D keeps (csrc/sift.cu: kK)
 MAX_K = 26
-#: points a tile of the pre-pass (csrc/sift.cu: kT)
-TILE = 32
 #: the most sigmas kernel C takes in a launch (csrc/sift.cu: kMaxSigma)
 MAX_SIGMAS = 64
 #: kernel D: the most lanes that share a query (csrc/sift.cu), and the warps
 #: it aims at (_lanes_per_query); on one H100 D ran fastest with 4 lanes a
 #: query up to 32,768 queries and with 2 at 58,254 (PERF.md, section 6)
 _D_LANES = (4, 3500)
-#: a tile holding no masked point: its first masked index (csrc/sift.cu)
-_NO_MASKED = 2**31 - 1
 
-PACK_KERNEL = build.Kernel(
-    name="sift_pack",
-    source="mapmerge_torch/csrc/sift.cu",
-    replaces="mapmerge_tpu/ops/keypoints/sift.py:59",
-)
 SCALE_SPACE_KERNEL = build.Kernel(
     name="sift_scale_space",
     source="mapmerge_torch/csrc/sift.cu",
@@ -77,39 +65,6 @@ KNN_KERNEL = build.Kernel(
     source="mapmerge_torch/csrc/sift.cu",
     replaces="mapmerge_tpu/ops/neighbors.py:151",
 )
-
-
-def pack(
-    p: torch.Tensor, vals: torch.Tensor | None, mask: torch.Tensor | None
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """The pre-pass of kernels C and D: (pts (n_tiles * TILE, 4), boxes
-    (n_tiles, 2, 4)) float32, as pack_ref defines them. A CPU tensor takes
-    pack_ref; a CUDA tensor launches the kernel or raises."""
-    if p.device.type == "cpu":
-        return pack_ref(p, vals, mask)
-    kernel = PACK_KERNEL
-    dev = _cuda(kernel, p)
-    np_ = p.shape[0]
-    build.require("p", p, torch.float32, (None, 3), dev)
-    if vals is not None:
-        build.require("vals", vals, torch.float32, (np_,), dev)
-    if mask is not None:
-        build.require("mask", mask, torch.bool, (np_,), dev)
-    if not 1 <= np_ < 2**31 // 4 - TILE:
-        raise ValueError(f"{kernel.name}: unsupported size P={np_}")
-    n_tiles = -(-np_ // TILE)
-    pts = torch.empty((n_tiles * TILE, 4), dtype=torch.float32, device=dev)
-    boxes = torch.empty((n_tiles, 2, 4), dtype=torch.float32, device=dev)
-    lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.mm_sift_pack(
-            p.data_ptr(), None if vals is None else vals.data_ptr(),
-            None if mask is None else mask.data_ptr(), np_, pts.data_ptr(),
-            boxes.data_ptr(), build.stream_handle(dev),
-        )
-    kernel.launched()
-    build.check_launch(kernel, err)
-    return pts, boxes
 
 
 def scale_space(
@@ -130,11 +85,11 @@ def scale_space(
     points with d2 <= r2_bound; out = sum(w * val) / max(sum(w), 1e-12). A
     CPU tensor takes the plain version (in query tiles of `tile`); a CUDA
     tensor launches the kernel or raises, after the pre-pass where `packed`
-    is None (else `packed` must be `pack(pc, vals, mask)`)."""
+    is None (else `packed` must be `tiles.pack(pc, vals, mask)`)."""
     if qc.device.type == "cpu":
         return scale_space_ref(qc, pc, vals, mask, sigmas, r2_bound, tile)
     kernel = SCALE_SPACE_KERNEL
-    dev = _cuda(kernel, qc)
+    dev = build.cuda_device(kernel, qc)
     nq, np_, ns = qc.shape[0], pc.shape[0], len(sigmas)
     build.require("qc", qc, torch.float32, (None, 3), dev)
     if np_ == 0 or not 1 <= ns <= MAX_SIGMAS or nq >= 2**31 // 3:
@@ -170,11 +125,11 @@ def knn(
     r2). q and p centred alike; k <= min(MAX_K, P). A CPU tensor takes the
     plain version (in query tiles of `tile`); a CUDA tensor launches the
     kernel or raises, after the pre-pass where `packed` is None (else
-    `packed` must be `pack(p, vals, p_mask)`, any vals)."""
+    `packed` must be `tiles.pack(p, vals, p_mask)`, any vals)."""
     if q.device.type == "cpu":
         return knn_ref(q, p, p_mask, k, r2, tile)
     kernel = KNN_KERNEL
-    dev = _cuda(kernel, q)
+    dev = build.cuda_device(kernel, q)
     nq, np_ = q.shape[0], p.shape[0]
     build.require("q", q, torch.float32, (None, 3), dev)
     if not 1 <= k <= min(MAX_K, np_) or max(nq, np_) >= 2**31 // MAX_K:
@@ -196,20 +151,14 @@ def knn(
     return idx, valid
 
 
-def _cuda(kernel: build.Kernel, t: torch.Tensor) -> torch.device:
-    if t.device.type != "cuda":
-        raise ValueError(f"{kernel.name}: unsupported device {t.device}")
-    return t.device
-
-
 def _packed(packed, p, vals, mask, dev) -> tuple[torch.Tensor, torch.Tensor]:
-    """`packed` checked against the P points it must hold, or pack(p, vals,
-    mask) where it is None."""
+    """`packed` checked against the P points it must hold, or tiles.pack(p,
+    vals, mask) where it is None."""
     if packed is None:
-        return pack(p, vals, mask)
+        return tiles.pack(p, vals, mask)
     pts, boxes = packed
-    n_tiles = -(-p.shape[0] // TILE)
-    build.require("packed points", pts, torch.float32, (n_tiles * TILE, 4), dev)
+    n_tiles = -(-p.shape[0] // tiles.TILE)
+    build.require("packed points", pts, torch.float32, (n_tiles * tiles.TILE, 4), dev)
     build.require("packed boxes", boxes, torch.float32, (n_tiles, 2, 4), dev)
     return pts, boxes
 
@@ -229,50 +178,6 @@ def _lanes_per_query(nq: int, most: int, target_warps: int) -> int:
     while g < most and -(-nq // (32 // g)) < target_warps:
         g *= 2
     return g
-
-
-def pack_ref(
-    p: torch.Tensor, vals: torch.Tensor | None, mask: torch.Tensor | None
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch pre-pass. pts (n_tiles * TILE, 4): (x, y, z, value)
-    per point, x = NaN where masked, value 0 where `vals` is None; the rows
-    past P are (NaN, 0, 0, 0). boxes (n_tiles, 2, 4), for each tile of TILE
-    consecutive points: lo = (the least x, y, z of its valid points, its
-    first masked index as int32 bits, 2^31 - 1 if none), hi = (the largest,
-    its first point index as int32 bits); a tile with no valid point has lo
-    = +inf and hi = -inf."""
-    np_, dev = p.shape[0], p.device
-    n_tiles = -(-np_ // TILE)
-    pad = n_tiles * TILE - np_
-    valid = torch.ones(np_, dtype=torch.bool, device=dev) if mask is None else mask
-    valid = torch.cat([valid, torch.zeros(pad, dtype=torch.bool, device=dev)])
-    xyz = torch.cat([p, torch.zeros((pad, 3), dtype=torch.float32, device=dev)])
-    w = torch.zeros(np_, dtype=torch.float32, device=dev) if vals is None else vals
-    w = torch.cat([w, torch.zeros(pad, dtype=torch.float32, device=dev)])
-    x = torch.where(valid, xyz[:, 0], torch.nan)
-    pts = torch.stack([x, xyz[:, 1], xyz[:, 2], w], dim=1)
-    v = valid.view(n_tiles, TILE, 1)
-    tiles = xyz.view(n_tiles, TILE, 3)
-    lo = torch.where(v, tiles, torch.inf).amin(dim=1)
-    hi = torch.where(v, tiles, -torch.inf).amax(dim=1)
-    index = torch.arange(n_tiles * TILE, dtype=torch.int32, device=dev).view(n_tiles, TILE)
-    masked = ~valid.view(n_tiles, TILE) & (index < np_)
-    first = torch.where(masked, index, _NO_MASKED).amin(dim=1)
-    lo = torch.cat([lo, first.view(torch.float32)[:, None]], dim=1)
-    hi = torch.cat([hi, index[:, 0].contiguous().view(torch.float32)[:, None]], dim=1)
-    return pts, torch.stack([lo, hi], dim=1)
-
-
-def tile_bound(q: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
-    """(Q, n_tiles) lower bounds of sq_dists from each query to the valid
-    points of each tile of `boxes` (pack_ref's): q clamped into the box and
-    the distance to that point taken as sq_dists takes it. Rounding is
-    monotone, so each bound is <= sq_dists to every valid point of its
-    tile: the plain version of kernels C and D's culling bound (+inf for a
-    tile with no valid point)."""
-    lo, hi = boxes[None, :, 0, :3], boxes[None, :, 1, :3]
-    d = q[:, None] - torch.minimum(torch.maximum(q[:, None], lo), hi)
-    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
 
 
 def scale_space_ref(

@@ -24,6 +24,7 @@ import torch
 
 from mapmerge_torch.core.cloud import FAR, PointCloud
 from mapmerge_torch.kernels import sift as sift_kernels
+from mapmerge_torch.kernels import tiles
 from mapmerge_torch.ops import grid
 from mapmerge_torch.ops.downsample import voxel_downsample
 from mapmerge_torch.ops.keypoints import Keypoints
@@ -52,10 +53,10 @@ def _dense_octave(cloud: PointCloud, intensity: torch.Tensor | None = None) -> t
     """A dense octave's operands of kernels C and D, made once for both:
     (pc, vals, packed), the points centred on their valid mean (queries and
     targets alike), the intensities zeroed where masked (None without
-    `intensity`) and the pre-pass `sift_kernels.pack` of the two."""
+    `intensity`) and the tile pre-pass `tiles.pack` of the two."""
     _, pc = _center(cloud.xyz, cloud.xyz, cloud.mask)
     vals = None if intensity is None else torch.where(cloud.mask, intensity, 0.0)
-    return pc, vals, sift_kernels.pack(pc, vals, cloud.mask)
+    return pc, vals, tiles.pack(pc, vals, cloud.mask)
 
 
 def _scale_space(

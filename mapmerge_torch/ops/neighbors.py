@@ -4,9 +4,11 @@ mapmerge_tpu/ops/neighbors.py).
 Every dense neighbourhood query is an exact distance computation, tiled over
 the query axis so only a (tile, P) slab exists at a time. Squared distances
 are taken on inputs centred on the valid mean of p (see `sq_dists`). Exact
-1-NN goes through the hand-written kernel (kernels/nn.py). Every reduction
-here sums in a fixed order (matmuls and dense reductions, no atomics), so a
-query repeats bit for bit on one card.
+1-NN goes through the hand-written kernel (kernels/nn.py), the dense radius
+count and moments through kernels E and F (kernels/radius.py), which cull
+the slab's pairs by tile boxes and take the same members. Every reduction
+here sums in a fixed order (matmuls, dense reductions and the kernels'
+fixed trees, no atomics), so a query repeats bit for bit on one card.
 
 Each op dispatches to the cell-grid engine (ops/grid.py) as the reference
 does: engine="grid", or "auto" at or above the capacity thresholds below
@@ -17,11 +19,12 @@ choose the same engine.
 from __future__ import annotations
 
 import os
-from typing import Callable
 
 import torch
 
+from mapmerge_torch.core.dense import sq_dists, tiled_query
 from mapmerge_torch.kernels import nn as nn_kernel
+from mapmerge_torch.kernels import radius as radius_kernels
 from mapmerge_torch.ops import grid
 from mapmerge_torch.ops.grid import BIG, _f32
 
@@ -55,35 +58,6 @@ def _center(q: torch.Tensor, p: torch.Tensor, p_mask: torch.Tensor | None):
     return q - mean, p - mean
 
 
-def sq_dists(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """(..., Q, 3) x ([...,] P, 3) -> (..., Q, P) squared distances, by the
-    direct expansion sum_c (q_c - p_c)^2 (p's leading axes broadcast
-    against q's).
-
-    The reference uses the identity |q|^2 + |p|^2 - 2 q.p. PyTorch's matmul
-    rounds q.p differently from |q|^2, leaving up to ~1e-6 m^2 for a point
-    and itself (measured on the CPU), where the reference's CPU path gives
-    exactly 0; FPFH's zero-distance self-hit test (dist > 1e-9) then weights
-    the self SPFH by ~1e3. The direct expansion is exact for coincident
-    points and at least as accurate elsewhere."""
-    d2 = torch.zeros(q.shape[:-1] + (p.shape[-2],), dtype=q.dtype, device=q.device)
-    for c in range(3):
-        dc = q[..., c : c + 1] - p[..., None, :, c]
-        d2 += dc * dc
-    return d2
-
-
-def tiled_query(
-    q: torch.Tensor, tile_fn: Callable, tile: int = 1024
-):
-    """Run `tile_fn` over (tile, 3) query slabs and concatenate the results
-    (a tensor or a tuple of tensors with leading dim = slab rows)."""
-    outs = [tile_fn(q[s : s + tile]) for s in range(0, q.shape[0], tile)]
-    if isinstance(outs[0], tuple):
-        return tuple(torch.cat(parts) for parts in zip(*outs))
-    return torch.cat(outs)
-
-
 def radius_count(
     q: torch.Tensor,
     p: torch.Tensor,
@@ -96,22 +70,18 @@ def radius_count(
 ) -> tuple[torch.Tensor, int | torch.Tensor]:
     """Counts of p-points within `radius` of each query: ((Q,) int32,
     overflow). `overflow` counts the queries the grid engine dropped at its
-    query-side bucket cap (0 on the dense engine); callers surface it."""
+    query-side bucket cap (0 on the dense engine); callers surface it. The
+    dense engine runs kernel E (kernels/radius.count)."""
     if _resolve_engine(engine, p.shape[0]) == "grid":
         return grid.grid_radius_count(
             q, p, radius, p_mask=p_mask, include_self=include_self,
             scan_cap=scan_cap,
         )
     qc, pc = _center(q, p, p_mask)
-    r2 = _f32(radius * radius)
-
-    def tile_fn(q_slab):
-        within = sq_dists(q_slab, pc) <= r2
-        if p_mask is not None:
-            within = within & p_mask[None, :]
-        return within.sum(dim=-1).to(torch.int32)
-
-    counts = tiled_query(qc, tile_fn, tile)
+    counts = radius_kernels.count(
+        qc.contiguous(), pc.contiguous(),
+        None if p_mask is None else p_mask.contiguous(), _f32(radius * radius), tile,
+    )
     if not include_self:
         counts = counts - 1
     return counts, 0
@@ -271,29 +241,18 @@ def neighbor_moments(
     scan_cap: int = 128,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int | torch.Tensor]:
     """Count (Q,), mean (Q, 3) and covariance (Q, 3, 3) of each query's
-    radius neighborhood, as matmuls of the {0,1} within-radius matrix, and
-    the overflow (0 on the dense engine)."""
+    radius neighborhood, and the overflow (0 on the dense engine). The
+    dense engine runs kernel F (kernels/radius.moments; its plain version
+    takes them as matmuls of the {0,1} within-radius matrix)."""
     if _resolve_engine(engine, p.shape[0]) == "grid":
         return grid.grid_neighbor_moments(
             q, p, radius, p_mask=p_mask, scan_cap=scan_cap
         )
     qc, pc = _center(q, p, p_mask)
-    r2 = _f32(radius * radius)
-    pp = (pc[:, :, None] * pc[:, None, :]).reshape(-1, 9)
-
-    def tile_fn(q_slab):
-        within = sq_dists(q_slab, pc) <= r2
-        if p_mask is not None:
-            within = within & p_mask[None, :]
-        w = within.to(torch.float32)
-        s0 = w.sum(dim=-1)
-        denom = s0.clamp_min(1.0)[:, None]
-        mean = (w @ pc) / denom
-        e_outer = (w @ pp) / denom
-        cov = e_outer.reshape(-1, 3, 3) - mean[:, :, None] * mean[:, None, :]
-        return s0, mean, cov
-
-    count, mean, cov = tiled_query(qc, tile_fn, tile)
+    count, mean, cov = radius_kernels.moments(
+        qc.contiguous(), pc.contiguous(),
+        None if p_mask is None else p_mask.contiguous(), _f32(radius * radius), tile,
+    )
     # un-centre the mean back to the input frame
     return count, mean + _mean(p, p_mask), cov, 0
 

@@ -6,22 +6,27 @@ switches between them.
 For each size (default 65,536, 131,072 and 262,144 points) the script cuts
 a cloud from eval config #2's first view, voxel-downsampled at 0.1 m as the
 feature stage does: the points nearest one corner of the map (smallest
-x + y), so the cloud keeps the map's density. On it, each engine runs one
-radius_count at the descriptor radius (0.8 m, the outlier pass), one
-neighbor_moments at the normal radius (0.6 m) and one bounded
+x + y), kept in the view's voxel order, so the cloud keeps the map's
+density and the order the feature stage gives its clouds. On it, each
+engine runs one radius_count at the descriptor radius (0.8 m, the outlier
+pass), one neighbor_moments at the normal radius (0.6 m) and one bounded
 nearest_neighbor at the correspondence bound (1.0 m) of the cloud moved by
 a small rotation and shift against itself (ICP and the score), with the
-default scan caps (128, and 256 for the 1-NN). Prints the card; for the
-whole view, at each of those radii, the fullest bucket and the points the
-cap drops (the grid the pipeline builds at capacity 2^20); then one JSON
-line per (size, op, engine): the median of 5 timed calls after one warm-up
-(CUDA events around the call, host work included) and how many queries the
-two engines answer differently (the grid's bucket caps). The thresholds of
-ops/neighbors.py are not changed by it.
+default scan caps (128, and 256 for the 1-NN). The dense engine's radius
+ops run kernels E and F (kernels/radius.py); engine "plain" is the same
+op through those kernels' plain versions, the dense slab route before them.
+Prints the card; for the whole view, at each of those radii, the fullest
+bucket and the points the cap drops (the grid the pipeline builds at
+capacity 2^20); then one JSON line per (size, op, engine): the median of 5
+timed calls after one warm-up (CUDA events around the call, host work
+included) and how many queries it answers otherwise than the dense engine
+(the grid's bucket caps; counts only for neighbor_moments). The thresholds
+of ops/neighbors.py are not changed by it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -32,6 +37,7 @@ import torch
 
 from mapmerge_torch.core import transforms as tf
 from mapmerge_torch.core.cloud import PointCloud
+from mapmerge_torch.kernels import radius as kradius
 from mapmerge_torch.ops.downsample import voxel_downsample
 from mapmerge_torch.ops.grid import build_grid
 from mapmerge_torch.ops.neighbors import nearest_neighbor, neighbor_moments, radius_count
@@ -52,6 +58,18 @@ def _ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def plain_radius():
+    """Kernels E and F's plain versions in their place (ops/neighbors.py
+    looks the wrappers up at call time)."""
+    saved = kradius.count, kradius.moments
+    kradius.count, kradius.moments = kradius.count_ref, kradius.moments_ref
+    try:
+        yield
+    finally:
+        kradius.count, kradius.moments = saved
 
 
 def main(sizes) -> int:
@@ -81,26 +99,34 @@ def main(sizes) -> int:
     order = torch.argsort(pts[:, 0] + pts[:, 1])
     move = torch.from_numpy(se3(rotation_z(0.01), [0.05, -0.03, 0.0])).to(dev)
     for n in sizes:
-        p = pts[order[:n]].contiguous()
+        p = pts[order[:n].sort().values].contiguous()
         mask = torch.ones((n,), dtype=torch.bool, device=dev)
         moved = tf.apply(move, p)
+
+        def radius_op(fn, radius):
+            def call(e):
+                with plain_radius() if e == "plain" else contextlib.nullcontext():
+                    return fn(p, p, radius, p_mask=mask,
+                              engine="dense" if e == "plain" else e)[0]
+
+            return call
+
         calls = {
-            "radius_count r=0.8": lambda e: radius_count(
-                p, p, 0.8, p_mask=mask, engine=e)[0],
-            "neighbor_moments r=0.6": lambda e: neighbor_moments(
-                p, p, 0.6, p_mask=mask, engine=e)[0],
-            "nearest_neighbor bound=1.0": lambda e: nearest_neighbor(
+            "radius_count r=0.8": (radius_op(radius_count, 0.8), ("dense", "plain", "grid")),
+            "neighbor_moments r=0.6": (radius_op(neighbor_moments, 0.6),
+                                       ("dense", "plain", "grid")),
+            "nearest_neighbor bound=1.0": (lambda e: nearest_neighbor(
                 moved, p, p_mask=mask, bound=1.0, engine=e, scan_cap=256,
-                q_mask=mask)[1],
+                q_mask=mask)[1], ("dense", "grid")),
         }
-        for op, call in calls.items():
-            out = {e: call(e) for e in ("dense", "grid")}
-            if op.startswith("nearest"):  # matches within the bound only
-                near = out["dense"] <= 0.99
-                differ = int((out["dense"][near] != out["grid"][near]).sum())
-            else:
-                differ = int((out["dense"] != out["grid"]).sum())
-            for e in ("dense", "grid"):
+        for op, (call, engines) in calls.items():
+            out = {e: call(e) for e in engines}
+            for e in engines:
+                if op.startswith("nearest"):  # matches within the bound only
+                    near = out["dense"] <= 0.99
+                    differ = int((out["dense"][near] != out[e][near]).sum())
+                else:
+                    differ = int((out["dense"] != out[e]).sum())
                 print(json.dumps({
                     "points": n, "op": op, "engine": e,
                     "ms": _ms(lambda: call(e)), "queries_differing": differ,

@@ -10,23 +10,30 @@ arguments of each kernel's first launch in each (kernel A's batched entry,
 which their pairs take), beside chip_smoke.py's
 synthetic inputs; it also saves the inputs of the FPFH stage's grid sweep
 on eval config #2's first view (the cloud, its normals, the needed points,
-the radius and the bucket cap), and the arguments of SIFT's kernels C
+the radius and the bucket cap), the arguments of SIFT's kernels C
 (`scale_space`) and D (`knn`) on the dense octaves of the first extraction
 of config #1 (octaves 0-2), config #4 and config5 (octaves 0-2 each) and of
-config5_big's first map (octave 2, its only dense one). `time` imports
+config5_big's first map (octave 2, its only dense one), with the tile
+pre-pass's (`tiles.pack`; `sift.pack` in a checkout before it moved) on
+each octave C packs, and the arguments of the dense radius
+sweeps, kernels E (`radius.count`, the outlier pass) and F
+(`radius.moments`, the normals), on the first extraction of config #1, the
+sweep's FPFH + SAC_IA path, config #4 and config5. `time` imports
 `mapmerge_torch` from the checkout at ROOT (this one, or an earlier commit
 unpacked with `git archive` into a directory that .gitignore lists), holds
 each kernel against that checkout's plain version on every saved input
 whose name starts with PREFIX (all by default): bit for bit, C within
-SCALE_SPACE_RTOL of the field; builds that checkout's grid of the config #2
-view outside the timing and times its `fpfh._spfh_grid` on it, and prints
-one JSON line: the card, and per input three medians of 20 timed calls
-(CUDA events around the call, after 3 warm-up calls), with a digest of the
-grid sweep's rows and of C's and D's outputs so that two checkouts can be
+SCALE_SPACE_RTOL of the field, F within MOMENTS_RTOL of each query's second
+moment (a checkout without kernels E and F reports those inputs absent);
+builds that checkout's grid of the config #2 view outside the timing and
+times its `fpfh._spfh_grid` on it, and prints one JSON line: the card, and
+per input three medians of 20 timed calls (CUDA events around the call,
+after 3 warm-up calls), with a digest of the grid sweep's rows and of the
+outputs of the pre-pass and of C, D, E and F so that two checkouts can be
 seen to agree bit for bit. Compare in one process order on one card:
-parent, change, change, parent. C and D are timed through their wrappers
-with no `packed` buffer, so each time holds the pre-pass, as an earlier
-checkout's wrapper, which takes no such buffer, is timed.
+parent, change, change, parent. C, D, E and F are timed through their
+wrappers with no `packed` buffer, so each time holds the pre-pass, as an
+earlier checkout's wrapper, which takes no such buffer, is timed.
 """
 
 from __future__ import annotations
@@ -88,6 +95,8 @@ def record(out: Path) -> None:
         with cs.first_launch_inputs(nn, spfh) as seen, sift_octaves(cs, label) as sift:
             estimate_maps_transforms(clouds, params, seed=0)
             torch.cuda.synchronize()
+        for name in ("radius_count", "radius_moments"):
+            inputs[f"{name} {label}"] = seen[name]
         # config #1's and the sweep's pairs take kernel A's batched entry
         for entry, key in (("nearest_neighbor", "nn"), ("nearest_neighbor_batched", "nn_batched")):
             if entry in seen:
@@ -115,7 +124,9 @@ def sift_octaves(cs, label: str, octaves=(0, 1, 2)):
     """Keep the arguments of the first len(octaves) calls of kernels C and
     D (one a dense octave, in octave order: the first extraction's) while a
     path runs, under "sift_scale_space LABEL octave N" and "sift_knn ...",
-    all but the shared `packed` buffer; the dict fills as the path runs."""
+    all but the shared `packed` buffer, and the pre-pass's arguments on
+    the points C smooths ("tiles_pack ..."); the dict fills as the path
+    runs."""
     from mapmerge_torch.kernels import sift as ksift
 
     kept: dict = {}
@@ -128,6 +139,9 @@ def sift_octaves(cs, label: str, octaves=(0, 1, 2)):
                     kept[f"{name} {label} octave {octaves[n]}"] = (
                         [cs._copied(a) for a in args],
                         {k: v for k, v in kwargs.items() if k != "packed"})
+                    if name == "sift_scale_space":  # (qc, pc, vals, mask, ...)
+                        kept[f"tiles_pack {label} octave {octaves[n]}"] = (
+                            [cs._copied(a) for a in args[1:4]], {})
                 return fn(*args, **kwargs)
 
             return wrapper
@@ -136,6 +150,29 @@ def sift_octaves(cs, label: str, octaves=(0, 1, 2)):
 
     with cs.patched({(ksift, "scale_space"): make("sift_scale_space"),
                      (ksift, "knn"): make("sift_knn")}):
+        yield kept
+
+
+@contextlib.contextmanager
+def radius_first(cs, label: str):
+    """Keep the arguments of the first call of kernels E and F while a path
+    runs, under "radius_count LABEL" and "radius_moments LABEL"."""
+    from mapmerge_torch.kernels import radius as kradius
+
+    kept: dict = {}
+
+    def make(name):
+        def wrap(fn):
+            def wrapper(*args, **kwargs):
+                kept.setdefault(f"{name} {label}", ([cs._copied(a) for a in args], kwargs))
+                return fn(*args, **kwargs)
+
+            return wrapper
+
+        return wrap
+
+    with cs.patched({(kradius, "count"): make("radius_count"),
+                     (kradius, "moments"): make("radius_moments")}):
         yield kept
 
 
@@ -151,19 +188,21 @@ def record_sift_paths(cs, dev) -> dict:
 
     kept: dict = {}
     views, _ = town_views(cs.CONFIG4_MAPS, 4096, seed=3)
-    with sift_octaves(cs, "config #4") as sift:
+    with sift_octaves(cs, "config #4") as sift, radius_first(cs, "config #4") as radius:
         estimate_maps_transforms(cs.raw_clouds(views, dev), cs.config4_params(), seed=0)
     kept.update(sift)
+    kept.update(radius)
 
     views, _ = town_views(cs.CONFIG5S_MAPS, 2048, seed=5)
     transport = InProcTransport()
     node = MapMergeNode(transport, cs.config5_params(), seed=0, device=dev)
     for i in range(cs.CONFIG5S_BATCH):
         transport.publish(f"robot_{i:02d}", *views[i])
-    with sift_octaves(cs, "config5") as sift:
+    with sift_octaves(cs, "config5") as sift, radius_first(cs, "config5") as radius:
         node.discovery()
         node.transforms_estimation()
     kept.update(sift)
+    kept.update(radius)
 
     views, _ = town_views(cs.CONFIG5_MAPS, cs.CONFIG5_VIEW_TARGET, keep=0.8, seed=5)
     cap = 1 << int(np.ceil(np.log2(len(views[0][0]))))
@@ -252,20 +291,69 @@ def time_sift(ksift, name: str, args, kwargs) -> dict:
         err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
         ok = err <= ksift.SCALE_SPACE_RTOL
         got = (got,)
-    digest = hashlib.sha256()
-    for a in got:
-        digest.update(a.cpu().numpy().tobytes())
     return {
         "shape": f"Q={args[0].shape[0]} P={args[1].shape[0]}",
-        "held": ok, "err_of_field": err, "digest": digest.hexdigest()[:16],
+        "held": ok, "err_of_field": err, "digest": _digest(got),
         "ms": [time_ms(lambda: kernel(*args, **kwargs)) for _ in range(3)],
     }
+
+
+def time_pack(ktiles, args) -> dict:
+    """The pre-pass of the checkout on one saved input: held against
+    pack_ref (the same values, NaN where NaN, the int bits of the fourth
+    columns), a digest of both outputs, three medians of 20 timed calls."""
+    pts, boxes = ktiles.pack(*args)
+    rpts, rboxes = ktiles.pack_ref(*args)
+    ok = bool(((pts == rpts) | (pts.isnan() & rpts.isnan())).all()) and torch.equal(
+        boxes[..., :3], rboxes[..., :3]) and torch.equal(
+        boxes[..., 3].contiguous().view(torch.int32),
+        rboxes[..., 3].contiguous().view(torch.int32))
+    return {"shape": f"P={args[0].shape[0]}", "held": ok, "digest": _digest((pts, boxes)),
+            "ms": [time_ms(lambda: ktiles.pack(*args)) for _ in range(3)]}
+
+
+def time_radius(kradius, name: str, args, kwargs) -> dict:
+    """Kernel E or F of the checkout on one saved input: held against its
+    plain version (E bit for bit; F's count exactly, its mean and covariance
+    within MOMENTS_RTOL), a digest of its output, three medians of 20 timed
+    calls."""
+    if name.startswith("radius_count"):
+        kernel = kradius.count
+        got = kernel(*args, **kwargs)
+        ok, err = torch.equal(got, kradius.count_ref(*args, **kwargs)), 0.0
+        got = (got,)
+    else:
+        kernel = kradius.moments
+        got, want = kernel(*args, **kwargs), kradius.moments_ref(*args, **kwargs)
+        _, err = kradius.moments_error(got, want)
+        ok = torch.equal(got[0], want[0]) and err <= kradius.MOMENTS_RTOL
+    return {
+        "shape": f"Q={args[0].shape[0]} P={args[1].shape[0]}",
+        "held": ok, "err_of_second_moment": err, "digest": _digest(got),
+        "ms": [time_ms(lambda: kernel(*args, **kwargs)) for _ in range(3)],
+    }
+
+
+def _digest(tensors) -> str:
+    digest = hashlib.sha256()
+    for a in tensors:
+        digest.update(a.cpu().numpy().tobytes())
+    return digest.hexdigest()[:16]
 
 
 def time_root(inputs_path: Path, root: Path, prefix: str = "") -> None:
     sys.path.insert(0, str(root.resolve()))
     from mapmerge_torch.kernels import nn, spfh
     from mapmerge_torch.kernels import sift as ksift
+
+    try:  # kernels E and F, where the checkout has them
+        from mapmerge_torch.kernels import radius as kradius
+    except ImportError:
+        kradius = None
+    try:  # the pre-pass's own module, where the checkout has it
+        from mapmerge_torch.kernels import tiles as ktiles
+    except ImportError:
+        ktiles = ksift
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -276,8 +364,15 @@ def time_root(inputs_path: Path, root: Path, prefix: str = "") -> None:
     for name, (args, kwargs) in sorted(inputs.items()):
         if not name.startswith(prefix):
             continue
+        if name.startswith("tiles_pack"):
+            result["kernels"][name] = time_pack(ktiles, args)
+            continue
         if name.startswith("sift"):
             result["kernels"][name] = time_sift(ksift, name, args, kwargs)
+            continue
+        if name.startswith("radius"):
+            result["kernels"][name] = ({"absent": True} if kradius is None
+                                       else time_radius(kradius, name, args, kwargs))
             continue
         if name.startswith("fpfh grid"):
             result["kernels"][name] = time_config2_sweep(args, kwargs)

@@ -306,14 +306,17 @@ def test_get_lib_exposes_the_reference_functions(jax_native):
 
 
 def test_every_source_ships_as_package_data():
-    """Every source of kernels/build.SOURCES matches a package-data pattern
-    of mapmerge_torch in pyproject.toml: an installed port reads its sources
+    """Every source of kernels/build.SOURCES, and every header csrc/*.cuh
+    that a kernel source may include, matches a package-data pattern of
+    mapmerge_torch in pyproject.toml: an installed port reads its sources
     from csrc/ at first use, with no fallback."""
     root = pathlib.Path(__file__).resolve().parent.parent
     config = tomllib.loads((root / "pyproject.toml").read_text())
     patterns = config["tool"]["setuptools"]["package-data"]["mapmerge_torch"]
     assert build.CSRC == root / "mapmerge_torch" / "csrc"
-    for source in build.SOURCES:
+    headers = sorted(h.name for h in build.CSRC.glob("*.cuh"))
+    assert "cull.cuh" in headers
+    for source in [*build.SOURCES, *headers]:
         assert (build.CSRC / source).is_file()
         assert any(fnmatch.fnmatch(f"csrc/{source}", pat) for pat in patterns), (
             f"csrc/{source} is not shipped: {patterns}"

@@ -25,11 +25,12 @@ from hypothesis import strategies as st
 
 from mapmerge_torch.core.cloud import FAR
 from mapmerge_torch.kernels import sift as ksift
+from mapmerge_torch.kernels import tiles as ktiles
 from mapmerge_torch.ops import neighbors as tn
 
 from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
-T = ksift.TILE
+T = ktiles.TILE
 NO_MASKED = 2**31 - 1
 
 
@@ -74,9 +75,9 @@ def knn_visit_model(q, p, mask, k, r2, order):
     a visited tile's points (masked at BIG) merge into the list by (d2,
     index). Returns (idx, valid, visited (Q, n_tiles))."""
     nq, np_ = q.shape[0], p.shape[0]
-    _, boxes = ksift.pack_ref(p, None, mask)
+    _, boxes = ktiles.pack_ref(p, None, mask)
     n_tiles = boxes.shape[0]
-    bound = ksift.tile_bound(q, boxes)
+    bound = ktiles.tile_bound(q, boxes)
     first_masked = boxes[:, 0, 3].contiguous().view(torch.int32).long()
     d2_all = tn.sq_dists(q, p)
     if mask is not None:
@@ -136,7 +137,7 @@ def test_pack_ref_matches_its_definition(np_, with_vals, with_mask):
     mask = rng.random(np_) < 0.7 if with_mask else None
     if with_mask and np_ >= 64:
         mask[32:64] = False  # a tile with no valid point
-    pts, boxes = ksift.pack_ref(torch.from_numpy(p),
+    pts, boxes = ktiles.pack_ref(torch.from_numpy(p),
                                 None if vals is None else torch.from_numpy(vals),
                                 None if mask is None else torch.from_numpy(mask))
     n_tiles = -(-np_ // T)
@@ -207,8 +208,8 @@ def test_box_bounds_never_exceed_sq_dists(case):
     queries together is <= every query's clamped-box bound: rounding is
     monotone, so skipping a tile on either bound drops no point."""
     q, p, mask = case
-    _, boxes = ksift.pack_ref(p, None, mask)
-    bound = ksift.tile_bound(q, boxes)  # (Q, n_tiles)
+    _, boxes = ktiles.pack_ref(p, None, mask)
+    bound = ktiles.tile_bound(q, boxes)  # (Q, n_tiles)
     d2 = tn.sq_dists(q, p)
     tile_of = torch.arange(p.shape[0]) // T
     member = bound[:, tile_of]
@@ -294,8 +295,8 @@ def test_scale_space_culling_takes_exactly_the_pairs_in_bound(case, warp):
         qc, pc, mask, vals = surface_cloud(7, shuffle=case == "shuffled")
     sigmas = [0.125 * 2.0 ** (s / 3) for s in range(6)]
     r2 = tn._f32((3.0 * max(sigmas)) ** 2)
-    _, boxes = ksift.pack_ref(pc, vals, mask)
-    reach = ksift.tile_bound(qc, boxes) <= r2  # (Q, n_tiles)
+    _, boxes = ktiles.pack_ref(pc, vals, mask)
+    reach = ktiles.tile_bound(qc, boxes) <= r2  # (Q, n_tiles)
     nq, n_tiles = reach.shape
     pad = -nq % warp
     by_warp = torch.cat([reach, torch.zeros((pad, n_tiles), dtype=torch.bool)])
@@ -363,10 +364,10 @@ def test_pack_kernel_equals_pack_ref(cuda, case):
     """The pre-pass: the same values (NaN where NaN) and the int bits of
     the fourth columns exactly; one launch."""
     _, pc, mask, vals = _card(case, cuda)
-    before = ksift.PACK_KERNEL.launches
-    pts, boxes = ksift.pack(pc, vals, mask)
-    assert ksift.PACK_KERNEL.launches == before + 1
-    rpts, rboxes = ksift.pack_ref(pc, vals, mask)
+    before = ktiles.PACK_KERNEL.launches
+    pts, boxes = ktiles.pack(pc, vals, mask)
+    assert ktiles.PACK_KERNEL.launches == before + 1
+    rpts, rboxes = ktiles.pack_ref(pc, vals, mask)
     same = (pts == rpts) | (pts.isnan() & rpts.isnan())
     assert bool(same.all())
     assert torch.equal(boxes[..., :3], rboxes[..., :3])
@@ -416,11 +417,11 @@ def test_kernels_on_one_shared_buffer(cuda, case):
     sigmas = [0.125 * 2.0 ** (s / 3) for s in range(6)]
     r2 = tn._f32((3.0 * max(sigmas)) ** 2)
     k = min(26, pc.shape[0])
-    before = ksift.PACK_KERNEL.launches
-    packed = ksift.pack(pc, vals, mask)
+    before = ktiles.PACK_KERNEL.launches
+    packed = ktiles.pack(pc, vals, mask)
     field = ksift.scale_space(qc, pc, vals, mask, sigmas, r2, packed=packed)
     idx, valid = ksift.knn(qc, pc, mask, k, tn._f32(1e12), packed=packed)
-    assert ksift.PACK_KERNEL.launches == before + 1
+    assert ktiles.PACK_KERNEL.launches == before + 1
     assert torch.equal(field, ksift.scale_space(qc, pc, vals, mask, sigmas, r2))
     ridx, rvalid = ksift.knn(qc, pc, mask, k, tn._f32(1e12))
     assert torch.equal(idx, ridx) and torch.equal(valid, rvalid)

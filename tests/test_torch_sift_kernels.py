@@ -31,6 +31,7 @@ from mapmerge_torch.core.cloud import FAR
 from mapmerge_torch.core.cloud import PointCloud as TorchCloud
 from mapmerge_torch.kernels import build
 from mapmerge_torch.kernels import sift as ksift
+from mapmerge_torch.kernels import tiles as ktiles
 from mapmerge_torch.ops import neighbors as tn
 from mapmerge_torch.ops.keypoints import sift as tsift
 
@@ -200,7 +201,7 @@ def test_dense_octave_packed_once_for_both_kernels(surface_cloud, monkeypatch):
     kw = dict(min_scale=0.1, octaves=3, scales_per_octave=3, min_contrast=3.0,
               max_keypoints=256, tile=512, engine="dense")
     packs, given = [], {"scale_space": [], "knn": []}
-    pack, scale_space, knn = ksift.pack, ksift.scale_space, ksift.knn
+    pack, scale_space, knn = ktiles.pack, ksift.scale_space, ksift.knn
 
     def counted_pack(p, vals, mask):
         packs.append((vals is not None, pack(p, vals, mask)))
@@ -213,7 +214,7 @@ def test_dense_octave_packed_once_for_both_kernels(surface_cloud, monkeypatch):
 
         return wrapper
 
-    monkeypatch.setattr(ksift, "pack", counted_pack)
+    monkeypatch.setattr(ktiles, "pack", counted_pack)
     monkeypatch.setattr(ksift, "scale_space", taking("scale_space", scale_space))
     monkeypatch.setattr(ksift, "knn", taking("knn", knn))
     got = tsift.detect_keypoints_sift(tc, **kw)
@@ -269,7 +270,7 @@ def test_forced_build_or_launch_failure_raises(monkeypatch, entry):
     with pytest.raises(ValueError, match="unsupported device meta"):
         call()
 
-    monkeypatch.setattr(ksift, "_cuda", lambda kernel, x: x.device)
+    monkeypatch.setattr(build, "cuda_device", lambda kernel, x: x.device)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(build, "stream_handle", lambda dev: 0)
 
@@ -282,7 +283,7 @@ def test_forced_build_or_launch_failure_raises(monkeypatch, entry):
         call()
     assert kernel.launches == before
     monkeypatch.setattr(build, "load", lambda *a: types.SimpleNamespace(
-        mm_sift_pack=lambda *args: 0, mm_sift_scale_space=lambda *args: 700,
+        mm_tiles_pack=lambda *args: 0, mm_sift_scale_space=lambda *args: 700,
         mm_sift_knn=lambda *args: 700))
     with pytest.raises(RuntimeError, match=f"{kernel.name}: CUDA launch failed with error 700"):
         call()
@@ -295,7 +296,7 @@ def _meta_entry(monkeypatch, entry):
     q = torch.empty((64, 3), device=meta)
     mask = torch.ones((64,), dtype=torch.bool, device=meta)
     vals = torch.empty((64,), device=meta)
-    monkeypatch.setattr(ksift, "_cuda", lambda kernel, x: x.device)
+    monkeypatch.setattr(build, "cuda_device", lambda kernel, x: x.device)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(build, "stream_handle", lambda dev: 0)
     call = {
@@ -318,9 +319,9 @@ def test_forced_pack_failure_raises_before_the_kernel(monkeypatch, entry):
     launch count does not move."""
     call, kernel = _meta_entry(monkeypatch, entry)
     monkeypatch.setattr(build, "load", lambda *a: types.SimpleNamespace(
-        mm_sift_pack=lambda *args: 700, mm_sift_scale_space=_never, mm_sift_knn=_never))
+        mm_tiles_pack=lambda *args: 700, mm_sift_scale_space=_never, mm_sift_knn=_never))
     before = (ksift.SCALE_SPACE_KERNEL.launches, ksift.KNN_KERNEL.launches)
-    with pytest.raises(RuntimeError, match="sift_pack: CUDA launch failed with error 700"):
+    with pytest.raises(RuntimeError, match="tiles_pack: CUDA launch failed with error 700"):
         call()
     assert (ksift.SCALE_SPACE_KERNEL.launches, ksift.KNN_KERNEL.launches) == before
 
@@ -337,13 +338,13 @@ def test_a_given_buffer_skips_the_pre_pass(monkeypatch, entry):
         return 0
 
     monkeypatch.setattr(build, "load", lambda *a: types.SimpleNamespace(
-        mm_sift_pack=_never, mm_sift_scale_space=launch, mm_sift_knn=launch))
+        mm_tiles_pack=_never, mm_sift_scale_space=launch, mm_sift_knn=launch))
     meta = torch.device("meta")
     pts = torch.empty((64, 4), device=meta)
     boxes = torch.empty((2, 2, 4), device=meta)
-    before = (ksift.PACK_KERNEL.launches, kernel.launches)
+    before = (ktiles.PACK_KERNEL.launches, kernel.launches)
     call(packed=(pts, boxes))
-    assert (ksift.PACK_KERNEL.launches, kernel.launches) == (before[0], before[1] + 1)
+    assert (ktiles.PACK_KERNEL.launches, kernel.launches) == (before[0], before[1] + 1)
     assert len(seen) == 1
     with pytest.raises(ValueError, match="packed boxes has shape"):
         call(packed=(pts, torch.empty((3, 2, 4), device=meta)))
@@ -517,7 +518,7 @@ def test_kernels_raise_on_a_forced_failure_on_the_card(cuda, monkeypatch):
     never returned."""
     q, p, mask, vals = _card_case(cuda, 100, 100, 1)
     monkeypatch.setattr(build, "load", lambda *a: types.SimpleNamespace(
-        mm_sift_pack=lambda *args: 0, mm_sift_scale_space=lambda *args: 1,
+        mm_tiles_pack=lambda *args: 0, mm_sift_scale_space=lambda *args: 1,
         mm_sift_knn=lambda *args: 1))
     with pytest.raises(RuntimeError, match="CUDA launch failed with error 1"):
         ksift.scale_space(q, p, vals, mask, [0.5, 0.7], 4.0)
