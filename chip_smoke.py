@@ -17,7 +17,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      and F (moments), at config #1's width (Q = P = 32,768, 0.8 / 0.6 m), E
      exactly and F within its tolerance, then on points exactly on the
      radius, ties, shuffled, all-masked, half-parked, one-tile clouds and
-     queries that are not the cloud's points;
+     queries that are not the cloud's points; the grid sweeps, kernels G
+     (bounded 1-NN), H (moments) and I (count), on a synthetic town of
+     262,144 points at config #2's radii and caps, G and I bit for bit and
+     H within its tolerance, then on wrapped lattice dims, ties across
+     buckets, all-masked targets, unmatched queries, a query bucket over
+     its cap and parked points;
   4. eval config #1 (bench.py:49-77) through estimate_maps_transforms on the
      card: reset the kernels' launch counts, run once, require every kernel
      to have launched; gate the poses against the ground truth and against
@@ -137,8 +142,9 @@ node, merge_tool, the node over two ranks or processes, config #4,
 config5): kernel A's batched entry launches there and its one-pair entry
 must not (no fallback). The incremental node registers one pair at a time
 on the dense engine (the one-pair entry); config #2, config5_big, the
-debugger and config #3 take the grid 1-NN (neither entry). Each path's
-route, its pair stage's seconds and its chunks are printed and required.
+debugger and config #3 take the grid 1-NN (kernel G, neither dense entry;
+G on no other path). Each path's route, its pair stage's seconds and its
+chunks are printed and required.
 Each path runs with the launch counts reset just before it and read just
 after. The kernel launch counts are one per process, so phases 12-13 count
 both thread ranks' launches, and phase 15's rank processes each report
@@ -169,6 +175,20 @@ normals' valid flags equal to the plain version's (the ok flips and the
 largest angle logged, and what the angle comes from: moments_precision,
 which also holds TF32 and bfloat16 controls of F's sums to fail F's limit
 on config #1), E also timed against torch.cdist <= r (count_library).
+The grid sweeps (kernels G, H and I, csrc/grid.cu: the grid engine's
+bounded 1-NN behind ICP and the score, its moments behind the normals and
+its count behind outlier removal, each reading the target and query grids
+in place, one launch a call) are required per path: G on the grid route,
+H once a grid normal pass and I once a grid outlier pass (and SC3D density
+count), none on the dense paths (require_grid_radius); each is held on its
+first launch on every grid path (G on ICP's and on the score's first call),
+G and I bit for bit and H within its tolerance with the normals' flags, and
+timed beside its plain version, the grid route before them, and its bound
+on the members (the pairs it visits beside it); G and I also beside
+torch.cdist + min / <= r on 4,096 sampled answered queries, scaled
+(grid_library_stats), and on config #2 H against float64 sums, with TF32
+and bfloat16 controls of its sums required to fail its limit
+(grid_moments_precision).
 The tile pre-pass (kernels/tiles.pack, which C, D, E and F read) launches
 once a dense SIFT octave, for both C and D, and once a call of E or F,
 exactly (require_pack), and is held exactly on its first launch on every
@@ -176,14 +196,18 @@ path.
 Config #1's merge is also timed stage by stage and profiled once
 (profile_merge: the device busy share), and config5_big's octave 0 (2^19
 points, on the grid) is timed through C and D beside the grid route
-(big_octave_stats), its first map's outlier and normal passes through E
-and F beside the grid's (big_radius_stats), held on sampled queries.
+(big_octave_stats, with knn_library on its sampled queries), its first
+map's outlier and normal passes through E and F beside the grid's, through
+I and H and through their plain versions (big_radius_stats), held on
+sampled queries; config #1's octaves 1 and 2 give C's and D's bounds and
+D's knn_library (sift_octave_stats).
 The line before the last is a JSON object of the kernels (kernel
-A's one-pair and batched entries, kernel B, the pre-pass, kernels C, D, E
-and F): launches, times and bound on each kernel's main path (MAIN_PATH:
-config #1 for the batched entry, B, C, D, E and F, the incremental node on
-config #1's views for the one-pair entry), and the same for every path and
-for the synthetic shapes; the last line is {"ok": true, "device": {...}}.
+A's one-pair and batched entries, kernel B, the pre-pass, kernels C, D, E,
+F, G, H and I): launches, times and bound on each kernel's main path
+(MAIN_PATH: config #1 for the batched entry, B, C, D, E and F, config #2
+for G, H and I, the incremental node on config #1's views for the one-pair
+entry), and the same for every path and for the synthetic shapes; the last
+line is {"ok": true, "device": {...}}.
 The native host library (native/, csrc/mapmerge_native.cpp): on every path
 that solves a graph (4-8, 11-13, 15 in this process and in each rank
 process, 16) the call counts are reset just before the path and
@@ -330,7 +354,7 @@ def grid_sweep_counters(grid, q_ok, total) -> dict:
     neighbours of its bucket, ops/grid._candidates' set), the distinct
     points among them, and the pairs counted (the needed rows' counts)."""
     from mapmerge_torch.kernels import spfh as spfh_kernel
-    from mapmerge_torch.ops.grid import _neighbor_buckets
+    from mapmerge_torch.core.grid import _neighbor_buckets
 
     active = torch.nonzero(q_ok.any(dim=1)).flatten()
     count = grid.count.to(torch.int64)
@@ -892,14 +916,14 @@ def _count_compare(name, kradius, args):
     return ref
 
 
-def normals_hold(got, ref, args) -> dict:
-    """Kernel F's moments and moments_ref's through the normals' eigen
-    solver (ops/eigh3.smallest_eigenpair3), as ops/normals.py takes them: the
-    `valid` flags (ok, count >= 3, and the cloud's mask where the queries
-    are its points) required equal; the points whose `ok` flips, and the
-    largest angle between the two normals over the points valid in both
-    (in degrees, the eigenvectors' sign aside: the viewpoint flip follows),
-    recorded."""
+def normals_hold(got, ref, args, required: bool = True) -> dict:
+    """Kernel F's (or H's) moments and the plain version's through the
+    normals' eigen solver (ops/eigh3.smallest_eigenpair3), as
+    ops/normals.py takes them: the `valid` flags (ok, count >= 3, and the
+    cloud's mask where the queries are its points) equal (required where
+    `required`); the points whose `ok` flips, and the largest angle between
+    the two normals over the points valid in both (in degrees, the
+    eigenvectors' sign aside: the viewpoint flip follows), recorded."""
     from mapmerge_torch.ops.eigh3 import smallest_eigenpair3
 
     own = args[0].shape[0] == args[1].shape[0] and args[2] is not None
@@ -915,8 +939,8 @@ def normals_hold(got, ref, args) -> dict:
     angle = float(torch.rad2deg(torch.acos(cos)).max()) if bool(both.any()) else 0.0
     held = {"valid": int(flags[0].sum()), "valid_differing": int((flags[0] != flags[1]).sum()),
             "ok_flips": int((oks[0] != oks[1]).sum()), "max_angle_deg": angle}
-    require(held["valid_differing"] == 0,
-            f"normals' valid flags differ between kernel F and its plain version: {held}")
+    require(not required or held["valid_differing"] == 0,
+            f"normals' valid flags differ between the kernel and its plain version: {held}")
     return held
 
 
@@ -1157,6 +1181,374 @@ def check_radius(dev, kradius) -> dict:
     return stats
 
 
+#: the grid sweeps (kernels G, H and I): config #2's radii and bucket caps
+#: (ICP's bound max_correspondence_distance at registration_scan_cap, the
+#: outlier pass at descriptor_radius and the normals at normal_radius at
+#: grid_scan_cap)
+GRID_NN_BOUND, GRID_NN_CAP, GRID_CAP = 1.0, 256, 128
+#: float32 operations of one (query, candidate) pair of kernels G, H and I:
+#: the distance 8 and the bound compare 1 (NN_PAIR_OPS' count)
+GRID_PAIR_OPS = 9
+
+
+def grid_operands(p, mask, q, q_mask, cell: float, cap: int, dims=None):
+    """(target grid, query grid, q, n_p) as ops/grid builds them for one
+    call of kernel G, H or I: build_grid of the targets, and of the queries
+    into the same layout and cap."""
+    from mapmerge_torch.ops.grid import build_grid
+
+    grid = build_grid(p, mask, cell, dims, cap)
+    qg = build_grid(q, q_mask, grid.cell_size, grid.dims, grid.cap)
+    return grid, qg, q, p.shape[0]
+
+
+def grid_visit_counters(grid, qg) -> dict:
+    """What one call of G, H or I visits: the buckets that hold an answered
+    query slot (one CTA each that does not exit at once), the answered
+    slots, the (query, candidate) pairs (each answered slot against the
+    filled slots of the distinct wrapped neighbours of its bucket) and the
+    distinct target points among the candidates."""
+    from mapmerge_torch.core.grid import _neighbor_buckets
+
+    active = torch.nonzero(qg.count > 0).flatten()
+    if active.numel() == 0:
+        return {"active_buckets": 0, "answered": 0, "pairs_visited": 0,
+                "distinct_candidates": 0}
+    count = grid.count.to(torch.int64)
+    nbr, _ = torch.sort(_neighbor_buckets(active, grid.dims), dim=-1)
+    first = torch.ones_like(nbr, dtype=torch.bool)
+    first[:, 1:] = nbr[:, 1:] != nbr[:, :-1]
+    answered = qg.cell_ok[active].sum(dim=1).to(torch.int64)
+    return {"active_buckets": int(active.numel()), "answered": int(answered.sum()),
+            "pairs_visited": int((answered * (count[nbr] * first).sum(dim=1)).sum()),
+            "distinct_candidates": int(count[torch.unique(nbr)].sum())}
+
+
+#: bytes a query row of each grid kernel writes: G idx and d2, H the count,
+#: mean and covariance, I the count
+GRID_ROW_BYTES = {"grid_nn": 8, "grid_moments": 52, "grid_count": 4}
+
+
+def grid_bound(name: str, grid, qg, q, members: int) -> dict:
+    """A grid kernel's least time on these inputs: the distinct candidate
+    points read once (12 B, and G the 8 B index of the one it keeps: counted
+    for each), both grids' counts (4 B a bucket), the answered query slots
+    (12 B and their 8 B row) and the answered flags of the active buckets
+    (1 B a slot), the rows written once; the work these inputs need: each
+    member's GRID_PAIR_OPS (the (query, target) pairs within the radius, for
+    G within the bound: a kernel that culls need test no other pair), and
+    MOMENTS_MEMBER_OPS more for H. Beside it `visited_bound_ms`, every pair
+    the kernels visit (grid_visit_counters' pairs_visited) at
+    GRID_PAIR_OPS, as E's `dense_bound_ms` sits beside E's bound."""
+    c = grid_visit_counters(grid, qg)
+    h, cap = grid.cell_idx.shape
+    n_bytes = (c["distinct_candidates"] * (20 if name == "grid_nn" else 12) + 2 * h * 4
+               + c["answered"] * 20 + c["active_buckets"] * cap
+               + q.shape[0] * GRID_ROW_BYTES[name])
+    extra = members * MOMENTS_MEMBER_OPS if name == "grid_moments" else 0
+    return {**c, "members": members, **_bound(n_bytes, members * GRID_PAIR_OPS + extra),
+            "visited_bound_ms": _bound(
+                n_bytes, c["pairs_visited"] * GRID_PAIR_OPS + extra)["bound_ms"]}
+
+
+def grid_library_stats(name: str, args, got) -> dict:
+    """nn_library (G) or count_library (I) on BIG_OCTAVE_SAMPLE queries
+    sampled from the call's answered ones, against the points the target
+    grid kept (its filled slots: the target side's caps dropped the rest,
+    as for the kernel; the queries the query-side cap dropped are not
+    answered and not sampled). A Q x P plane of all the answered queries
+    would not fit (2^20 x 380,000 is 1.6 TB), so the call is timed on the
+    sample (time_ms) and that time scaled by the answered queries over the
+    sample, as big_octave_stats does for D. Beside them the share of
+    sampled queries on which the library agrees with the kernel's `got`: G
+    the index, over the queries G matched within the bound; I the count
+    (include_self added back). cdist rounds otherwise than the kernels'
+    direct distances, so a near-tie or a pair at the bound may differ."""
+    from mapmerge_torch.kernels import grid as kgrid
+
+    grid, qg, q = args[:3]
+    answered = qg.cell_idx[qg.cell_ok]
+    if answered.numel() == 0:
+        return {"library_ms": None}
+    pts = grid.cell_xyz[grid.cell_ok].contiguous()
+    g = torch.Generator(device=q.device).manual_seed(21)
+    pick = torch.randperm(answered.numel(), generator=g, device=q.device)
+    sample = answered[pick[:BIG_OCTAVE_SAMPLE]].sort().values
+    qs = q[sample].contiguous()
+    if name == "grid_nn":
+        ms = time_ms(lambda: nn_library(qs, pts))
+        j = nn_library(qs, pts).indices
+        matched = got[1][sample] < 1e11
+        agree = (grid.cell_idx[grid.cell_ok][j] == got[0][sample].long())[matched]
+        share = {"library_index_agreement_matched": float(agree.double().mean())
+                 if bool(matched.any()) else None}
+    else:
+        r2, include_self = args[3], args[4] if len(args) > 4 else True
+        ms = time_ms(lambda: count_library(qs, pts, None, r2))
+        want = got[sample].long() + (0 if include_self else 1)
+        share = {"library_count_agreement": float(
+            (count_library(qs, pts, None, r2) == want).double().mean())}
+    torch.cuda.empty_cache()
+    return {"library_sample": int(sample.numel()), "library_sample_ms": ms,
+            "library_ms": ms * answered.numel() / sample.numel(), **share}
+
+
+def _grid_nn_compare(name, kgrid, args):
+    """Kernel G against nn_query_ref on the same inputs: idx and d2 bit for
+    bit. Returns the plain version's (idx, d2)."""
+    got = kgrid.nn_query(*args)
+    ref = kgrid.nn_query_ref(*args)
+    torch.cuda.synchronize()
+    require(all(a.shape == b.shape for a, b in zip(got, ref)), f"{name}: shapes")
+    diff = [int((a != b).sum()) for a, b in zip(got, ref)]
+    require(diff == [0, 0],
+            f"{name}: {diff[0]} indices and {diff[1]} d2 differ from nn_query_ref; "
+            "exact required")
+    return ref
+
+
+def _grid_count_compare(name, kgrid, args):
+    """Kernel I against count_ref on the same inputs: bit for bit. Returns
+    the plain version's counts."""
+    got = kgrid.count(*args)
+    ref = kgrid.count_ref(*args)
+    torch.cuda.synchronize()
+    diff = int((got != ref).sum())
+    require(got.shape == ref.shape and diff == 0,
+            f"{name}: {diff} counts differ from count_ref; exact required")
+    return ref
+
+
+class OutsideTolerance(RuntimeError):
+    """A moments check over MOMENTS_RTOL; `rel` its share of a second
+    moment."""
+
+    def __init__(self, msg: str, rel: float):
+        super().__init__(msg)
+        self.rel = rel
+
+
+def _grid_moments_compare(name, kgrid, args, flags_required: bool = True, moments=None):
+    """Kernel H (or `moments`, a stand-in with its signature: the controls
+    of grid_moments_precision) against moments_ref on the same inputs: the
+    count exactly, the mean and covariance within MOMENTS_RTOL
+    (kradius.moments_error about the queries; over it OutsideTolerance), a
+    second launch the same bits, the normals' valid flags (ok, count >= 3)
+    equal where `flags_required` (normals_hold: the synthetic and
+    adversarial inputs, whose sparse or lattice neighbourhoods put the
+    eigen solver's `ok` threshold within rounding, record them). Returns
+    (max abs err, its share, the members counted, normals_hold's record)."""
+    from mapmerge_torch.kernels import radius as kradius
+
+    moments = moments or kgrid.moments
+    got = moments(*args)
+    ref = kgrid.moments_ref(*args)
+    again = moments(*args)
+    torch.cuda.synchronize()
+    require(all(a.shape == b.shape for a, b in zip(got, ref)), f"{name}: shapes")
+    require(all(bool(torch.isfinite(a).all()) for a in got), f"{name}: non-finite values")
+    require(torch.equal(got[0], ref[0]), f"{name}: the counts differ from moments_ref")
+    q = args[2]
+    err, rel = kradius.moments_error(got, ref, q)
+    if rel > kradius.MOMENTS_RTOL:
+        raise OutsideTolerance(f"chip_smoke: {name}: off by {err} ({rel} of a second "
+                               f"moment) > {kradius.MOMENTS_RTOL}", rel)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"{name}: a second launch gave other bits")
+    return err, rel, int(ref[0].sum()), normals_hold(got, ref, (q, q[:0], None),
+                                                     flags_required)
+
+
+def grid_moments_sums(args, operands):
+    """moments_ref's function of H's inputs `args` on moments_ref's own
+    members (its float32 offsets cand - q and their d2 <= r2: the same
+    bits), the offsets and their products given to the sums as
+    `operands(offsets)` (MOMENTS_OPERANDS) and summed in their type, the
+    mean and covariance rounded once to float32 at the end."""
+    from mapmerge_torch.core.grid import grid_query
+
+    grid, qg, q, r2 = args[:4]
+
+    def tile_fn(q_block, cand_xyz, cand_ok, cand_idx):
+        r = cand_xyz[:, None, :, :] - q_block[:, :, None, :]  # (B, Cq, M, 3)
+        d2 = r[..., 0] * r[..., 0]
+        d2 += r[..., 1] * r[..., 1]
+        d2 += r[..., 2] * r[..., 2]
+        x, xx = operands(r.reshape(-1, 3))
+        x, xx = x.reshape(r.shape), xx.reshape(r.shape[:-1] + (9,))
+        w = (cand_ok[:, None, :] & (d2 <= r2)).to(x.dtype)
+        del r, d2
+        s0 = w.sum(dim=-1)
+        denom = s0.clamp_min(1.0)[..., None]
+        mean_rel = (w[..., None] * x).sum(-2) / denom
+        e2 = ((w[..., None] * xx).sum(-2) / denom).reshape(w.shape[:2] + (3, 3))
+        cov = e2 - mean_rel[..., :, None] * mean_rel[..., None, :]
+        return (s0.float(), (mean_rel + q_block.to(x.dtype)).float(), cov.float())
+
+    out, _ = grid_query(q, grid, tile_fn, (0.0, 0.0, 0.0), qg=qg)
+    return out
+
+
+def grid_moments_precision(name, kgrid, args) -> dict:
+    """Where H's limit stands, on H's inputs `args`: H's moments and
+    moments_ref's each against the float64 sums of the same float32 offsets
+    over the same members (kradius.moments_error about the queries), and
+    the TF32 and bfloat16 controls (the offsets and their products rounded
+    so before float32 sums) put through _grid_moments_compare in H's place,
+    each required to fail it on MOMENTS_RTOL."""
+    from mapmerge_torch.kernels import radius as kradius
+
+    q = args[2]
+    truth = grid_moments_sums(args, MOMENTS_OPERANDS["float64"])
+    out = {"kernel_vs_float64": kradius.moments_error(kgrid.moments(*args), truth, q)[1],
+           "plain_vs_float64": kradius.moments_error(kgrid.moments_ref(*args), truth, q)[1]}
+    del truth
+    for control in ("tf32", "bf16"):
+        try:
+            _grid_moments_compare(
+                f"{name} {control} control", kgrid, args, flags_required=False,
+                moments=lambda *a, o=MOMENTS_OPERANDS[control]: grid_moments_sums(a, o))
+        except OutsideTolerance as e:
+            out[f"{control}_control"] = e.rel
+        else:
+            require(False, f"{name}: the {control} control passed _grid_moments_compare: "
+                    "MOMENTS_RTOL does not tell it from float32")
+        torch.cuda.empty_cache()
+    log(f"{name}: H against float64 sums, and its controls: {json.dumps(out)}")
+    return out
+
+
+def grid_stats(label: str, kgrid, seen: dict) -> dict:
+    """Kernels G, H and I on the inputs of their first launch on a path
+    (G: ICP's first call and the transform score's, recorded apart), moved
+    back to the card: held against their plain versions (G and I bit for
+    bit, H within MOMENTS_RTOL with the normals' flags; on H's main path
+    also against float64 sums, with its TF32 and bfloat16 controls), then
+    timed (CUDA events, warm, median), the plain version too, beside the
+    bound on the members and, for G and I, the library call on a sample
+    (grid_library_stats). No single PyTorch call sums neighbourhood
+    moments: H's library_ms is null."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stats = {}
+    for key in ("grid_nn icp", "grid_nn score", "grid_moments", "grid_count"):
+        if key not in seen:
+            continue
+        args, _ = seen[key]
+        args = [_copied(a, dev) for a in args]
+        grid, qg, q = args[:3]
+        name = key.split()[0]
+        shape = (f"Q={q.shape[0]}, grid {tuple(grid.cell_idx.shape)} dims {grid.dims} "
+                 f"cell {grid.cell_size}, query overflow {int(qg.overflow)}")
+        if name == "grid_nn":
+            ref = _grid_nn_compare(f"{label} {key}", kgrid, args)
+            members = int(kgrid.count_ref(grid, qg, q, kgrid._nn_r2(grid))
+                          .to(torch.int64).sum())
+            entry = {"max_abs_err": 0.0, "matched": int((ref[1] < 1e11).sum()),
+                     "fn": kgrid.nn_query, "plain": kgrid.nn_query_ref,
+                     **grid_bound(name, grid, qg, q, members),
+                     **grid_library_stats(name, args, ref)}
+        elif name == "grid_count":
+            ref = _grid_count_compare(f"{label} {key}", kgrid, args)
+            sub = 0 if (args[4] if len(args) > 4 else True) else 1
+            members = int((ref.to(torch.int64) + sub).sum())
+            entry = {"max_abs_err": 0.0, "fn": kgrid.count, "plain": kgrid.count_ref,
+                     **grid_bound(name, grid, qg, q, members),
+                     **grid_library_stats(name, args, ref)}
+        else:
+            err, rel, members, normals = _grid_moments_compare(
+                f"{label} {key}", kgrid, args, flags_required=label != "synthetic")
+            entry = {"max_abs_err": err, "err_of_second_moment": rel,
+                     "normals": normals, "fn": kgrid.moments, "plain": kgrid.moments_ref,
+                     **grid_bound(name, grid, qg, q, members), "library_ms": None}
+            if label == MAIN_PATH[name]:
+                entry["precision"] = grid_moments_precision(f"{label} {key}", kgrid, args)
+        fn, plain = entry.pop("fn"), entry.pop("plain")
+        entry = {"shape": shape, **entry, "ms": time_ms(lambda: fn(*args)),
+                 "plain_ms": time_ms(lambda: plain(*args), reps=3, warmup=1)}
+        if key == "grid_nn score":
+            stats.setdefault("grid_nn", {})["score"] = entry
+        else:
+            stats[name] = {**stats.get(name, {}), **entry}
+        del args, grid, qg, q
+        torch.cuda.empty_cache()
+    return stats
+
+
+def grid_adversarial(g, p, mask, q, q_mask) -> dict:
+    """Inputs on which kernels G, H and I must keep the plain versions'
+    bits, made from the first 20,000 of check_grid's points: name -> (p,
+    mask, q, q_mask, cell, cap, dims). A 1/8 m lattice over wrapped dims
+    (4, 2, 1) (every neighbour id repeated, ties across buckets), a 1/4 m
+    lattice of cell corners queried at the cells' centres (eight points at
+    one distance, in several buckets),
+    every target masked, queries 30 m away (unmatched), 3,000 queries at one
+    point (a query bucket far over its cap), and half the targets and
+    queries parked at FAR."""
+    from mapmerge_torch.core.cloud import FAR
+
+    n = min(20_000, p.shape[0])
+    p, mask, q, q_mask = p[:n], mask[:n], q[:n], q_mask[:n]
+    lattice = torch.round(p * 8.0) / 8.0
+    quarter = torch.round(p * 4.0) / 4.0
+    centres = quarter + 0.125
+    half = torch.arange(n, device=p.device) < n // 2
+    one = q.clone()
+    one[:3000] = q[0]
+    return {
+        "wrapped lattice": (lattice, mask, lattice, q_mask, 0.375, 256, (4, 2, 1)),
+        "centre ties": (quarter, mask, centres, q_mask, 0.25, 128, None),
+        "all masked": (p, torch.zeros_like(mask), q, q_mask, 0.5, 128, None),
+        "unmatched": (p, mask, q + 30.0, q_mask, 0.5, 128, None),
+        "query bucket over its cap": (p, mask, one, q_mask, 0.5, 64, None),
+        "half parked": (torch.where(half[:, None], p, FAR), mask & half,
+                        torch.where(half[:, None], FAR, q), q_mask, 0.5, 128, None),
+    }
+
+
+def check_grid(dev, kgrid, n: int = 1 << 18) -> dict:
+    """Kernels G, H and I against their plain versions on a synthetic town
+    of n = 262,144 surface points over 64 x 64 m (planes 3 m apart, 5% masked),
+    G at config #2's ICP bound and cap (1.0 m, 256) for the points moved by a
+    small pose (10% outside q_mask), H at the normals' radius and I at the
+    outlier radius (cap 128) without include_self; then all three on
+    grid_adversarial's inputs."""
+    from mapmerge_torch.ops.neighbors import _f32
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    p = torch.rand((n, 3), generator=g, device=dev) * 64.0
+    p[:, 2] = torch.round(p[:, 2] / 3.0) * 3.0 + 0.02 * torch.rand((n,), generator=g, device=dev)
+    mask = torch.rand((n,), generator=g, device=dev) > 0.05
+    q = p + torch.tensor([0.05, -0.03, 0.02], device=dev)
+    q_mask = torch.rand((n,), generator=g, device=dev) > 0.1
+    first = {
+        "grid_nn icp": (grid_operands(p, mask, q, q_mask, GRID_NN_BOUND, GRID_NN_CAP), {}),
+        "grid_moments": (grid_operands(p, mask, p, None, NORMAL_R, GRID_CAP)[:3]
+                         + (_f32(NORMAL_R ** 2),), {}),
+        "grid_count": (grid_operands(p, mask, p, None, OUTLIER_R, GRID_CAP)[:3]
+                       + (_f32(OUTLIER_R ** 2), False), {}),
+    }
+    stats = grid_stats("synthetic", kgrid, first)
+    adversarial = grid_adversarial(g, p, mask, q, q_mask)
+    worst, flags = 0.0, {}
+    for name, (ap, am, aq, aqm, cell, cap, dims) in adversarial.items():
+        grid, qg, tq, n_p = grid_operands(ap, am, aq, aqm, cell, cap, dims)
+        r2 = _f32(cell * cell)
+        _grid_nn_compare(f"grid_nn {name}", kgrid, (grid, qg, tq, n_p))
+        qg_all = grid_operands(ap, am, aq, None, cell, cap, dims)[1]
+        _grid_count_compare(f"grid_count {name}", kgrid, (grid, qg_all, tq, r2, False))
+        _, rel, _, flags[name] = _grid_moments_compare(
+            f"grid_moments {name}", kgrid, (grid, qg_all, tq, r2), flags_required=False)
+        worst = max(worst, rel)
+    for key, e in stats.items():
+        log(f"kernel {key} {e['shape']}: max err {e['max_abs_err']}, "
+            f"{e['pairs_visited']} pairs visited, normals {e.get('normals')}; kernel "
+            f"{e['ms']} ms, plain {e['plain_ms']} ms, bound {e['bound_ms']} ms")
+    log(f"kernels grid_nn, grid_count and grid_moments held on {sorted(adversarial)} "
+        f"(largest moments error {worst} of a second moment); normals' flags, "
+        f"recorded: {json.dumps(flags)}")
+    return stats
+
+
 @contextlib.contextmanager
 def patched(targets):
     """Replace each (module, attribute) of `targets` by make(original) for
@@ -1198,22 +1590,29 @@ def first_launch_inputs(nn, spfh):
     native call counts are set to 0 on entry and read on exit
     (`seen["native"]`), and every tree solve
     (merging.compute_global_transforms) is kept with its estimates,
-    threshold and result (`seen["graph"]`, for hold_graph). SIFT's
+    threshold and result (`seen["graph"]`, for hold_graph). The grid
+    kernels' first calls are kept in host memory: G's first call from ICP
+    and its first from the transform score apart ("grid_nn icp", "grid_nn
+    score"), H's and I's. SIFT's
     extractions and the octaves among them that resolve to the dense engine
     are counted (`seen["sift"]`), and the first extraction's arguments kept
     (`seen["sift_detect"]`, for hold_sift_keypoints). The dense radius
     passes are counted (`seen["radius"]`): the outlier and normal stages
     (one each an extraction; the pipeline's and the debugger's calls) and
-    SC3D's density count whose cloud resolves to the dense engine."""
+    SC3D's density count whose cloud resolves to the dense engine, and
+    those that resolve to the grid apart (`seen["grid_radius"]`)."""
     import inspect
     import threading
 
     from mapmerge_torch import native
+    from mapmerge_torch.kernels import grid as kgrid
     from mapmerge_torch.kernels import radius as kradius
     from mapmerge_torch.kernels import sift as ksift
     from mapmerge_torch.kernels import tiles as ktiles
+    from mapmerge_torch.ops import icp as icp_ops
     from mapmerge_torch.ops import normals as normals_ops
     from mapmerge_torch.ops import outliers as outliers_ops
+    from mapmerge_torch.ops import score as score_ops
     from mapmerge_torch.ops.descriptors import sc3d
     from mapmerge_torch.ops.keypoints import sift as sift_ops
     from mapmerge_torch.ops.neighbors import _resolve_engine
@@ -1223,8 +1622,10 @@ def first_launch_inputs(nn, spfh):
     seen: dict = {"pairs": {"stage_s": 0.0, "chunks": 0, "batched_pairs": 0,
                             "one_pair_calls": 0}, "graph": [],
                   "sift": {"extractions": 0, "dense_octaves": 0},
-                  "radius": {"outliers": 0, "normals": 0, "SC3D density": 0}}
+                  "radius": {"outliers": 0, "normals": 0, "SC3D density": 0},
+                  "grid_radius": {"outliers": 0, "normals": 0, "SC3D density": 0}}
     lock = threading.Lock()
+    caller = threading.local()  # which stage a grid 1-NN serves, per thread
 
     def add(key, value):
         with lock:
@@ -1290,16 +1691,17 @@ def first_launch_inputs(nn, spfh):
         return wrapper
 
     def dense_pass(key, size):
-        """Count a call whose operand (`size` of its bound arguments: the
-        capacity) resolves its engine to the dense one."""
+        """Count a call under the engine its operand (`size` of its bound
+        arguments: the capacity) resolves to: "radius" if the dense one,
+        "grid_radius" if the grid."""
         def make(fn):
             signature = inspect.signature(fn)
 
             def wrapper(*args, **kwargs):
                 bound = signature.bind(*args, **kwargs).arguments
-                if _resolve_engine(bound.get("engine", "auto"), size(bound)) == "dense":
-                    with lock:
-                        seen["radius"][key] += 1
+                engine = _resolve_engine(bound.get("engine", "auto"), size(bound))
+                with lock:
+                    seen["radius" if engine == "dense" else "grid_radius"][key] += 1
                 return fn(*args, **kwargs)
 
             return wrapper
@@ -1312,13 +1714,31 @@ def first_launch_inputs(nn, spfh):
     def record(name, dev=None):
         def make(fn):
             def wrapper(*args, **kwargs):
-                if name not in seen:
-                    seen[name] = ([_copied(a, dev) for a in args], dict(kwargs))
+                key = name() if callable(name) else name
+                if key not in seen:
+                    seen[key] = ([_copied(a, dev) for a in args], dict(kwargs))
                 return fn(*args, **kwargs)
 
             return wrapper
 
         return make
+
+    def serving(stage):
+        """Mark the grid 1-NN calls made inside fn as `stage`'s."""
+        def make(fn):
+            def wrapper(*args, **kwargs):
+                before = getattr(caller, "stage", None)
+                caller.stage = stage
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    caller.stage = before
+
+            return wrapper
+
+        return make
+
+    cpu = torch.device("cpu")
 
     with patched({(nn, "nearest_neighbor"): record("nearest_neighbor"),
                   (nn, "nearest_neighbor_batched"): record("nearest_neighbor_batched"),
@@ -1340,9 +1760,16 @@ def first_launch_inputs(nn, spfh):
                       "SC3D density", lambda bound: bound["p"].shape[0]),
                   (sift_ops, "detect_keypoints_sift"): extraction,
                   (sift_ops, "_scale_space"): octave,
-                  # a grid sweep's arguments are ~200 MB at config #2's size:
-                  # kept in host memory, out of the run's peak device memory
-                  (spfh, "spfh_grid"): record("spfh_grid", torch.device("cpu"))}):
+                  # a grid sweep's arguments are ~200 MB at config #2's size
+                  # (kernel G's two grids 1.4 GB): kept in host memory, out of
+                  # the run's peak device memory
+                  (spfh, "spfh_grid"): record("spfh_grid", cpu),
+                  (icp_ops, "grid_nn_query"): serving("icp"),
+                  (score_ops, "nearest_neighbor"): serving("score"),
+                  (kgrid, "nn_query"): record(
+                      lambda: f"grid_nn {getattr(caller, 'stage', None)}", cpu),
+                  (kgrid, "moments"): record("grid_moments", cpu),
+                  (kgrid, "count"): record("grid_count", cpu)}):
         counters = (native.GRAPH_SOLVE, native.LZF_DECOMPRESS)
         for c in counters:
             c.launches = 0
@@ -1356,19 +1783,19 @@ PATH_STATS: dict[str, dict] = {}
 #: per path: the route its pairs took (require_route) and its pair stage
 ROUTES: dict[str, dict] = {}
 
-#: the 1-NN entry each pair route launches, the other entry never: the
-#: dense batch (no fallback to one pair at a time), pairs one at a time on
-#: the dense engine, or the grid 1-NN (neither entry)
+#: the 1-NN kernel each pair route launches, the others never: the dense
+#: batch (no fallback to one pair at a time), pairs one at a time on the
+#: dense engine, or the grid 1-NN (kernel G, neither dense entry)
 ROUTE_NN = {"batched": "nearest_neighbor_batched", "one pair": "nearest_neighbor",
-            "grid": None}
+            "grid": "grid_nn"}
 
 
 def require_route(label: str, launches: dict, route: str, pairs: dict | None = None):
-    """The path's pairs took `route`: its 1-NN entry launched and the other
-    not (ROUTE_NN); with the pair-stage record of first_launch_inputs,
+    """The path's pairs took `route`: its 1-NN kernel launched and the
+    others not (ROUTE_NN); with the pair-stage record of first_launch_inputs,
     chunks on the batched route and none on the others. Logged, and kept in
     ROUTES."""
-    for entry in ("nearest_neighbor", "nearest_neighbor_batched"):
+    for entry in ROUTE_NN.values():
         require((launches.get(entry, 0) > 0) == (entry == ROUTE_NN[route]),
                 f"{label}: launches {launches} on the {route} route")
     if pairs is not None:
@@ -1452,6 +1879,21 @@ def require_radius(label: str, seen: dict, launches: dict) -> None:
             f"passes {passes}")
 
 
+def require_grid_radius(label: str, seen: dict, launches: dict) -> None:
+    """Kernel I launched once a grid outlier pass and once a grid SC3D
+    density count, kernel H once a grid normal pass, and the outlier and
+    normal passes alike (one each an extraction on the grid): none on the
+    dense paths. Logged."""
+    passes = seen["grid_radius"]
+    i, h = launches["grid_count"], launches["grid_moments"]
+    log(f"{label}: grid radius passes {passes}; launches grid_count {i}, "
+        f"grid_moments {h}")
+    require(passes["outliers"] == passes["normals"]
+            and i == passes["outliers"] + passes["SC3D density"] and h == passes["normals"],
+            f"{label}: grid_count {i} and grid_moments {h} launches for the grid "
+            f"passes {passes}")
+
+
 def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
                         exact: bool = False, sift_per_extraction: int = 3) -> None:
     """Each kernel a path launched against its plain version on the inputs
@@ -1461,16 +1903,19 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
     timed on them (CUDA events, warm, median), and the plain version too;
     kernel A's entries beside nn_library's time as well (nn_library_stats),
     D beside knn_library's, E beside count_library's; E exactly and F within
-    its tolerance on every path (radius_stats). SIFT's and the radius
-    sweeps' launches and the pre-pass's are required first (require_sift,
-    require_radius, require_pack).
+    its tolerance on every path (radius_stats); G and I bit for bit and H
+    within its tolerance on every grid path (grid_stats). SIFT's, the radius
+    sweeps', the grid sweeps' and the pre-pass's launches are required first
+    (require_sift, require_radius, require_grid_radius, require_pack).
     These launches come after the path's counts were read."""
+    from mapmerge_torch.kernels import grid as kgrid
     from mapmerge_torch.kernels import radius as kradius
     from mapmerge_torch.kernels import sift as ksift
     from mapmerge_torch.kernels import tiles as ktiles
 
     require_sift(label, seen, launches, sift_per_extraction)
     require_radius(label, seen, launches)
+    require_grid_radius(label, seen, launches)
     require_pack(label, seen, launches)
     stats = PATH_STATS[label] = {}
     if "nearest_neighbor" in seen:
@@ -1545,7 +1990,8 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
             **spfh_grid_bound(grid, q_ok, normals, ref[1]),
         }
     for name, entry in {**pack_stats(label, ktiles, seen), **sift_stats(label, ksift, seen),
-                        **radius_stats(label, kradius, seen)}.items():
+                        **radius_stats(label, kradius, seen),
+                        **grid_stats(label, kgrid, seen)}.items():
         stats[name] = {"launches": launches[name], **entry}
     require(stats, f"{label}: no kernel input was recorded")
     log(f"{label}: kernels on the path's own inputs: {json.dumps(stats)}")
@@ -1735,6 +2181,8 @@ def run_main_path(dev, kernels) -> None:
     log(f"estimate_maps_transforms wall s (5 warm reps): median "
         f"{statistics.median(walls)}, min {min(walls)}, max {max(walls)}")
     sift_split("config #1", clouds, params, out)
+    log("config #1 SIFT octaves after the first, kernels C and D: "
+        + json.dumps(sift_octave_stats(clouds, params)))
     profile_merge("config #1", clouds, params, out, config1_stages())
 
     merged = compose_maps(clouds, out, params.output_resolution)
@@ -1825,6 +2273,48 @@ def sift_stages():
          lambda *a, **k: octaves("scale space", a[4], a[0].capacity)),
         (sift, "_knn", lambda *a, **k: octaves("26-NN", a[3], a[0].capacity)),
     )
+
+
+def sift_octave_stats(clouds, params) -> dict:
+    """Kernels C and D on config #1's dense octaves after the first (octaves
+    1 and 2, at the query counts one merge gives them: the first call at
+    each count), as the merge calls them: C's pairs in bound and bounds, D's
+    bound, and D (on the octave's buffer) timed beside knn_library."""
+    from mapmerge_torch.kernels import sift as ksift
+    from mapmerge_torch.pipeline.merging import estimate_maps_transforms
+
+    calls: dict = {}
+
+    def keep(name):
+        def make(fn):
+            def wrapper(*args, **kwargs):
+                calls.setdefault((name, args[0].shape[0]), (args, kwargs))
+                return fn(*args, **kwargs)
+
+            return wrapper
+
+        return make
+
+    with patched({(ksift, "scale_space"): keep("C"), (ksift, "knn"): keep("D")}):
+        estimate_maps_transforms(clouds, params, seed=0)
+    sizes = sorted({n for _, n in calls}, reverse=True)[1:]
+    out = {}
+    for n in sizes:
+        c_args, _ = calls[("C", n)]
+        d_args, d_kwargs = calls[("D", n)]
+        in_bound = scale_space_in_bound(c_args)
+        c_bound, d_bound = scale_space_bound(c_args, in_bound), knn_bound(d_args)
+        library = knn_library_stats(ksift, d_args)
+        out[f"Q={n}"] = {
+            "sift_scale_space_pairs_in_bound": in_bound,
+            "sift_scale_space_bound_ms": c_bound["bound_ms"],
+            "sift_scale_space_bound_by": c_bound["bound_by"],
+            "sift_knn_ms": time_ms(lambda: ksift.knn(*d_args, **d_kwargs)),
+            "sift_knn_bound_ms": d_bound["bound_ms"], "sift_knn_bound_by": d_bound["bound_by"],
+            "sift_knn_library_ms": library["library_ms"],
+            "library_index_agreement_unparked": library["library_index_agreement_unparked"],
+        }
+    return out
 
 
 def sift_split(label: str, clouds, params, first) -> None:
@@ -2715,6 +3205,9 @@ def big_octave_stats(cloud, intensity, sigmas, tile, engine, scan_cap) -> dict:
     require(torch.equal(idx[sample], ridx) and torch.equal(valid[sample], rvalid),
             "config5_big octave 0 sift_knn: the sample differs from knn_ref")
     del ref, ridx, rvalid
+    # knn_library over every query would hold a Q x P plane of 1.1 TB: it
+    # is timed on the sample, and that time scaled by Q / the sample
+    library = knn_library_stats(ksift, (qc[sample].contiguous(), *d_args[1:]))
     torch.cuda.empty_cache()
     in_bound = scale_space_in_bound(c_args)
 
@@ -2741,6 +3234,9 @@ def big_octave_stats(cloud, intensity, sigmas, tile, engine, scan_cap) -> dict:
         "sift_scale_space_dense_bound_ms": c_bound["dense_bound_ms"],
         "sift_knn_bound_ms": d_bound["bound_ms"],
         "sift_knn_dense_bound_ms": d_bound["dense_bound_ms"],
+        "sift_knn_library_sample_ms": library["library_ms"],
+        "sift_knn_library_scaled_ms": library["library_ms"] * qc.shape[0] / BIG_OCTAVE_SAMPLE,
+        "library_index_agreement_unparked": library["library_index_agreement_unparked"],
     }
 
 
@@ -2748,11 +3244,13 @@ def big_radius_stats(outlier_cloud, normal_cloud, params) -> dict:
     """Kernels E and F, culled, on config5_big's first map at capacity 2^19
     (the clouds its outlier and normal stages got, which the grid serves),
     beside that route's grid_radius_count and grid_neighbor_moments on the
-    same clouds, as ops/neighbors.py calls them. E held exactly and F within
-    MOMENTS_RTOL (a second launch the same bits) against their plain
-    versions on BIG_OCTAVE_SAMPLE sampled queries; all four timed (CUDA
-    events, warm, median of 5, the grid's of 3). Measured only: no routing
-    changes."""
+    same clouds, as ops/neighbors.py calls them: through kernels I and H
+    (grid_ms), and through their plain versions (grid_plain_ms, the route
+    before kernels G-I). E held exactly and F within MOMENTS_RTOL (a second
+    launch the same bits) against their plain versions on
+    BIG_OCTAVE_SAMPLE sampled queries; all timed (CUDA events, warm,
+    median of 5, the grid's of 3). Measured only: no routing changes."""
+    from mapmerge_torch.kernels import grid as kgrid
     from mapmerge_torch.kernels import radius as kradius
     from mapmerge_torch.ops import grid
     from mapmerge_torch.ops.neighbors import _center, _f32, _resolve_engine
@@ -2788,16 +3286,22 @@ def big_radius_stats(outlier_cloud, normal_cloud, params) -> dict:
             bound = radius_moments_bound(args, in_bound)
         del got
         torch.cuda.empty_cache()
+
+        def grid_route():
+            return grid_fn(cloud.xyz, cloud.xyz, radius, p_mask=cloud.mask,
+                           scan_cap=params.grid_scan_cap)
+
+        plain = {(kgrid, "count"): lambda fn: kgrid.count_ref,
+                 (kgrid, "moments"): lambda fn: kgrid.moments_ref}
         out[name] = {
             "shape": f"Q=P={qc.shape[0]} ({int(cloud.mask.sum())} valid) r={radius}",
             "sample": BIG_OCTAVE_SAMPLE, "pairs_in_bound": in_bound, **held,
             "ms": time_ms(lambda: kernel(*args), reps=5, warmup=1),
-            "grid_ms": time_ms(lambda: grid_fn(cloud.xyz, cloud.xyz, radius,
-                                               p_mask=cloud.mask,
-                                               scan_cap=params.grid_scan_cap),
-                               reps=3, warmup=1),
+            "grid_ms": time_ms(grid_route, reps=3, warmup=1),
             "bound_ms": bound["bound_ms"], "dense_bound_ms": bound["dense_bound_ms"],
         }
+        with patched(plain):
+            out[name]["grid_plain_ms"] = time_ms(grid_route, reps=3, warmup=1)
     return out
 
 
@@ -3767,12 +4271,14 @@ MAIN_PATH = {"nearest_neighbor": "node incremental",
              "nearest_neighbor_batched": "config #1", "spfh": "config #1",
              "tiles_pack": "config #1", "sift_scale_space": "config #1",
              "sift_knn": "config #1", "radius_count": "config #1",
-             "radius_moments": "config #1"}
+             "radius_moments": "config #1", "grid_nn": "config #2",
+             "grid_moments": "config #2", "grid_count": "config #2"}
 
 
 def all_kernels() -> tuple:
     """Every hand-written kernel, in the order of the `kernels` line: A's
-    one-pair and batched entries, B, the pre-pass, C, D, E and F."""
+    one-pair and batched entries, B, the pre-pass, C, D, E, F, G, H and I."""
+    from mapmerge_torch.kernels import grid as kgrid
     from mapmerge_torch.kernels import nn, spfh
     from mapmerge_torch.kernels import radius as kradius
     from mapmerge_torch.kernels import sift as ksift
@@ -3780,7 +4286,8 @@ def all_kernels() -> tuple:
 
     return (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL, ktiles.PACK_KERNEL,
             ksift.SCALE_SPACE_KERNEL, ksift.KNN_KERNEL, kradius.COUNT_KERNEL,
-            kradius.MOMENTS_KERNEL)
+            kradius.MOMENTS_KERNEL, kgrid.NN_KERNEL, kgrid.MOMENTS_KERNEL,
+            kgrid.COUNT_KERNEL)
 
 
 def kernel_entry(k, stats: dict) -> dict:
@@ -3788,10 +4295,13 @@ def kernel_entry(k, stats: dict) -> dict:
     numbers on its main path's own inputs (MAIN_PATH), then per path and on
     the synthetic shapes. library_ms is nn_library's time on kernel A's
     main-path inputs (one route to the same 1-NN, not held for bits),
-    knn_library's on kernel D's and count_library's on kernel E's; null for
-    kernel B (nothing in PyTorch bins Darboux features), kernel C (no single
-    call smooths over a radius), kernel F (none sums neighbourhood moments)
-    and the pre-pass (no single call packs points and tile boxes)."""
+    knn_library's on kernel D's and count_library's on kernel E's; for G
+    and I nn_library's and count_library's time on 4,096 of the answered
+    queries, scaled to all of them (grid_library_stats: the whole plane
+    would not fit); null for kernel B (nothing in PyTorch bins Darboux
+    features), kernel C (no single call smooths over a radius), kernels F
+    and H (none sums neighbourhood moments) and the pre-pass (no single
+    call packs points and tile boxes)."""
     label = MAIN_PATH[k.name]
     main = PATH_STATS[label][k.name]
     errs = [stats[k.name]["max_abs_err"]] + [
@@ -3850,6 +4360,7 @@ def main() -> int:
     import mapmerge_torch  # noqa: F401  (sets the TF32 flags off)
     from mapmerge_torch import native
     from mapmerge_torch.kernels import build, nn, spfh
+    from mapmerge_torch.kernels import grid as kgrid
     from mapmerge_torch.kernels import radius as kradius
     from mapmerge_torch.kernels import sift as ksift
 
@@ -3875,7 +4386,7 @@ def main() -> int:
     stats = {"nearest_neighbor": check_nn(dev, nn),
              "nearest_neighbor_batched": check_nn_batched(dev, nn),
              "spfh": check_spfh(dev, spfh), **check_sift(dev, ksift),
-             **check_radius(dev, kradius)}
+             **check_radius(dev, kradius), **check_grid(dev, kgrid)}
     kernels = all_kernels()
     phase("4 (config #1)", run_main_path, dev, kernels)
     phase("5 (config1_pfh)", run_default_operating_point, dev, kernels)

@@ -91,6 +91,19 @@ SOURCES = {
         "mm_radius_count": [_vp, _vp, _ci, _vp, _ci, _cf, _vp, _vp],
         "mm_radius_moments": [_vp, _vp, _ci, _vp, _ci, _cf, _vp, _vp, _vp, _vp],
     },
+    "grid.cu": {
+        "mm_grid_nn": [
+            _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _ci, _vp,
+            _vp, _vp,
+        ],
+        "mm_grid_moments": [
+            _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _vp, _vp, _vp,
+            _vp,
+        ],
+        "mm_grid_count": [
+            _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _ci, _vp, _vp,
+        ],
+    },
     "mapmerge_native.cpp": {
         # the decoded size, or -1 for a malformed payload
         "lzf_decompress": [ctypes.c_char_p, _ci, _vp, _ci],
@@ -99,7 +112,7 @@ SOURCES = {
     },
 }
 #: the CUDA kernels' sources and the host library's
-KERNEL_SOURCES = ("nn.cu", "spfh.cu", "tiles.cu", "sift.cu", "radius.cu")
+KERNEL_SOURCES = ("nn.cu", "spfh.cu", "tiles.cu", "sift.cu", "radius.cu", "grid.cu")
 HOST_SOURCES = ("mapmerge_native.cpp",)
 
 _lock = threading.Lock()

@@ -21,7 +21,7 @@ bit `core/dense.sq_dists`.
   the 8 parts its lanes take (csrc/radius.cu: kLanes), the plain version's
   matrix products sum otherwise. The tolerance held on the card is
   MOMENTS_RTOL of each query's largest second moment |E[p_i p_j]|
-  (`moments_error`).
+  (`moments_error`), which holds kernel H of kernels/grid.py too.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. The wrappers copy nothing to the host and never synchronise. The
@@ -35,9 +35,10 @@ import torch
 from mapmerge_torch.core.dense import sq_dists, tiled_query
 from mapmerge_torch.kernels import build, tiles
 
-#: kernel F's mean and covariance against moments_ref's, on the card: each
-#: query's largest difference within this share of its largest second
-#: moment (float32 rounding of the sums' order)
+#: kernels F's and H's (kernels/grid.py) mean and covariance against their
+#: plain versions', on the card: each query's difference within this share
+#: of its largest second moment (moments_error; float32 rounding of the
+#: sums' order)
 MOMENTS_RTOL = 1e-5
 
 COUNT_KERNEL = build.Kernel(
@@ -127,21 +128,36 @@ def _operands(kernel: build.Kernel, qc: torch.Tensor, pc: torch.Tensor):
     return dev, nq, np_
 
 
-def moments_error(got, want) -> tuple[float, float]:
-    """Kernel F's output `got` against moments_ref's `want`: (the largest
-    absolute difference of the mean and the covariance, the largest over
-    the queries of that query's difference divided by its largest second
-    moment |E[p_i p_j]| = |cov + mean mean^T| of `want`; 0 where both are
-    0, inf where only the scale is). The counts are compared apart,
-    exactly."""
+def moments_error(got, want, origin: torch.Tensor | None = None) -> tuple[float, float]:
+    """Kernel F's (or H's) output `got` against its plain version's `want`:
+    (the largest absolute difference of the mean and the covariance, the
+    largest over the queries of that query's share of its largest second
+    moment S = |cov + m m^T| about `origin` of `want`, m = mean - origin).
+    `origin` (Q, 3) is None for F, whose frame is centred already (m =
+    mean), and the queries for H. The covariance's difference is taken over
+    S and the mean's over sqrt(S). H's mean comes back as m + the query,
+    rounded once at the query's coordinates on sums that differ by rounding,
+    so where an origin is given one float32 step of the mean is taken off
+    the mean's difference first. 0 where both agree, inf where only the
+    scale is 0. The counts are compared apart, exactly."""
     _, mean, cov = got
     _, rmean, rcov = want
     if mean.shape[0] == 0:
         return 0.0, 0.0
-    diff = torch.maximum((mean - rmean).abs().amax(-1), (cov - rcov).abs().amax((-2, -1)))
-    scale = (rcov + rmean[:, :, None] * rmean[:, None, :]).abs().amax((-2, -1))
-    rel = torch.where(diff == 0, 0.0, diff / scale)
-    return float(diff.max()), float(rel.max())
+    dmean = (mean - rmean).abs()
+    dcov = (cov - rcov).abs().amax((-2, -1))
+    err = float(torch.maximum(dmean.amax(-1), dcov).max())
+    m = rmean if origin is None else rmean - origin
+    scale = (rcov + m[:, :, None] * m[:, None, :]).abs().amax((-2, -1))
+    if origin is not None:
+        step = torch.nextafter(rmean.abs(), torch.full_like(rmean, float("inf"))) - rmean.abs()
+        dmean = (dmean - step).clamp_min(0.0)
+    dmean = dmean.amax(-1)
+    rel = torch.maximum(
+        torch.where(dcov == 0, 0.0, dcov / scale),
+        torch.where(dmean == 0, 0.0, dmean / scale.sqrt()),
+    )
+    return err, float(rel.max())
 
 
 def count_ref(

@@ -10,7 +10,7 @@ floor-and-clip binning. See csrc/spfh.cu for what bounds the kernel.
 Two entries. `spfh_tile` is the shared-candidate mode of the dense FPFH
 sweep: (B, Cq) queries, every one against the same candidate cloud (Bc = 1).
 `spfh_grid` is the grid engine's sweep (fpfh._spfh_grid): the needed slots
-of a cloud's cell grid (ops/grid.py) against the filled slots of the 27
+of a cloud's cell grid (core/grid.py) against the filled slots of the 27
 wrapped neighbour buckets of their own, one launch per cloud, rows written
 in point order. `spfh_ref` keeps the per-bucket form (Bc = B, batch i's
 queries against batch i's candidates), which the grid entry's plain version
@@ -33,9 +33,9 @@ import math
 
 import torch
 
+from mapmerge_torch.core.grid import CellGrid, grid_query
 from mapmerge_torch.kernels import build
 from mapmerge_torch.ops.descriptors.darboux import bin_index, pair_features
-from mapmerge_torch.ops.grid import CellGrid, grid_query
 
 _BINS = 11
 _PI = 3.141592653589793
@@ -176,7 +176,7 @@ def spfh_grid_ref(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of spfh_grid: grid_query over the needed
     slots' buckets, each block through spfh_ref's per-bucket form (the
-    candidates of ops/grid._candidates, wrapped duplicates masked)."""
+    candidates of core/grid._candidates, wrapped duplicates masked)."""
     qg = dataclasses.replace(
         grid, cell_ok=q_ok, count=q_ok.sum(dim=1).to(torch.int32)
     )

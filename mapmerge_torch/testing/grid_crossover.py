@@ -13,15 +13,20 @@ pass), one neighbor_moments at the normal radius (0.6 m) and one bounded
 nearest_neighbor at the correspondence bound (1.0 m) of the cloud moved by
 a small rotation and shift against itself (ICP and the score), with the
 default scan caps (128, and 256 for the 1-NN). The dense engine's radius
-ops run kernels E and F (kernels/radius.py); engine "plain" is the same
-op through those kernels' plain versions, the dense slab route before them.
+ops run kernels E and F (kernels/radius.py), the grid engine's ops kernels
+G, H and I (kernels/grid.py); engines "plain" and "grid plain" are the same
+ops through those kernels' plain versions, the routes before them.
 Prints the card; for the whole view, at each of those radii, the fullest
 bucket and the points the cap drops (the grid the pipeline builds at
 capacity 2^20); then one JSON line per (size, op, engine): the median of 5
 timed calls after one warm-up (CUDA events around the call, host work
 included) and how many queries it answers otherwise than the dense engine
-(the grid's bucket caps; counts only for neighbor_moments). The thresholds
-of ops/neighbors.py are not changed by it.
+(the grid's bucket caps; counts only for neighbor_moments); the dense
+engine's radius lines add the members its queries count and the bound of
+kernel E or F on them (chip_smoke.py's radius_count_bound and
+radius_moments_bound: the bytes over 3.35 TB/s, 9 float32 operations a
+member and 16 more for F, over 67 TFLOP/s). The thresholds of
+ops/neighbors.py are not changed by it.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch
 
 from mapmerge_torch.core import transforms as tf
 from mapmerge_torch.core.cloud import PointCloud
+from mapmerge_torch.kernels import grid as kgrid
 from mapmerge_torch.kernels import radius as kradius
 from mapmerge_torch.ops.downsample import voxel_downsample
 from mapmerge_torch.ops.grid import build_grid
@@ -61,15 +67,38 @@ def _ms(fn, reps: int = 5) -> float:
 
 
 @contextlib.contextmanager
-def plain_radius():
-    """Kernels E and F's plain versions in their place (ops/neighbors.py
-    looks the wrappers up at call time)."""
-    saved = kradius.count, kradius.moments
-    kradius.count, kradius.moments = kradius.count_ref, kradius.moments_ref
+def plain_versions(module, names):
+    """The plain versions `<name>_ref` of `module`'s kernel wrappers in their
+    place (ops/neighbors.py and ops/grid.py look the wrappers up at call
+    time)."""
+    saved = {n: getattr(module, n) for n in names}
+    for n in names:
+        setattr(module, n, getattr(module, f"{n}_ref"))
     try:
         yield
     finally:
-        kradius.count, kradius.moments = saved
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+#: engine -> (the engine ops/neighbors.py is asked for, the plain versions
+#: put in place of the kernels, if any)
+ENGINES = {
+    "dense": ("dense", None),
+    "plain": ("dense", (kradius, ("count", "moments"))),
+    "grid": ("grid", None),
+    "grid plain": ("grid", (kgrid, ("nn_query", "count", "moments"))),
+}
+
+
+def _bound(n: int, members: int, row_bytes: int, member_ops: int) -> dict:
+    """Kernel E's or F's least time on n queries against n points: each
+    read once (12 B; the points' mask 1 B), the rows written once, the
+    members' operations at the float32 rate."""
+    t_bytes = (n * 25 + n * row_bytes) / 3.35e12 * 1e3
+    t_ops = members * member_ops / 67e12 * 1e3
+    return {"members": members, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def main(sizes) -> int:
@@ -103,34 +132,38 @@ def main(sizes) -> int:
         mask = torch.ones((n,), dtype=torch.bool, device=dev)
         moved = tf.apply(move, p)
 
-        def radius_op(fn, radius):
-            def call(e):
-                with plain_radius() if e == "plain" else contextlib.nullcontext():
-                    return fn(p, p, radius, p_mask=mask,
-                              engine="dense" if e == "plain" else e)[0]
+        def engine(e, fn):
+            def call():
+                asked, plain = ENGINES[e]
+                with plain_versions(*plain) if plain else contextlib.nullcontext():
+                    return fn(asked)
 
             return call
 
+        def radius_op(fn, radius):
+            return lambda asked: fn(p, p, radius, p_mask=mask, engine=asked)[0]
+
+        every = tuple(ENGINES)
         calls = {
-            "radius_count r=0.8": (radius_op(radius_count, 0.8), ("dense", "plain", "grid")),
-            "neighbor_moments r=0.6": (radius_op(neighbor_moments, 0.6),
-                                       ("dense", "plain", "grid")),
-            "nearest_neighbor bound=1.0": (lambda e: nearest_neighbor(
-                moved, p, p_mask=mask, bound=1.0, engine=e, scan_cap=256,
-                q_mask=mask)[1], ("dense", "grid")),
+            "radius_count r=0.8": (radius_op(radius_count, 0.8), every, (4, 9)),
+            "neighbor_moments r=0.6": (radius_op(neighbor_moments, 0.6), every, (52, 25)),
+            "nearest_neighbor bound=1.0": (lambda asked: nearest_neighbor(
+                moved, p, p_mask=mask, bound=1.0, engine=asked, scan_cap=256,
+                q_mask=mask)[1], ("dense", "grid", "grid plain"), None),
         }
-        for op, (call, engines) in calls.items():
-            out = {e: call(e) for e in engines}
+        for op, (fn, engines, cost) in calls.items():
+            out = {e: engine(e, fn)() for e in engines}
             for e in engines:
                 if op.startswith("nearest"):  # matches within the bound only
                     near = out["dense"] <= 0.99
                     differ = int((out["dense"][near] != out[e][near]).sum())
                 else:
                     differ = int((out["dense"] != out[e]).sum())
-                print(json.dumps({
-                    "points": n, "op": op, "engine": e,
-                    "ms": _ms(lambda: call(e)), "queries_differing": differ,
-                }), flush=True)
+                line = {"points": n, "op": op, "engine": e,
+                        "ms": _ms(engine(e, fn)), "queries_differing": differ}
+                if cost is not None and e == "dense":
+                    line.update(_bound(n, int(out[e].to(torch.int64).sum()), *cost))
+                print(json.dumps(line), flush=True)
     return 0
 
 

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from mapmerge_tpu.ops import grid as jg
+from mapmerge_torch.core import grid as core_grid
 from mapmerge_torch.ops import grid as tg
 from mapmerge_torch.ops import neighbors as tn
 from torch_parity import t
@@ -184,7 +185,7 @@ class TestGridMatchesReference:
         """Chunks of 16 buckets give what chunks of 151 do."""
         _sweep_everything(monkeypatch)
         whole = _call("torch", op, data, "sweep")
-        monkeypatch.setattr(tg, "PAIRS_PER_CHUNK", 16 * 128 * 27 * 128)
+        monkeypatch.setattr(core_grid, "PAIRS_PER_CHUNK", 16 * 128 * 27 * 128)
         for k, v in _call("torch", op, data, "sweep").items():
             assert torch.equal(v, whole[k]), k
 

@@ -318,6 +318,15 @@ def test_moments_error_scales_by_each_querys_second_moment():
     assert kradius.moments_error(got, ref)[1] == float("inf")
 
 
+def test_moments_error_takes_the_mean_over_the_root_of_the_second_moment():
+    """moments_error without an origin (F's centred frame): the mean's
+    difference over the square root of |cov + mean mean^T|, in full (no
+    float32 step is taken off: nothing was added to F's mean)."""
+    ref = (torch.tensor([2.0]), torch.tensor([[2.0, 0.0, 0.0]]), torch.zeros((1, 3, 3)))
+    got = (ref[0], ref[1] + torch.tensor([2.0**-14, 0.0, 0.0]), ref[2])  # S = 4
+    assert kradius.moments_error(got, ref) == (2.0**-14, 2.0**-15)
+
+
 def _never(*args):
     raise AssertionError("launched after a failed pre-pass")
 
