@@ -22,7 +22,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      262,144 points at config #2's radii and caps, G and I bit for bit and
      H within its tolerance, then on wrapped lattice dims, ties across
      buckets, all-masked targets, unmatched queries, a query bucket over
-     its cap and parked points;
+     its cap and parked points; SIFT's grid octaves, kernels J (the
+     Gaussian scale space) and K (the 26-NN), on the same town queried at
+     its own points (masked ones parked at FAR) at config5_big's octave-0
+     scales (0.1 m: J's cell 3 sigma_max, K's 8 scales), J within its
+     tolerance (rows of unanswered queries 0, a second launch the same bits)
+     and K bit for bit, then both on the same adversarial inputs, K with
+     exclude_self both ways;
   4. eval config #1 (bench.py:49-77) through estimate_maps_transforms on the
      card: reset the kernels' launch counts, run once, require every kernel
      to have launched; gate the poses against the ground truth and against
@@ -74,7 +80,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the end; gated at 45 of 50 maps registered, 40 adjacent pairs within 5
      deg / 0.5 m, end-to-end drift under 0.5 deg / 0.25 m and more than 10,000
      merged points; spfh launched once per feature extraction through
-     spfh_grid and held exactly on the first map's inputs; a second node runs
+     spfh_grid and held exactly on the first map's inputs; kernels J and K
+     launched once a grid SIFT octave (100 each: octaves 0 and 1 of 50 maps)
+     and held in full on the first map's octaves 0 and 1, J within its
+     tolerance and K bit for bit; the first map's SIFT keypoints through J
+     and K against those of their plain versions (hold_sift_keypoints, 99%);
+     a second node runs
      the first batch and must repeat the first tick's poses bit for bit; the
      stage times, counters, peak memory, wall time and maps per minute are
      printed.
@@ -189,13 +200,24 @@ torch.cdist + min / <= r on 4,096 sampled answered queries, scaled
 (grid_library_stats), and on config #2 H against float64 sums, with TF32
 and bfloat16 controls of its sums required to fail its limit
 (grid_moments_precision).
+SIFT's grid octaves (kernels J and K, csrc/grid.cu: grid_gaussian_smooth
+and the big-Q branch of grid_radius_neighbors, reading the grids in place,
+one launch each a grid octave) are required per path: once each a SIFT
+octave that resolves to the grid, so 100 each on config5_big and none on
+any other path (require_grid_sift); each is held on its first launch at
+every query count on the path (config5_big's octaves 0 and 1, in full), J
+within SCALE_SPACE_RTOL of the field and K bit for bit in every column,
+and timed beside its plain version and its bound (J the members at 9 + 5 a
+sigma, K the pairs visited at 9); K also beside torch.cdist + topk on 4,096
+sampled answered queries, scaled (grid_library_stats).
 The tile pre-pass (kernels/tiles.pack, which C, D, E and F read) launches
 once a dense SIFT octave, for both C and D, and once a call of E or F,
 exactly (require_pack), and is held exactly on its first launch on every
 path.
 Config #1's merge is also timed stage by stage and profiled once
 (profile_merge: the device busy share), and config5_big's octave 0 (2^19
-points, on the grid) is timed through C and D beside the grid route
+points, on the grid) is timed through C and D beside the grid route, whole
+ops through J and K and through their plain versions
 (big_octave_stats, with knn_library on its sampled queries), its first
 map's outlier and normal passes through E and F beside the grid's, through
 I and H and through their plain versions (big_radius_stats), held on
@@ -203,10 +225,11 @@ sampled queries; config #1's octaves 1 and 2 give C's and D's bounds and
 D's knn_library (sift_octave_stats).
 The line before the last is a JSON object of the kernels (kernel
 A's one-pair and batched entries, kernel B, the pre-pass, kernels C, D, E,
-F, G, H and I): launches, times and bound on each kernel's main path
+F, G, H, I, J and K): launches, times and bound on each kernel's main path
 (MAIN_PATH: config #1 for the batched entry, B, C, D, E and F, config #2
-for G, H and I, the incremental node on config #1's views for the one-pair
-entry), and the same for every path and for the synthetic shapes; the last
+for G, H and I, config5_big for J and K, the incremental node on config
+#1's views for the one-pair entry), and the same for every path and for
+the synthetic shapes; the last
 line is {"ok": true, "device": {...}}.
 The native host library (native/, csrc/mapmerge_native.cpp): on every path
 that solves a graph (4-8, 11-13, 15 in this process and in each rank
@@ -1252,8 +1275,9 @@ def grid_bound(name: str, grid, qg, q, members: int) -> dict:
 
 
 def grid_library_stats(name: str, args, got) -> dict:
-    """nn_library (G) or count_library (I) on BIG_OCTAVE_SAMPLE queries
-    sampled from the call's answered ones, against the points the target
+    """nn_library (G), knn_library (K) or count_library (I) on
+    BIG_OCTAVE_SAMPLE queries sampled from the call's answered ones, against
+    the points the target
     grid kept (its filled slots: the target side's caps dropped the rest,
     as for the kernel; the queries the query-side cap dropped are not
     answered and not sampled). A Q x P plane of all the answered queries
@@ -1261,9 +1285,10 @@ def grid_library_stats(name: str, args, got) -> dict:
     sample (time_ms) and that time scaled by the answered queries over the
     sample, as big_octave_stats does for D. Beside them the share of
     sampled queries on which the library agrees with the kernel's `got`: G
-    the index, over the queries G matched within the bound; I the count
-    (include_self added back). cdist rounds otherwise than the kernels'
-    direct distances, so a near-tie or a pair at the bound may differ."""
+    the index, over the queries G matched within the bound; K the index at
+    each slot, over K's valid entries; I the count (include_self added
+    back). cdist rounds otherwise than the kernels' direct distances, so a
+    near-tie or a pair at the bound may differ."""
     from mapmerge_torch.kernels import grid as kgrid
 
     grid, qg, q = args[:3]
@@ -1282,6 +1307,14 @@ def grid_library_stats(name: str, args, got) -> dict:
         agree = (grid.cell_idx[grid.cell_ok][j] == got[0][sample].long())[matched]
         share = {"library_index_agreement_matched": float(agree.double().mean())
                  if bool(matched.any()) else None}
+    elif name == "grid_knn":
+        k = args[4]
+        ms = time_ms(lambda: knn_library(qs, pts, None, k))
+        j = knn_library(qs, pts, None, k).indices
+        valid = got[2][sample]
+        agree = (grid.cell_idx[grid.cell_ok][j] == got[0][sample].long())[valid]
+        share = {"library_index_agreement_valid": float(agree.double().mean())
+                 if bool(valid.any()) else None}
     else:
         r2, include_self = args[3], args[4] if len(args) > 4 else True
         ms = time_ms(lambda: count_library(qs, pts, None, r2))
@@ -1549,6 +1582,183 @@ def check_grid(dev, kgrid, n: int = 1 << 18) -> dict:
     return stats
 
 
+#: SIFT's 26-NN on a grid octave: its radius in octave scales
+#: (ops/keypoints/sift._GRID_KNN_RADIUS_SCALES)
+GRID_KNN_SCALES = 8.0
+
+
+def grid_sift_sigmas(cell: float) -> list[float]:
+    """An octave's sigmas (sift_sigmas' shape) whose 3 sigma_max is `cell`:
+    kernel J's grid cell."""
+    return sift_sigmas(cell / (3.0 * 2.0 ** ((SIFT_SCALES + 2) / SIFT_SCALES)))
+
+
+def _grid_smooth_compare(name, kgrid, args):
+    """Kernel J against smooth_ref on the same inputs: within
+    ksift.SCALE_SPACE_RTOL of the field's largest magnitude (exp and the
+    sums' order round apart; the members are the same bits, kernel C's
+    tolerance), the rows of the queries no answered slot holds exactly 0, a
+    second launch the same bits. Returns (max abs err, its share of the
+    field)."""
+    from mapmerge_torch.kernels import sift as ksift
+
+    got = kgrid.smooth(*args)
+    ref = kgrid.smooth_ref(*args)
+    again = kgrid.smooth(*args)
+    torch.cuda.synchronize()
+    qg, q = args[1], args[2]
+    require(got.shape == ref.shape == (q.shape[0], len(args[4])), f"{name}: shapes")
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    rel = err / max(float(ref.abs().max()) if ref.numel() else 0.0, 1e-30)
+    require(rel <= ksift.SCALE_SPACE_RTOL,
+            f"{name}: off by {err} ({rel} of the field) > {ksift.SCALE_SPACE_RTOL}")
+    answered = torch.zeros((q.shape[0],), dtype=torch.bool, device=q.device)
+    answered[qg.cell_idx[qg.cell_ok]] = True
+    require(bool((got[~answered] == 0).all()),
+            f"{name}: a query no answered slot holds is not 0")
+    require(torch.equal(got, again), f"{name}: a second launch gave other bits")
+    return err, rel
+
+
+def _grid_knn_compare(name, kgrid, args):
+    """Kernel K against knn_ref on the same inputs: idx, d2 and valid bit
+    for bit, a second launch the same bits. Returns knn_ref's output."""
+    got = kgrid.knn(*args)
+    ref = kgrid.knn_ref(*args)
+    again = kgrid.knn(*args)
+    torch.cuda.synchronize()
+    require(all(a.shape == b.shape for a, b in zip(got, ref)), f"{name}: shapes")
+    diff = [int((a != b).sum()) for a, b in zip(got, ref)]
+    require(diff == [0, 0, 0],
+            f"{name}: {diff} entries of idx, d2, valid differ from knn_ref; exact required")
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"{name}: a second launch gave other bits")
+    return ref
+
+
+def grid_sift_bound(name: str, grid, qg, q, members: int, width: int) -> dict:
+    """Kernel J's (width: the sigmas) or K's (width: k) least time on these
+    inputs, with grid_bound's bytes: the distinct candidate points read
+    once (12 B, J's value 4 B more), both grids' counts, the answered query
+    slots (12 B and their 8 B row) and the answered flags of the active
+    buckets, the rows written once (J a float a sigma, K 9 B an entry) and
+    K's 8 B index of each entry it keeps. The work: J each member's
+    GRID_PAIR_OPS and SIFT_SIGMA_OPS a sigma (kernel C's count: a kernel
+    that culls need compute no other pair), with `visited_bound_ms` beside
+    it (every pair visited at GRID_PAIR_OPS, the members' sigmas as
+    before); K every pair visited at GRID_PAIR_OPS (no radius cuts its
+    selection, so every candidate is compared)."""
+    c = grid_visit_counters(grid, qg)
+    h, cap = grid.cell_idx.shape
+    if name == "grid_smooth":
+        n_bytes = c["distinct_candidates"] * 16 + q.shape[0] * width * 4
+        sigma_ops = members * width * SIFT_SIGMA_OPS
+        work = members * GRID_PAIR_OPS + sigma_ops
+        visited = c["pairs_visited"] * GRID_PAIR_OPS + sigma_ops
+    else:
+        n_bytes = (c["distinct_candidates"] * 12 + c["answered"] * width * 8
+                   + q.shape[0] * width * 9)
+        work = visited = c["pairs_visited"] * GRID_PAIR_OPS
+    n_bytes += 2 * h * 4 + c["answered"] * 20 + c["active_buckets"] * cap
+    return {**c, "members": members, **_bound(n_bytes, work),
+            "visited_bound_ms": _bound(n_bytes, visited)["bound_ms"]}
+
+
+def grid_sift_stats(label: str, kgrid, seen: dict) -> dict:
+    """Kernels J and K on the inputs of their first launch at each query
+    count on a path (config5_big: octaves 0 and 1), moved back to the card,
+    in full: held against their plain versions (J within SCALE_SPACE_RTOL
+    with the unanswered rows 0, K bit for bit; both repeating), then timed
+    (CUDA events, warm, median), the plain version too, beside the bound
+    (grid_sift_bound) and, for K, the library call on a sample
+    (grid_library_stats). The largest query count gives the kernel's entry,
+    the others sit in it by "Q=n". No single PyTorch call smooths over a
+    radius: J's library_ms is null."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    keys = [k for k in seen if k.split()[0] in ("grid_smooth", "grid_knn")]
+    keys.sort(key=lambda k: (k.split()[0], -int(k.split("=")[1])))
+    stats: dict = {}
+    for key in keys:
+        args, _ = seen[key]
+        args = [_copied(a, dev) for a in args]
+        grid, qg, q = args[:3]
+        name = key.split()[0]
+        shape = (f"Q={q.shape[0]}, grid {tuple(grid.cell_idx.shape)} dims {grid.dims} "
+                 f"cell {grid.cell_size}, query overflow {int(qg.overflow)}")
+        if name == "grid_smooth":
+            err, rel = _grid_smooth_compare(f"{label} {key}", kgrid, args)
+            members = int(kgrid.count_ref(grid, qg, q, args[5]).to(torch.int64).sum())
+            entry = {"max_abs_err": err, "err_of_field": rel, "fn": kgrid.smooth,
+                     "plain": kgrid.smooth_ref,
+                     **grid_sift_bound(name, grid, qg, q, members, len(args[4])),
+                     "library_ms": None}
+        else:
+            ref = _grid_knn_compare(f"{label} {key}", kgrid, args)
+            members = int(kgrid.count_ref(grid, qg, q, args[5]).to(torch.int64).sum())
+            entry = {"max_abs_err": 0.0, "valid_entries": int(ref[2].sum()),
+                     "fn": kgrid.knn, "plain": kgrid.knn_ref,
+                     **grid_sift_bound(name, grid, qg, q, members, args[4]),
+                     **grid_library_stats(name, args, ref)}
+        fn, plain = entry.pop("fn"), entry.pop("plain")
+        entry = {"shape": shape, **entry, "ms": time_ms(lambda: fn(*args)),
+                 "plain_ms": time_ms(lambda: plain(*args), reps=3, warmup=1)}
+        if name in stats:
+            stats[name][f"Q={q.shape[0]}"] = entry
+        else:
+            stats[name] = entry
+        del args, grid, qg, q
+        torch.cuda.empty_cache()
+    return stats
+
+
+def check_grid_sift(dev, kgrid, n: int = 1 << 18) -> dict:
+    """Kernels J and K against their plain versions on a synthetic town of
+    n = 262,144 surface points (check_grid's shape, its own seed), queried
+    at its own points as SIFT queries a grid octave (the masked ones parked
+    at FAR, no query mask), at config5_big's octave-0 scales: J at
+    sift_sigmas() (cell 3 sigma_max, cap 128), K at GRID_KNN_SCALES octave
+    scales with k = 26; then both on grid_adversarial's inputs (no query
+    mask), J at sigmas whose 3 sigma_max is the case's cell, K at the cell
+    with exclude_self both ways."""
+    from mapmerge_torch.core.cloud import FAR
+    from mapmerge_torch.ops.neighbors import _f32
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    p = torch.rand((n, 3), generator=g, device=dev) * 64.0
+    p[:, 2] = torch.round(p[:, 2] / 3.0) * 3.0 + 0.02 * torch.rand((n,), generator=g, device=dev)
+    mask = torch.rand((n,), generator=g, device=dev) > 0.05
+    p = torch.where(mask[:, None], p, FAR)
+    vals = torch.rand((n,), generator=g, device=dev) * 255.0
+    sigmas = sift_sigmas()
+    r_bound = 3.0 * max(sigmas)
+    r_knn = GRID_KNN_SCALES * SIFT_BASE
+    first = {
+        f"grid_smooth Q={n}": (grid_operands(p, mask, p, None, r_bound, GRID_CAP)[:3]
+                               + (vals, sigmas, _f32(r_bound * r_bound)), {}),
+        f"grid_knn Q={n}": (grid_operands(p, mask, p, None, r_knn, GRID_CAP)
+                            + (SIFT_K, _f32(r_knn * r_knn), False), {}),
+    }
+    stats = grid_sift_stats("synthetic", kgrid, first)
+    adversarial = grid_adversarial(g, p, mask, p, torch.ones_like(mask))
+    for name, (ap, am, aq, _, cell, cap, dims) in adversarial.items():
+        grid, qg, tq, n_p = grid_operands(ap, am, aq, None, cell, cap, dims)
+        r2 = _f32(cell * cell)
+        _grid_smooth_compare(f"grid_smooth {name}", kgrid,
+                             (grid, qg, tq, vals[: ap.shape[0]], grid_sift_sigmas(cell), r2))
+        for exclude_self in (False, True):
+            _grid_knn_compare(f"grid_knn {name} exclude_self={exclude_self}", kgrid,
+                              (grid, qg, tq, n_p, SIFT_K, r2, exclude_self))
+    for key, e in stats.items():
+        log(f"kernel {key} {e['shape']}: max err {e['max_abs_err']}, "
+            f"{e['members']} members of {e['pairs_visited']} pairs visited; kernel "
+            f"{e['ms']} ms, plain {e['plain_ms']} ms, bound {e['bound_ms']} ms "
+            f"({e['bound_by']}), library {e['library_ms']} ms")
+    log(f"kernels grid_smooth and grid_knn held on {sorted(adversarial)} (grid_knn with "
+        "exclude_self both ways)")
+    return stats
+
+
 @contextlib.contextmanager
 def patched(targets):
     """Replace each (module, attribute) of `targets` by make(original) for
@@ -1593,9 +1803,11 @@ def first_launch_inputs(nn, spfh):
     threshold and result (`seen["graph"]`, for hold_graph). The grid
     kernels' first calls are kept in host memory: G's first call from ICP
     and its first from the transform score apart ("grid_nn icp", "grid_nn
-    score"), H's and I's. SIFT's
+    score"), H's and I's, and J's and K's first at each query count
+    ("grid_smooth Q=n", "grid_knn Q=n": an octave each). SIFT's
     extractions and the octaves among them that resolve to the dense engine
-    are counted (`seen["sift"]`), and the first extraction's arguments kept
+    and to the grid are counted (`seen["sift"]`), and the first extraction's
+    arguments kept
     (`seen["sift_detect"]`, for hold_sift_keypoints). The dense radius
     passes are counted (`seen["radius"]`): the outlier and normal stages
     (one each an extraction; the pipeline's and the debugger's calls) and
@@ -1621,7 +1833,7 @@ def first_launch_inputs(nn, spfh):
 
     seen: dict = {"pairs": {"stage_s": 0.0, "chunks": 0, "batched_pairs": 0,
                             "one_pair_calls": 0}, "graph": [],
-                  "sift": {"extractions": 0, "dense_octaves": 0},
+                  "sift": {"extractions": 0, "dense_octaves": 0, "grid_octaves": 0},
                   "radius": {"outliers": 0, "normals": 0, "SC3D density": 0},
                   "grid_radius": {"outliers": 0, "normals": 0, "SC3D density": 0}}
     lock = threading.Lock()
@@ -1683,9 +1895,8 @@ def first_launch_inputs(nn, spfh):
     def octave(fn):
         def wrapper(cloud, *args, **kwargs):
             engine = args[3] if len(args) > 3 else kwargs.get("engine", "auto")
-            if _resolve_engine(engine, cloud.capacity) == "dense":
-                with lock:
-                    seen["sift"]["dense_octaves"] += 1
+            with lock:
+                seen["sift"][f"{_resolve_engine(engine, cloud.capacity)}_octaves"] += 1
             return fn(cloud, *args, **kwargs)
 
         return wrapper
@@ -1714,7 +1925,7 @@ def first_launch_inputs(nn, spfh):
     def record(name, dev=None):
         def make(fn):
             def wrapper(*args, **kwargs):
-                key = name() if callable(name) else name
+                key = name(*args) if callable(name) else name
                 if key not in seen:
                     seen[key] = ([_copied(a, dev) for a in args], dict(kwargs))
                 return fn(*args, **kwargs)
@@ -1767,9 +1978,13 @@ def first_launch_inputs(nn, spfh):
                   (icp_ops, "grid_nn_query"): serving("icp"),
                   (score_ops, "nearest_neighbor"): serving("score"),
                   (kgrid, "nn_query"): record(
-                      lambda: f"grid_nn {getattr(caller, 'stage', None)}", cpu),
+                      lambda *a: f"grid_nn {getattr(caller, 'stage', None)}", cpu),
                   (kgrid, "moments"): record("grid_moments", cpu),
-                  (kgrid, "count"): record("grid_count", cpu)}):
+                  (kgrid, "count"): record("grid_count", cpu),
+                  # J and K: the first call at each query count (an octave)
+                  (kgrid, "smooth"): record(
+                      lambda *a: f"grid_smooth Q={a[2].shape[0]}", cpu),
+                  (kgrid, "knn"): record(lambda *a: f"grid_knn Q={a[2].shape[0]}", cpu)}):
         counters = (native.GRAPH_SOLVE, native.LZF_DECOMPRESS)
         for c in counters:
             c.launches = 0
@@ -1894,6 +2109,17 @@ def require_grid_radius(label: str, seen: dict, launches: dict) -> None:
             f"passes {passes}")
 
 
+def require_grid_sift(label: str, seen: dict, launches: dict) -> None:
+    """Kernels J and K launched once each a SIFT octave that resolves to the
+    grid (octaves 0 and 1 of each config5_big map), none on any other path.
+    Logged."""
+    octaves = seen["sift"]["grid_octaves"]
+    j, k = launches["grid_smooth"], launches["grid_knn"]
+    log(f"{label}: SIFT grid octaves {octaves}; launches grid_smooth {j}, grid_knn {k}")
+    require(j == k == octaves,
+            f"{label}: grid_smooth {j} and grid_knn {k} launches for {octaves} grid octaves")
+
+
 def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
                         exact: bool = False, sift_per_extraction: int = 3) -> None:
     """Each kernel a path launched against its plain version on the inputs
@@ -1904,9 +2130,12 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
     kernel A's entries beside nn_library's time as well (nn_library_stats),
     D beside knn_library's, E beside count_library's; E exactly and F within
     its tolerance on every path (radius_stats); G and I bit for bit and H
-    within its tolerance on every grid path (grid_stats). SIFT's, the radius
-    sweeps', the grid sweeps' and the pre-pass's launches are required first
-    (require_sift, require_radius, require_grid_radius, require_pack).
+    within its tolerance on every grid path (grid_stats); J within its
+    tolerance and K bit for bit on every SIFT grid octave's first launch at
+    its query count, in full (grid_sift_stats). SIFT's, the radius sweeps',
+    the grid sweeps' and the pre-pass's launches are required first
+    (require_sift, require_radius, require_grid_radius, require_grid_sift,
+    require_pack).
     These launches come after the path's counts were read."""
     from mapmerge_torch.kernels import grid as kgrid
     from mapmerge_torch.kernels import radius as kradius
@@ -1916,6 +2145,7 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
     require_sift(label, seen, launches, sift_per_extraction)
     require_radius(label, seen, launches)
     require_grid_radius(label, seen, launches)
+    require_grid_sift(label, seen, launches)
     require_pack(label, seen, launches)
     stats = PATH_STATS[label] = {}
     if "nearest_neighbor" in seen:
@@ -1991,7 +2221,8 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
         }
     for name, entry in {**pack_stats(label, ktiles, seen), **sift_stats(label, ksift, seen),
                         **radius_stats(label, kradius, seen),
-                        **grid_stats(label, kgrid, seen)}.items():
+                        **grid_stats(label, kgrid, seen),
+                        **grid_sift_stats(label, kgrid, seen)}.items():
         stats[name] = {"launches": launches[name], **entry}
     require(stats, f"{label}: no kernel input was recorded")
     log(f"{label}: kernels on the path's own inputs: {json.dumps(stats)}")
@@ -2228,18 +2459,28 @@ def plain_sift():
             (ksift, "knn"): plain(ksift.knn_ref)}
 
 
-def hold_sift_keypoints(label: str, seen: dict) -> None:
+def plain_grid_sift():
+    """Patches that send SIFT's grid octaves through the plain versions of
+    kernels J and K (the parent's route on the card), for `patched`."""
+    from mapmerge_torch.kernels import grid as kgrid
+
+    return {(kgrid, "smooth"): lambda fn: kgrid.smooth_ref,
+            (kgrid, "knn"): lambda fn: kgrid.knn_ref}
+
+
+def hold_sift_keypoints(label: str, seen: dict, plain_route=None) -> None:
     """The path's first SIFT extraction again on the same cloud, through
-    the kernels and through their plain versions: at least
-    KEYPOINT_AGREEMENT of the plain route's keypoints found at the same point
-    (1e-6 m) with a response within 1e-3 relative; the keypoints that differ
-    are counted and logged. These launches come after the path's counts
-    were read."""
+    the kernels and through the plain versions that `plain_route` patches
+    in (plain_sift(): C and D, where None; plain_grid_sift(): J and K): at
+    least KEYPOINT_AGREEMENT of the plain route's keypoints found at the
+    same point (1e-6 m) with a response within 1e-3 relative; the keypoints
+    that differ are counted and logged. These launches come after the
+    path's counts were read."""
     from mapmerge_torch.ops.keypoints import sift as sift_ops
 
     args, kwargs = seen["sift_detect"]
     got = sift_ops.detect_keypoints_sift(*args, **kwargs)
-    with patched(plain_sift()):
+    with patched(plain_route or plain_sift()):
         plain = sift_ops.detect_keypoints_sift(*args, **kwargs)
     pm, km = plain.mask, got.mask
     pxyz, kxyz = plain.xyz[pm], got.xyz[km]
@@ -3094,8 +3335,13 @@ def run_config5_big(dev, kernels) -> None:
             f"config5_big: spfh launched {launches['spfh']} times for "
             f"{n_features} feature extractions, expected one each through spfh_grid")
     require_route("config5_big", launches, "grid", seen["pairs"])
+    require(launches["grid_smooth"] == launches["grid_knn"] == 2 * n_features,
+            f"config5_big: grid_smooth {launches['grid_smooth']} and grid_knn "
+            f"{launches['grid_knn']} launches for {n_features} extractions, expected two "
+            "each (octaves 0 and 1 on the grid)")
     hold_on_path_inputs("config5_big", seen, nn, spfh, launches,
                         exact=True, sift_per_extraction=1)
+    hold_sift_keypoints("config5_big (kernels J and K)", seen, plain_grid_sift())
     hold_graph("config5_big", seen, solves=False)
 
     poses = node.get_transforms()
@@ -3140,7 +3386,8 @@ def run_config5_big(dev, kernels) -> None:
             {c: [len(v)] + [sum(x) for x in zip(*v)] for c, v in by_cap.items()}))
 
     require(big_octave, f"config5_big: no SIFT octave at capacity {cap} was recorded")
-    log("config5_big octave 0, kernels C and D against the grid route: "
+    log("config5_big octave 0, kernels C and D against the grid route (through J and "
+        "K, and through their plain versions): "
         + json.dumps(big_octave_stats(*big_octave[0])))
     require(sorted(big_radius) == ["normals", "outliers"],
             f"config5_big: the radius stages' clouds at capacity {cap} were not recorded")
@@ -3170,12 +3417,16 @@ def big_octave_stats(cloud, intensity, sigmas, tile, engine, scan_cap) -> dict:
     own cloud at capacity 2^19, whose octave the grid serves: `engine`
     resolves to it), beside that route's grid_gaussian_smooth and
     radius_neighbors on the same octave, as ops/keypoints/sift.py calls
-    them. D held exactly and C within SCALE_SPACE_RTOL (0 at the parked
-    queries, a second launch the same bits) against their plain versions
-    on BIG_OCTAVE_SAMPLE sampled queries; all four timed (CUDA events, warm,
-    median of 5, the grid route's of 3). Measured only: no routing
-    changes."""
+    them: the whole ops (build_grid of both sides included) through kernels
+    J and K and through their plain versions (`*_plain_ms`, the route before
+    J and K), and J and K alone on the octave's grids. D held exactly and C
+    within SCALE_SPACE_RTOL (0 at the parked queries, a second launch the
+    same bits) against their plain versions on BIG_OCTAVE_SAMPLE sampled
+    queries (J and K are held in full on this octave in grid_sift_stats);
+    all timed (CUDA events, warm, median of 5, the grid routes' of 3).
+    Measured only: no routing changes."""
     from mapmerge_torch.core.cloud import FAR
+    from mapmerge_torch.kernels import grid as kgrid
     from mapmerge_torch.kernels import sift as ksift
     from mapmerge_torch.ops import grid
     from mapmerge_torch.ops.keypoints import sift as sift_ops
@@ -3221,6 +3472,21 @@ def big_octave_stats(cloud, intensity, sigmas, tile, engine, scan_cap) -> dict:
                                 p_mask=cloud.mask, tile=tile, engine=engine,
                                 scan_cap=scan_cap)
 
+    # J and K alone, on the grids the two ops build
+    r_bound = 3.0 * max(sigmas)
+    r_knn = sift_ops._GRID_KNN_RADIUS_SCALES * sigmas[0]
+    j_args = grid_operands(cloud.xyz, cloud.mask, cloud.xyz, None, r_bound, scan_cap)[:3] + (
+        intensity, sigmas, _f32(r_bound * r_bound))
+    k_args = grid_operands(cloud.xyz, cloud.mask, cloud.xyz, None, r_knn, scan_cap) + (
+        k, _f32(r_knn * r_knn), False)
+    alone = {"grid_smooth_ms": time_ms(lambda: kgrid.smooth(*j_args), reps=5, warmup=1),
+             "grid_knn_ms": time_ms(lambda: kgrid.knn(*k_args), reps=5, warmup=1)}
+    del j_args, k_args
+    with patched(plain_grid_sift()):
+        plain = {"grid_gaussian_smooth_plain_ms": time_ms(grid_smooth, reps=3, warmup=1),
+                 "grid_radius_neighbors_plain_ms": time_ms(grid_knn, reps=3, warmup=1)}
+    torch.cuda.empty_cache()
+
     c_bound, d_bound = scale_space_bound(c_args, in_bound), knn_bound(d_args)
     return {
         "shape": f"Q=P={qc.shape[0]} ({int(cloud.mask.sum())} valid) S={len(sigmas)} k={k}",
@@ -3229,7 +3495,7 @@ def big_octave_stats(cloud, intensity, sigmas, tile, engine, scan_cap) -> dict:
         "sift_scale_space_ms": time_ms(lambda: ksift.scale_space(*c_args), reps=5, warmup=1),
         "sift_knn_ms": time_ms(lambda: ksift.knn(*d_args), reps=5, warmup=1),
         "grid_gaussian_smooth_ms": time_ms(grid_smooth, reps=3, warmup=1),
-        "grid_radius_neighbors_ms": time_ms(grid_knn, reps=3, warmup=1),
+        "grid_radius_neighbors_ms": time_ms(grid_knn, reps=3, warmup=1), **plain, **alone,
         "sift_scale_space_bound_ms": c_bound["bound_ms"],
         "sift_scale_space_dense_bound_ms": c_bound["dense_bound_ms"],
         "sift_knn_bound_ms": d_bound["bound_ms"],
@@ -4272,12 +4538,14 @@ MAIN_PATH = {"nearest_neighbor": "node incremental",
              "tiles_pack": "config #1", "sift_scale_space": "config #1",
              "sift_knn": "config #1", "radius_count": "config #1",
              "radius_moments": "config #1", "grid_nn": "config #2",
-             "grid_moments": "config #2", "grid_count": "config #2"}
+             "grid_moments": "config #2", "grid_count": "config #2",
+             "grid_smooth": "config5_big", "grid_knn": "config5_big"}
 
 
 def all_kernels() -> tuple:
     """Every hand-written kernel, in the order of the `kernels` line: A's
-    one-pair and batched entries, B, the pre-pass, C, D, E, F, G, H and I."""
+    one-pair and batched entries, B, the pre-pass, C, D, E, F, G, H, I, J
+    and K."""
     from mapmerge_torch.kernels import grid as kgrid
     from mapmerge_torch.kernels import nn, spfh
     from mapmerge_torch.kernels import radius as kradius
@@ -4287,7 +4555,7 @@ def all_kernels() -> tuple:
     return (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL, ktiles.PACK_KERNEL,
             ksift.SCALE_SPACE_KERNEL, ksift.KNN_KERNEL, kradius.COUNT_KERNEL,
             kradius.MOMENTS_KERNEL, kgrid.NN_KERNEL, kgrid.MOMENTS_KERNEL,
-            kgrid.COUNT_KERNEL)
+            kgrid.COUNT_KERNEL, kgrid.SMOOTH_KERNEL, kgrid.KNN_KERNEL)
 
 
 def kernel_entry(k, stats: dict) -> dict:
@@ -4295,13 +4563,13 @@ def kernel_entry(k, stats: dict) -> dict:
     numbers on its main path's own inputs (MAIN_PATH), then per path and on
     the synthetic shapes. library_ms is nn_library's time on kernel A's
     main-path inputs (one route to the same 1-NN, not held for bits),
-    knn_library's on kernel D's and count_library's on kernel E's; for G
-    and I nn_library's and count_library's time on 4,096 of the answered
-    queries, scaled to all of them (grid_library_stats: the whole plane
-    would not fit); null for kernel B (nothing in PyTorch bins Darboux
-    features), kernel C (no single call smooths over a radius), kernels F
-    and H (none sums neighbourhood moments) and the pre-pass (no single
-    call packs points and tile boxes)."""
+    knn_library's on kernel D's and count_library's on kernel E's; for G,
+    I and K nn_library's, count_library's and knn_library's time on 4,096
+    of the answered queries, scaled to all of them (grid_library_stats: the
+    whole plane would not fit); null for kernel B (nothing in PyTorch bins
+    Darboux features), kernels C and J (no single call smooths over a
+    radius), kernels F and H (none sums neighbourhood moments) and the
+    pre-pass (no single call packs points and tile boxes)."""
     label = MAIN_PATH[k.name]
     main = PATH_STATS[label][k.name]
     errs = [stats[k.name]["max_abs_err"]] + [
@@ -4386,7 +4654,8 @@ def main() -> int:
     stats = {"nearest_neighbor": check_nn(dev, nn),
              "nearest_neighbor_batched": check_nn_batched(dev, nn),
              "spfh": check_spfh(dev, spfh), **check_sift(dev, ksift),
-             **check_radius(dev, kradius), **check_grid(dev, kgrid)}
+             **check_radius(dev, kradius), **check_grid(dev, kgrid),
+             **check_grid_sift(dev, kgrid)}
     kernels = all_kernels()
     phase("4 (config #1)", run_main_path, dev, kernels)
     phase("5 (config1_pfh)", run_default_operating_point, dev, kernels)

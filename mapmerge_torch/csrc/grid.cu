@@ -1,16 +1,20 @@
 // The cell-grid engine's sweeps for Hopper (sm_90a): the bounded 1-NN
-// (kernel G), the radius moments (kernel H) and the radius count (kernel I)
-// of every query slot of a query grid against the points of a target grid,
-// both grids read in place (core/grid.py: build_grid).
+// (kernel G), the radius moments (kernel H), the radius count (kernel I),
+// SIFT's Gaussian scale space (kernel J) and its k nearest neighbours
+// (kernel K) of every query slot of a query grid against the points of a
+// target grid, both grids read in place (core/grid.py: build_grid).
 //
-// None replaces a Pallas kernel: the JAX package leaves all three to XLA,
+// None replaces a Pallas kernel: the JAX package leaves all five to XLA,
 // through mapmerge_tpu/ops/grid.py `grid_query`. Kernel G replaces
 // `grid_nn_query` (:594; ICP every iteration, and the transform score through
 // `grid_nearest_neighbor`), kernel H `grid_neighbor_moments` (:754; the
-// surface normals), kernel I `grid_radius_count` (:397; outlier removal).
-// Their plain PyTorch versions are kernels/grid.py: nn_query_ref, moments_ref
-// and count_ref, which run core/grid.grid_query's chunks of (bucket, 27 x cap)
-// distance planes.
+// surface normals), kernel I `grid_radius_count` (:397; outlier removal),
+// kernel J `grid_gaussian_smooth` (:813; SIFT's scale space on a grid
+// octave), kernel K the big-Q branch of `grid_radius_neighbors` (:507, its
+// two-stage top-k at :534-560; SIFT's 26-NN on a grid octave). Their plain
+// PyTorch versions are kernels/grid.py: nn_query_ref, moments_ref,
+// count_ref, smooth_ref and knn_ref, which run core/grid.grid_query's chunks
+// of (bucket, 27 x cap) distance planes.
 //
 // What they compute. A query slot s of bucket b of the query grid (q_ok set)
 // is swept against its candidates: the filled slots (slot < count) of the
@@ -35,18 +39,40 @@
 //   a launch repeats bit for bit.
 // - I (mm_grid_count): the member count, minus `sub` (1 where the caller
 //   excludes the query itself). Bit for bit.
+// - J (mm_grid_smooth): for each sigma, num / max(den, 1e-12) with num =
+//   sum w v and den = sum w over the members, w = expf(-d2 * c), c the
+//   float32 value of 1 / (2 s^2) (the plain version's constant), v the
+//   candidate's value, staged beside its coordinates from the cell-layout
+//   gather of the values that grid_query makes (the wrapper makes it). C's
+//   arithmetic (csrc/sift.cu: __fmul_rn, expf, __fadd_rn in candidate
+//   order, __fdiv_rn); the plain version's bmm and row sum add in another
+//   order, so the two agree to rounding (kernels/grid.py states the
+//   tolerance), and a launch repeats bit for bit. A CTA takes kSigLane
+//   sigmas, blockIdx.y the group.
+// - K (mm_grid_knn): the k <= 26 smallest d2 over every candidate (no
+//   radius cut in the selection), ties to the first candidate position, then
+//   valid = d2 <= r2; with `exclude`, a candidate at d2 <= 1e-12 goes to BIG.
+//   An entry at BIG or beyond (a short list's padding, an excluded point, a
+//   candidate >= BIG away: the candidates of a query parked at FAR) is (0,
+//   BIG, BIG <= r2), else (its point index, d2, d2 <= r2). The plain
+//   version sorts stably and applies the same rule, so K is bit for bit.
 //
 // What bounds them. Each (query, candidate) pair costs the distance and a
-// compare (9 operations) on the CUDA cores; the plain version spends ~10
-// launches and a (37, 256, 6,912)-float plane of device memory traffic per
-// 37 buckets. Here one CTA takes one query bucket (a bucket with no query
-// exits at once, so no host read picks the buckets), one thread one query
-// slot. The CTA stages its candidates, kChunk slots at a time, into shared
-// memory through a cp.async double buffer (4-byte copies: the (H, C, 3)
-// layout is not float4-aligned) while it scans the chunk before; every
+// compare (9 operations) on the CUDA cores, J 5 more a sigma for a member;
+// the plain version spends ~10 launches and a (37, 256, 6,912)-float plane
+// of device memory traffic per 37 buckets (K a stable sort of it). Here one
+// CTA takes one query bucket (a bucket with no query exits at once, so no
+// host read picks the buckets), one thread one query slot. The CTA stages
+// its candidates, kChunk slots at a time, into shared memory through a
+// cp.async double buffer (4-byte copies: the (H, C, 3) layout is not
+// float4-aligned; J's value in w) while it scans the chunk before; every
 // thread scans the staged chunk in candidate order, so ties and sums need
-// no merge. A cap above the CTA's threads takes the query slots in groups.
-// No FMA contraction (-fmad=false), no atomics, no fast-math.
+// no merge. K keeps each thread's list of (d2, position) in shared memory,
+// a column per thread (128 x 26 x 8 B), and rejects a candidate against the
+// list's k-th at once; candidates arrive in position order, so an insertion
+// goes after every entry of equal d2 and a strict < gives the first
+// position on ties. A cap above the CTA's threads takes the query slots in
+// groups. No FMA contraction (-fmad=false), no atomics, no fast-math.
 
 #include "cull.cuh"
 
@@ -55,8 +81,11 @@ namespace {
 constexpr int kNbr = 27;           // neighbour buckets of a bucket
 constexpr int kChunk = 256;        // candidate slots a stage
 constexpr int kNnThreads = 256;     // G: a thread a query slot up to cap 256
-constexpr int kRadiusThreads = 128; // H, I: up to cap 128 (larger caps in groups)
+constexpr int kRadiusThreads = 128; // H-K: up to cap 128 (larger caps in groups)
 constexpr float kBig = 1.0e12f;    // core/grid.py BIG
+constexpr int kSigLane = 8;        // J: sigmas a CTA takes (blockIdx.y the group)
+constexpr int kMaxSigma = 64;      // J: sigmas a launch takes
+constexpr int kK = 26;             // K: the longest list
 
 // The distinct wrapped neighbour buckets of one bucket, ascending, and the
 // flat candidate position of each one's first filled slot: candidate
@@ -221,11 +250,138 @@ struct CountOp {
   }
 };
 
+// Kernel J's: the sigmas s0 = blockIdx.y * kSigLane on of this CTA's group.
+struct Recips {
+  float v[kMaxSigma];  // f32(1 / (2 s^2)) of each sigma
+};
+
+struct SmoothOp {
+  Recips recips;
+  int n_sigma;
+  float* out;  // (nq, n_sigma)
+
+  struct State {
+    float rc[kSigLane], num[kSigLane], den[kSigLane];
+  };
+  __device__ __forceinline__ State init() const {
+    State s;
+    const int s0 = blockIdx.y * kSigLane;
+#pragma unroll
+    for (int i = 0; i < kSigLane; ++i) {
+      s.rc[i] = s0 + i < n_sigma ? recips.v[s0 + i] : 0.f;
+      s.num[i] = s.den[i] = 0.f;
+    }
+    return s;
+  }
+  __device__ __forceinline__ void visit(State& s, float qx, float qy, float qz, float4 p,
+                                        int, float r2) const {
+    const float d2 = sq_dist(qx, qy, qz, p.x, p.y, p.z);
+    if (d2 <= r2) {
+      const float neg = -d2;
+      const int s0 = blockIdx.y * kSigLane;
+#pragma unroll
+      for (int i = 0; i < kSigLane; ++i) {
+        if (s0 + i < n_sigma) {
+          const float w = expf(__fmul_rn(neg, s.rc[i]));
+          s.num[i] = __fadd_rn(s.num[i], __fmul_rn(w, p.w));
+          s.den[i] = __fadd_rn(s.den[i], w);
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ void write(const State& s, long long row, float, float, float,
+                                        const Nbrs&, int) const {
+    const int s0 = blockIdx.y * kSigLane;
+#pragma unroll
+    for (int i = 0; i < kSigLane; ++i) {
+      if (s0 + i < n_sigma) {
+        out[row * n_sigma + s0 + i] = __fdiv_rn(s.num[i], fmaxf(s.den[i], 1e-12f));
+      }
+    }
+  }
+};
+
+// Kernel K's lists: column t the sorted (d2, candidate position) list of
+// thread t, kRadiusThreads x kK x 8 B of the CTA's shared memory.
+struct KnnLists {
+  float d2[kK][kRadiusThreads];
+  int pos[kK][kRadiusThreads];  // -1: padding at BIG
+};
+
+__device__ __forceinline__ KnnLists& knn_lists() {
+  __shared__ KnnLists lists;
+  return lists;
+}
+
+// Kernel K's.
+struct KnnOp {
+  const long long* t_idx;  // target cell_idx (H, cap)
+  int n_p;
+  int k;
+  int exclude;  // exclude_self: d2 <= 1e-12 goes to BIG
+  float r2;     // valid = d2 <= r2
+  int* idx_out;            // (nq, k)
+  float* d2_out;           // (nq, k)
+  unsigned char* valid_out;  // (nq, k)
+
+  struct State {
+    float last;  // the list's k-th d2: BIG until k candidates entered
+  };
+  __device__ __forceinline__ State init() const {
+    KnnLists& l = knn_lists();
+    const int t = threadIdx.x;
+    for (int i = 0; i < k; ++i) {
+      l.d2[i][t] = kBig;
+      l.pos[i][t] = -1;
+    }
+    return {kBig};
+  }
+  // Candidates come in position order, so every entry of the list has a
+  // lower position than `pos`: it goes after the entries of equal d2
+  // (strict <), and one at or past the k-th (BIG included) never enters.
+  __device__ __forceinline__ void visit(State& s, float qx, float qy, float qz, float4 p,
+                                        int pos, float) const {
+    const float d2 = sq_dist(qx, qy, qz, p.x, p.y, p.z);
+    if (!(d2 < s.last) || (exclude && d2 <= 1e-12f)) return;
+    KnnLists& l = knn_lists();
+    const int t = threadIdx.x;
+    int j = k - 1;
+    while (j > 0 && d2 < l.d2[j - 1][t]) {
+      l.d2[j][t] = l.d2[j - 1][t];
+      l.pos[j][t] = l.pos[j - 1][t];
+      --j;
+    }
+    l.d2[j][t] = d2;
+    l.pos[j][t] = pos;
+    s.last = l.d2[k - 1][t];
+  }
+  __device__ __forceinline__ void write(const State&, long long row, float, float, float,
+                                        const Nbrs& nb, int cap) const {
+    const KnnLists& l = knn_lists();
+    const int t = threadIdx.x;
+    for (int i = 0; i < k; ++i) {
+      const float d = l.d2[i][t];
+      const int pos = l.pos[i][t];
+      int r = 0;
+      if (pos >= 0) {
+        int hint = 0;
+        const long long g = t_idx[slot_of(nb, pos, hint, cap)];
+        r = g >= n_p ? 0 : static_cast<int>(g);
+      }
+      idx_out[row * k + i] = r;
+      d2_out[row * k + i] = d;
+      valid_out[row * k + i] = d <= r2;
+    }
+  }
+};
+
 // One CTA a query bucket: its query slots (in groups of blockDim.x) against
-// the candidates of its distinct neighbour buckets, staged kChunk at a time.
+// the candidates of its distinct neighbour buckets, staged kChunk at a time
+// (their values in w where t_val is given: J).
 template <class Op>
 __global__ void __launch_bounds__(kNnThreads)
-grid_sweep_kernel(const float* __restrict__ t_xyz, const int* __restrict__ t_count,
+grid_sweep_kernel(const float* __restrict__ t_xyz, const float* __restrict__ t_val,
+                  const int* __restrict__ t_count,
                   const float* __restrict__ q_xyz, const long long* __restrict__ q_idx,
                   const unsigned char* __restrict__ q_ok, const int* __restrict__ q_count,
                   int cap, int gx, int gy, int gz, float r2, Op op) {
@@ -258,10 +414,12 @@ grid_sweep_kernel(const float* __restrict__ t_xyz, const int* __restrict__ t_cou
       float4* dst = stage[c & 1];
       const int p0 = c * kChunk, n = min(kChunk, total - p0);
       for (int j = tid; j < n; j += blockDim.x) {
-        const float* src = t_xyz + 3 * slot_of(nb, p0 + j, hint, cap);
+        const long long slot = slot_of(nb, p0 + j, hint, cap);
+        const float* src = t_xyz + 3 * slot;
         cp_async4(&dst[j].x, src);
         cp_async4(&dst[j].y, src + 1);
         cp_async4(&dst[j].z, src + 2);
+        if (t_val != nullptr) cp_async4(&dst[j].w, t_val + slot);
       }
     };
     if (chunks > 0) issue(0);
@@ -283,9 +441,9 @@ grid_sweep_kernel(const float* __restrict__ t_xyz, const int* __restrict__ t_cou
 }
 
 template <class Op>
-int launch(const float* t_xyz, const int* t_count, const float* q_xyz,
+int launch(const float* t_xyz, const float* t_val, const int* t_count, const float* q_xyz,
            const long long* q_idx, const unsigned char* q_ok, const int* q_count, int h,
-           int cap, int gx, int gy, int gz, float r2, int max_threads, Op op,
+           int cap, int gx, int gy, int gz, float r2, int groups, int max_threads, Op op,
            void* stream) {
   if (h < 1 || cap < 1 || gx < 1 || gy < 1 || gz < 1 ||
       static_cast<long long>(gx) * gy * gz != h) {
@@ -293,19 +451,20 @@ int launch(const float* t_xyz, const int* t_count, const float* q_xyz,
   }
   const int fit = (cap + 31) / 32 * 32;
   const int threads = fit < max_threads ? fit : max_threads;
-  grid_sweep_kernel<Op><<<h, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      t_xyz, t_count, q_xyz, q_idx, q_ok, q_count, cap, gx, gy, gz, r2, op);
+  const dim3 grid(static_cast<unsigned>(h), static_cast<unsigned>(groups));
+  grid_sweep_kernel<Op><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      t_xyz, t_val, t_count, q_xyz, q_idx, q_ok, q_count, cap, gx, gy, gz, r2, op);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // The grids of core/grid.py:build_grid, both of h = gx gy gz buckets of cap
-// slots: the target's t_xyz (h, cap, 3) f32, t_idx (h, cap) i64 (G only) and
-// t_count (h,) i32 (slots [0, count) are filled); the query grid's q_xyz
+// slots: the target's t_xyz (h, cap, 3) f32, t_idx (h, cap) i64 (G and K)
+// and t_count (h,) i32 (slots [0, count) are filled); the query grid's q_xyz
 // (h, cap, 3) f32, q_idx (h, cap) i64 (the output row of each slot), q_ok
 // (h, cap) bool (the slots to answer) and q_count (h,) i32 (0 where a bucket
-// has no slot to answer). r2 the float32 squared radius.
+// has no slot to answer). r2 the float32 squared radius (K: of `valid`).
 // Each returns cudaGetLastError() after its one launch.
 
 // Kernel G: idx_out (nq,) i32, d2_out (nq,) f32 at the answered rows.
@@ -314,8 +473,8 @@ extern "C" int mm_grid_nn(const float* t_xyz, const long long* t_idx, const int*
                           const unsigned char* q_ok, const int* q_count, int h, int cap,
                           int gx, int gy, int gz, float r2, int n_p, int* idx_out,
                           float* d2_out, void* stream) {
-  return launch(t_xyz, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz, r2,
-                kNnThreads, NnOp{t_idx, n_p, idx_out, d2_out}, stream);
+  return launch(t_xyz, nullptr, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz,
+                r2, 1, kNnThreads, NnOp{t_idx, n_p, idx_out, d2_out}, stream);
 }
 
 // Kernel H: s0_out (nq,), mean_out (nq, 3), cov_out (nq, 3, 3) f32 at the
@@ -325,8 +484,8 @@ extern "C" int mm_grid_moments(const float* t_xyz, const int* t_count, const flo
                                const int* q_count, int h, int cap, int gx, int gy, int gz,
                                float r2, float* s0_out, float* mean_out, float* cov_out,
                                void* stream) {
-  return launch(t_xyz, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz, r2,
-                kRadiusThreads, MomentsOp{s0_out, mean_out, cov_out}, stream);
+  return launch(t_xyz, nullptr, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz,
+                r2, 1, kRadiusThreads, MomentsOp{s0_out, mean_out, cov_out}, stream);
 }
 
 // Kernel I: out (nq,) i32 at the answered rows, the member count minus sub.
@@ -334,6 +493,40 @@ extern "C" int mm_grid_count(const float* t_xyz, const int* t_count, const float
                              const long long* q_idx, const unsigned char* q_ok,
                              const int* q_count, int h, int cap, int gx, int gy, int gz,
                              float r2, int sub, int* out, void* stream) {
-  return launch(t_xyz, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz, r2,
-                kRadiusThreads, CountOp{sub, out}, stream);
+  return launch(t_xyz, nullptr, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz,
+                r2, 1, kRadiusThreads, CountOp{sub, out}, stream);
+}
+
+// Kernel J: t_val (h, cap) f32, the targets' values in the grid's layout
+// (the gather of grid_query's p_values); recips (n_sigma <= 64,) f32 in host
+// memory, f32(1 / (2 s^2)) of each sigma, passed by value; out (nq,
+// n_sigma) f32 at the answered rows.
+extern "C" int mm_grid_smooth(const float* t_xyz, const float* t_val, const int* t_count,
+                              const float* q_xyz, const long long* q_idx,
+                              const unsigned char* q_ok, const int* q_count, int h, int cap,
+                              int gx, int gy, int gz, float r2, const float* recips,
+                              int n_sigma, float* out, void* stream) {
+  if (n_sigma < 1 || n_sigma > kMaxSigma || t_val == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  SmoothOp op{};
+  for (int s = 0; s < n_sigma; ++s) op.recips.v[s] = recips[s];
+  op.n_sigma = n_sigma;
+  op.out = out;
+  return launch(t_xyz, t_val, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz, r2,
+                (n_sigma + kSigLane - 1) / kSigLane, kRadiusThreads, op, stream);
+}
+
+// Kernel K: 1 <= k <= 26; exclude_self 0 or 1; idx_out (nq, k) i32, d2_out
+// (nq, k) f32, valid_out (nq, k) bool at the answered rows.
+extern "C" int mm_grid_knn(const float* t_xyz, const long long* t_idx, const int* t_count,
+                           const float* q_xyz, const long long* q_idx,
+                           const unsigned char* q_ok, const int* q_count, int h, int cap,
+                           int gx, int gy, int gz, float r2, int k, int exclude_self, int n_p,
+                           int* idx_out, float* d2_out, unsigned char* valid_out,
+                           void* stream) {
+  if (k < 1 || k > kK) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(t_xyz, nullptr, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz,
+                r2, 1, kRadiusThreads,
+                KnnOp{t_idx, n_p, k, exclude_self, r2, idx_out, d2_out, valid_out}, stream);
 }

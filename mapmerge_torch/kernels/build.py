@@ -103,6 +103,15 @@ SOURCES = {
         "mm_grid_count": [
             _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _ci, _vp, _vp,
         ],
+        # the reciprocals of 2 s^2 in host memory (a ctypes float array)
+        "mm_grid_smooth": [
+            _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf,
+            ctypes.POINTER(_cf), _ci, _vp, _vp,
+        ],
+        "mm_grid_knn": [
+            _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _ci, _ci, _ci,
+            _vp, _vp, _vp, _vp,
+        ],
     },
     "mapmerge_native.cpp": {
         # the decoded size, or -1 for a malformed payload

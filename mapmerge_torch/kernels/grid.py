@@ -6,8 +6,12 @@ whose cell edge is the bound (ops/grid.grid_nn_query: ICP every iteration,
 and the transform score through grid_nearest_neighbor). Kernel H,
 `moments`: the count, mean and covariance of each query's neighbourhood
 (grid_neighbor_moments: the normals). Kernel I, `count`: the neighbour
-count (grid_radius_count: outlier removal). None is a TPU kernel: the JAX
-package leaves all three to XLA (mapmerge_tpu/ops/grid.py `grid_query`).
+count (grid_radius_count: outlier removal). Kernel J, `smooth`: the
+Gaussian-weighted means of a value at every sigma (grid_gaussian_smooth:
+SIFT's scale space on a grid octave). Kernel K, `knn`: the k nearest
+candidates (the big-Q branch of grid_radius_neighbors: SIFT's 26-NN on a
+grid octave). None is a TPU kernel: the JAX package leaves all five to XLA
+(mapmerge_tpu/ops/grid.py `grid_query`).
 
 Each takes the target grid and the query grid of core/grid.build_grid and
 reads both in place, one launch a call: one CTA a query bucket (a bucket
@@ -30,15 +34,27 @@ the plain version's defaults.
   the card is F's, kernels/radius.MOMENTS_RTOL of each query's largest
   second moment about the query (kernels/radius.moments_error with the
   queries as the origin).
+- `smooth` agrees with `smooth_ref` to rounding: the members are the same
+  bits, but the kernel sums w v and w in candidate order (kernel C's
+  arithmetic, expf), the plain version by bmm and a row sum. The tolerance
+  held on the card is C's, kernels/sift.SCALE_SPACE_RTOL of the field's
+  largest magnitude. The values reach the kernel through the cell-layout
+  gather that grid_query makes (`_pad_rows(values)[grid.cell_idx]`).
+- `knn` equals `knn_ref` bit for bit: the k smallest d2 with ties to the
+  first candidate position (knn_ref sorts stably), entries at BIG or beyond
+  as (0, BIG, BIG <= r2).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. The wrappers copy nothing to the host and never synchronise.
+raises. The wrappers copy nothing to the host and never synchronise (J's
+reciprocals of 2 s^2 go to the kernel by value).
 
 The plain versions run core/grid.grid_query; ops/grid.py calls the
 wrappers.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -60,6 +76,20 @@ COUNT_KERNEL = build.Kernel(
     source="mapmerge_torch/csrc/grid.cu",
     replaces="mapmerge_tpu/ops/grid.py:397",
 )
+SMOOTH_KERNEL = build.Kernel(
+    name="grid_smooth",
+    source="mapmerge_torch/csrc/grid.cu",
+    replaces="mapmerge_tpu/ops/grid.py:813",
+)
+KNN_KERNEL = build.Kernel(
+    name="grid_knn",
+    source="mapmerge_torch/csrc/grid.cu",
+    replaces="mapmerge_tpu/ops/grid.py:507",
+)
+#: the most sigmas kernel J takes in a launch (csrc/grid.cu: kMaxSigma)
+MAX_SIGMAS = 64
+#: the longest neighbour list kernel K keeps (csrc/grid.cu: kK)
+MAX_K = 26
 
 
 def nn_query(grid, qg, q: torch.Tensor, n_p: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -145,6 +175,80 @@ def count(
     kernel.launched()
     build.check_launch(kernel, err)
     return out
+
+
+def smooth(
+    grid, qg, q: torch.Tensor, values: torch.Tensor, sigmas: list[float], r2: float
+) -> torch.Tensor:
+    """(Q, S) float32: for each answered query and sigma s, sum w v / max(sum
+    w, 1e-12) over its members (the target points with d2 <= r2), w =
+    exp(-d2 f32(1 / (2 s^2))), v the member's value of `values` (P,) (the
+    P points the target grid was built from); 0 for a query in no answered
+    slot. Operands and routes as `nn_query`'s; kernel J."""
+    if q.device.type == "cpu":
+        return smooth_ref(grid, qg, q, values, sigmas, r2)
+    kernel = SMOOTH_KERNEL
+    dev, nq, dims = _operands(kernel, grid, qg, q)
+    ns = len(sigmas)
+    build.require(f"{kernel.name}: values", values, torch.float32, (None,), dev)
+    if not 1 <= ns <= MAX_SIGMAS:
+        raise ValueError(f"{kernel.name}: unsupported sigma count {ns}")
+    out = torch.zeros((nq, ns), dtype=torch.float32, device=dev)
+    if nq == 0:
+        return out
+    v_cells = cgrid._pad_rows(values)[grid.cell_idx]  # grid_query's gather
+    recips = (ctypes.c_float * ns)(*_recips(sigmas))
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = lib.mm_grid_smooth(
+            grid.cell_xyz.data_ptr(), v_cells.data_ptr(), grid.count.data_ptr(),
+            qg.cell_xyz.data_ptr(), qg.cell_idx.data_ptr(), qg.cell_ok.data_ptr(),
+            qg.count.data_ptr(), *dims, r2, recips, ns, out.data_ptr(),
+            build.stream_handle(dev),
+        )
+    kernel.launched()
+    build.check_launch(kernel, err)
+    return out
+
+
+def knn(
+    grid, qg, q: torch.Tensor, n_p: int, k: int, r2: float, exclude_self: bool = False
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The k nearest candidates of each answered query, nearest first, ties
+    to the first candidate position: (idx (Q, k) int32, d2 (Q, k) float32,
+    valid (Q, k) = d2 <= r2). No radius cut in the selection; with
+    exclude_self a candidate at d2 <= 1e-12 goes to BIG; an entry at BIG or
+    beyond is (0, BIG, BIG <= r2), a query in no answered slot gets (0,
+    BIG, False), an index >= n_p becomes 0. Operands and routes as
+    `nn_query`'s; kernel K."""
+    if q.device.type == "cpu":
+        return knn_ref(grid, qg, q, n_p, k, r2, exclude_self)
+    kernel = KNN_KERNEL
+    dev, nq, dims = _operands(kernel, grid, qg, q)
+    if not 1 <= k <= MAX_K or n_p >= 2**31 or nq * k >= 2**31:
+        raise ValueError(f"{kernel.name}: unsupported sizes Q={nq} P={n_p} k={k}")
+    idx = torch.zeros((nq, k), dtype=torch.int32, device=dev)
+    d2 = torch.full((nq, k), cgrid.BIG, dtype=torch.float32, device=dev)
+    valid = torch.zeros((nq, k), dtype=torch.bool, device=dev)
+    if nq == 0:
+        return idx, d2, valid
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = lib.mm_grid_knn(
+            grid.cell_xyz.data_ptr(), grid.cell_idx.data_ptr(), grid.count.data_ptr(),
+            qg.cell_xyz.data_ptr(), qg.cell_idx.data_ptr(), qg.cell_ok.data_ptr(),
+            qg.count.data_ptr(), *dims, r2, k, int(exclude_self), n_p, idx.data_ptr(),
+            d2.data_ptr(), valid.data_ptr(), build.stream_handle(dev),
+        )
+    kernel.launched()
+    build.check_launch(kernel, err)
+    return idx, d2, valid
+
+
+def _recips(sigmas: list[float]) -> list[float]:
+    """The float32 value of 1 / (2 s^2) of each sigma: the plain version's
+    constant (the reference's jnp.float32(1.0 / (2.0 * s * s)))."""
+    return [cgrid._f32(1.0 / (2.0 * s * s)) for s in sigmas]
 
 
 def _nn_r2(grid) -> float:
@@ -250,3 +354,60 @@ def count_ref(
     if not include_self:
         counts = counts - 1
     return counts
+
+
+def smooth_ref(
+    grid, qg, q: torch.Tensor, values: torch.Tensor, sigmas: list[float], r2: float
+) -> torch.Tensor:
+    """Plain PyTorch Gaussian smoothing: core/grid.grid_query over the query
+    buckets with the values gathered into the cell layout, each chunk's
+    (B, Cq, 27 C) plane of _d2, the member weights exp(-d2 c) of each sigma,
+    a bmm with the values and a row sum."""
+    recips = _recips(sigmas)
+
+    def tile_fn(q_block, cand_xyz, cand_ok, cand_idx, v):
+        d2 = cgrid._d2(q_block, cand_xyz)  # (B, Cq, M)
+        base_ok = (cand_ok[:, None, :] & (d2 <= r2)).to(torch.float32)
+        outs = []
+        for c in recips:
+            w = torch.exp(-d2 * c) * base_ok
+            num = torch.bmm(w, v[..., None])[..., 0]
+            outs.append(num / w.sum(dim=-1).clamp_min(1e-12))
+        return torch.stack(outs, dim=-1)
+
+    out, _ = cgrid.grid_query(q, grid, tile_fn, 0.0, p_values=values, qg=qg)
+    return out
+
+
+def knn_ref(
+    grid, qg, q: torch.Tensor, n_p: int, k: int, r2: float, exclude_self: bool = False
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch k nearest: core/grid.grid_query over the query buckets,
+    each chunk's (B, Cq, 27 C) plane of _d2 with the empty and duplicated
+    candidates at BIG (and, with exclude_self, d2 <= 1e-12 too), sorted
+    stably (ties keep the first candidate position), the first k taken;
+    entries at BIG or beyond -> (0, BIG), valid = d2 <= r2, then idx >= n_p
+    -> 0."""
+
+    def tile_fn(q_block, cand_xyz, cand_ok, cand_idx):
+        d2 = torch.where(cand_ok[:, None, :], cgrid._d2(q_block, cand_xyz), cgrid.BIG)
+        if exclude_self:
+            d2 = torch.where(d2 <= 1e-12, cgrid.BIG, d2)
+        k_eff = min(k, d2.shape[-1])
+        d2s, pos = torch.sort(d2, dim=-1, stable=True)
+        d2k, pos = d2s[..., :k_eff], pos[..., :k_eff]
+        idx = torch.gather(cand_idx[:, None, :].expand(d2.shape), -1, pos)
+        far = d2k >= cgrid.BIG
+        idx = torch.where(far, 0, idx)
+        d2k = torch.where(far, cgrid.BIG, d2k)
+        valid = d2k <= r2
+        if k_eff < k:
+            pad = k - k_eff
+            idx = torch.nn.functional.pad(idx, (0, pad))
+            d2k = torch.nn.functional.pad(d2k, (0, pad), value=cgrid.BIG)
+            valid = torch.nn.functional.pad(valid, (0, pad))
+        return idx.to(torch.int32), d2k, valid
+
+    (idx, d2k, valid), _ = cgrid.grid_query(q, grid, tile_fn, (0, cgrid.BIG, False), qg=qg)
+    idx = torch.where(idx >= n_p, 0, idx)
+    return idx, d2k, valid

@@ -14,7 +14,7 @@ each dense octave once, with its values, and hands the buffer to both
 (`packed`); a wrapper given none packs its own points first.
 
 Both take coordinates centred on the valid mean (ops/neighbors._center)
-and compute d2 as `ops/neighbors.sq_dists` does, bit for bit.
+and compute d2 as `core/dense.sq_dists` does, bit for bit.
 
 - `scale_space` agrees with `scale_space_ref` to rounding: the kernel
   multiplies by the float32 reciprocal of 2 s^2 and sums in point order in
@@ -39,8 +39,9 @@ import ctypes
 import numpy as np
 import torch
 
+from mapmerge_torch.core.dense import sq_dists, tiled_query
+from mapmerge_torch.core.grid import BIG
 from mapmerge_torch.kernels import build, tiles
-from mapmerge_torch.ops.neighbors import BIG, sq_dists, tiled_query
 
 #: the kernel's scale space against its plain version, on the card: the
 #: largest difference within this share of the field's largest magnitude

@@ -6,12 +6,14 @@ Here the points go into the cell grid of core/grid.py (its contracts are the
 reference's), and every query of a bucket meets the candidates of the 27
 neighbour buckets of its own.
 
-The bounded 1-NN, the radius moments and the radius count (grid_nn_query,
-grid_neighbor_moments, grid_radius_count) run kernels G, H and I
+The bounded 1-NN, the radius moments, the radius count, the Gaussian
+smoothing and the k nearest of a large query set (grid_nn_query,
+grid_neighbor_moments, grid_radius_count, grid_gaussian_smooth and the
+big-Q branch of grid_radius_neighbors) run kernels G, H, I, J and K
 (kernels/grid.py), which read both grids in place, one launch a call and no
 host read; FPFH's SPFH sweep reads the grid so too (kernels/spfh.spfh_grid).
-The other radius ops (radius_neighbors, radius_reduce, the Gaussian
-smoothing) run their plain tile_fns through core/grid.grid_query.
+radius_reduce runs its plain tile_fn through core/grid.grid_query, and the
+small-Q paths gather each query's 27 neighbour blocks directly.
 
 The grid's own names (CellGrid, build_grid, grid_query, ...) are those of
 core/grid.py, taken in here so that this module offers the reference
@@ -73,8 +75,9 @@ def grid_radius_count(
 
 def _topk_nearest(d2, cand_idx, k: int, r2: float, exclude_self: bool):
     """The k smallest of d2 (..., M) nearest first: (idx int32, d2, valid),
-    padded to width k. One top-k over the 27 C candidates: the same set as
-    the reference's two-stage top-k, the order of ties unspecified."""
+    padded to width k (the small-Q path). One top-k over the 27 C
+    candidates: the same set as the reference's two-stage top-k, the order
+    of ties unspecified."""
     if exclude_self:
         d2 = torch.where(d2 <= 1e-12, BIG, d2)
     k_eff = min(k, d2.shape[-1])
@@ -129,7 +132,8 @@ def grid_radius_neighbors(
     """Grid twin of neighbors.radius_neighbors: up to k nearest within
     radius, nearest first, indices in the original point order: (idx, d2,
     valid, overflow). At most SMALL_Q_THRESHOLD queries take the small-Q
-    path (overflow 0 there)."""
+    path (overflow 0 there); more take kernel K (kernels/grid.knn: ties to
+    the first candidate position, entries at BIG as (0, BIG, False))."""
     grid = build_grid(p, p_mask, radius, dims, scan_cap)
     r2 = _f32(radius * radius)
     if q.shape[0] <= SMALL_Q_THRESHOLD:
@@ -137,14 +141,9 @@ def grid_radius_neighbors(
             q, grid, p.shape[0], radius, k, exclude_self
         )
         return idx, d2k, valid, torch.zeros((), dtype=torch.int32, device=q.device)
-
-    def tile_fn(q_block, cand_xyz, cand_ok, cand_idx):
-        d2 = torch.where(cand_ok[:, None, :], _d2(q_block, cand_xyz), BIG)
-        return _topk_nearest(d2, cand_idx[:, None, :], k, r2, exclude_self)
-
-    (idx, d2k, valid), overflow = grid_query(q, grid, tile_fn, (0, BIG, False))
-    idx = torch.where(idx >= p.shape[0], 0, idx)
-    return idx, d2k, valid, overflow
+    qg = build_grid(q, None, grid.cell_size, grid.dims, grid.cap)
+    idx, d2k, valid = grid_kernels.knn(grid, qg, q, p.shape[0], k, r2, exclude_self)
+    return idx, d2k, valid, qg.overflow
 
 
 def grid_nearest_neighbor(
@@ -274,19 +273,9 @@ def grid_gaussian_smooth(
     """Gaussian-weighted means of `values` (P,) at every sigma: ((Q, S),
     query-overflow count), the neighbourhood bounded at 3 max(sigmas) (PCL's
     SIFT scale-space truncation). Backs the grid branch of SIFT's scale
-    space."""
+    space. Kernel J (kernels/grid.smooth)."""
     r_bound = 3.0 * max(sigmas)
     grid = build_grid(p, p_mask, r_bound, dims, scan_cap)
-    r2 = _f32(r_bound * r_bound)
-
-    def tile_fn(q_block, cand_xyz, cand_ok, cand_idx, v):
-        d2 = _d2(q_block, cand_xyz)  # (B, Cq, M)
-        base_ok = (cand_ok[:, None, :] & (d2 <= r2)).to(torch.float32)
-        outs = []
-        for s in sigmas:
-            w = torch.exp(-d2 * _f32(1.0 / (2.0 * s * s))) * base_ok
-            num = torch.bmm(w, v[..., None])[..., 0]
-            outs.append(num / w.sum(dim=-1).clamp_min(1e-12))
-        return torch.stack(outs, dim=-1)
-
-    return grid_query(q, grid, tile_fn, 0.0, p_values=values)
+    qg = build_grid(q, None, grid.cell_size, grid.dims, grid.cap)
+    out = grid_kernels.smooth(grid, qg, q, values, sigmas, _f32(r_bound * r_bound))
+    return out, qg.overflow
