@@ -1326,17 +1326,106 @@ def grid_library_stats(name: str, args, got) -> dict:
             "library_ms": ms * answered.numel() / sample.numel(), **share}
 
 
+#: the threads a CTA of the one-thread-a-slot sweep (csrc/grid.cu:
+#: grid_sweep_kernel, on which G took 256 and K 128 before their own
+#: kernel): one a query slot, a CTA a query bucket
+SWEEP_THREADS = {"grid_nn": 256, "grid_knn": 128}
+
+
+def select_stats(name: str, kgrid, args) -> dict:
+    """What kernel G ("grid_nn") or K ("grid_knn") did on these inputs
+    (kgrid.select_counters, a launch of its own with the counters on): the
+    (query, candidate) pairs compared, the tiles visited, the units and the
+    share of their lanes that answer a query; beside them the share the
+    sweep's one-thread-a-slot CTAs gave (answered slots over the threads of
+    the groups of SWEEP_THREADS slots the answered buckets launch), and for
+    G `ms_kept`, the call given the target's boxes made before (ICP's
+    iterations; `ms` makes them in the call)."""
+    grid, qg = args[:2]
+    threads = min(SWEEP_THREADS[name], -(-grid.cap // 32) * 32)
+    groups = (qg.count.to(torch.int64) + threads - 1) // threads
+    launched = int(groups.sum()) * threads
+    stats = {**kgrid.select_counters(name, *args),
+             "sweep_lane_share": int(qg.cell_ok.sum()) / launched if launched else None}
+    if name == "grid_nn":
+        boxes = kgrid.boxes(grid)
+        stats["ms_kept"] = time_ms(lambda: kgrid.nn_query(*args, boxes=boxes))
+    return stats
+
+
+def grid_pack_bound(kgrid, grid, units: int) -> dict:
+    """The pre-pass's least time: the filled target slots read once (12 B),
+    both grids' counts (4 B a bucket each), each filled tile's box written
+    (32 B) and the units listed (4 B each, and the count)."""
+    h, cap = grid.cell_idx.shape
+    filled = int(grid.count.clamp(0, cap).to(torch.int64).sum())
+    n_bytes = (filled * 12 + 2 * h * 4 + int(kgrid.filled_tiles(grid).sum()) * 32
+               + (units + 1) * 4)
+    return _bound(n_bytes, 0)
+
+
+def _grid_pack_compare(name, kgrid, args):
+    """The pre-pass against pack_ref on the same inputs: the boxes of the
+    filled tiles equal (as values: a zero's sign may differ), with the
+    units and alone (boxes()), the units the same set. Returns the count of
+    units."""
+    boxes, units = kgrid.pack(*args[:3])
+    alone = kgrid.boxes(args[0])
+    rboxes, runits = kgrid.pack_ref(*args[:3])
+    torch.cuda.synchronize()
+    n = int(units[0])
+    filled = kgrid.filled_tiles(args[0])
+    for got in (boxes, alone):
+        require(got.shape == rboxes.shape and bool((got[filled] == rboxes[filled]).all()),
+                f"{name}: the boxes of the filled tiles differ from pack_ref")
+    require(n == int(runits[0]) and torch.equal(
+        units[1 : n + 1].sort().values, runits[1 : n + 1].sort().values),
+        f"{name}: the units differ from pack_ref")
+    return n
+
+
+def grid_pack_stats(label: str, kgrid, seen: dict) -> dict:
+    """The pre-pass on the inputs of the path's first G call from ICP, or
+    else of its first K call at the largest query count, moved back to the
+    card: held against pack_ref, timed (boxes and units, as a call that is
+    given no boxes launches it), the plain version too, beside its bound. No single PyTorch call packs tile boxes and
+    work units: library_ms is null."""
+    knn = sorted((k for k in seen if k.startswith("grid_knn Q=")),
+                 key=lambda k: -int(k.split("=")[1]))
+    key = "grid_nn icp" if "grid_nn icp" in seen else (knn[0] if knn else None)
+    if key is None:
+        return {}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    args = [_copied(a, dev) for a in seen[key][0]]
+    units = _grid_pack_compare(f"{label} grid_pack", kgrid, args)
+    grid = args[0]
+    entry = {"shape": f"of {key.split()[0]}'s first input: grid "
+                      f"{tuple(grid.cell_idx.shape)}, {units} units of 32 queries",
+             "max_abs_err": 0.0, "units": units,
+             "ms": time_ms(lambda: kgrid.pack(*args[:3])),
+             "boxes_ms": time_ms(lambda: kgrid.boxes(grid)),
+             "plain_ms": time_ms(lambda: kgrid.pack_ref(*args[:3]), reps=3, warmup=1),
+             **grid_pack_bound(kgrid, grid, units), "library_ms": None}
+    del args, grid
+    torch.cuda.empty_cache()
+    return {"grid_pack": entry}
+
+
 def _grid_nn_compare(name, kgrid, args):
     """Kernel G against nn_query_ref on the same inputs: idx and d2 bit for
-    bit. Returns the plain version's (idx, d2)."""
+    bit, a second launch (given the target's boxes made before, as ICP
+    gives them) the same bits. Returns the plain version's (idx, d2)."""
     got = kgrid.nn_query(*args)
     ref = kgrid.nn_query_ref(*args)
+    again = kgrid.nn_query(*args, boxes=kgrid.boxes(args[0]))
     torch.cuda.synchronize()
     require(all(a.shape == b.shape for a, b in zip(got, ref)), f"{name}: shapes")
     diff = [int((a != b).sum()) for a, b in zip(got, ref)]
     require(diff == [0, 0],
             f"{name}: {diff[0]} indices and {diff[1]} d2 differ from nn_query_ref; "
             "exact required")
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"{name}: a second launch gave other bits")
     return ref
 
 
@@ -1479,7 +1568,7 @@ def grid_stats(label: str, kgrid, seen: dict) -> dict:
             entry = {"max_abs_err": 0.0, "matched": int((ref[1] < 1e11).sum()),
                      "fn": kgrid.nn_query, "plain": kgrid.nn_query_ref,
                      **grid_bound(name, grid, qg, q, members),
-                     **grid_library_stats(name, args, ref)}
+                     **grid_library_stats(name, args, ref), **select_stats(name, kgrid, args)}
         elif name == "grid_count":
             ref = _grid_count_compare(f"{label} {key}", kgrid, args)
             sub = 0 if (args[4] if len(args) > 4 else True) else 1
@@ -1567,6 +1656,7 @@ def check_grid(dev, kgrid, n: int = 1 << 18) -> dict:
         grid, qg, tq, n_p = grid_operands(ap, am, aq, aqm, cell, cap, dims)
         r2 = _f32(cell * cell)
         _grid_nn_compare(f"grid_nn {name}", kgrid, (grid, qg, tq, n_p))
+        _grid_pack_compare(f"grid_pack {name}", kgrid, (grid, qg, tq))
         qg_all = grid_operands(ap, am, aq, None, cell, cap, dims)[1]
         _grid_count_compare(f"grid_count {name}", kgrid, (grid, qg_all, tq, r2, False))
         _, rel, _, flags[name] = _grid_moments_compare(
@@ -1576,10 +1666,13 @@ def check_grid(dev, kgrid, n: int = 1 << 18) -> dict:
         log(f"kernel {key} {e['shape']}: max err {e['max_abs_err']}, "
             f"{e['pairs_visited']} pairs visited, normals {e.get('normals')}; kernel "
             f"{e['ms']} ms, plain {e['plain_ms']} ms, bound {e['bound_ms']} ms")
-    log(f"kernels grid_nn, grid_count and grid_moments held on {sorted(adversarial)} "
+    log(f"kernels grid_nn (repeating, given its boxes), grid_pack, grid_count and "
+        f"grid_moments held on {sorted(adversarial)} "
         f"(largest moments error {worst} of a second moment); normals' flags, "
         f"recorded: {json.dumps(flags)}")
-    return stats
+    pack = grid_pack_stats("synthetic", kgrid, first)
+    log(f"kernel grid_pack, synthetic: {json.dumps(pack)}")
+    return {**stats, **pack}
 
 
 #: SIFT's 26-NN on a grid octave: its radius in octave scales
@@ -1699,7 +1792,7 @@ def grid_sift_stats(label: str, kgrid, seen: dict) -> dict:
             entry = {"max_abs_err": 0.0, "valid_entries": int(ref[2].sum()),
                      "fn": kgrid.knn, "plain": kgrid.knn_ref,
                      **grid_sift_bound(name, grid, qg, q, members, args[4]),
-                     **grid_library_stats(name, args, ref)}
+                     **grid_library_stats(name, args, ref), **select_stats(name, kgrid, args)}
         fn, plain = entry.pop("fn"), entry.pop("plain")
         entry = {"shape": shape, **entry, "ms": time_ms(lambda: fn(*args)),
                  "plain_ms": time_ms(lambda: plain(*args), reps=3, warmup=1)}
@@ -1749,13 +1842,14 @@ def check_grid_sift(dev, kgrid, n: int = 1 << 18) -> dict:
         for exclude_self in (False, True):
             _grid_knn_compare(f"grid_knn {name} exclude_self={exclude_self}", kgrid,
                               (grid, qg, tq, n_p, SIFT_K, r2, exclude_self))
+        _grid_pack_compare(f"grid_pack {name}", kgrid, (grid, qg, tq))
     for key, e in stats.items():
         log(f"kernel {key} {e['shape']}: max err {e['max_abs_err']}, "
             f"{e['members']} members of {e['pairs_visited']} pairs visited; kernel "
             f"{e['ms']} ms, plain {e['plain_ms']} ms, bound {e['bound_ms']} ms "
             f"({e['bound_by']}), library {e['library_ms']} ms")
-    log(f"kernels grid_smooth and grid_knn held on {sorted(adversarial)} (grid_knn with "
-        "exclude_self both ways)")
+    log(f"kernels grid_smooth, grid_knn and grid_pack held on {sorted(adversarial)} "
+        "(grid_knn with exclude_self both ways)")
     return stats
 
 
@@ -1804,9 +1898,11 @@ def first_launch_inputs(nn, spfh):
     kernels' first calls are kept in host memory: G's first call from ICP
     and its first from the transform score apart ("grid_nn icp", "grid_nn
     score"), H's and I's, and J's and K's first at each query count
-    ("grid_smooth Q=n", "grid_knn Q=n": an octave each). SIFT's
-    extractions and the octaves among them that resolve to the dense engine
-    and to the grid are counted (`seen["sift"]`), and the first extraction's
+    ("grid_smooth Q=n", "grid_knn Q=n": an octave each). The target grids
+    whose boxes a caller made apart for G (kgrid.boxes) are counted
+    (`seen["grid_boxes"]`). SIFT's extractions and the octaves among them
+    that resolve to the dense engine and to the grid are counted
+    (`seen["sift"]`), and the first extraction's
     arguments kept
     (`seen["sift_detect"]`, for hold_sift_keypoints). The dense radius
     passes are counted (`seen["radius"]`): the outlier and normal stages
@@ -1835,7 +1931,8 @@ def first_launch_inputs(nn, spfh):
                             "one_pair_calls": 0}, "graph": [],
                   "sift": {"extractions": 0, "dense_octaves": 0, "grid_octaves": 0},
                   "radius": {"outliers": 0, "normals": 0, "SC3D density": 0},
-                  "grid_radius": {"outliers": 0, "normals": 0, "SC3D density": 0}}
+                  "grid_radius": {"outliers": 0, "normals": 0, "SC3D density": 0},
+                  "grid_boxes": 0}
     lock = threading.Lock()
     caller = threading.local()  # which stage a grid 1-NN serves, per thread
 
@@ -1922,6 +2019,17 @@ def first_launch_inputs(nn, spfh):
     def capacity(bound):
         return bound["cloud"].capacity
 
+    def counted(key):
+        def make(fn):
+            def wrapper(*args, **kwargs):
+                with lock:
+                    seen[key] += 1
+                return fn(*args, **kwargs)
+
+            return wrapper
+
+        return make
+
     def record(name, dev=None):
         def make(fn):
             def wrapper(*args, **kwargs):
@@ -1979,6 +2087,7 @@ def first_launch_inputs(nn, spfh):
                   (score_ops, "nearest_neighbor"): serving("score"),
                   (kgrid, "nn_query"): record(
                       lambda *a: f"grid_nn {getattr(caller, 'stage', None)}", cpu),
+                  (kgrid, "boxes"): counted("grid_boxes"),
                   (kgrid, "moments"): record("grid_moments", cpu),
                   (kgrid, "count"): record("grid_count", cpu),
                   # J and K: the first call at each query count (an octave)
@@ -2120,6 +2229,20 @@ def require_grid_sift(label: str, seen: dict, launches: dict) -> None:
             f"{label}: grid_smooth {j} and grid_knn {k} launches for {octaves} grid octaves")
 
 
+def require_grid_pack(label: str, seen: dict, launches: dict) -> None:
+    """The pre-pass of kernels G and K launched once with each of them and
+    once for each target grid whose boxes a caller had made apart
+    (kgrid.boxes: ICP's), no more of those than G's launches, and never
+    else. Logged."""
+    packs, g, k = launches["grid_pack"], launches["grid_nn"], launches["grid_knn"]
+    made = seen["grid_boxes"]
+    log(f"{label}: launches grid_pack {packs} (grid_nn {g}, grid_knn {k}, the boxes "
+        f"alone {made})")
+    require(packs == g + k + made and made <= g,
+            f"{label}: grid_pack {packs} launches for grid_nn {g} + grid_knn {k} + the "
+            f"boxes alone {made}")
+
+
 def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
                         exact: bool = False, sift_per_extraction: int = 3) -> None:
     """Each kernel a path launched against its plain version on the inputs
@@ -2147,6 +2270,7 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
     require_grid_radius(label, seen, launches)
     require_grid_sift(label, seen, launches)
     require_pack(label, seen, launches)
+    require_grid_pack(label, seen, launches)
     stats = PATH_STATS[label] = {}
     if "nearest_neighbor" in seen:
         args, _ = seen["nearest_neighbor"]
@@ -2222,7 +2346,8 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
     for name, entry in {**pack_stats(label, ktiles, seen), **sift_stats(label, ksift, seen),
                         **radius_stats(label, kradius, seen),
                         **grid_stats(label, kgrid, seen),
-                        **grid_sift_stats(label, kgrid, seen)}.items():
+                        **grid_sift_stats(label, kgrid, seen),
+                        **grid_pack_stats(label, kgrid, seen)}.items():
         stats[name] = {"launches": launches[name], **entry}
     require(stats, f"{label}: no kernel input was recorded")
     log(f"{label}: kernels on the path's own inputs: {json.dumps(stats)}")
@@ -3515,7 +3640,8 @@ def big_radius_stats(outlier_cloud, normal_cloud, params) -> dict:
     before kernels G-I). E held exactly and F within MOMENTS_RTOL (a second
     launch the same bits) against their plain versions on
     BIG_OCTAVE_SAMPLE sampled queries; all timed (CUDA events, warm,
-    median of 5, the grid's of 3). Measured only: no routing changes."""
+    median of 5, the grid's of 3); E beside count_library on the sample,
+    scaled to every query. Measured only: no routing changes."""
     from mapmerge_torch.kernels import grid as kgrid
     from mapmerge_torch.kernels import radius as kradius
     from mapmerge_torch.ops import grid
@@ -3536,7 +3662,15 @@ def big_radius_stats(outlier_cloud, normal_cloud, params) -> dict:
             got = kernel(*args)
             require(torch.equal(got[sample], kradius.count_ref(qc[sample], *args[1:])),
                     "config5_big radius_count: the sample differs from count_ref")
-            in_bound, held = int(got.to(torch.int64).sum()), {}
+            in_bound = int(got.to(torch.int64).sum())
+            # count_library on the sample (a Q x P plane of all 2^19 would
+            # not fit), scaled to every query, as grid_library_stats does for I
+            lib_args = (qc[sample].contiguous(), pc, cloud.mask, args[3])
+            lib_ms = time_ms(lambda: count_library(*lib_args))
+            agree = count_library(*lib_args) == got[sample].long()
+            held = {"library_sample_ms": lib_ms,
+                    "library_ms": lib_ms * qc.shape[0] / sample.numel(),
+                    "library_count_agreement": float(agree.double().mean())}
             bound = radius_count_bound(args, in_bound)
         else:
             kernel, grid_fn = kradius.moments, grid.grid_neighbor_moments
@@ -4539,13 +4673,14 @@ MAIN_PATH = {"nearest_neighbor": "node incremental",
              "sift_knn": "config #1", "radius_count": "config #1",
              "radius_moments": "config #1", "grid_nn": "config #2",
              "grid_moments": "config #2", "grid_count": "config #2",
-             "grid_smooth": "config5_big", "grid_knn": "config5_big"}
+             "grid_smooth": "config5_big", "grid_knn": "config5_big",
+             "grid_pack": "config #2"}
 
 
 def all_kernels() -> tuple:
     """Every hand-written kernel, in the order of the `kernels` line: A's
-    one-pair and batched entries, B, the pre-pass, C, D, E, F, G, H, I, J
-    and K."""
+    one-pair and batched entries, B, the pre-pass, C, D, E, F, G, H, I, J,
+    K and the pre-pass of G and K."""
     from mapmerge_torch.kernels import grid as kgrid
     from mapmerge_torch.kernels import nn, spfh
     from mapmerge_torch.kernels import radius as kradius
@@ -4555,7 +4690,7 @@ def all_kernels() -> tuple:
     return (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL, ktiles.PACK_KERNEL,
             ksift.SCALE_SPACE_KERNEL, ksift.KNN_KERNEL, kradius.COUNT_KERNEL,
             kradius.MOMENTS_KERNEL, kgrid.NN_KERNEL, kgrid.MOMENTS_KERNEL,
-            kgrid.COUNT_KERNEL, kgrid.SMOOTH_KERNEL, kgrid.KNN_KERNEL)
+            kgrid.COUNT_KERNEL, kgrid.SMOOTH_KERNEL, kgrid.KNN_KERNEL, kgrid.PACK_KERNEL)
 
 
 def kernel_entry(k, stats: dict) -> dict:
@@ -4569,7 +4704,8 @@ def kernel_entry(k, stats: dict) -> dict:
     whole plane would not fit); null for kernel B (nothing in PyTorch bins
     Darboux features), kernels C and J (no single call smooths over a
     radius), kernels F and H (none sums neighbourhood moments) and the
-    pre-pass (no single call packs points and tile boxes)."""
+    pre-passes (no single call packs points and tile boxes, or boxes and
+    work units)."""
     label = MAIN_PATH[k.name]
     main = PATH_STATS[label][k.name]
     errs = [stats[k.name]["max_abs_err"]] + [

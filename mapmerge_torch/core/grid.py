@@ -1,5 +1,5 @@
 """The cell grid under the grid engine (ops/grid.py) and the kernels that
-read it in place (kernels/spfh.spfh_grid; kernels/grid.py: G, H, I): the
+read it in place (kernels/spfh.spfh_grid; kernels/grid.py: G-K): the
 (H, C) cell tensor, its build, and `grid_query`, the plain sweep the
 engine's tile_fns and those kernels' plain versions run.
 

@@ -1,7 +1,9 @@
 // The tile culling shared by the dense-neighbourhood kernels of sift.cu
 // (C and D) and radius.cu (E and F), and the tile shape of their pre-pass
 // (tiles.cu): the shape of a tile and of a warp's ring, the distance and its box bounds, and the cp.async ring that brings
-// the tiles a warp visits into shared memory.
+// the tiles a warp visits into shared memory. The grid's selection kernels
+// (grid.cu: G and K) take the distance, the box bounds, the tile width,
+// the ring and the (d2, index) lists from here too.
 //
 // The points come from tiles.cu's pre-pass (mm_tiles_pack): float4 (x, y, z,
 // w) with x = NaN where masked, and for each tile of kT consecutive points
@@ -112,30 +114,61 @@ __device__ __forceinline__ void issue(Stage& st, const float4* __restrict__ pts,
   if (lane < 2) cp_async16(lane == 0 ? &st.lo : &st.hi, boxes + 2LL * t + lane);
 }
 
-// The warp's ring: next() gives the next tile to visit (warp-uniform, -1
-// when none is left), consume(stage) computes on a tile that has arrived.
-// While the warp computes on one tile, kStages - 1 more are in flight.
-// Every lane commits one copy group a step, empty or not, so wait_group
-// kStages - 1 finds the oldest tile in.
-template <class Next, class Consume>
-__device__ __forceinline__ void sweep(Stage* ring, const float4* __restrict__ pts,
-                                      const float4* __restrict__ boxes, int lane,
-                                      Next next, Consume consume) {
+// whether next() gave a tile: a tile index (-1: none), or a {code, count}
+// pair (code -1: none)
+__device__ __forceinline__ bool live(int t) { return t >= 0; }
+__device__ __forceinline__ bool live(int2 t) { return t.x >= 0; }
+
+// The warp's ring over stages of any type S: next() gives the next tile to
+// visit (warp-uniform; none, as live() tells, when none is left, and from
+// then on), issue(stage, tile) starts its copies into a stage (issue()
+// above for the pre-pass's tiles, grid.cu's issue_tile for a grid's),
+// consume(stage) computes on a tile that has arrived. While the warp
+// computes on one tile, kStages - 1 more are in flight. Every lane commits
+// one copy group a step, empty or not, so wait_group kStages - 1 finds the
+// oldest tile in.
+template <class S, class Next, class Issue, class Consume>
+__device__ __forceinline__ void sweep(S* ring, Next next, Issue issue, Consume consume) {
   int issued = 0;
 #pragma unroll 1
   for (int s = 0; s < kStages - 1; ++s) {
-    const int t = next();
-    if (t >= 0) issue(ring[issued++ & (kStages - 1)], pts, boxes, t, lane);
+    const auto t = next();
+    if (live(t)) issue(ring[issued++ & (kStages - 1)], t);
     cp_async_commit();
   }
   for (int done = 0; done < issued; ++done) {
-    const int t = next();
-    if (t >= 0) issue(ring[issued++ & (kStages - 1)], pts, boxes, t, lane);
+    const auto t = next();
+    if (live(t)) issue(ring[issued++ & (kStages - 1)], t);
     cp_async_commit();
     cp_async_wait<kStages - 1>();
     __syncwarp();
     consume(ring[done & (kStages - 1)]);
     __syncwarp();  // the stage is refilled next
+  }
+}
+
+// (da, ia) before (db, ib) in the lists' order: by d2, then by index
+__device__ __forceinline__ bool before(float da, int ia, float db, int ib) {
+  return da < db || (da == db && ia < ib);
+}
+
+// (d, j) into a list sorted by (d2, index) (the caller has checked that it
+// comes before the last entry): it goes after every entry before it, and
+// the entries after it move down one slot. Each slot reads the old values of
+// itself and its predecessor, so the slots are written from the last to the
+// first.
+template <int N>
+__device__ __forceinline__ void insert(float (&dist)[N], int (&idx)[N], float d, int j) {
+#pragma unroll
+  for (int i = N - 1; i > 0; --i) {
+    const bool shift = before(d, j, dist[i - 1], idx[i - 1]);
+    const bool here = !shift && before(d, j, dist[i], idx[i]);
+    dist[i] = shift ? dist[i - 1] : (here ? d : dist[i]);
+    idx[i] = shift ? idx[i - 1] : (here ? j : idx[i]);
+  }
+  if (before(d, j, dist[0], idx[0])) {
+    dist[0] = d;
+    idx[0] = j;
   }
 }
 

@@ -60,19 +60,52 @@
 // What bounds them. Each (query, candidate) pair costs the distance and a
 // compare (9 operations) on the CUDA cores, J 5 more a sigma for a member;
 // the plain version spends ~10 launches and a (37, 256, 6,912)-float plane
-// of device memory traffic per 37 buckets (K a stable sort of it). Here one
-// CTA takes one query bucket (a bucket with no query exits at once, so no
-// host read picks the buckets), one thread one query slot. The CTA stages
-// its candidates, kChunk slots at a time, into shared memory through a
-// cp.async double buffer (4-byte copies: the (H, C, 3) layout is not
-// float4-aligned; J's value in w) while it scans the chunk before; every
-// thread scans the staged chunk in candidate order, so ties and sums need
-// no merge. K keeps each thread's list of (d2, position) in shared memory,
-// a column per thread (128 x 26 x 8 B), and rejects a candidate against the
-// list's k-th at once; candidates arrive in position order, so an insertion
-// goes after every entry of equal d2 and a strict < gives the first
-// position on ties. A cap above the CTA's threads takes the query slots in
-// groups. No FMA contraction (-fmad=false), no atomics, no fast-math.
+// of device memory traffic per 37 buckets (K a stable sort of it). A sweep
+// that compares every candidate is bound by latency, not issue: a query's
+// candidates are one dependent chain.
+//
+// H, I and J (grid_sweep_kernel): one CTA takes one query bucket (a bucket
+// with no query exits at once, so no host read picks the buckets), one
+// thread one query slot. The CTA stages its candidates, kChunk slots at a
+// time, into shared memory through a cp.async double buffer (4-byte copies;
+// J's value in w) while it scans the chunk before; every thread scans the
+// staged chunk in candidate order, so sums need no merge. A cap above the
+// CTA's threads takes the query slots in groups.
+//
+// G and K (grid_select_kernel) need only the first member, or the first k
+// candidates, of each query, so they cull, exactly, as kernel D does
+// (csrc/sift.cu; cull.cuh's box bound and lists):
+// 1. A pre-pass (grid_pack_kernel, its own launch) writes the box of every
+//    run of kT = 32 consecutive slots of each target bucket (a tile). Slots
+//    lie in build_grid's stable order, so a run is compact in space; the
+//    box comes from the points, not from the bucket's cell, which wraps.
+//    The tiles themselves are read in place: kT slots of (x, y, z) are 384
+//    bytes, 16-byte aligned where cap % 4 == 0, so the ring copies them 16
+//    bytes a lane with no float4 copy of the grid. A caller that queries one
+//    target grid many times (ICP) has the boxes made once and passes them
+//    back (boxes_ready). The same launch lists the units of the query grid:
+//    groups of up to 32 answered slots of one bucket, the count first, so a
+//    persistent grid of warps takes them with no host read and no atomic.
+// 2. A unit sweeps its bucket's own tiles first, then the other distinct
+//    neighbours' tiles nearest first from the box of its queries. A tile is
+//    visited when its box bound (q clamped into the box, then sq_dist in
+//    the same rounded operations: <= the kernel's own d2 of every point in
+//    the box, with no epsilon) comes, paired with the tile's first slot,
+//    before some query's threshold in (d2, slot) order, and checked again
+//    when it arrives; the sweep stops where the next tile's bound from the
+//    queries' box lies past the loosest threshold. Slot order is candidate
+//    order (the neighbours are ascending), and every point of a tile comes
+//    at or after (bound, first slot), so a skipped tile holds nothing that
+//    could displace an answer, whatever the order of the visits: ties still
+//    go to the first candidate position. G's threshold is its best member
+//    so far within r2, K's its 26th; nearest first, they tighten early.
+// 3. One lane a query: a warp is full but for a bucket's last unit. G keeps
+//    the first (d2, slot) member, K a sorted list of kK in registers
+//    (cull.cuh's insert). (2, 4 and 8 lanes a query, their lists merged at
+//    the end, compared fewer pairs and were slower on the main paths'
+//    inputs: PERF.md.)
+// No FMA contraction (-fmad=false), no fast-math; the one atomic (the
+// pre-pass's) only hands out where a run of units goes.
 
 #include "cull.cuh"
 
@@ -80,12 +113,12 @@ namespace {
 
 constexpr int kNbr = 27;           // neighbour buckets of a bucket
 constexpr int kChunk = 256;        // candidate slots a stage
-constexpr int kNnThreads = 256;     // G: a thread a query slot up to cap 256
-constexpr int kRadiusThreads = 128; // H-K: up to cap 128 (larger caps in groups)
+constexpr int kSweepBound = 256;    // the sweep's launch bound
+constexpr int kRadiusThreads = 128; // H-J: up to cap 128 (larger caps in groups)
 constexpr float kBig = 1.0e12f;    // core/grid.py BIG
 constexpr int kSigLane = 8;        // J: sigmas a CTA takes (blockIdx.y the group)
 constexpr int kMaxSigma = 64;      // J: sigmas a launch takes
-constexpr int kK = 26;             // K: the longest list
+constexpr int kK = 26;             // K: the longest list (and every lane's)
 
 // The distinct wrapped neighbour buckets of one bucket, ascending, and the
 // flat candidate position of each one's first filled slot: candidate
@@ -97,11 +130,11 @@ struct Nbrs {
   int n;
 };
 
-// Warp 0, all lanes: the sorted distinct neighbours of bucket b (lane l the
-// offset _OFFSETS[l], x fastest; on an axis of 1 or 2 cells ids repeat and
-// the first copy is kept) and the exclusive scan of their filled counts.
-__device__ __forceinline__ void neighbours(Nbrs& nb, int b, int gx, int gy, int gz,
-                                           const int* __restrict__ count, int lane) {
+// A warp, all lanes: the sorted distinct wrapped neighbours of bucket b
+// into ids[0, n) (lane l the offset _OFFSETS[l], x fastest; on an axis of
+// 1 or 2 cells ids repeat and the first copy is kept); returns n.
+__device__ __forceinline__ int neighbour_ids(int* ids, int b, int gx, int gy, int gz,
+                                             int lane) {
   const int bx = b % gx, by = (b / gx) % gy, bz = b / (gx * gy);
   int id = INT_MAX;
   if (lane < kNbr) {
@@ -122,17 +155,28 @@ __device__ __forceinline__ void neighbours(Nbrs& nb, int b, int gx, int gy, int 
     const int other = __shfl_sync(kAll, id, k);
     rank += ((keep >> k) & 1u) && other < id;
   }
-  if (first) nb.id[rank] = id;
+  if (first) ids[rank] = id;
   __syncwarp();
-  const int n = __popc(keep);
-  const int cnt = lane < n ? count[nb.id[lane]] : 0;
-  int incl = cnt;
+  return __popc(keep);
+}
+
+// the inclusive sum of v over lanes 0..lane (every lane of the warp)
+__device__ __forceinline__ int warp_scan(int v, int lane) {
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int v = __shfl_up_sync(kAll, incl, d);
-    if (lane >= d) incl += v;
+    const int o = __shfl_up_sync(kAll, v, d);
+    if (lane >= d) v += o;
   }
-  nb.start[lane] = incl - cnt;
+  return v;
+}
+
+// Warp 0, all lanes: the sorted distinct neighbours of bucket b and the
+// exclusive scan of their filled counts.
+__device__ __forceinline__ void neighbours(Nbrs& nb, int b, int gx, int gy, int gz,
+                                           const int* __restrict__ count, int lane) {
+  const int n = neighbour_ids(nb.id, b, gx, gy, gz, lane);
+  const int cnt = lane < n ? count[nb.id[lane]] : 0;
+  nb.start[lane] = warp_scan(cnt, lane) - cnt;
   if (lane == 0) nb.n = n;
 }
 
@@ -148,37 +192,6 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem)
                : "memory");
 }
-
-// Kernel G's per-query state and its steps.
-struct NnOp {
-  const long long* t_idx;  // target cell_idx (H, cap)
-  int n_p;
-  int* idx_out;
-  float* d2_out;
-
-  struct State {
-    float best;
-    int pos;  // first candidate position of best; -1 for none
-  };
-  __device__ __forceinline__ State init() const { return {kBig, -1}; }
-  __device__ __forceinline__ void visit(State& s, float qx, float qy, float qz, float4 p,
-                                        int pos, float r2) const {
-    const float d2 = sq_dist(qx, qy, qz, p.x, p.y, p.z);
-    if (d2 <= r2 && d2 < s.best) {
-      s.best = d2;
-      s.pos = pos;
-    }
-  }
-  __device__ __forceinline__ void write(const State& s, long long row, float, float, float,
-                                        const Nbrs& nb, int cap) const {
-    int k = 0;
-    const long long g = s.pos < 0 ? static_cast<long long>(nb.id[0]) * cap
-                                  : slot_of(nb, s.pos, k, cap);
-    const long long r = t_idx[g];
-    idx_out[row] = r >= n_p ? 0 : static_cast<int>(r);
-    d2_out[row] = s.best;
-  }
-};
 
 // Kernel H's.
 struct MomentsOp {
@@ -301,85 +314,11 @@ struct SmoothOp {
   }
 };
 
-// Kernel K's lists: column t the sorted (d2, candidate position) list of
-// thread t, kRadiusThreads x kK x 8 B of the CTA's shared memory.
-struct KnnLists {
-  float d2[kK][kRadiusThreads];
-  int pos[kK][kRadiusThreads];  // -1: padding at BIG
-};
-
-__device__ __forceinline__ KnnLists& knn_lists() {
-  __shared__ KnnLists lists;
-  return lists;
-}
-
-// Kernel K's.
-struct KnnOp {
-  const long long* t_idx;  // target cell_idx (H, cap)
-  int n_p;
-  int k;
-  int exclude;  // exclude_self: d2 <= 1e-12 goes to BIG
-  float r2;     // valid = d2 <= r2
-  int* idx_out;            // (nq, k)
-  float* d2_out;           // (nq, k)
-  unsigned char* valid_out;  // (nq, k)
-
-  struct State {
-    float last;  // the list's k-th d2: BIG until k candidates entered
-  };
-  __device__ __forceinline__ State init() const {
-    KnnLists& l = knn_lists();
-    const int t = threadIdx.x;
-    for (int i = 0; i < k; ++i) {
-      l.d2[i][t] = kBig;
-      l.pos[i][t] = -1;
-    }
-    return {kBig};
-  }
-  // Candidates come in position order, so every entry of the list has a
-  // lower position than `pos`: it goes after the entries of equal d2
-  // (strict <), and one at or past the k-th (BIG included) never enters.
-  __device__ __forceinline__ void visit(State& s, float qx, float qy, float qz, float4 p,
-                                        int pos, float) const {
-    const float d2 = sq_dist(qx, qy, qz, p.x, p.y, p.z);
-    if (!(d2 < s.last) || (exclude && d2 <= 1e-12f)) return;
-    KnnLists& l = knn_lists();
-    const int t = threadIdx.x;
-    int j = k - 1;
-    while (j > 0 && d2 < l.d2[j - 1][t]) {
-      l.d2[j][t] = l.d2[j - 1][t];
-      l.pos[j][t] = l.pos[j - 1][t];
-      --j;
-    }
-    l.d2[j][t] = d2;
-    l.pos[j][t] = pos;
-    s.last = l.d2[k - 1][t];
-  }
-  __device__ __forceinline__ void write(const State&, long long row, float, float, float,
-                                        const Nbrs& nb, int cap) const {
-    const KnnLists& l = knn_lists();
-    const int t = threadIdx.x;
-    for (int i = 0; i < k; ++i) {
-      const float d = l.d2[i][t];
-      const int pos = l.pos[i][t];
-      int r = 0;
-      if (pos >= 0) {
-        int hint = 0;
-        const long long g = t_idx[slot_of(nb, pos, hint, cap)];
-        r = g >= n_p ? 0 : static_cast<int>(g);
-      }
-      idx_out[row * k + i] = r;
-      d2_out[row * k + i] = d;
-      valid_out[row * k + i] = d <= r2;
-    }
-  }
-};
-
 // One CTA a query bucket: its query slots (in groups of blockDim.x) against
 // the candidates of its distinct neighbour buckets, staged kChunk at a time
 // (their values in w where t_val is given: J).
 template <class Op>
-__global__ void __launch_bounds__(kNnThreads)
+__global__ void __launch_bounds__(kSweepBound)
 grid_sweep_kernel(const float* __restrict__ t_xyz, const float* __restrict__ t_val,
                   const int* __restrict__ t_count,
                   const float* __restrict__ q_xyz, const long long* __restrict__ q_idx,
@@ -457,6 +396,543 @@ int launch(const float* t_xyz, const float* t_val, const int* t_count, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- kernels G and K: one warp a unit of one bucket's queries ----
+
+constexpr int kCounters = 4;        // G, K: the counts a warp writes where asked
+constexpr int kBatch = 256;         // G, K: scan positions ordered at once (26 x 8 tiles)
+constexpr int kPackThreads = 1024;  // the pre-pass's CTA
+
+// One target tile in shared memory: kT consecutive slots of a bucket as
+// the grid holds them, (x, y, z) a slot, its box, its first global slot
+// (bucket * cap + tile * kT: the candidate order's key) and its filled
+// slots.
+struct alignas(16) GridStage {
+  float pt[3 * kT];
+  float4 lo, hi;
+  int g0, n, pad0, pad1;
+};
+
+// A warp's view of its unit's bucket b: the distinct wrapped neighbours of
+// b (ascending where an axis has fewer than 3 cells, else in offset order),
+// their filled counts, and the exclusive scan of their tiles
+// (ceil(count / kT) each, none for b itself, which is swept first and
+// apart): scan position p lies in neighbour k for tstart[k] <= p <
+// tstart[k + 1], and tstart[n] is the number of positions.
+struct TileDir {
+  int id[32];
+  int cnt[32];
+  int tstart[33];
+  int n;
+  int own;    // b's rank among the neighbours
+  int first;  // the smallest neighbour
+};
+
+// Lanes 0..31: the directory of bucket b (counts clamped to cap).
+__device__ __forceinline__ void tile_directory(TileDir& d, int b, int gx, int gy, int gz,
+                                               const int* __restrict__ count, int cap,
+                                               int lane) {
+  int n = kNbr, nb = -1;
+  if (gx >= 3 && gy >= 3 && gz >= 3) {
+    // 27 distinct neighbours: in offset order (the visits' order does not
+    // matter: (d2, slot) order decides), the smallest found apart
+    if (lane < kNbr) {
+      const int bx = b % gx, by = (b / gx) % gy, bz = b / (gx * gy);
+      nb = (((bz + lane / 9 - 1 + gz) % gz) * gy + (by + (lane / 3) % 3 - 1 + gy) % gy) * gx +
+           (bx + lane % 3 - 1 + gx) % gx;
+    }
+    int first = lane < kNbr ? nb : INT_MAX;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) first = min(first, __shfl_xor_sync(kAll, first, o));
+    d.id[lane] = nb;
+    if (lane == 0) d.first = first;
+  } else {
+    n = neighbour_ids(d.id, b, gx, gy, gz, lane);
+    nb = lane < n ? d.id[lane] : -1;
+    if (lane == 0) d.first = d.id[0];
+  }
+  const int c = lane < n ? min(count[nb], cap) : 0;
+  const bool own = nb == b;
+  const unsigned mine = __ballot_sync(kAll, own);
+  d.cnt[lane] = c;
+  d.tstart[lane + 1] = warp_scan(own ? 0 : (c + kT - 1) / kT, lane);
+  if (lane == 0) {
+    d.tstart[0] = 0;
+    d.n = n;
+    d.own = __ffs(static_cast<int>(mine)) - 1;
+  }
+  __syncwarp();
+}
+
+// The slot of this lane's query: the answered slot (q_ok, in slot order)
+// of rank r0 + lane in its bucket, -1 if the bucket has fewer; 256 slots a
+// pass, eight a lane.
+__device__ __forceinline__ int unit_slot(const unsigned char* __restrict__ ok, int cap,
+                                         int r0, int* tab, int lane) {
+  tab[lane] = -1;
+  __syncwarp();
+  int seen = 0;
+  for (int c0 = 0; c0 < cap && seen < r0 + 32; c0 += 256) {
+    unsigned bits = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int s = c0 + lane * 8 + i;
+      if (s < cap && ok[s]) bits |= 1u << i;
+    }
+    const int c = __popc(bits);
+    const int incl = warp_scan(c, lane);
+    int rank = seen + incl - c;
+    while (bits != 0) {
+      const int i = __ffs(static_cast<int>(bits)) - 1;
+      bits &= bits - 1;
+      if (rank >= r0 && rank < r0 + 32) tab[rank - r0] = c0 + lane * 8 + i;
+      ++rank;
+    }
+    seen += __shfl_sync(kAll, incl, 31);
+  }
+  __syncwarp();
+  const int slot = tab[lane];
+  __syncwarp();
+  return slot;
+}
+
+__device__ __forceinline__ void cp_async16_ca(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+// Tile t = {code (bucket * tiles + tile), filled slots n} into stage `st`
+// (cull.cuh's sweep issues it): its points 16 bytes a lane where the grid's
+// runs are 16-byte aligned (a16: cap % 4 == 0 and an aligned base; a
+// partial run then ends at most 12 bytes past its last slot, inside its
+// bucket), else 4 bytes a lane; its box by lanes 30 and 31.
+__device__ __forceinline__ void issue_tile(GridStage& st, const float* __restrict__ t_xyz,
+                                           const float4* __restrict__ boxes, int2 t,
+                                           int tiles, int cap, bool a16, int lane) {
+  const int g0 = t.x / tiles * cap + t.x % tiles * kT;
+  const float* src = t_xyz + 3LL * g0;
+  const int nf = 3 * t.y;
+  if (a16) {
+    if (4 * lane < nf) cp_async16_ca(&st.pt[4 * lane], src + 4 * lane);
+  } else {
+    for (int i = lane; i < nf; i += 32) cp_async4(&st.pt[i], src + i);
+  }
+  if (lane >= 30) cp_async16(lane == 30 ? &st.lo : &st.hi, boxes + 2LL * t.x + lane - 30);
+  if (lane == 0) {
+    st.g0 = g0;
+    st.n = t.y;
+  }
+}
+
+// Kernel G's selection. Each lane keeps its query's first member in (d2,
+// slot) order (slot order is candidate order: the neighbours are
+// ascending), a member being within r2; that is the query's threshold, and
+// a tile is reached when its bound is within r2 and comes before it.
+struct NnSel {
+  const long long* t_idx;  // target cell_idx (H, cap)
+  int n_p;
+  float r2;
+  int* idx_out;
+  float* d2_out;
+
+  struct State {
+    float d;
+    int g;  // -1: no member yet, d = BIG
+  };
+  __device__ __forceinline__ State init() const { return {kBig, -1}; }
+  __device__ __forceinline__ void bound(const State& s, float& d, int& i) const {
+    d = s.d;
+    i = s.g;
+  }
+  __device__ __forceinline__ float worst(float d) const { return fminf(d, r2); }
+  __device__ __forceinline__ bool reaches(float bb, int g0, float d, int i) const {
+    return bb <= r2 && before(bb, g0, d, i);
+  }
+  __device__ __forceinline__ void consume(State& s, float qx, float qy, float qz,
+                                          const GridStage& st, float, int) const {
+#pragma unroll 4
+    for (int j = 0; j < st.n; ++j) {
+      const float d2 = sq_dist(qx, qy, qz, st.pt[3 * j], st.pt[3 * j + 1], st.pt[3 * j + 2]);
+      if (d2 <= r2 && before(d2, st.g0 + j, s.d, s.g)) {
+        s.d = d2;
+        s.g = st.g0 + j;
+      }
+    }
+  }
+  // the query's first member, or (BIG, its first candidate's index: slot 0
+  // of the smallest neighbour, what argmin over a row of BIG returns)
+  __device__ __forceinline__ void finish(const State& s, long long row, const TileDir& dir,
+                                         int cap) const {
+    const long long r = t_idx[s.g < 0 ? static_cast<long long>(dir.first) * cap : s.g];
+    idx_out[row] = r >= n_p ? 0 : static_cast<int>(r);
+    d2_out[row] = s.d;
+  }
+};
+
+// Kernel K's selection. Each lane keeps its query's first kK candidates in
+// (d2, slot) order in registers, a candidate at BIG or beyond (or, with
+// exclude, at d2 <= 1e-12) never entering, so an unfilled entry stays (BIG,
+// INT_MAX); the kK-th entry is the query's threshold, and a tile is
+// reached when its bound comes before it.
+struct KnnSel {
+  const long long* t_idx;  // target cell_idx (H, cap)
+  int n_p;
+  int k;
+  int exclude;  // exclude_self: d2 <= 1e-12 goes to BIG
+  float r2;     // valid = d2 <= r2
+  int* idx_out;              // (nq, k)
+  float* d2_out;             // (nq, k)
+  unsigned char* valid_out;  // (nq, k)
+
+  struct State {
+    float d[kK];
+    int i[kK];
+  };
+  __device__ __forceinline__ State init() const {
+    State s;
+#pragma unroll
+    for (int j = 0; j < kK; ++j) {
+      s.d[j] = kBig;
+      s.i[j] = INT_MAX;
+    }
+    return s;
+  }
+  __device__ __forceinline__ void bound(const State& s, float& d, int& i) const {
+    d = s.d[kK - 1];
+    i = s.i[kK - 1];
+  }
+  __device__ __forceinline__ float worst(float d) const { return d; }
+  __device__ __forceinline__ bool reaches(float bb, int g0, float d, int i) const {
+    return before(bb, g0, d, i);
+  }
+  // the tile's candidates all at once against the threshold at its start
+  // (no branch), then each of them against the kK-th as it is then
+  __device__ __forceinline__ void consume(State& s, float qx, float qy, float qz,
+                                          const GridStage& st, float bd, int bi) const {
+    unsigned cand = 0;
+#pragma unroll 4
+    for (int j = 0; j < st.n; ++j) {
+      const float d2 = sq_dist(qx, qy, qz, st.pt[3 * j], st.pt[3 * j + 1], st.pt[3 * j + 2]);
+      const bool in = d2 < kBig && !(exclude && d2 <= 1e-12f) && before(d2, st.g0 + j, bd, bi);
+      cand |= static_cast<unsigned>(in) << j;
+    }
+    while (cand != 0) {
+      const int j = __ffs(static_cast<int>(cand)) - 1;
+      cand &= cand - 1;
+      const float d2 = sq_dist(qx, qy, qz, st.pt[3 * j], st.pt[3 * j + 1], st.pt[3 * j + 2]);
+      if (before(d2, st.g0 + j, s.d[kK - 1], s.i[kK - 1])) insert(s.d, s.i, d2, st.g0 + j);
+    }
+  }
+  __device__ __forceinline__ void finish(const State& s, long long row, const TileDir&,
+                                         int) const {
+#pragma unroll
+    for (int j = 0; j < kK; ++j) {
+      if (j < k) {
+        const float d = s.d[j];
+        int r = 0;
+        if (d < kBig) {
+          const long long t = t_idx[s.i[j]];
+          r = t >= n_p ? 0 : static_cast<int>(t);
+        }
+        idx_out[row * k + j] = r;
+        d2_out[row * k + j] = d;
+        valid_out[row * k + j] = d <= r2;
+      }
+    }
+  }
+};
+
+// a warp's shared memory: its directory, its ring, a batch of the other
+// tiles' bounds, and its unit's slots
+struct SelShared {
+  TileDir dir;
+  GridStage ring[kStages];
+  float lb[kBatch];    // the batch's scan positions: their bound from the queries' box
+  int2 tile[kBatch];   // and their tile {code, filled slots}
+  int slots[32];
+};
+
+// Kernels G and K. A persistent grid: warp w takes the units w, w + W, ...
+// (W the grid's warps) of the pre-pass's list, a unit being up to 32
+// answered slots of one query bucket, a lane a query. A unit sweeps its
+// bucket's own tiles first, then the other neighbours' tiles in increasing
+// bound from the box of the warp's queries, kBatch scan positions at a
+// time, while that bound is within the loosest threshold: a tile is visited
+// when its box bound reaches some query (Op::reaches), and checked again
+// when it arrives. `counters`, where given, receives per warp the (query,
+// candidate) pairs compared, the tiles visited, the units and the queries
+// answered.
+template <class Op>
+__global__ void __launch_bounds__(kThreads)
+grid_select_kernel(const float* __restrict__ t_xyz, const float4* __restrict__ boxes,
+                   const int* __restrict__ t_count, const float* __restrict__ q_xyz,
+                   const long long* __restrict__ q_idx, const unsigned char* __restrict__ q_ok,
+                   const int* __restrict__ units, int max_units, int cap, int gx, int gy,
+                   int gz, bool a16, long long* __restrict__ counters, Op op) {
+  __shared__ SelShared shared[kWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  SelShared& sh = shared[warp];
+  const int tiles = (cap + kT - 1) / kT, gmax = (cap + 31) / 32;
+  const float nan = __int_as_float(0x7fc00000);
+  const float inf = __int_as_float(0x7f800000);
+  const int n_units = min(units[0], max_units);
+  long long pairs = 0, visited = 0, done = 0, answered = 0;
+  const auto issue = [&](GridStage& st, int2 t) {
+    issue_tile(st, t_xyz, boxes, t, tiles, cap, a16, lane);
+  };
+  for (int u = blockIdx.x * kWarps + warp; u < n_units; u += gridDim.x * kWarps) {
+    const int code = units[1 + u];
+    const int b = code / gmax;
+    __syncwarp();  // the last unit's directory and tables are read
+    tile_directory(sh.dir, b, gx, gy, gz, t_count, cap, lane);
+    const int slot = unit_slot(q_ok + static_cast<long long>(b) * cap, cap, code % gmax * 32,
+                               sh.slots, lane);
+    const bool active = slot >= 0;
+    const long long qslot = static_cast<long long>(b) * cap + (active ? slot : 0);
+    const float qx = active ? q_xyz[3 * qslot] : nan;  // NaN: reaches nothing
+    const float qy = active ? q_xyz[3 * qslot + 1] : nan;
+    const float qz = active ? q_xyz[3 * qslot + 2] : nan;
+    const int n_q = __popc(__ballot_sync(kAll, active));
+    const Box qb = warp_box(active, qx, qy, qz);
+    typename Op::State st = op.init();
+
+    auto consume = [&](const GridStage& s) {
+      float bd;
+      int bi;
+      op.bound(st, bd, bi);
+      const bool reach =
+          active && op.reaches(box_bound(qx, qy, qz, s.lo, s.hi), s.g0, bd, bi);
+      if (__any_sync(kAll, reach)) {
+        op.consume(st, qx, qy, qz, s, bd, bi);
+        pairs += static_cast<long long>(n_q) * s.n;
+        ++visited;
+      }
+    };
+
+    // the own bucket's tiles, all of them, in order
+    const int own_n = sh.dir.cnt[sh.dir.own];
+    int t_own = 0;
+    sweep(sh.ring, [&]() -> int2 {
+      if (t_own * kT >= own_n) return make_int2(-1, 0);
+      const int t = t_own++;
+      return make_int2(b * tiles + t, min(kT, own_n - t * kT));
+    }, issue, consume);
+
+    // then the other neighbours' tiles, nearest first: kBatch scan
+    // positions at a time (all of them up to a cap of 256), each with its
+    // bound from the box of the warp's queries, taken in increasing order
+    // while the next is within the loosest threshold, and visited when it
+    // reaches some query
+    const int total = sh.dir.tstart[sh.dir.n];
+    int base = -kBatch, n_batch = 0;
+    unsigned taken = ~0u;  // bit i: this lane's position lane + 32 i, done
+    sweep(sh.ring, [&]() -> int2 {
+      for (;;) {
+        float bd;
+        int bi;
+        op.bound(st, bd, bi);
+        float worst = active ? op.worst(bd) : -inf;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) worst = fmaxf(worst, __shfl_xor_sync(kAll, worst, o));
+        // this lane's nearest position left, then the warp's (ties to the
+        // lower position)
+        float near = inf;
+        int at = INT_MAX;
+#pragma unroll
+        for (int i = 0; i < kBatch / 32; ++i) {
+          const float lb = sh.lb[lane + 32 * i];
+          if (!((taken >> i) & 1u) && lb < near) {
+            near = lb;
+            at = lane + 32 * i;
+          }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          const float on = __shfl_xor_sync(kAll, near, o);
+          const int oa = __shfl_xor_sync(kAll, at, o);
+          if (on < near || (on == near && oa < at)) {
+            near = on;
+            at = oa;
+          }
+        }
+        if (at == INT_MAX || !(near <= worst)) {  // the batch is done: the next
+          base += kBatch;
+          if (base >= total) return make_int2(-1, 0);
+          n_batch = min(kBatch, total - base);
+          __syncwarp();  // the last batch's bounds are read
+#pragma unroll
+          for (int i = 0; i < kBatch / 32; ++i) {
+            const int j = lane + 32 * i, p = base + j;
+            float lb = inf;
+            int2 tile = make_int2(-1, 0);
+            if (j < n_batch) {
+              int lo = 0, hi = sh.dir.n;  // tstart[lo] <= p < tstart[hi]
+              while (hi - lo > 1) {
+                const int mid = (lo + hi) / 2;
+                if (sh.dir.tstart[mid] <= p) lo = mid; else hi = mid;
+              }
+              const int t = p - sh.dir.tstart[lo];
+              tile = make_int2(sh.dir.id[lo] * tiles + t, min(kT, sh.dir.cnt[lo] - t * kT));
+              lb = boxes_bound(qb, __ldg(boxes + 2LL * tile.x), __ldg(boxes + 2LL * tile.x + 1));
+            }
+            sh.lb[j] = lb;
+            sh.tile[j] = tile;
+          }
+          taken = 0;
+          __syncwarp();
+          continue;
+        }
+        if (lane == at % 32) taken |= 1u << (at / 32);
+        const int2 tile = sh.tile[at];
+        const int g0 = tile.x / tiles * cap + tile.x % tiles * kT;
+        const bool reach = active && op.reaches(
+            box_bound(qx, qy, qz, __ldg(boxes + 2LL * tile.x), __ldg(boxes + 2LL * tile.x + 1)),
+            g0, bd, bi);
+        if (__any_sync(kAll, reach)) return tile;
+      }
+    }, issue, consume);
+
+    if (active) op.finish(st, q_idx[qslot], sh.dir, cap);
+    ++done;
+    answered += n_q;
+  }
+  if (counters != nullptr && lane == 0) {
+    long long* c = counters + kCounters * (blockIdx.x * kWarps + warp);
+    c[0] = pairs;
+    c[1] = visited;
+    c[2] = done;
+    c[3] = answered;
+  }
+}
+
+// The pre-pass of G and K, one launch. CTAs 0 .. unit_ctas - 1 (where
+// units are asked for) list the units of the query grid, each for
+// kPackThreads buckets, a thread a bucket: ceil(min(q_count[b], cap) / 32)
+// units b * gmax + j (j the unit's group of 32 answered slots), a block
+// scan placing them after one another;
+// where the CTA's run goes in the list is handed out by an atomic on the
+// count (units[0], zeroed before the launch), so the runs lie in no fixed
+// order, which no result depends on (a unit writes its own rows only).
+// The CTAs after them (where boxes are asked for) take a warp a target
+// bucket: the box of each of its filled tiles (lo, hi: the least and
+// largest x, y, z of its filled slots; w 0); the boxes of empty tiles are
+// not written, as no kernel reads them. Min and max are exact in any
+// order, so the boxes repeat bit for bit (up to the sign of a zero).
+__global__ void __launch_bounds__(kPackThreads)
+grid_pack_kernel(const float* __restrict__ t_xyz, const int* __restrict__ t_count,
+                 const int* __restrict__ q_count, int h, int cap, int unit_ctas,
+                 float4* __restrict__ boxes, int* __restrict__ units, int max_units) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int tiles = (cap + kT - 1) / kT, gmax = (cap + 31) / 32;
+  if (blockIdx.x < unit_ctas) {
+    __shared__ int sums[kPackThreads / 32];
+    __shared__ int base;
+    const int b = blockIdx.x * kPackThreads + threadIdx.x;
+    const int mine = b < h ? (min(max(q_count[b], 0), cap) + 31) / 32 : 0;
+    const int incl = warp_scan(mine, lane);
+    if (lane == 31) sums[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      const int all = warp_scan(sums[lane], lane);
+      sums[lane] = all;
+      if (lane == 31) base = atomicAdd(units, all);
+    }
+    __syncthreads();
+    const int off = base + incl - mine + (warp > 0 ? sums[warp - 1] : 0);
+    for (int j = 0; j < mine && off + j < max_units; ++j) units[1 + off + j] = b * gmax + j;
+    return;
+  }
+  const int b = (blockIdx.x - unit_ctas) * (kPackThreads / 32) + warp;
+  if (b >= h) return;  // the whole warp
+  const int n = min(t_count[b], cap);
+  const float inf = __int_as_float(0x7f800000);
+  for (int t = 0; t * kT < n; ++t) {  // the filled tiles: no kernel reads another
+    const int s = t * kT + lane;
+    const bool in = s < n;
+    float x = 0.f, y = 0.f, z = 0.f;
+    if (in) {
+      const float* p = t_xyz + 3 * (static_cast<long long>(b) * cap + s);
+      x = p[0];
+      y = p[1];
+      z = p[2];
+    }
+    Box box{in ? x : inf, in ? y : inf, in ? z : inf, in ? x : -inf, in ? y : -inf,
+            in ? z : -inf};
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      box.lx = fminf(box.lx, __shfl_xor_sync(kAll, box.lx, o));
+      box.ly = fminf(box.ly, __shfl_xor_sync(kAll, box.ly, o));
+      box.lz = fminf(box.lz, __shfl_xor_sync(kAll, box.lz, o));
+      box.hx = fmaxf(box.hx, __shfl_xor_sync(kAll, box.hx, o));
+      box.hy = fmaxf(box.hy, __shfl_xor_sync(kAll, box.hy, o));
+      box.hz = fmaxf(box.hz, __shfl_xor_sync(kAll, box.hz, o));
+    }
+    if (lane == 0) {
+      const long long tile = static_cast<long long>(b) * tiles + t;
+      boxes[2 * tile] = make_float4(box.lx, box.ly, box.lz, 0.f);
+      boxes[2 * tile + 1] = make_float4(box.hx, box.hy, box.hz, 0.f);
+    }
+  }
+}
+
+// the grids' shape as the kernels index them: H = Gx Gy Gz buckets of cap
+// slots, every global slot an int
+bool grid_shape_ok(int h, int cap, int gx, int gy, int gz) {
+  return h >= 1 && cap >= 1 && gx >= 1 && gy >= 1 && gz >= 1 &&
+         static_cast<long long>(gx) * gy * gz == h &&
+         static_cast<long long>(h) * cap < (1LL << 31);
+}
+
+int launch_pack(const float* t_xyz, const int* t_count, const int* q_count, int h, int cap,
+                float* boxes, int* units, int max_units, cudaStream_t stream) {
+  if (units != nullptr) {
+    const cudaError_t err = cudaMemsetAsync(units, 0, sizeof(int), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int unit_ctas = units == nullptr ? 0 : (h + kPackThreads - 1) / kPackThreads;
+  const int box_ctas = boxes == nullptr ? 0 : (h + kPackThreads / 32 - 1) / (kPackThreads / 32);
+  if (unit_ctas + box_ctas == 0) return static_cast<int>(cudaSuccess);
+  grid_pack_kernel<<<unit_ctas + box_ctas, kPackThreads, 0, stream>>>(
+      t_xyz, t_count, q_count, h, cap, unit_ctas, reinterpret_cast<float4*>(boxes), units,
+      max_units);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The persistent grid of a selection kernel: as many CTAs as the card keeps
+// resident (found once a device), fewer where the units cannot fill them.
+template <class Op>
+int launch_select(const Op& op, const float* t_xyz, const float* boxes, const int* t_count,
+                  const float* q_xyz, const long long* q_idx, const unsigned char* q_ok,
+                  const int* units, int max_units, int cap, int gx, int gy, int gz,
+                  long long* counters, long long counters_len, cudaStream_t stream) {
+  static int resident[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    int sms = 0, per = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, grid_select_kernel<Op>,
+                                                          kThreads, 0);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    resident[dev] = sms * (per > 0 ? per : 1);
+  }
+  const long long want = (static_cast<long long>(max_units) + kWarps - 1) / kWarps;
+  const int blocks = static_cast<int>(want < resident[dev] ? (want > 0 ? want : 1)
+                                                           : resident[dev]);
+  if (counters != nullptr && counters_len < static_cast<long long>(kCounters) * blocks * kWarps) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool a16 = cap % 4 == 0 && reinterpret_cast<unsigned long long>(t_xyz) % 16 == 0;
+  grid_select_kernel<Op><<<blocks, kThreads, 0, stream>>>(
+      t_xyz, reinterpret_cast<const float4*>(boxes), t_count, q_xyz, q_idx, q_ok, units,
+      max_units, cap, gx, gy, gz, a16, counters, op);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The grids of core/grid.py:build_grid, both of h = gx gy gz buckets of cap
@@ -467,14 +943,42 @@ int launch(const float* t_xyz, const float* t_val, const int* t_count, const flo
 // has no slot to answer). r2 the float32 squared radius (K: of `valid`).
 // Each returns cudaGetLastError() after its one launch.
 
-// Kernel G: idx_out (nq,) i32, d2_out (nq,) f32 at the answered rows.
+// The pre-pass of kernels G and K alone (grid_pack_kernel): where units is
+// not null, the units of the query grid (q_count) into units (1 +
+// max_units,) i32; where boxes is not null, the boxes of the target grid's
+// tiles into boxes (h * ceil(cap / 32), 2, 4) f32.
+extern "C" int mm_grid_pack(const float* t_xyz, const int* t_count, const int* q_count, int h,
+                            int cap, int gx, int gy, int gz, float* boxes, int* units,
+                            int max_units, void* stream) {
+  if (!grid_shape_ok(h, cap, gx, gy, gz) || (units != nullptr && max_units < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_pack(t_xyz, t_count, q_count, h, cap, boxes, units, max_units,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// Kernel G: idx_out (nq,) i32, d2_out (nq,) f32 at the answered rows. Two
+// launches: the pre-pass (the target's boxes into `boxes` unless
+// boxes_ready, the units into `units` (1 + max_units,) i32), then the
+// selection. counters: null, or (counters_len,) i64 receiving 4 counts a
+// warp (grid_select_kernel).
 extern "C" int mm_grid_nn(const float* t_xyz, const long long* t_idx, const int* t_count,
                           const float* q_xyz, const long long* q_idx,
                           const unsigned char* q_ok, const int* q_count, int h, int cap,
-                          int gx, int gy, int gz, float r2, int n_p, int* idx_out,
-                          float* d2_out, void* stream) {
-  return launch(t_xyz, nullptr, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz,
-                r2, 1, kNnThreads, NnOp{t_idx, n_p, idx_out, d2_out}, stream);
+                          int gx, int gy, int gz, float r2, int n_p, float* boxes,
+                          int boxes_ready, int* units, int max_units, int* idx_out,
+                          float* d2_out, long long* counters, long long counters_len,
+                          void* stream) {
+  if (!grid_shape_ok(h, cap, gx, gy, gz) || max_units < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = launch_pack(t_xyz, t_count, q_count, h, cap, boxes_ready ? nullptr : boxes,
+                              units, max_units, st);
+  if (err != 0) return err;
+  return launch_select(NnSel{t_idx, n_p, r2, idx_out, d2_out}, t_xyz, boxes, t_count, q_xyz,
+                       q_idx, q_ok, units, max_units, cap, gx, gy, gz, counters,
+                       counters_len, st);
 }
 
 // Kernel H: s0_out (nq,), mean_out (nq, 3), cov_out (nq, 3, 3) f32 at the
@@ -518,15 +1022,23 @@ extern "C" int mm_grid_smooth(const float* t_xyz, const float* t_val, const int*
 }
 
 // Kernel K: 1 <= k <= 26; exclude_self 0 or 1; idx_out (nq, k) i32, d2_out
-// (nq, k) f32, valid_out (nq, k) bool at the answered rows.
+// (nq, k) f32, valid_out (nq, k) bool at the answered rows. The pre-pass
+// (the target's boxes into `boxes`, the units into `units`) and the
+// selection as kernel G's.
 extern "C" int mm_grid_knn(const float* t_xyz, const long long* t_idx, const int* t_count,
                            const float* q_xyz, const long long* q_idx,
                            const unsigned char* q_ok, const int* q_count, int h, int cap,
                            int gx, int gy, int gz, float r2, int k, int exclude_self, int n_p,
-                           int* idx_out, float* d2_out, unsigned char* valid_out,
-                           void* stream) {
-  if (k < 1 || k > kK) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(t_xyz, nullptr, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz,
-                r2, 1, kRadiusThreads,
-                KnnOp{t_idx, n_p, k, exclude_self, r2, idx_out, d2_out, valid_out}, stream);
+                           float* boxes, int* units, int max_units, int* idx_out,
+                           float* d2_out, unsigned char* valid_out, long long* counters,
+                           long long counters_len, void* stream) {
+  if (k < 1 || k > kK || !grid_shape_ok(h, cap, gx, gy, gz) || max_units < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = launch_pack(t_xyz, t_count, q_count, h, cap, boxes, units, max_units, st);
+  if (err != 0) return err;
+  return launch_select(KnnSel{t_idx, n_p, k, exclude_self, r2, idx_out, d2_out, valid_out},
+                       t_xyz, boxes, t_count, q_xyz, q_idx, q_ok, units, max_units, cap, gx,
+                       gy, gz, counters, counters_len, st);
 }

@@ -95,7 +95,8 @@ __device__ __forceinline__ void members(Stage* ring, float4* table,
     keep &= keep - 1;
     return base + b;
   };
-  sweep(ring, pts, boxes, lane, next, [&](const Stage& st) {
+  sweep(ring, next, [&](Stage& st, int t) { issue(st, pts, boxes, t, lane); },
+        [&](const Stage& st) {
     unsigned in = 0;
 #pragma unroll
     for (int i = 0; i < kMine; ++i) {

@@ -197,7 +197,8 @@ scale_space_kernel(const float4* __restrict__ pts, const float4* __restrict__ bo
       }
     }
   };
-  sweep(ring[warp], pts, boxes, lane, next, consume);
+  sweep(ring[warp], next,
+        [&](Stage& st, int t) { issue(st, pts, boxes, t, lane); }, consume);
   // the G partial sums, in a tree every lane of the query computes alike
 #pragma unroll
   for (int o = 1; o < G; o <<= 1) {
@@ -219,30 +220,7 @@ scale_space_kernel(const float4* __restrict__ pts, const float4* __restrict__ bo
 
 // ---- kernel D ----
 
-// (da, ia) before (db, ib) in the lists' order: by d2, then by index
-__device__ __forceinline__ bool before(float da, int ia, float db, int ib) {
-  return da < db || (da == db && ia < ib);
-}
-
-// (d, j) into a list sorted by (d2, index) (the caller has checked that it
-// comes before the last entry): it goes after every entry before it, and
-// the entries after it move down one slot. Each slot reads the old values of
-// itself and its predecessor, so the slots are written from the last to the
-// first.
-__device__ __forceinline__ void insert(float (&dist)[kK], int (&idx)[kK], float d,
-                                       int j) {
-#pragma unroll
-  for (int i = kK - 1; i > 0; --i) {
-    const bool shift = before(d, j, dist[i - 1], idx[i - 1]);
-    const bool here = !shift && before(d, j, dist[i], idx[i]);
-    dist[i] = shift ? dist[i - 1] : (here ? d : dist[i]);
-    idx[i] = shift ? idx[i - 1] : (here ? j : idx[i]);
-  }
-  if (before(d, j, dist[0], idx[0])) {
-    dist[0] = d;
-    idx[0] = j;
-  }
-}
+// cull.cuh's before() and insert() keep the lists: by d2, then by index
 
 // whether a point of the tile [lo, hi] may come before (d26, i26): a valid
 // one within the box bound, or its first masked one at BIG
@@ -398,7 +376,8 @@ knn_kernel(const float4* __restrict__ pts, const float4* __restrict__ boxes,
     keep &= keep - 1;
     return __shfl_sync(kAll, chunk_tile, b);
   };
-  sweep(my, pts, boxes, lane, next, [&](const Stage& st) {
+  sweep(my, next, [&](Stage& st, int t) { issue(st, pts, boxes, t, lane); },
+        [&](const Stage& st) {
     // again, against the bounds as they are when the tile arrives
     float bd;
     int bi;

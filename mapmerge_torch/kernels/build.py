@@ -58,7 +58,7 @@ NVCC_FLAGS = (
 #: __init__.py): no fast-math and no -march, so both libraries built on one
 #: host give the same bits
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
-_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_vp, _ci, _cf, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: source -> {C function: argument types}; every function returns an int,
 #: for a kernel the CUDA error code of its launches
 SOURCES = {
@@ -92,9 +92,12 @@ SOURCES = {
         "mm_radius_moments": [_vp, _vp, _ci, _vp, _ci, _cf, _vp, _vp, _vp, _vp],
     },
     "grid.cu": {
+        # G and K: the pre-pass's buffers; the counters (null on the
+        # package's calls) and their length
+        "mm_grid_pack": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _ci, _vp],
         "mm_grid_nn": [
             _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _ci, _vp,
-            _vp, _vp,
+            _ci, _vp, _ci, _vp, _vp, _vp, _cll, _vp,
         ],
         "mm_grid_moments": [
             _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _vp, _vp, _vp,
@@ -110,7 +113,7 @@ SOURCES = {
         ],
         "mm_grid_knn": [
             _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _ci, _ci, _ci,
-            _vp, _vp, _vp, _vp,
+            _vp, _vp, _ci, _vp, _vp, _vp, _vp, _cll, _vp,
         ],
     },
     "mapmerge_native.cpp": {

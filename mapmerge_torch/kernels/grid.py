@@ -14,16 +14,30 @@ grid octave). None is a TPU kernel: the JAX package leaves all five to XLA
 (mapmerge_tpu/ops/grid.py `grid_query`).
 
 Each takes the target grid and the query grid of core/grid.build_grid and
-reads both in place, one launch a call: one CTA a query bucket (a bucket
-with no query exits at once, so nothing is read back to the host), one
-thread a query slot, against the filled slots of the distinct wrapped
-neighbour buckets of its bucket, in ascending bucket id, then slot order
-(core/grid._candidates' order). The kernels read the target slots s <
-count[h]; for a grid from build_grid that is exactly cell_ok, and every
-caller's target grid comes from build_grid. The query side is the plain
-version's: the query grid's slots with cell_ok set are answered, the rows
-of the others (the queries the query-side cap dropped, masked queries) keep
-the plain version's defaults.
+reads both in place, with nothing read back to the host. The candidates of
+a query slot are the filled slots of the distinct wrapped neighbour buckets
+of its bucket, in ascending bucket id, then slot order (core/grid.
+_candidates' order). The kernels read the target slots s < count[h]; for a
+grid from build_grid that is exactly cell_ok, and every caller's target
+grid comes from build_grid. The query side is the plain version's: the
+query grid's slots with cell_ok set are answered, the rows of the others
+(the queries the query-side cap dropped, masked queries) keep the plain
+version's defaults.
+
+H, I and J are one launch a call: one CTA a query bucket (a bucket with no
+query exits at once), one thread a query slot, every candidate in order. G
+and K need only the first member, or the first k candidates, of a query,
+and cull: a call launches the pre-pass (`pack`, counted as "grid_pack"),
+which writes the box of every run of TILE slots of each target bucket and
+lists the units of the query grid (up to 32 answered slots of one bucket,
+a lane a query), then the kernel, whose warps take the units and skip,
+exactly, every tile whose box bound cannot come before a query's threshold
+in (d2, slot) order. A caller that queries one target grid many times (ICP)
+makes its boxes once (`boxes`, also counted as "grid_pack") and passes them
+to `nn_query`, whose pre-pass then lists the units alone.
+`select_counters` launches G or K once more with its counters on: the pairs
+it compared, the tiles it visited, its units and the share of their lanes
+that answer a query.
 
 - `nn_query` equals `nn_query_ref` bit for bit: idx and d2.
 - `count` equals `count_ref` bit for bit, the include_self subtraction
@@ -86,41 +100,36 @@ KNN_KERNEL = build.Kernel(
     source="mapmerge_torch/csrc/grid.cu",
     replaces="mapmerge_tpu/ops/grid.py:507",
 )
+#: the pre-pass of G and K (csrc/grid.cu: grid_pack_kernel), part of their
+#: port: launched with each of them, and alone by `pack`
+PACK_KERNEL = build.Kernel(
+    name="grid_pack",
+    source="mapmerge_torch/csrc/grid.cu",
+    replaces="mapmerge_tpu/ops/grid.py:594",
+)
 #: the most sigmas kernel J takes in a launch (csrc/grid.cu: kMaxSigma)
 MAX_SIGMAS = 64
 #: the longest neighbour list kernel K keeps (csrc/grid.cu: kK)
 MAX_K = 26
+#: slots a tile of the pre-pass's boxes (csrc/cull.cuh: kT)
+TILE = 32
 
 
-def nn_query(grid, qg, q: torch.Tensor, n_p: int) -> tuple[torch.Tensor, torch.Tensor]:
+def nn_query(
+    grid, qg, q: torch.Tensor, n_p: int, boxes: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Bounded 1-NN of the queries q (Q, 3) against the target grid `grid`
     (cell edge = the bound), through their query grid `qg`
     (build_grid(q, q_mask, grid's cell, dims and cap)): (idx (Q,) int32, d2
     (Q,) float32); d2 = BIG and the first candidate's index where nothing
     lies within the bound, (0, BIG) for a query in no answered slot; an
-    index >= n_p becomes 0. A CPU tensor takes the plain version; a CUDA
-    tensor launches kernel G or raises."""
+    index >= n_p becomes 0. `boxes`: `boxes(grid)` made earlier for this
+    grid, as it still is (ICP's target), or None to make them in the call.
+    A CPU tensor takes the plain version (which needs no boxes); a CUDA
+    tensor launches the pre-pass and kernel G or raises."""
     if q.device.type == "cpu":
         return nn_query_ref(grid, qg, q, n_p)
-    kernel = NN_KERNEL
-    dev, nq, dims = _operands(kernel, grid, qg, q)
-    if n_p >= 2**31:
-        raise ValueError(f"{kernel.name}: unsupported target size {n_p}")
-    idx = torch.zeros((nq,), dtype=torch.int32, device=dev)
-    d2 = torch.full((nq,), cgrid.BIG, dtype=torch.float32, device=dev)
-    if nq == 0:
-        return idx, d2
-    lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.mm_grid_nn(
-            grid.cell_xyz.data_ptr(), grid.cell_idx.data_ptr(), grid.count.data_ptr(),
-            qg.cell_xyz.data_ptr(), qg.cell_idx.data_ptr(), qg.cell_ok.data_ptr(),
-            qg.count.data_ptr(), *dims, _nn_r2(grid), n_p, idx.data_ptr(),
-            d2.data_ptr(), build.stream_handle(dev),
-        )
-    kernel.launched()
-    build.check_launch(kernel, err)
-    return idx, d2
+    return _select(NN_KERNEL, grid, qg, q, n_p, boxes=boxes)
 
 
 def moments(
@@ -220,29 +229,184 @@ def knn(
     exclude_self a candidate at d2 <= 1e-12 goes to BIG; an entry at BIG or
     beyond is (0, BIG, BIG <= r2), a query in no answered slot gets (0,
     BIG, False), an index >= n_p becomes 0. Operands and routes as
-    `nn_query`'s; kernel K."""
+    `nn_query`'s; the pre-pass and kernel K."""
     if q.device.type == "cpu":
         return knn_ref(grid, qg, q, n_p, k, r2, exclude_self)
-    kernel = KNN_KERNEL
-    dev, nq, dims = _operands(kernel, grid, qg, q)
-    if not 1 <= k <= MAX_K or n_p >= 2**31 or nq * k >= 2**31:
-        raise ValueError(f"{kernel.name}: unsupported sizes Q={nq} P={n_p} k={k}")
-    idx = torch.zeros((nq, k), dtype=torch.int32, device=dev)
-    d2 = torch.full((nq, k), cgrid.BIG, dtype=torch.float32, device=dev)
-    valid = torch.zeros((nq, k), dtype=torch.bool, device=dev)
-    if nq == 0:
-        return idx, d2, valid
+    return _select(KNN_KERNEL, grid, qg, q, n_p, k, r2, exclude_self)
+
+
+def pack(grid, qg, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pre-pass of kernels G and K alone, on their operands (the target
+    grid, the query grid of the queries q): as `pack_ref` defines it,
+    (boxes, units), but the boxes of empty tiles (outside `filled_tiles`)
+    and the units' rows past units[0] + 1 are not written, and the units'
+    runs of 1,024 buckets lie in an order of their own. A CPU tensor takes
+    pack_ref; a CUDA tensor launches the pre-pass or raises."""
+    if q.device.type == "cpu":
+        return pack_ref(grid, qg, q)
+    dev, nq, dims = _operands(PACK_KERNEL, grid, qg, q)
+    boxes = _empty_boxes(grid, dev)
+    units = torch.empty((units_max(nq, dims[0]),), dtype=torch.int32, device=dev)
+    _launch_pack(dev, grid, qg.count.data_ptr(), dims, boxes.data_ptr(), units)
+    return boxes, units
+
+
+def boxes(grid) -> torch.Tensor:
+    """The pre-pass's tile boxes of a target grid alone, for a caller that
+    queries the grid many times (ICP) and passes them to `nn_query`: as
+    `boxes_ref`, but the boxes of empty tiles are not written. A CPU grid
+    takes boxes_ref; a CUDA grid launches the pre-pass (counted as
+    "grid_pack") or raises."""
+    if grid.cell_xyz.device.type == "cpu":
+        return boxes_ref(grid)
+    # the grid stands as its own query grid: only its shape is checked
+    dev, _, dims = _operands(PACK_KERNEL, grid, grid, grid.cell_xyz.new_empty((0, 3)))
+    out = _empty_boxes(grid, dev)
+    _launch_pack(dev, grid, None, dims, out.data_ptr(), None)
+    return out
+
+
+def _launch_pack(dev, grid, q_count, dims, boxes_ptr, units) -> None:
+    """mm_grid_pack on the card: the boxes where boxes_ptr is not None, the
+    units of the query counts at q_count where `units` is not None."""
     lib = build.load()
     with torch.cuda.device(dev):
-        err = lib.mm_grid_knn(
-            grid.cell_xyz.data_ptr(), grid.cell_idx.data_ptr(), grid.count.data_ptr(),
-            qg.cell_xyz.data_ptr(), qg.cell_idx.data_ptr(), qg.cell_ok.data_ptr(),
-            qg.count.data_ptr(), *dims, r2, k, int(exclude_self), n_p, idx.data_ptr(),
-            d2.data_ptr(), valid.data_ptr(), build.stream_handle(dev),
+        err = lib.mm_grid_pack(
+            grid.cell_xyz.data_ptr(), grid.count.data_ptr(), q_count, *dims, boxes_ptr,
+            None if units is None else units.data_ptr(),
+            0 if units is None else units.numel() - 1, build.stream_handle(dev),
         )
+    PACK_KERNEL.launched()
+    build.check_launch(PACK_KERNEL, err)
+
+
+def filled_tiles(grid) -> torch.Tensor:
+    """(H T,) bool: the tiles of the target grid that hold a filled slot,
+    the boxes the pre-pass writes."""
+    h, cap = grid.cell_idx.shape
+    t = torch.arange(-(-cap // TILE), device=grid.count.device)
+    return (t[None, :] * TILE < grid.count.clamp(0, cap)[:, None]).reshape(-1)
+
+
+def units_max(nq: int, h: int) -> int:
+    """The length of the units buffer for nq queries over h buckets: its
+    count and at most nq / 32 full groups and one partial group a bucket
+    (no query lies in two slots)."""
+    return 1 + nq // 32 + min(h, nq)
+
+
+def pack_ref(grid, qg, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch pre-pass of kernels G and K: (boxes_ref(grid), units).
+    units (units_max(Q, H),) int32: their count n first, then, for each
+    query bucket b in order and j < ceil(min(count_b, C) / 32), b ceil(C /
+    32) + j: the j-th group of 32 answered slots of b, a warp's work; the
+    rows past n + 1 are 0."""
+    h, cap = grid.cell_idx.shape
+    dev = grid.cell_xyz.device
+    per = (qg.count.clamp(0, cap).to(torch.int64) + 31) // 32
+    bucket = torch.repeat_interleave(torch.arange(h, device=dev), per)
+    group = torch.arange(bucket.numel(), device=dev) - (torch.cumsum(per, 0) - per)[bucket]
+    units = torch.zeros((units_max(q.shape[0], h),), dtype=torch.int32, device=dev)
+    n = min(bucket.numel(), units.numel() - 1)
+    units[0] = n
+    units[1 : n + 1] = (bucket * -(-cap // 32) + group)[:n].to(torch.int32)
+    return boxes_ref(grid), units
+
+
+def boxes_ref(grid) -> torch.Tensor:
+    """Plain PyTorch tile boxes of a target grid: (H T, 2, 4) float32, T =
+    ceil(C / TILE): for each run of TILE slots of each target bucket (T a
+    bucket), lo = (the least x, y, z of its filled slots, 0) and hi = (the
+    largest, 0), a coordinate that is NaN left out (as fminf and fmaxf leave
+    it); a run with none has lo = +inf, hi = -inf."""
+    h, cap = grid.cell_idx.shape
+    dev = grid.cell_xyz.device
+    t = -(-cap // TILE)
+    xyz = torch.nn.functional.pad(grid.cell_xyz, (0, 0, 0, t * TILE - cap))
+    slot = torch.arange(t * TILE, device=dev)
+    filled = slot[None, :] < grid.count.clamp(0, cap).to(torch.int64)[:, None]
+    ok = filled[..., None] & ~xyz.isnan()
+    lo = torch.where(ok, xyz, torch.inf).reshape(h * t, TILE, 3).amin(dim=1)
+    hi = torch.where(ok, xyz, -torch.inf).reshape(h * t, TILE, 3).amax(dim=1)
+    zero = torch.zeros((h * t, 1), dtype=torch.float32, device=dev)
+    return torch.stack([torch.cat([lo, zero], 1), torch.cat([hi, zero], 1)], dim=1)
+
+
+def _empty_boxes(grid, dev) -> torch.Tensor:
+    h, cap = grid.cell_idx.shape
+    return torch.empty((h * -(-cap // TILE), 2, 4), dtype=torch.float32, device=dev)
+
+
+def _select(kernel: build.Kernel, grid, qg, q, n_p: int, *knn_args, boxes=None,
+            counters=None):
+    """Launch the pre-pass and kernel G (`knn_args` empty) or K (`knn_args`
+    (k, r2, exclude_self)) on the card: the outputs, their rows defaulted
+    as the plain version's. G takes the target's boxes made earlier
+    (`boxes`) where given, else the pre-pass makes them. `counters`, an
+    int64 tensor on the card, receives the kernel's per-warp counts
+    (select_counters); the package's calls pass none."""
+    dev, nq, dims = _operands(kernel, grid, qg, q)
+    if n_p >= 2**31 or dims[0] * dims[1] >= 2**31:
+        raise ValueError(f"{kernel.name}: unsupported sizes H={dims[0]} C={dims[1]} P={n_p}")
+    knn = kernel is KNN_KERNEL
+    if knn:
+        k, r2, exclude_self = knn_args
+        if not 1 <= k <= MAX_K or nq * k >= 2**31:
+            raise ValueError(f"{kernel.name}: unsupported sizes Q={nq} P={n_p} k={k}")
+        shape = (nq, k)
+    else:
+        shape = (nq,)
+    ready = boxes is not None
+    if ready:
+        build.require(f"{kernel.name}: boxes", boxes, torch.float32,
+                      (dims[0] * -(-dims[1] // TILE), 2, 4), dev)
+    idx = torch.zeros(shape, dtype=torch.int32, device=dev)
+    d2 = torch.full(shape, cgrid.BIG, dtype=torch.float32, device=dev)
+    valid = torch.zeros(shape, dtype=torch.bool, device=dev) if knn else None
+    if nq == 0:
+        return (idx, d2, valid) if knn else (idx, d2)
+    if not ready:
+        boxes = _empty_boxes(grid, dev)
+    units = torch.empty((units_max(nq, dims[0]),), dtype=torch.int32, device=dev)
+    common = (
+        grid.cell_xyz.data_ptr(), grid.cell_idx.data_ptr(), grid.count.data_ptr(),
+        qg.cell_xyz.data_ptr(), qg.cell_idx.data_ptr(), qg.cell_ok.data_ptr(),
+        qg.count.data_ptr(), *dims,
+    )
+    work = (units.data_ptr(), units.numel() - 1, idx.data_ptr(), d2.data_ptr())
+    extra = (None, 0) if counters is None else (counters.data_ptr(), counters.numel())
+    lib = build.load()
+    with torch.cuda.device(dev):
+        if knn:
+            err = lib.mm_grid_knn(*common, r2, k, int(exclude_self), n_p, boxes.data_ptr(),
+                                  *work, valid.data_ptr(), *extra, build.stream_handle(dev))
+        else:
+            err = lib.mm_grid_nn(*common, _nn_r2(grid), n_p, boxes.data_ptr(), int(ready),
+                                 *work, *extra, build.stream_handle(dev))
     kernel.launched()
+    PACK_KERNEL.launched()
     build.check_launch(kernel, err)
-    return idx, d2, valid
+    return (idx, d2, valid) if knn else (idx, d2)
+
+
+#: the length of select_counters' buffer: 4 counts a warp of a persistent
+#: grid of up to 32 resident CTAs of 4 warps on each of 256 SMs (an H100
+#: has 132)
+COUNTERS_LEN = 4 * 4 * 32 * 256
+
+
+def select_counters(name: str, grid, qg, q, n_p: int, *knn_args) -> dict:
+    """Kernel G ("grid_nn") or K ("grid_knn") launched once more on these
+    operands with its counters on (not a path of the package): the
+    (query, candidate) pairs it compared, the tiles it visited, its units
+    (warps' worth of queries) and the queries answered, summed over its
+    warps, and the share of the units' lanes that answer a query."""
+    kernel = NN_KERNEL if name == "grid_nn" else KNN_KERNEL
+    counters = torch.zeros((COUNTERS_LEN,), dtype=torch.int64, device=q.device)
+    _select(kernel, grid, qg, q, n_p, *knn_args, counters=counters)
+    pairs, tiles, units, answered = (int(v) for v in counters.view(-1, 4).sum(dim=0))
+    return {"pairs_compared": pairs, "tiles_visited": tiles, "units": units,
+            "answered": answered, "lane_share": answered / (32 * units) if units else None}
 
 
 def _recips(sigmas: list[float]) -> list[float]:

@@ -167,14 +167,16 @@ def grid_nn_query(
     q: torch.Tensor,
     n_p: int,
     q_mask: torch.Tensor | None = None,
+    boxes: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Bounded 1-NN against a PREBUILT grid whose cell edge is the bound
-    (ICP builds its target grid once). Queries outside `q_mask` stay out of
-    the overflow count; dropped queries come back unmatched (d2 = BIG).
-    Ties go to the first candidate slot, as argmin does. Kernel G
+    (ICP builds its target grid once, and kernel G's tile boxes of it once:
+    kernels/grid.boxes; None makes them in the call). Queries outside `q_mask`
+    stay out of the overflow count; dropped queries come back unmatched (d2
+    = BIG). Ties go to the first candidate slot, as argmin does. Kernel G
     (kernels/grid.nn_query)."""
     qg = build_grid(q, q_mask, grid.cell_size, grid.dims, grid.cap)
-    idx, best = grid_kernels.nn_query(grid, qg, q, n_p)
+    idx, best = grid_kernels.nn_query(grid, qg, q, n_p, boxes=boxes)
     return idx, best, qg.overflow
 
 

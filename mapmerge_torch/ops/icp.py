@@ -12,7 +12,8 @@ the host with one device-to-host read of the stop flag per iteration.
 The correspondences are the bounded exact 1-NN: the nearest-neighbour kernel
 on the dense engine, or, for targets of GRID_NN_THRESHOLD points or more, a
 cell grid of the target at the correspondence bound, built once before the
-loop (the target never moves) and queried every iteration.
+loop (the target never moves), with the tile boxes kernel G culls by, and
+queried every iteration.
 
 With a leading pair axis (clouds (B, N, ...), `initial` (B, 4, 4)) the
 same loop runs every pair of a batch on the dense engine, the counterpart of
@@ -32,6 +33,7 @@ import torch
 
 from mapmerge_torch.core import transforms as tf
 from mapmerge_torch.core.cloud import PointCloud
+from mapmerge_torch.kernels import grid as grid_kernels
 from mapmerge_torch.ops.grid import build_grid, grid_nn_query
 from mapmerge_torch.ops.matching import take
 from mapmerge_torch.ops.neighbors import (
@@ -88,7 +90,7 @@ def icp_refine(
     running = torch.ones(lead, dtype=torch.bool, device=dev)
     iterations = torch.zeros(lead, dtype=torch.int32, device=dev)
     worst = torch.zeros(lead, dtype=torch.int32, device=dev)
-    grid = None
+    grid = boxes = None
     if not batched and (
         _resolve_engine("auto", target.capacity, GRID_NN_THRESHOLD) == "grid"
     ):
@@ -96,13 +98,14 @@ def icp_refine(
             target.xyz, target.mask, float(max_correspondence_distance),
             cap=scan_cap,
         )
+        boxes = grid_kernels.boxes(grid)  # kernel G's, made once: the grid stays
     for it in range(max_iterations):
         ladder = d_hi * f32(anneal) ** f32(it)
         dist = max(ladder, d_lo)
         moved = tf.apply(t, source.xyz)
         if grid is not None:
             idx, d2, overflow = grid_nn_query(
-                grid, moved, target.capacity, q_mask=source.mask
+                grid, moved, target.capacity, q_mask=source.mask, boxes=boxes
             )
             worst = torch.maximum(worst, overflow)
         else:

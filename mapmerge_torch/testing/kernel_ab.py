@@ -30,8 +30,15 @@ times its `fpfh._spfh_grid` on it, and prints one JSON line: the card, and
 per input three medians of 20 timed calls (CUDA events around the call,
 after 3 warm-up calls), with a digest of the grid sweep's rows and of the
 outputs of the pre-pass and of C, D, E and F so that two checkouts can be
-seen to agree bit for bit. Compare in one process order on one card:
-parent, change, change, parent. C, D, E and F are timed through their
+seen to agree bit for bit. It also saves the arguments of the grid
+selection kernels' first calls on their main paths, kernel G (`grid.
+nn_query`) from ICP on eval config #2 and kernel K (`grid.knn`) at
+config5_big's first map's octave 0, and times each checkout's wrapper on
+them, held bit for bit against its plain version: each call whole (the
+pre-pass's boxes made in it) and, for G in a checkout whose `nn_query`
+takes the boxes made before (`boxes=`), given them as ICP gives them.
+Compare in one process order on one card: parent, change, change, parent.
+C, D, E and F are timed through their
 wrappers with no `packed` buffer, so each time holds the pre-pass, as an
 earlier checkout's wrapper, which takes no such buffer, is timed.
 """
@@ -115,6 +122,7 @@ def record(out: Path) -> None:
         {"r2": cs.DESC_R2},
     )
     inputs["fpfh grid config #2"] = record_config2_sweep(cs, dev)
+    inputs.update(record_grid_select(cs, dev))
     torch.save(inputs, out)
     print(f"recorded {sorted(inputs)} to {out}")
 
@@ -248,6 +256,91 @@ def record_config2_sweep(cs, dev) -> tuple:
     return seen[0]
 
 
+def record_grid_select(cs, dev) -> dict:
+    """The arguments of kernel G's first call from ICP on eval config #2
+    (chip_smoke.run_config2's merge of its five views) and of kernel K's
+    first call on config5_big's first map (its octave 0: the incremental
+    node's first tick), as chip_smoke.first_launch_inputs records them,
+    with each cell grid as a dict of its fields ("grid_nn config #2",
+    "grid_knn config5_big")."""
+    from mapmerge_torch.core.cloud import PointCloud
+    from mapmerge_torch.kernels import nn, spfh
+    from mapmerge_torch.pipeline.merging import estimate_maps_transforms
+    from mapmerge_torch.runtime.node import MapMergeNode
+    from mapmerge_torch.runtime.transport import InProcTransport
+    from mapmerge_torch.testing.scene import town_views
+
+    kept = {}
+    views, _ = town_views(cs.CONFIG2_MAPS, cs.CONFIG2_VIEW_TARGET)
+    clouds = [PointCloud.from_numpy(x, r, capacity=cs.CONFIG2_CAP, device=dev)
+              for x, r in views]
+    with cs.first_launch_inputs(nn, spfh) as seen:
+        estimate_maps_transforms(clouds, cs.config2_params(), seed=0)
+        torch.cuda.synchronize()
+    kept["grid_nn config #2"] = seen["grid_nn icp"]
+    del clouds, seen
+    views, _ = town_views(cs.CONFIG5_MAPS, cs.CONFIG5_VIEW_TARGET, keep=0.8, seed=5)
+    cap = 1 << int(np.ceil(np.log2(len(views[0][0]))))
+    transport = InProcTransport()
+    node = MapMergeNode(transport, cs.config5_big_params(cap), seed=0, incremental=True,
+                        max_robots=64, device=dev)
+    with cs.first_launch_inputs(nn, spfh) as seen:
+        cs.stream(node, transport, views, 1)
+        torch.cuda.synchronize()
+    knn = [k for k in seen if k.startswith("grid_knn Q=")]
+    kept["grid_knn config5_big"] = seen[max(knn, key=lambda k: int(k.split("=")[1]))]
+    # the positional arguments only: G's `boxes` from ICP are the change's,
+    # and each checkout makes its own
+    return {name: ([_grid_fields(a) for a in args], {}) for name, (args, _) in kept.items()}
+
+
+def _grid_fields(a):
+    """A cell grid as a dict of its fields (a saved file then holds only
+    tensors and plain values); anything else as it is."""
+    import dataclasses
+
+    if not dataclasses.is_dataclass(a):
+        return a
+    return {"cell_grid": {f.name: getattr(a, f.name) for f in dataclasses.fields(a)}}
+
+
+def _as_grid(a):
+    """_grid_fields undone with the imported checkout's CellGrid."""
+    if not (isinstance(a, dict) and "cell_grid" in a):
+        return a
+    from mapmerge_torch.core.grid import CellGrid
+
+    fields = dict(a["cell_grid"])
+    fields["dims"] = tuple(fields["dims"])
+    return CellGrid(**fields)
+
+
+def time_grid_select(kgrid, name: str, args) -> dict:
+    """Kernel G (`nn_query`) or K (`knn`) of the checkout on one saved
+    input: held bit for bit against its plain version, a digest of its
+    output, three medians of 20 timed calls, each whole (`ms`); for G, where
+    the checkout's nn_query takes the target's boxes made before
+    (kgrid.boxes), three more given them (`kept_ms`: ICP's iterations,
+    which make them once), else null."""
+    args = [_as_grid(a) for a in args]
+    grid = args[0]
+    nn = name.startswith("grid_nn")
+    kernel, ref = (kgrid.nn_query, kgrid.nn_query_ref) if nn else (kgrid.knn, kgrid.knn_ref)
+    got, want = kernel(*args), ref(*args)
+    exact = all(torch.equal(a, b) for a, b in zip(got, want))
+    kept = None
+    if nn and hasattr(kgrid, "boxes"):
+        boxes = kgrid.boxes(grid)
+        again = kernel(*args, boxes=boxes)
+        exact = exact and all(torch.equal(a, b) for a, b in zip(again, want))
+        kept = [time_ms(lambda: kernel(*args, boxes=boxes)) for _ in range(3)]
+    return {
+        "shape": f"Q={args[2].shape[0]} grid {tuple(grid.cell_idx.shape)} dims {grid.dims}",
+        "exact": exact, "digest": _digest(got),
+        "ms": [time_ms(lambda: kernel(*args)) for _ in range(3)], "kept_ms": kept,
+    }
+
+
 def time_config2_sweep(args, kwargs) -> dict:
     """The checkout's grid sweep of one config #2 cloud: its grid built
     outside the timing, as compute_fpfh builds it."""
@@ -343,6 +436,7 @@ def _digest(tensors) -> str:
 
 def time_root(inputs_path: Path, root: Path, prefix: str = "") -> None:
     sys.path.insert(0, str(root.resolve()))
+    from mapmerge_torch.kernels import grid as kgrid
     from mapmerge_torch.kernels import nn, spfh
     from mapmerge_torch.kernels import sift as ksift
 
@@ -376,6 +470,9 @@ def time_root(inputs_path: Path, root: Path, prefix: str = "") -> None:
             continue
         if name.startswith("fpfh grid"):
             result["kernels"][name] = time_config2_sweep(args, kwargs)
+            continue
+        if name.startswith(("grid_nn", "grid_knn")):
+            result["kernels"][name] = time_grid_select(kgrid, name, args)
             continue
         kernel, ref = {
             "nn": (nn.nearest_neighbor, nn.nearest_neighbor_ref),
