@@ -209,7 +209,11 @@ every query count on the path (config5_big's octaves 0 and 1, in full), J
 within SCALE_SPACE_RTOL of the field and K bit for bit in every column,
 and timed beside its plain version and its bound (J the members at 9 + 5 a
 sigma, K the pairs visited at 9); K also beside torch.cdist + topk on 4,096
-sampled answered queries, scaled (grid_library_stats).
+sampled answered queries, scaled (grid_library_stats). G, H, J and K each
+launch the pre-pass grid_pack with them (require_grid_pack), and each is
+launched once more with its counters on (select_stats: pairs compared,
+tiles visited, units, the lanes' share; H's and J's members required to be
+the plain route's exactly).
 The tile pre-pass (kernels/tiles.pack, which C, D, E and F read) launches
 once a dense SIFT octave, for both C and D, and once a call of E or F,
 exactly (require_pack), and is held exactly on its first launch on every
@@ -1327,26 +1331,35 @@ def grid_library_stats(name: str, args, got) -> dict:
 
 
 #: the threads a CTA of the one-thread-a-slot sweep (csrc/grid.cu:
-#: grid_sweep_kernel, on which G took 256 and K 128 before their own
-#: kernel): one a query slot, a CTA a query bucket
-SWEEP_THREADS = {"grid_nn": 256, "grid_knn": 128}
+#: grid_sweep_kernel, on which G took 256 and K, H and J 128 before their
+#: own kernels): one a query slot, a CTA a query bucket
+SWEEP_THREADS = {"grid_nn": 256, "grid_knn": 128, "grid_moments": 128, "grid_smooth": 128}
 
 
-def select_stats(name: str, kgrid, args) -> dict:
-    """What kernel G ("grid_nn") or K ("grid_knn") did on these inputs
-    (kgrid.select_counters, a launch of its own with the counters on): the
-    (query, candidate) pairs compared, the tiles visited, the units and the
-    share of their lanes that answer a query; beside them the share the
+def select_stats(name: str, kgrid, args, members: int | None = None) -> dict:
+    """What kernel G ("grid_nn"), K ("grid_knn"), H ("grid_moments") or J
+    ("grid_smooth") did on these inputs (kgrid.select_counters, a launch of
+    its own with the counters on): the (query, candidate) pairs compared,
+    the tiles visited, the units and the share of their lanes that answer
+    a query, and for H and J the members added, required to be `members`,
+    the plain route's (count_ref's), exactly; beside them the share the
     sweep's one-thread-a-slot CTAs gave (answered slots over the threads of
-    the groups of SWEEP_THREADS slots the answered buckets launch), and for
-    G `ms_kept`, the call given the target's boxes made before (ICP's
-    iterations; `ms` makes them in the call)."""
+    the groups of SWEEP_THREADS slots the answered buckets launch), the
+    pairs compared over the pairs the sweep visits, and for G `ms_kept`,
+    the call given the target's boxes made before (ICP's iterations; `ms`
+    makes them in the call)."""
     grid, qg = args[:2]
     threads = min(SWEEP_THREADS[name], -(-grid.cap // 32) * 32)
     groups = (qg.count.to(torch.int64) + threads - 1) // threads
     launched = int(groups.sum()) * threads
     stats = {**kgrid.select_counters(name, *args),
              "sweep_lane_share": int(qg.cell_ok.sum()) / launched if launched else None}
+    visited = grid_visit_counters(grid, qg)["pairs_visited"]
+    stats["compared_share"] = stats["pairs_compared"] / visited if visited else None
+    if "members" in stats:
+        require(stats["members"] == members,
+                f"{name}: the kernel added {stats['members']} members, the plain route "
+                f"has {members}; exact required")
     if name == "grid_nn":
         boxes = kgrid.boxes(grid)
         stats["ms_kept"] = time_ms(lambda: kgrid.nn_query(*args, boxes=boxes))
@@ -1477,8 +1490,9 @@ def _grid_moments_compare(name, kgrid, args, flags_required: bool = True, moment
                                f"moment) > {kradius.MOMENTS_RTOL}", rel)
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"{name}: a second launch gave other bits")
-    return err, rel, int(ref[0].sum()), normals_hold(got, ref, (q, q[:0], None),
-                                                     flags_required)
+    # the counts summed as integers: a float32 sum rounds past 2^24 members
+    members = int(ref[0].to(torch.int64).sum())
+    return err, rel, members, normals_hold(got, ref, (q, q[:0], None), flags_required)
 
 
 def grid_moments_sums(args, operands):
@@ -1548,7 +1562,8 @@ def grid_stats(label: str, kgrid, seen: dict) -> dict:
     also against float64 sums, with its TF32 and bfloat16 controls), then
     timed (CUDA events, warm, median), the plain version too, beside the
     bound on the members and, for G and I, the library call on a sample
-    (grid_library_stats). No single PyTorch call sums neighbourhood
+    (grid_library_stats); G's and H's counters (select_stats, H's members
+    exactly the plain route's). No single PyTorch call sums neighbourhood
     moments: H's library_ms is null."""
     dev = torch.device("cuda", torch.cuda.current_device())
     stats = {}
@@ -1581,7 +1596,8 @@ def grid_stats(label: str, kgrid, seen: dict) -> dict:
                 f"{label} {key}", kgrid, args, flags_required=label != "synthetic")
             entry = {"max_abs_err": err, "err_of_second_moment": rel,
                      "normals": normals, "fn": kgrid.moments, "plain": kgrid.moments_ref,
-                     **grid_bound(name, grid, qg, q, members), "library_ms": None}
+                     **grid_bound(name, grid, qg, q, members), "library_ms": None,
+                     **select_stats(name, kgrid, args, members)}
             if label == MAIN_PATH[name]:
                 entry["precision"] = grid_moments_precision(f"{label} {key}", kgrid, args)
         fn, plain = entry.pop("fn"), entry.pop("plain")
@@ -1680,9 +1696,13 @@ def check_grid(dev, kgrid, n: int = 1 << 18) -> dict:
 GRID_KNN_SCALES = 8.0
 
 
-def grid_sift_sigmas(cell: float) -> list[float]:
+def grid_sift_sigmas(cell: float, n_sigma: int = SIFT_SCALES + 3) -> list[float]:
     """An octave's sigmas (sift_sigmas' shape) whose 3 sigma_max is `cell`:
-    kernel J's grid cell."""
+    kernel J's grid cell; another count than an octave's: n sigmas down
+    from the same largest evenly to a quarter of it."""
+    if n_sigma != SIFT_SCALES + 3:
+        top = cell / 3.0
+        return [top * (1.0 - 0.75 * s / max(n_sigma - 1, 1)) for s in range(n_sigma)]
     return sift_sigmas(cell / (3.0 * 2.0 ** ((SIFT_SCALES + 2) / SIFT_SCALES)))
 
 
@@ -1764,7 +1784,8 @@ def grid_sift_stats(label: str, kgrid, seen: dict) -> dict:
     in full: held against their plain versions (J within SCALE_SPACE_RTOL
     with the unanswered rows 0, K bit for bit; both repeating), then timed
     (CUDA events, warm, median), the plain version too, beside the bound
-    (grid_sift_bound) and, for K, the library call on a sample
+    (grid_sift_bound), their counters (select_stats, J's members exactly
+    the plain route's) and, for K, the library call on a sample
     (grid_library_stats). The largest query count gives the kernel's entry,
     the others sit in it by "Q=n". No single PyTorch call smooths over a
     radius: J's library_ms is null."""
@@ -1785,7 +1806,7 @@ def grid_sift_stats(label: str, kgrid, seen: dict) -> dict:
             entry = {"max_abs_err": err, "err_of_field": rel, "fn": kgrid.smooth,
                      "plain": kgrid.smooth_ref,
                      **grid_sift_bound(name, grid, qg, q, members, len(args[4])),
-                     "library_ms": None}
+                     "library_ms": None, **select_stats(name, kgrid, args, members)}
         else:
             ref = _grid_knn_compare(f"{label} {key}", kgrid, args)
             members = int(kgrid.count_ref(grid, qg, q, args[5]).to(torch.int64).sum())
@@ -1812,8 +1833,8 @@ def check_grid_sift(dev, kgrid, n: int = 1 << 18) -> dict:
     at FAR, no query mask), at config5_big's octave-0 scales: J at
     sift_sigmas() (cell 3 sigma_max, cap 128), K at GRID_KNN_SCALES octave
     scales with k = 26; then both on grid_adversarial's inputs (no query
-    mask), J at sigmas whose 3 sigma_max is the case's cell, K at the cell
-    with exclude_self both ways."""
+    mask), J at 6, 1 and 64 sigmas whose 3 sigma_max is the case's cell, K
+    at the cell with exclude_self both ways."""
     from mapmerge_torch.core.cloud import FAR
     from mapmerge_torch.ops.neighbors import _f32
 
@@ -1837,8 +1858,10 @@ def check_grid_sift(dev, kgrid, n: int = 1 << 18) -> dict:
     for name, (ap, am, aq, _, cell, cap, dims) in adversarial.items():
         grid, qg, tq, n_p = grid_operands(ap, am, aq, None, cell, cap, dims)
         r2 = _f32(cell * cell)
-        _grid_smooth_compare(f"grid_smooth {name}", kgrid,
-                             (grid, qg, tq, vals[: ap.shape[0]], grid_sift_sigmas(cell), r2))
+        for n_sigma in (6, 1, 64):  # J's sigma groups: one, one, eight
+            _grid_smooth_compare(f"grid_smooth {name} S={n_sigma}", kgrid,
+                                 (grid, qg, tq, vals[: ap.shape[0]],
+                                  grid_sift_sigmas(cell, n_sigma), r2))
         for exclude_self in (False, True):
             _grid_knn_compare(f"grid_knn {name} exclude_self={exclude_self}", kgrid,
                               (grid, qg, tq, n_p, SIFT_K, r2, exclude_self))
@@ -1849,7 +1872,7 @@ def check_grid_sift(dev, kgrid, n: int = 1 << 18) -> dict:
             f"{e['ms']} ms, plain {e['plain_ms']} ms, bound {e['bound_ms']} ms "
             f"({e['bound_by']}), library {e['library_ms']} ms")
     log(f"kernels grid_smooth, grid_knn and grid_pack held on {sorted(adversarial)} "
-        "(grid_knn with exclude_self both ways)")
+        "(grid_smooth at 6, 1 and 64 sigmas, grid_knn with exclude_self both ways)")
     return stats
 
 
@@ -2230,17 +2253,18 @@ def require_grid_sift(label: str, seen: dict, launches: dict) -> None:
 
 
 def require_grid_pack(label: str, seen: dict, launches: dict) -> None:
-    """The pre-pass of kernels G and K launched once with each of them and
-    once for each target grid whose boxes a caller had made apart
+    """The pre-pass of kernels G, H, J and K launched once with each of
+    them and once for each target grid whose boxes a caller had made apart
     (kgrid.boxes: ICP's), no more of those than G's launches, and never
     else. Logged."""
-    packs, g, k = launches["grid_pack"], launches["grid_nn"], launches["grid_knn"]
+    packs = launches["grid_pack"]
+    with_kernels = {k: launches[k] for k in ("grid_nn", "grid_moments", "grid_smooth",
+                                             "grid_knn")}
     made = seen["grid_boxes"]
-    log(f"{label}: launches grid_pack {packs} (grid_nn {g}, grid_knn {k}, the boxes "
-        f"alone {made})")
-    require(packs == g + k + made and made <= g,
-            f"{label}: grid_pack {packs} launches for grid_nn {g} + grid_knn {k} + the "
-            f"boxes alone {made}")
+    log(f"{label}: launches grid_pack {packs} ({with_kernels}, the boxes alone {made})")
+    require(packs == sum(with_kernels.values()) + made and made <= launches["grid_nn"],
+            f"{label}: grid_pack {packs} launches for {with_kernels} + the boxes alone "
+            f"{made}")
 
 
 def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,

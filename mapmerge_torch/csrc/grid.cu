@@ -42,13 +42,12 @@
 // - J (mm_grid_smooth): for each sigma, num / max(den, 1e-12) with num =
 //   sum w v and den = sum w over the members, w = expf(-d2 * c), c the
 //   float32 value of 1 / (2 s^2) (the plain version's constant), v the
-//   candidate's value, staged beside its coordinates from the cell-layout
-//   gather of the values that grid_query makes (the wrapper makes it). C's
-//   arithmetic (csrc/sift.cu: __fmul_rn, expf, __fadd_rn in candidate
+//   member's value, read in place through the target's cell_idx
+//   (values[cell_idx[slot]], filled slots only). C's arithmetic (csrc/sift.cu: __fmul_rn, expf, __fadd_rn in candidate
 //   order, __fdiv_rn); the plain version's bmm and row sum add in another
 //   order, so the two agree to rounding (kernels/grid.py states the
-//   tolerance), and a launch repeats bit for bit. A CTA takes kSigLane
-//   sigmas, blockIdx.y the group.
+//   tolerance), and a launch repeats bit for bit. A warp takes kSigLane
+//   sigmas, blockIdx.y the group, so 64 sigmas take 8 groups.
 // - K (mm_grid_knn): the k <= 26 smallest d2 over every candidate (no
 //   radius cut in the selection), ties to the first candidate position, then
 //   valid = d2 <= r2; with `exclude`, a candidate at d2 <= 1e-12 goes to BIG.
@@ -58,19 +57,18 @@
 //   version sorts stably and applies the same rule, so K is bit for bit.
 //
 // What bounds them. Each (query, candidate) pair costs the distance and a
-// compare (9 operations) on the CUDA cores, J 5 more a sigma for a member;
-// the plain version spends ~10 launches and a (37, 256, 6,912)-float plane
-// of device memory traffic per 37 buckets (K a stable sort of it). A sweep
-// that compares every candidate is bound by latency, not issue: a query's
-// candidates are one dependent chain.
+// compare (9 operations) on the CUDA cores, H 16 more for a member and J 5
+// more a sigma; the plain version spends ~10 launches and a (37, 256,
+// 6,912)-float plane of device memory traffic per 37 buckets (K a stable
+// sort of it). A sweep that compares every candidate is bound by latency,
+// not issue: a query's candidates are one dependent chain.
 //
-// H, I and J (grid_sweep_kernel): one CTA takes one query bucket (a bucket
-// with no query exits at once, so no host read picks the buckets), one
-// thread one query slot. The CTA stages its candidates, kChunk slots at a
-// time, into shared memory through a cp.async double buffer (4-byte copies;
-// J's value in w) while it scans the chunk before; every thread scans the
-// staged chunk in candidate order, so sums need no merge. A cap above the
-// CTA's threads takes the query slots in groups.
+// I (grid_sweep_kernel): one CTA takes one query bucket (a bucket with no
+// query exits at once, so no host read picks the buckets), one thread one
+// query slot. The CTA stages its candidates, kChunk slots at a time, into
+// shared memory through a cp.async double buffer (4-byte copies) while it
+// scans the chunk before; every thread scans the staged chunk in candidate
+// order. A cap above the CTA's threads takes the query slots in groups.
 //
 // G and K (grid_select_kernel) need only the first member, or the first k
 // candidates, of each query, so they cull, exactly, as kernel D does
@@ -104,6 +102,33 @@
 //    (cull.cuh's insert). (2, 4 and 8 lanes a query, their lists merged at
 //    the end, compared fewer pairs and were slower on the main paths'
 //    inputs: PERF.md.)
+//
+// H and J (grid_radius_kernel) add only members, a member being a point
+// within the fixed radius r2, so they cull too, on the same pre-pass and
+// units, and keep the sweep's bits:
+// 1. A warp takes one unit (the grid covers the longest unit list, so the
+//    card's block scheduler balances units of unequal work) and walks the
+//    tiles of its bucket's distinct neighbours in candidate order
+//    (ascending neighbour id, then tile, then slot), 32 positions at a
+//    time; a tile is issued into the ring when its box lies within r2 of
+//    the box of the unit's queries (cull.cuh's boxes_bound).
+// 2. When it arrives the tile is rewritten as float4 points, and each lane
+//    whose own query's bound (box_bound, the same rounded operations as
+//    the distance, <= every point's d2 in the box; H's offset p - q
+//    squares to the same bits as q - p) is within r2 adds its members in
+//    slot order: H as it meets them, J after marking them, so that the
+//    weights are made for its own members only. A tile skipped by either
+//    test holds no member of the lane, and a non-member adds nothing, so
+//    every lane sums exactly the sweep's terms in the sweep's order: H and
+//    J are the bits of the one-thread-a-slot sweep they replace.
+// 3. One lane a query, its sums in registers (H its ten, J num and den of
+//    kSigLane sigmas). J reads each staged tile's point indices (cell_idx,
+//    8-byte copies beside the tile) and, on arrival, each slot's value
+//    through them into shared memory, so no (h, cap) plane of values is
+//    made.
+// What bounds H and J is each query's chain of members, added in order:
+// a box test culls only non-members, and the tiles span most of a cell,
+// whose edge is the radius (PERF.md).
 // No FMA contraction (-fmad=false), no fast-math; the one atomic (the
 // pre-pass's) only hands out where a run of units goes.
 
@@ -112,13 +137,29 @@
 namespace {
 
 constexpr int kNbr = 27;           // neighbour buckets of a bucket
-constexpr int kChunk = 256;        // candidate slots a stage
-constexpr int kSweepBound = 256;    // the sweep's launch bound
-constexpr int kRadiusThreads = 128; // H-J: up to cap 128 (larger caps in groups)
+constexpr int kChunk = 256;        // I: candidate slots a stage
+constexpr int kSweepThreads = 128; // I: up to cap 128 (larger caps in groups)
 constexpr float kBig = 1.0e12f;    // core/grid.py BIG
-constexpr int kSigLane = 8;        // J: sigmas a CTA takes (blockIdx.y the group)
+constexpr int kSigLane = 8;        // J: sigmas a warp takes (blockIdx.y the group)
 constexpr int kMaxSigma = 64;      // J: sigmas a launch takes
 constexpr int kK = 26;             // K: the longest list (and every lane's)
+
+// One target tile in shared memory: kT consecutive slots of a bucket as
+// the grid holds them, (x, y, z) a slot, its box, its first global slot
+// (bucket * cap + tile * kT: the candidate order's key) and its filled
+// slots.
+struct alignas(16) GridStage {
+  float pt[3 * kT];
+  float4 lo, hi;
+  int g0, n, pad0, pad1;
+};
+
+// Kernel J's stage: a tile and the target point index (cell_idx) of each
+// of its slots, through which the tile's values are read when it is
+// consumed.
+struct alignas(16) ValStage : GridStage {
+  long long idx[kT];
+};
 
 // The distinct wrapped neighbour buckets of one bucket, ascending, and the
 // flat candidate position of each one's first filled slot: candidate
@@ -193,8 +234,13 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
                : "memory");
 }
 
-// Kernel H's.
+// Kernel H's. A member of query q is a target point p whose offset r = p - q
+// has ((rx^2 + ry^2) + rz^2) <= r2; `tile` adds a staged tile's members in
+// slot order.
 struct MomentsOp {
+  static constexpr bool kValues = false;
+  using Stage = GridStage;
+  struct Scratch {};
   float* s0_out;    // (nq,)
   float* mean_out;  // (nq, 3)
   float* cov_out;   // (nq, 3, 3)
@@ -205,28 +251,39 @@ struct MomentsOp {
   __device__ __forceinline__ State init() const {
     return {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   }
-  __device__ __forceinline__ void visit(State& s, float qx, float qy, float qz, float4 p,
-                                        int, float r2) const {
-    const float rx = __fsub_rn(p.x, qx);
-    const float ry = __fsub_rn(p.y, qy);
-    const float rz = __fsub_rn(p.z, qz);
-    const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)),
-                               __fmul_rn(rz, rz));
-    if (d2 <= r2) {
-      s.n = __fadd_rn(s.n, 1.f);
-      s.x = __fadd_rn(s.x, rx);
-      s.y = __fadd_rn(s.y, ry);
-      s.z = __fadd_rn(s.z, rz);
-      s.xx = __fadd_rn(s.xx, __fmul_rn(rx, rx));
-      s.xy = __fadd_rn(s.xy, __fmul_rn(rx, ry));
-      s.xz = __fadd_rn(s.xz, __fmul_rn(rx, rz));
-      s.yy = __fadd_rn(s.yy, __fmul_rn(ry, ry));
-      s.yz = __fadd_rn(s.yz, __fmul_rn(ry, rz));
-      s.zz = __fadd_rn(s.zz, __fmul_rn(rz, rz));
+  __device__ __forceinline__ float value(const Stage&, int) const { return 0.f; }
+  // this lane's members among the tile's n points (where `reach`), in slot
+  // order; returns how many
+  __device__ __forceinline__ int tile(State& s, float qx, float qy, float qz, bool reach,
+                                      const float4* pt, int n, float, Scratch&, int,
+                                      float r2) const {
+    int added = 0;
+    if (!reach) return added;
+    for (int j = 0; j < n; ++j) {
+      const float4 p = pt[j];
+      const float rx = __fsub_rn(p.x, qx);
+      const float ry = __fsub_rn(p.y, qy);
+      const float rz = __fsub_rn(p.z, qz);
+      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)),
+                                 __fmul_rn(rz, rz));
+      if (d2 <= r2) {
+        ++added;
+        s.n = __fadd_rn(s.n, 1.f);
+        s.x = __fadd_rn(s.x, rx);
+        s.y = __fadd_rn(s.y, ry);
+        s.z = __fadd_rn(s.z, rz);
+        s.xx = __fadd_rn(s.xx, __fmul_rn(rx, rx));
+        s.xy = __fadd_rn(s.xy, __fmul_rn(rx, ry));
+        s.xz = __fadd_rn(s.xz, __fmul_rn(rx, rz));
+        s.yy = __fadd_rn(s.yy, __fmul_rn(ry, ry));
+        s.yz = __fadd_rn(s.yz, __fmul_rn(ry, rz));
+        s.zz = __fadd_rn(s.zz, __fmul_rn(rz, rz));
+      }
     }
+    return added;
   }
   __device__ __forceinline__ void write(const State& s, long long row, float qx, float qy,
-                                        float qz, const Nbrs&, int) const {
+                                        float qz) const {
     const float denom = fmaxf(s.n, 1.f);
     const float m[3] = {__fdiv_rn(s.x, denom), __fdiv_rn(s.y, denom),
                         __fdiv_rn(s.z, denom)};
@@ -264,14 +321,25 @@ struct CountOp {
 };
 
 // Kernel J's: the sigmas s0 = blockIdx.y * kSigLane on of this CTA's group.
+// A member is a target point within r2 (sq_dist) and adds w v and w at each
+// sigma, v its value, read through the target's cell_idx (ValStage).
 struct Recips {
   float v[kMaxSigma];  // f32(1 / (2 s^2)) of each sigma
 };
 
+// the values of the tile being consumed, a slot each
+struct SmoothScratch {
+  float val[kT];
+};
+
 struct SmoothOp {
+  static constexpr bool kValues = true;
+  using Stage = ValStage;
+  using Scratch = SmoothScratch;
   Recips recips;
   int n_sigma;
-  float* out;  // (nq, n_sigma)
+  const float* values;  // (P,): the value of each target point
+  float* out;           // (nq, n_sigma)
 
   struct State {
     float rc[kSigLane], num[kSigLane], den[kSigLane];
@@ -286,24 +354,45 @@ struct SmoothOp {
     }
     return s;
   }
-  __device__ __forceinline__ void visit(State& s, float qx, float qy, float qz, float4 p,
-                                        int, float r2) const {
-    const float d2 = sq_dist(qx, qy, qz, p.x, p.y, p.z);
-    if (d2 <= r2) {
-      const float neg = -d2;
-      const int s0 = blockIdx.y * kSigLane;
+  // the value of slot `lane` of the staged tile (0 past its filled slots)
+  __device__ __forceinline__ float value(const Stage& st, int lane) const {
+    return lane < st.n ? __ldg(values + st.idx[lane]) : 0.f;
+  }
+  // The warp, all lanes: this lane's members among the tile's n points
+  // (where `reach`; v the value of slot `lane`), marked first, then added
+  // in slot order, each lane as many as its own (the weights, the costly
+  // part, only for members). Returns how many.
+  __device__ __forceinline__ int tile(State& s, float qx, float qy, float qz, bool reach,
+                                      const float4* pt, int n, float v, Scratch& x, int lane,
+                                      float r2) const {
+    unsigned m = 0;
+    if (reach) {
+      for (int j = 0; j < n; ++j) {
+        m |= static_cast<unsigned>(sq_dist(qx, qy, qz, pt[j].x, pt[j].y, pt[j].z) <= r2) << j;
+      }
+    }
+    x.val[lane] = v;
+    __syncwarp();
+    const int added = __popc(m);
+    const int s0 = blockIdx.y * kSigLane;
+    while (m != 0) {
+      const int j = __ffs(static_cast<int>(m)) - 1;
+      m &= m - 1;
+      const float neg = -sq_dist(qx, qy, qz, pt[j].x, pt[j].y, pt[j].z);
+      const float vj = x.val[j];
 #pragma unroll
       for (int i = 0; i < kSigLane; ++i) {
         if (s0 + i < n_sigma) {
           const float w = expf(__fmul_rn(neg, s.rc[i]));
-          s.num[i] = __fadd_rn(s.num[i], __fmul_rn(w, p.w));
+          s.num[i] = __fadd_rn(s.num[i], __fmul_rn(w, vj));
           s.den[i] = __fadd_rn(s.den[i], w);
         }
       }
     }
+    return added;
   }
-  __device__ __forceinline__ void write(const State& s, long long row, float, float, float,
-                                        const Nbrs&, int) const {
+  __device__ __forceinline__ void write(const State& s, long long row, float, float,
+                                        float) const {
     const int s0 = blockIdx.y * kSigLane;
 #pragma unroll
     for (int i = 0; i < kSigLane; ++i) {
@@ -314,13 +403,12 @@ struct SmoothOp {
   }
 };
 
-// One CTA a query bucket: its query slots (in groups of blockDim.x) against
-// the candidates of its distinct neighbour buckets, staged kChunk at a time
-// (their values in w where t_val is given: J).
+// Kernel I: one CTA a query bucket, its query slots (in groups of
+// blockDim.x) against the candidates of its distinct neighbour buckets,
+// staged kChunk at a time.
 template <class Op>
-__global__ void __launch_bounds__(kSweepBound)
-grid_sweep_kernel(const float* __restrict__ t_xyz, const float* __restrict__ t_val,
-                  const int* __restrict__ t_count,
+__global__ void __launch_bounds__(kSweepThreads)
+grid_sweep_kernel(const float* __restrict__ t_xyz, const int* __restrict__ t_count,
                   const float* __restrict__ q_xyz, const long long* __restrict__ q_idx,
                   const unsigned char* __restrict__ q_ok, const int* __restrict__ q_count,
                   int cap, int gx, int gy, int gz, float r2, Op op) {
@@ -358,7 +446,6 @@ grid_sweep_kernel(const float* __restrict__ t_xyz, const float* __restrict__ t_v
         cp_async4(&dst[j].x, src);
         cp_async4(&dst[j].y, src + 1);
         cp_async4(&dst[j].z, src + 2);
-        if (t_val != nullptr) cp_async4(&dst[j].w, t_val + slot);
       }
     };
     if (chunks > 0) issue(0);
@@ -380,19 +467,17 @@ grid_sweep_kernel(const float* __restrict__ t_xyz, const float* __restrict__ t_v
 }
 
 template <class Op>
-int launch(const float* t_xyz, const float* t_val, const int* t_count, const float* q_xyz,
+int launch(const float* t_xyz, const int* t_count, const float* q_xyz,
            const long long* q_idx, const unsigned char* q_ok, const int* q_count, int h,
-           int cap, int gx, int gy, int gz, float r2, int groups, int max_threads, Op op,
-           void* stream) {
+           int cap, int gx, int gy, int gz, float r2, Op op, void* stream) {
   if (h < 1 || cap < 1 || gx < 1 || gy < 1 || gz < 1 ||
       static_cast<long long>(gx) * gy * gz != h) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int fit = (cap + 31) / 32 * 32;
-  const int threads = fit < max_threads ? fit : max_threads;
-  const dim3 grid(static_cast<unsigned>(h), static_cast<unsigned>(groups));
-  grid_sweep_kernel<Op><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      t_xyz, t_val, t_count, q_xyz, q_idx, q_ok, q_count, cap, gx, gy, gz, r2, op);
+  const int threads = fit < kSweepThreads ? fit : kSweepThreads;
+  grid_sweep_kernel<Op><<<h, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      t_xyz, t_count, q_xyz, q_idx, q_ok, q_count, cap, gx, gy, gz, r2, op);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -401,16 +486,6 @@ int launch(const float* t_xyz, const float* t_val, const int* t_count, const flo
 constexpr int kCounters = 4;        // G, K: the counts a warp writes where asked
 constexpr int kBatch = 256;         // G, K: scan positions ordered at once (26 x 8 tiles)
 constexpr int kPackThreads = 1024;  // the pre-pass's CTA
-
-// One target tile in shared memory: kT consecutive slots of a bucket as
-// the grid holds them, (x, y, z) a slot, its box, its first global slot
-// (bucket * cap + tile * kT: the candidate order's key) and its filled
-// slots.
-struct alignas(16) GridStage {
-  float pt[3 * kT];
-  float4 lo, hi;
-  int g0, n, pad0, pad1;
-};
 
 // A warp's view of its unit's bucket b: the distinct wrapped neighbours of
 // b (ascending where an axis has fewer than 3 cells, else in offset order),
@@ -805,7 +880,162 @@ grid_select_kernel(const float* __restrict__ t_xyz, const float4* __restrict__ b
   }
 }
 
-// The pre-pass of G and K, one launch. CTAs 0 .. unit_ctas - 1 (where
+// ---- kernels H and J: one warp a unit, its members in candidate order ----
+
+constexpr int kRadiusCounters = 5;  // H, J: the counts a warp writes where asked
+
+__device__ __forceinline__ void cp_async8_ca(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+// Lanes 0..31: the directory of bucket b in candidate order: its distinct
+// wrapped neighbours ascending (b among them), their filled counts (clamped
+// to cap) and the exclusive scan of their tiles (own and first unset).
+__device__ __forceinline__ void candidate_directory(TileDir& d, int b, int gx, int gy, int gz,
+                                                    const int* __restrict__ count, int cap,
+                                                    int lane) {
+  const int n = neighbour_ids(d.id, b, gx, gy, gz, lane);
+  const int c = lane < n ? min(count[d.id[lane]], cap) : 0;
+  d.cnt[lane] = c;
+  d.tstart[lane + 1] = warp_scan((c + kT - 1) / kT, lane);
+  if (lane == 0) {
+    d.tstart[0] = 0;
+    d.n = n;
+  }
+  __syncwarp();
+}
+
+// a warp's shared memory: its directory, its ring, the batch's tiles, the
+// tile being consumed as float4 points, the op's scratch and its unit's
+// slots
+template <class Op>
+struct RadiusShared {
+  TileDir dir;
+  typename Op::Stage ring[kStages];
+  int2 tile[32];
+  float4 pt[kT];
+  typename Op::Scratch scratch;
+  int slots[32];
+};
+
+// Kernels H and J. Warp w of the grid takes unit w of the pre-pass's list
+// (a warp past the list's count exits), a unit being up to 32 answered
+// slots of one query bucket, a lane a query (blockIdx.y J's sigma group):
+// the grid covers the longest list the buffer holds, so the card's block
+// scheduler balances units of unequal work. A unit walks its bucket's
+// candidate tiles in candidate order (ascending neighbour, then tile), 32
+// positions at a time: a tile is issued when its box lies within r2 of the
+// box of the unit's queries (boxes_bound); when it arrives it is rewritten
+// as float4 points and each lane whose own bound (box_bound) is within r2
+// adds its members in slot order (Op::tile): the sums of the sweep, whose
+// other candidates add nothing.
+// With kCount, `counters` receives per warp that takes a unit the (query,
+// candidate) pairs compared, the tiles visited, 1 (its unit), the queries
+// answered and the members added; without it the kernel counts nothing.
+template <class Op, bool kCount>
+__global__ void __launch_bounds__(kThreads)
+grid_radius_kernel(const float* __restrict__ t_xyz, const long long* __restrict__ t_idx,
+                   const float4* __restrict__ boxes, const int* __restrict__ t_count,
+                   const float* __restrict__ q_xyz, const long long* __restrict__ q_idx,
+                   const unsigned char* __restrict__ q_ok, const int* __restrict__ units,
+                   int max_units, int cap, int gx, int gy, int gz, float r2, bool a16,
+                   long long* __restrict__ counters, Op op) {
+  using Stage = typename Op::Stage;
+  __shared__ RadiusShared<Op> shared[kWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  RadiusShared<Op>& sh = shared[warp];
+  const int tiles = (cap + kT - 1) / kT, gmax = (cap + 31) / 32;
+  const float nan = __int_as_float(0x7fc00000);
+  const long long u = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (u >= min(units[0], max_units)) return;  // the whole warp
+  long long pairs = 0, visited = 0, members = 0;
+  const auto issue = [&](Stage& st, int2 t) {
+    issue_tile(st, t_xyz, boxes, t, tiles, cap, a16, lane);
+    if constexpr (Op::kValues) {  // the slots' point indices, 8 bytes a lane
+      const long long g0 = static_cast<long long>(t.x / tiles) * cap + t.x % tiles * kT;
+      if (lane < t.y) cp_async8_ca(&st.idx[lane], t_idx + g0 + lane);
+    }
+  };
+  const int code = units[1 + u];
+  const int b = code / gmax;
+  candidate_directory(sh.dir, b, gx, gy, gz, t_count, cap, lane);
+  const int slot = unit_slot(q_ok + static_cast<long long>(b) * cap, cap, code % gmax * 32,
+                             sh.slots, lane);
+  const bool active = slot >= 0;
+  const long long qslot = static_cast<long long>(b) * cap + (active ? slot : 0);
+  const float qx = active ? q_xyz[3 * qslot] : nan;  // NaN: reaches nothing
+  const float qy = active ? q_xyz[3 * qslot + 1] : nan;
+  const float qz = active ? q_xyz[3 * qslot + 2] : nan;
+  const Box qb = warp_box(active, qx, qy, qz);
+  typename Op::State st = op.init();
+
+  const int total = sh.dir.tstart[sh.dir.n];
+  int base = -32;
+  unsigned left = 0;  // the batch's positions within r2 of the queries' box, to issue
+  sweep(sh.ring, [&]() -> int2 {
+    while (left == 0) {
+      base += 32;
+      if (base >= total) return make_int2(-1, 0);
+      const int p = base + lane;
+      int2 tile = make_int2(-1, 0);
+      bool near = false;
+      if (p < total) {
+        int lo = 0, hi = sh.dir.n;  // tstart[lo] <= p < tstart[hi]
+        while (hi - lo > 1) {
+          const int mid = (lo + hi) / 2;
+          if (sh.dir.tstart[mid] <= p) lo = mid; else hi = mid;
+        }
+        const int t = p - sh.dir.tstart[lo];
+        tile = make_int2(sh.dir.id[lo] * tiles + t, min(kT, sh.dir.cnt[lo] - t * kT));
+        near = boxes_bound(qb, __ldg(boxes + 2LL * tile.x),
+                           __ldg(boxes + 2LL * tile.x + 1)) <= r2;
+      }
+      __syncwarp();  // the last batch's tiles are read
+      sh.tile[lane] = tile;
+      left = __ballot_sync(kAll, near);
+      __syncwarp();
+    }
+    const int j = __ffs(static_cast<int>(left)) - 1;
+    left &= left - 1;
+    return sh.tile[j];
+  }, issue, [&](const Stage& s) {
+    const GridStage& g = s;
+    const bool reach = active && box_bound(qx, qy, qz, g.lo, g.hi) <= r2;
+    const unsigned lanes = __ballot_sync(kAll, reach);
+    if (lanes == 0) return;  // warp-uniform
+    const float v = op.value(s, lane);  // J: in flight while the members are marked
+    if (lane < g.n) {
+      sh.pt[lane] = make_float4(g.pt[3 * lane], g.pt[3 * lane + 1], g.pt[3 * lane + 2], 0.f);
+    }
+    __syncwarp();
+    const int added = op.tile(st, qx, qy, qz, reach, sh.pt, g.n, v, sh.scratch, lane, r2);
+    if constexpr (kCount) {
+      pairs += static_cast<long long>(__popc(lanes)) * g.n;
+      ++visited;
+      members += added;
+    }
+  });
+
+  if (active) op.write(st, q_idx[qslot], qx, qy, qz);
+  if constexpr (kCount) {
+    const int answered = __popc(__ballot_sync(kAll, active));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) members += __shfl_xor_sync(kAll, members, o);
+    if (lane == 0) {
+      long long* c = counters + kRadiusCounters *
+          ((static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * kWarps + warp);
+      c[0] = pairs;
+      c[1] = visited;
+      c[2] = 1;
+      c[3] = answered;
+      c[4] = members;
+    }
+  }
+}
+
+// The pre-pass of G, H, J and K, one launch. CTAs 0 .. unit_ctas - 1 (where
 // units are asked for) list the units of the query grid, each for
 // kPackThreads buckets, a thread a bucket: ceil(min(q_count[b], cap) / 32)
 // units b * gmax + j (j the unit's group of 32 answered slots), a block
@@ -933,18 +1163,63 @@ int launch_select(const Op& op, const float* t_xyz, const float* boxes, const in
   return static_cast<int>(cudaGetLastError());
 }
 
+// A radius kernel (H, J): a warp a unit of the longest list, `groups` of
+// the grid on blockIdx.y (J's sigma groups); the counting variant where
+// counters are given.
+template <bool kCount, class Op>
+int launch_radius_grid(const Op& op, int groups, const float* t_xyz, const long long* t_idx,
+                       const float* boxes, const int* t_count, const float* q_xyz,
+                       const long long* q_idx, const unsigned char* q_ok, const int* units,
+                       int max_units, int cap, int gx, int gy, int gz, float r2,
+                       long long* counters, long long counters_len, cudaStream_t stream) {
+  const int blocks = (max_units + kWarps - 1) / kWarps;
+  if (kCount && counters_len < static_cast<long long>(kRadiusCounters) * blocks * groups *
+                                   kWarps) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  grid_radius_kernel<Op, kCount><<<dim3(blocks, groups), kThreads, 0, stream>>>(
+      t_xyz, t_idx, reinterpret_cast<const float4*>(boxes), t_count, q_xyz, q_idx, q_ok, units,
+      max_units, cap, gx, gy, gz, r2,
+      cap % 4 == 0 && reinterpret_cast<unsigned long long>(t_xyz) % 16 == 0, counters, op);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// H or J whole: the pre-pass (the target's boxes, the units after zeroing
+// their count), then the radius kernel.
+template <class Op>
+int launch_radius(const Op& op, int groups, const float* t_xyz, const long long* t_idx,
+                  const int* t_count, const float* q_xyz, const long long* q_idx,
+                  const unsigned char* q_ok, const int* q_count, int h, int cap, int gx, int gy,
+                  int gz, float r2, float* boxes, int* units, int max_units,
+                  long long* counters, long long counters_len, void* stream) {
+  if (!grid_shape_ok(h, cap, gx, gy, gz) || max_units < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = launch_pack(t_xyz, t_count, q_count, h, cap, boxes, units, max_units, st);
+  if (err != 0) return err;
+  if (counters != nullptr) {
+    return launch_radius_grid<true>(op, groups, t_xyz, t_idx, boxes, t_count, q_xyz, q_idx,
+                                    q_ok, units, max_units, cap, gx, gy, gz, r2, counters,
+                                    counters_len, st);
+  }
+  return launch_radius_grid<false>(op, groups, t_xyz, t_idx, boxes, t_count, q_xyz, q_idx,
+                                   q_ok, units, max_units, cap, gx, gy, gz, r2, nullptr, 0,
+                                   st);
+}
+
 }  // namespace
 
 // The grids of core/grid.py:build_grid, both of h = gx gy gz buckets of cap
-// slots: the target's t_xyz (h, cap, 3) f32, t_idx (h, cap) i64 (G and K)
+// slots: the target's t_xyz (h, cap, 3) f32, t_idx (h, cap) i64 (G, J, K)
 // and t_count (h,) i32 (slots [0, count) are filled); the query grid's q_xyz
 // (h, cap, 3) f32, q_idx (h, cap) i64 (the output row of each slot), q_ok
 // (h, cap) bool (the slots to answer) and q_count (h,) i32 (0 where a bucket
 // has no slot to answer). r2 the float32 squared radius (K: of `valid`).
-// Each returns cudaGetLastError() after its one launch.
+// Each returns cudaGetLastError() after its last launch.
 
-// The pre-pass of kernels G and K alone (grid_pack_kernel): where units is
-// not null, the units of the query grid (q_count) into units (1 +
+// The pre-pass of kernels G, H, J and K alone (grid_pack_kernel): where
+// units is not null, the units of the query grid (q_count) into units (1 +
 // max_units,) i32; where boxes is not null, the boxes of the target grid's
 // tiles into boxes (h * ceil(cap / 32), 2, 4) f32.
 extern "C" int mm_grid_pack(const float* t_xyz, const int* t_count, const int* q_count, int h,
@@ -982,14 +1257,19 @@ extern "C" int mm_grid_nn(const float* t_xyz, const long long* t_idx, const int*
 }
 
 // Kernel H: s0_out (nq,), mean_out (nq, 3), cov_out (nq, 3, 3) f32 at the
-// answered rows.
+// answered rows. Two launches: the pre-pass (the target's boxes into
+// `boxes`, the units into `units` (1 + max_units,) i32), then the radius
+// kernel. counters: null, or (counters_len,) i64 receiving 5 counts a warp
+// (grid_radius_kernel).
 extern "C" int mm_grid_moments(const float* t_xyz, const int* t_count, const float* q_xyz,
                                const long long* q_idx, const unsigned char* q_ok,
                                const int* q_count, int h, int cap, int gx, int gy, int gz,
-                               float r2, float* s0_out, float* mean_out, float* cov_out,
-                               void* stream) {
-  return launch(t_xyz, nullptr, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz,
-                r2, 1, kRadiusThreads, MomentsOp{s0_out, mean_out, cov_out}, stream);
+                               float r2, float* boxes, int* units, int max_units,
+                               float* s0_out, float* mean_out, float* cov_out,
+                               long long* counters, long long counters_len, void* stream) {
+  return launch_radius(MomentsOp{s0_out, mean_out, cov_out}, 1, t_xyz, nullptr, t_count,
+                       q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz, r2, boxes, units,
+                       max_units, counters, counters_len, stream);
 }
 
 // Kernel I: out (nq,) i32 at the answered rows, the member count minus sub.
@@ -997,28 +1277,34 @@ extern "C" int mm_grid_count(const float* t_xyz, const int* t_count, const float
                              const long long* q_idx, const unsigned char* q_ok,
                              const int* q_count, int h, int cap, int gx, int gy, int gz,
                              float r2, int sub, int* out, void* stream) {
-  return launch(t_xyz, nullptr, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz,
-                r2, 1, kRadiusThreads, CountOp{sub, out}, stream);
+  return launch(t_xyz, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz, r2,
+                CountOp{sub, out}, stream);
 }
 
-// Kernel J: t_val (h, cap) f32, the targets' values in the grid's layout
-// (the gather of grid_query's p_values); recips (n_sigma <= 64,) f32 in host
-// memory, f32(1 / (2 s^2)) of each sigma, passed by value; out (nq,
-// n_sigma) f32 at the answered rows.
-extern "C" int mm_grid_smooth(const float* t_xyz, const float* t_val, const int* t_count,
-                              const float* q_xyz, const long long* q_idx,
-                              const unsigned char* q_ok, const int* q_count, int h, int cap,
-                              int gx, int gy, int gz, float r2, const float* recips,
-                              int n_sigma, float* out, void* stream) {
-  if (n_sigma < 1 || n_sigma > kMaxSigma || t_val == nullptr) {
+// Kernel J: values (P,) f32, the value of each target point, read in place
+// through t_idx (h, cap) i64 (each filled slot's point index); recips
+// (n_sigma <= 64,) f32 in host memory, f32(1 / (2 s^2)) of each sigma,
+// passed by value; out (nq, n_sigma) f32 at the answered rows. The
+// pre-pass and the radius kernel (kSigLane sigmas a group of its grid),
+// boxes, units and counters as kernel H's.
+extern "C" int mm_grid_smooth(const float* t_xyz, const long long* t_idx, const int* t_count,
+                              const float* values, const float* q_xyz,
+                              const long long* q_idx, const unsigned char* q_ok,
+                              const int* q_count, int h, int cap, int gx, int gy, int gz,
+                              float r2, const float* recips, int n_sigma, float* boxes,
+                              int* units, int max_units, float* out, long long* counters,
+                              long long counters_len, void* stream) {
+  if (n_sigma < 1 || n_sigma > kMaxSigma || values == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   SmoothOp op{};
   for (int s = 0; s < n_sigma; ++s) op.recips.v[s] = recips[s];
   op.n_sigma = n_sigma;
+  op.values = values;
   op.out = out;
-  return launch(t_xyz, t_val, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz, r2,
-                (n_sigma + kSigLane - 1) / kSigLane, kRadiusThreads, op, stream);
+  return launch_radius(op, (n_sigma + kSigLane - 1) / kSigLane, t_xyz, t_idx, t_count, q_xyz,
+                       q_idx, q_ok, q_count, h, cap, gx, gy, gz, r2, boxes, units, max_units,
+                       counters, counters_len, stream);
 }
 
 // Kernel K: 1 <= k <= 26; exclude_self 0 or 1; idx_out (nq, k) i32, d2_out

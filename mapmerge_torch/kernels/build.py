@@ -93,23 +93,23 @@ SOURCES = {
     },
     "grid.cu": {
         # G and K: the pre-pass's buffers; the counters (null on the
-        # package's calls) and their length
+        # package's calls) and their length; H and J take the same
         "mm_grid_pack": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _ci, _vp],
         "mm_grid_nn": [
             _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _ci, _vp,
             _ci, _vp, _ci, _vp, _vp, _vp, _cll, _vp,
         ],
         "mm_grid_moments": [
-            _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _vp, _vp, _vp,
-            _vp,
+            _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _vp, _vp, _ci, _vp,
+            _vp, _vp, _vp, _cll, _vp,
         ],
         "mm_grid_count": [
             _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _ci, _vp, _vp,
         ],
         # the reciprocals of 2 s^2 in host memory (a ctypes float array)
         "mm_grid_smooth": [
-            _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf,
-            ctypes.POINTER(_cf), _ci, _vp, _vp,
+            _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf,
+            ctypes.POINTER(_cf), _ci, _vp, _vp, _ci, _vp, _vp, _cll, _vp,
         ],
         "mm_grid_knn": [
             _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _ci, _ci, _ci,

@@ -24,20 +24,26 @@ query grid's slots with cell_ok set are answered, the rows of the others
 (the queries the query-side cap dropped, masked queries) keep the plain
 version's defaults.
 
-H, I and J are one launch a call: one CTA a query bucket (a bucket with no
-query exits at once), one thread a query slot, every candidate in order. G
-and K need only the first member, or the first k candidates, of a query,
-and cull: a call launches the pre-pass (`pack`, counted as "grid_pack"),
-which writes the box of every run of TILE slots of each target bucket and
-lists the units of the query grid (up to 32 answered slots of one bucket,
-a lane a query), then the kernel, whose warps take the units and skip,
-exactly, every tile whose box bound cannot come before a query's threshold
-in (d2, slot) order. A caller that queries one target grid many times (ICP)
-makes its boxes once (`boxes`, also counted as "grid_pack") and passes them
-to `nn_query`, whose pre-pass then lists the units alone.
-`select_counters` launches G or K once more with its counters on: the pairs
-it compared, the tiles it visited, its units and the share of their lanes
-that answer a query.
+I is one launch a call: one CTA a query bucket (a bucket with no query
+exits at once), one thread a query slot, every candidate in order. The
+others cull, on one pre-pass: a call of G, H, J or K launches the pre-pass
+(`pack`, counted as "grid_pack"), which writes the box of every run of TILE
+slots of each target bucket and lists the units of the query grid (up to
+32 answered slots of one bucket, a lane a query), then the kernel, whose
+warps take the units. G and K need only the first member, or the first k
+candidates, of a query, and skip, exactly, every tile whose box bound
+cannot come before a query's threshold in (d2, slot) order. H and J add
+every member, a point within the fixed radius: a unit walks its
+neighbours' tiles in candidate order and skips, exactly, every tile whose
+box lies beyond the radius of its queries' box, then of each lane's query,
+so each lane adds the sweep's members in the sweep's order (the bits of
+the one-thread-a-slot sweep they replaced). A caller that queries one
+target grid many times (ICP) makes its boxes once (`boxes`, also counted
+as "grid_pack") and passes them to `nn_query`, whose pre-pass then lists
+the units alone. `select_counters` launches G, K, H or J once more with its
+counters on: the pairs it compared, the tiles it visited, its units and the
+share of their lanes that answer a query, H and J also the members they
+added.
 
 - `nn_query` equals `nn_query_ref` bit for bit: idx and d2.
 - `count` equals `count_ref` bit for bit, the include_self subtraction
@@ -52,8 +58,9 @@ that answer a query.
   bits, but the kernel sums w v and w in candidate order (kernel C's
   arithmetic, expf), the plain version by bmm and a row sum. The tolerance
   held on the card is C's, kernels/sift.SCALE_SPACE_RTOL of the field's
-  largest magnitude. The values reach the kernel through the cell-layout
-  gather that grid_query makes (`_pad_rows(values)[grid.cell_idx]`).
+  largest magnitude. The kernel reads each member's value in place, through
+  the target grid's cell_idx; no plane of values in the grid's layout is
+  made.
 - `knn` equals `knn_ref` bit for bit: the k smallest d2 with ties to the
   first candidate position (knn_ref sorts stably), entries at BIG or beyond
   as (0, BIG, BIG <= r2).
@@ -100,8 +107,8 @@ KNN_KERNEL = build.Kernel(
     source="mapmerge_torch/csrc/grid.cu",
     replaces="mapmerge_tpu/ops/grid.py:507",
 )
-#: the pre-pass of G and K (csrc/grid.cu: grid_pack_kernel), part of their
-#: port: launched with each of them, and alone by `pack`
+#: the pre-pass of G, H, J and K (csrc/grid.cu: grid_pack_kernel), part of
+#: their port: launched with each of them, and alone by `pack` and `boxes`
 PACK_KERNEL = build.Kernel(
     name="grid_pack",
     source="mapmerge_torch/csrc/grid.cu",
@@ -109,6 +116,8 @@ PACK_KERNEL = build.Kernel(
 )
 #: the most sigmas kernel J takes in a launch (csrc/grid.cu: kMaxSigma)
 MAX_SIGMAS = 64
+#: the sigmas a warp of kernel J takes, its group (csrc/grid.cu: kSigLane)
+SIGMA_GROUP = 8
 #: the longest neighbour list kernel K keeps (csrc/grid.cu: kK)
 MAX_K = 26
 #: slots a tile of the pre-pass's boxes (csrc/cull.cuh: kT)
@@ -138,26 +147,10 @@ def moments(
     """Count (Q,), mean (Q, 3) and covariance (Q, 3, 3) float32 of each
     query's members (the target points with d2 <= r2), summed over the
     query-centred offsets; zeros for a query in no answered slot. Operands
-    and routes as `nn_query`'s; kernel H."""
+    and routes as `nn_query`'s; the pre-pass and kernel H."""
     if q.device.type == "cpu":
         return moments_ref(grid, qg, q, r2)
-    kernel = MOMENTS_KERNEL
-    dev, nq, dims = _operands(kernel, grid, qg, q)
-    s0 = torch.zeros((nq,), dtype=torch.float32, device=dev)
-    mean = torch.zeros((nq, 3), dtype=torch.float32, device=dev)
-    cov = torch.zeros((nq, 3, 3), dtype=torch.float32, device=dev)
-    if nq == 0:
-        return s0, mean, cov
-    lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.mm_grid_moments(
-            grid.cell_xyz.data_ptr(), grid.count.data_ptr(), qg.cell_xyz.data_ptr(),
-            qg.cell_idx.data_ptr(), qg.cell_ok.data_ptr(), qg.count.data_ptr(), *dims,
-            r2, s0.data_ptr(), mean.data_ptr(), cov.data_ptr(), build.stream_handle(dev),
-        )
-    kernel.launched()
-    build.check_launch(kernel, err)
-    return s0, mean, cov
+    return _radius(MOMENTS_KERNEL, grid, qg, q, r2)
 
 
 def count(
@@ -193,31 +186,11 @@ def smooth(
     w, 1e-12) over its members (the target points with d2 <= r2), w =
     exp(-d2 f32(1 / (2 s^2))), v the member's value of `values` (P,) (the
     P points the target grid was built from); 0 for a query in no answered
-    slot. Operands and routes as `nn_query`'s; kernel J."""
+    slot. Operands and routes as `nn_query`'s; the pre-pass and kernel J,
+    which reads the values in place."""
     if q.device.type == "cpu":
         return smooth_ref(grid, qg, q, values, sigmas, r2)
-    kernel = SMOOTH_KERNEL
-    dev, nq, dims = _operands(kernel, grid, qg, q)
-    ns = len(sigmas)
-    build.require(f"{kernel.name}: values", values, torch.float32, (None,), dev)
-    if not 1 <= ns <= MAX_SIGMAS:
-        raise ValueError(f"{kernel.name}: unsupported sigma count {ns}")
-    out = torch.zeros((nq, ns), dtype=torch.float32, device=dev)
-    if nq == 0:
-        return out
-    v_cells = cgrid._pad_rows(values)[grid.cell_idx]  # grid_query's gather
-    recips = (ctypes.c_float * ns)(*_recips(sigmas))
-    lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.mm_grid_smooth(
-            grid.cell_xyz.data_ptr(), v_cells.data_ptr(), grid.count.data_ptr(),
-            qg.cell_xyz.data_ptr(), qg.cell_idx.data_ptr(), qg.cell_ok.data_ptr(),
-            qg.count.data_ptr(), *dims, r2, recips, ns, out.data_ptr(),
-            build.stream_handle(dev),
-        )
-    kernel.launched()
-    build.check_launch(kernel, err)
-    return out
+    return _radius(SMOOTH_KERNEL, grid, qg, q, r2, values, sigmas)
 
 
 def knn(
@@ -236,7 +209,7 @@ def knn(
 
 
 def pack(grid, qg, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The pre-pass of kernels G and K alone, on their operands (the target
+    """The pre-pass of kernels G, H, J and K alone, on their operands (the target
     grid, the query grid of the queries q): as `pack_ref` defines it,
     (boxes, units), but the boxes of empty tiles (outside `filled_tiles`)
     and the units' rows past units[0] + 1 are not written, and the units'
@@ -296,7 +269,8 @@ def units_max(nq: int, h: int) -> int:
 
 
 def pack_ref(grid, qg, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch pre-pass of kernels G and K: (boxes_ref(grid), units).
+    """Plain PyTorch pre-pass of kernels G, H, J and K: (boxes_ref(grid),
+    units).
     units (units_max(Q, H),) int32: their count n first, then, for each
     query bucket b in order and j < ceil(min(count_b, C) / 32), b ceil(C /
     32) + j: the j-th group of 32 answered slots of b, a warp's work; the
@@ -389,24 +363,91 @@ def _select(kernel: build.Kernel, grid, qg, q, n_p: int, *knn_args, boxes=None,
     return (idx, d2, valid) if knn else (idx, d2)
 
 
-#: the length of select_counters' buffer: 4 counts a warp of a persistent
-#: grid of up to 32 resident CTAs of 4 warps on each of 256 SMs (an H100
-#: has 132)
+def _radius(kernel: build.Kernel, grid, qg, q, r2: float, values=None, sigmas=None,
+            counters=None):
+    """Launch the pre-pass and kernel H (MOMENTS_KERNEL) or J
+    (SMOOTH_KERNEL, with `values` and `sigmas`) on the card: H's (count,
+    mean, cov) or J's field, their rows defaulted as the plain version's.
+    `counters`, an int64 tensor on the card, receives the kernel's per-warp
+    counts (select_counters); the package's calls pass none."""
+    dev, nq, dims = _operands(kernel, grid, qg, q)
+    smooth = kernel is SMOOTH_KERNEL
+    if smooth:
+        ns = len(sigmas)
+        build.require(f"{kernel.name}: values", values, torch.float32, (None,), dev)
+        if not 1 <= ns <= MAX_SIGMAS:
+            raise ValueError(f"{kernel.name}: unsupported sigma count {ns}")
+        outs = (torch.zeros((nq, ns), dtype=torch.float32, device=dev),)
+    else:
+        outs = (torch.zeros((nq,), dtype=torch.float32, device=dev),
+                torch.zeros((nq, 3), dtype=torch.float32, device=dev),
+                torch.zeros((nq, 3, 3), dtype=torch.float32, device=dev))
+    if nq == 0:
+        return outs[0] if smooth else outs
+    boxes = _empty_boxes(grid, dev)
+    units = torch.empty((units_max(nq, dims[0]),), dtype=torch.int32, device=dev)
+    work = (boxes.data_ptr(), units.data_ptr(), units.numel() - 1)
+    extra = (None, 0) if counters is None else (counters.data_ptr(), counters.numel())
+    queries = (qg.cell_xyz.data_ptr(), qg.cell_idx.data_ptr(), qg.cell_ok.data_ptr(),
+               qg.count.data_ptr(), *dims, r2)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        if smooth:
+            recips = (ctypes.c_float * ns)(*_recips(sigmas))
+            err = lib.mm_grid_smooth(
+                grid.cell_xyz.data_ptr(), grid.cell_idx.data_ptr(), grid.count.data_ptr(),
+                values.data_ptr(), *queries, recips, ns, *work, outs[0].data_ptr(), *extra,
+                build.stream_handle(dev))
+        else:
+            err = lib.mm_grid_moments(
+                grid.cell_xyz.data_ptr(), grid.count.data_ptr(), *queries, *work,
+                *(a.data_ptr() for a in outs), *extra, build.stream_handle(dev))
+    kernel.launched()
+    PACK_KERNEL.launched()
+    build.check_launch(kernel, err)
+    return outs[0] if smooth else outs
+
+
+#: the length of select_counters' buffer for G and K: 4 counts a warp of a
+#: persistent grid of up to 32 resident CTAs of 4 warps on each of 256 SMs
+#: (an H100 has 132)
 COUNTERS_LEN = 4 * 4 * 32 * 256
 
 
-def select_counters(name: str, grid, qg, q, n_p: int, *knn_args) -> dict:
-    """Kernel G ("grid_nn") or K ("grid_knn") launched once more on these
-    operands with its counters on (not a path of the package): the
-    (query, candidate) pairs it compared, the tiles it visited, its units
-    (warps' worth of queries) and the queries answered, summed over its
-    warps, and the share of the units' lanes that answer a query."""
-    kernel = NN_KERNEL if name == "grid_nn" else KNN_KERNEL
-    counters = torch.zeros((COUNTERS_LEN,), dtype=torch.int64, device=q.device)
-    _select(kernel, grid, qg, q, n_p, *knn_args, counters=counters)
-    pairs, tiles, units, answered = (int(v) for v in counters.view(-1, 4).sum(dim=0))
-    return {"pairs_compared": pairs, "tiles_visited": tiles, "units": units,
-            "answered": answered, "lane_share": answered / (32 * units) if units else None}
+def select_counters(name: str, grid, qg, q, *args) -> dict:
+    """Kernel G ("grid_nn"), K ("grid_knn"), H ("grid_moments") or J
+    ("grid_smooth") launched once more on these operands with its counters
+    on (not a path of the package; `args` those of its wrapper after q):
+    the (query, candidate) pairs it compared, the tiles it visited, its
+    units (warps' worth of queries) and the queries answered, summed over
+    its warps, and the share of the units' lanes that answer a query; H and
+    J also the members they added, each (query, point) within the radius
+    (J's counts summed over its sigma groups, each of which walks the units
+    again)."""
+    if name in ("grid_nn", "grid_knn"):
+        width = 4
+        counters = torch.zeros((COUNTERS_LEN,), dtype=torch.int64, device=q.device)
+        kernel = NN_KERNEL if name == "grid_nn" else KNN_KERNEL
+        _select(kernel, grid, qg, q, *args, counters=counters)
+    else:
+        # 5 counts a warp, a warp for each unit the buffer holds (rounded up
+        # to CTAs of 4), in each of J's sigma groups
+        width, smooth = 5, name == "grid_smooth"
+        groups = -(-len(args[1]) // SIGMA_GROUP) if smooth else 1
+        warps = -(-units_max(q.shape[0], grid.cell_idx.shape[0]) // 4) * 4
+        counters = torch.zeros((width * warps * groups,), dtype=torch.int64, device=q.device)
+        if smooth:
+            values, sigmas, r2 = args
+            _radius(SMOOTH_KERNEL, grid, qg, q, r2, values, sigmas, counters=counters)
+        else:
+            _radius(MOMENTS_KERNEL, grid, qg, q, *args, counters=counters)
+    sums = [int(v) for v in counters.view(-1, width).sum(dim=0)]
+    pairs, tiles, units, answered = sums[:4]
+    out = {"pairs_compared": pairs, "tiles_visited": tiles, "units": units,
+           "answered": answered, "lane_share": answered / (32 * units) if units else None}
+    if width == 5:
+        out["members"] = sums[4]
+    return out
 
 
 def _recips(sigmas: list[float]) -> list[float]:

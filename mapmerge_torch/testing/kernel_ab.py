@@ -37,6 +37,14 @@ config5_big's first map's octave 0, and times each checkout's wrapper on
 them, held bit for bit against its plain version: each call whole (the
 pre-pass's boxes made in it) and, for G in a checkout whose `nn_query`
 takes the boxes made before (`boxes=`), given them as ICP gives them.
+Beside them the grid radius kernels' first calls: kernel H
+(`grid.moments`) on config #2's first cloud and on config5_big's first
+map, kernel J (`grid.smooth`) at config5_big's first map's octaves 0 and
+1, each timed whole, held against its plain version within its tolerance
+and repeating, with a digest of its output (equal digests: the checkouts
+agree bit for bit) and its device time by kernel name under
+torch.profiler, as the tile pre-pass's inputs also get. PREFIX may name
+several prefixes, separated by commas.
 Compare in one process order on one card: parent, change, change, parent.
 C, D, E and F are timed through their
 wrappers with no `packed` buffer, so each time holds the pre-pass, as an
@@ -257,12 +265,15 @@ def record_config2_sweep(cs, dev) -> tuple:
 
 
 def record_grid_select(cs, dev) -> dict:
-    """The arguments of kernel G's first call from ICP on eval config #2
-    (chip_smoke.run_config2's merge of its five views) and of kernel K's
-    first call on config5_big's first map (its octave 0: the incremental
-    node's first tick), as chip_smoke.first_launch_inputs records them,
-    with each cell grid as a dict of its fields ("grid_nn config #2",
-    "grid_knn config5_big")."""
+    """The arguments of kernel G's first call from ICP and of kernel H's
+    first call on eval config #2 (chip_smoke.run_config2's merge of its
+    five views: the first cloud's normals), and of kernel K's first call,
+    H's first call and J's first calls at octaves 0 and 1 on config5_big's
+    first map (the incremental node's first tick), as
+    chip_smoke.first_launch_inputs records them, with each cell grid as a
+    dict of its fields ("grid_nn config #2", "grid_moments config #2",
+    "grid_knn config5_big", "grid_moments config5_big", "grid_smooth
+    config5_big octave 0" and "... octave 1")."""
     from mapmerge_torch.core.cloud import PointCloud
     from mapmerge_torch.kernels import nn, spfh
     from mapmerge_torch.pipeline.merging import estimate_maps_transforms
@@ -278,6 +289,7 @@ def record_grid_select(cs, dev) -> dict:
         estimate_maps_transforms(clouds, cs.config2_params(), seed=0)
         torch.cuda.synchronize()
     kept["grid_nn config #2"] = seen["grid_nn icp"]
+    kept["grid_moments config #2"] = seen["grid_moments"]
     del clouds, seen
     views, _ = town_views(cs.CONFIG5_MAPS, cs.CONFIG5_VIEW_TARGET, keep=0.8, seed=5)
     cap = 1 << int(np.ceil(np.log2(len(views[0][0]))))
@@ -289,6 +301,11 @@ def record_grid_select(cs, dev) -> dict:
         torch.cuda.synchronize()
     knn = [k for k in seen if k.startswith("grid_knn Q=")]
     kept["grid_knn config5_big"] = seen[max(knn, key=lambda k: int(k.split("=")[1]))]
+    kept["grid_moments config5_big"] = seen["grid_moments"]
+    smooth = sorted((k for k in seen if k.startswith("grid_smooth Q=")),
+                    key=lambda k: -int(k.split("=")[1]))
+    for octave, key in enumerate(smooth[:2]):
+        kept[f"grid_smooth config5_big octave {octave}"] = seen[key]
     # the positional arguments only: G's `boxes` from ICP are the change's,
     # and each checkout makes its own
     return {name: ([_grid_fields(a) for a in args], {}) for name, (args, _) in kept.items()}
@@ -339,6 +356,61 @@ def time_grid_select(kgrid, name: str, args) -> dict:
         "exact": exact, "digest": _digest(got),
         "ms": [time_ms(lambda: kernel(*args)) for _ in range(3)], "kept_ms": kept,
     }
+
+
+def time_grid_radius(kgrid, name: str, args) -> dict:
+    """Kernel H (`moments`) or J (`smooth`) of the checkout on one saved
+    input: held against its plain version (H's count exactly, its mean and
+    covariance within MOMENTS_RTOL; J within SCALE_SPACE_RTOL of the field)
+    and against a second call bit for bit, a digest of its output, three
+    medians of 20 timed calls, each whole (the pre-pass, where the checkout
+    has one, in it), and the device time of a call by kernel name
+    (device_ms)."""
+    from mapmerge_torch.kernels import radius as kradius
+    from mapmerge_torch.kernels import sift as ksift
+
+    args = [_as_grid(a) for a in args]
+    grid, q = args[0], args[2]
+    if name.startswith("grid_moments"):
+        kernel = kgrid.moments
+        got, want = kernel(*args), kgrid.moments_ref(*args)
+        _, err = kradius.moments_error(got, want, q)
+        held = torch.equal(got[0], want[0]) and err <= kradius.MOMENTS_RTOL
+        error = {"err_of_second_moment": err}
+    else:
+        kernel = kgrid.smooth
+        got, want = (kernel(*args),), kgrid.smooth_ref(*args)
+        err = float((got[0] - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        held = err <= ksift.SCALE_SPACE_RTOL
+        error = {"err_of_field": err}
+    again = kernel(*args)
+    again = again if isinstance(again, tuple) else (again,)
+    return {
+        "shape": f"Q={q.shape[0]} grid {tuple(grid.cell_idx.shape)} dims {grid.dims}",
+        "held": held and all(torch.equal(a, b) for a, b in zip(got, again)), **error,
+        "digest": _digest(got), "ms": [time_ms(lambda: kernel(*args)) for _ in range(3)],
+        "device_ms": device_ms(lambda: kernel(*args)),
+    }
+
+
+def device_ms(fn, reps: int = 20) -> dict:
+    """The device time of one call of fn by kernel name (and memset):
+    torch.profiler's CUDA intervals over `reps` calls after a warm one,
+    summed by name, over reps."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = (e.time_range.end - e.time_range.start) / 1e3 / reps
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    return by_name
 
 
 def time_config2_sweep(args, kwargs) -> dict:
@@ -394,7 +466,8 @@ def time_sift(ksift, name: str, args, kwargs) -> dict:
 def time_pack(ktiles, args) -> dict:
     """The pre-pass of the checkout on one saved input: held against
     pack_ref (the same values, NaN where NaN, the int bits of the fourth
-    columns), a digest of both outputs, three medians of 20 timed calls."""
+    columns), a digest of both outputs, three medians of 20 timed calls
+    through the wrapper, and the device time of a call (device_ms)."""
     pts, boxes = ktiles.pack(*args)
     rpts, rboxes = ktiles.pack_ref(*args)
     ok = bool(((pts == rpts) | (pts.isnan() & rpts.isnan())).all()) and torch.equal(
@@ -402,7 +475,8 @@ def time_pack(ktiles, args) -> dict:
         boxes[..., 3].contiguous().view(torch.int32),
         rboxes[..., 3].contiguous().view(torch.int32))
     return {"shape": f"P={args[0].shape[0]}", "held": ok, "digest": _digest((pts, boxes)),
-            "ms": [time_ms(lambda: ktiles.pack(*args)) for _ in range(3)]}
+            "ms": [time_ms(lambda: ktiles.pack(*args)) for _ in range(3)],
+            "device_ms": device_ms(lambda: ktiles.pack(*args))}
 
 
 def time_radius(kradius, name: str, args, kwargs) -> dict:
@@ -456,7 +530,7 @@ def time_root(inputs_path: Path, root: Path, prefix: str = "") -> None:
     inputs = torch.load(inputs_path, map_location=f"cuda:{torch.cuda.current_device()}")
     result = {"root": str(root), "card": card, "kernels": {}}
     for name, (args, kwargs) in sorted(inputs.items()):
-        if not name.startswith(prefix):
+        if not name.startswith(tuple(prefix.split(","))):
             continue
         if name.startswith("tiles_pack"):
             result["kernels"][name] = time_pack(ktiles, args)
@@ -473,6 +547,9 @@ def time_root(inputs_path: Path, root: Path, prefix: str = "") -> None:
             continue
         if name.startswith(("grid_nn", "grid_knn")):
             result["kernels"][name] = time_grid_select(kgrid, name, args)
+            continue
+        if name.startswith(("grid_moments", "grid_smooth")):
+            result["kernels"][name] = time_grid_radius(kgrid, name, args)
             continue
         kernel, ref = {
             "nn": (nn.nearest_neighbor, nn.nearest_neighbor_ref),

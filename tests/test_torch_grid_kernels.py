@@ -2,9 +2,11 @@
 kernels/grid.py, csrc/grid.cu) on their plain versions, against the JAX
 package's grid_nn_query, grid_neighbor_moments and grid_radius_count.
 
-Each kernel takes one CTA a query bucket and one thread a query slot, and
-visits the filled slots of the distinct wrapped neighbour buckets in
-ascending bucket id, then slot order. Here: the plain versions and
+Each kernel answers a query slot from the filled slots of the distinct
+wrapped neighbour buckets in ascending bucket id, then slot order (I sweeps
+them all; G and H cull tiles of them exactly:
+tests/test_torch_grid_select.py and tests/test_torch_grid_radius_cull.py
+model their schedules). Here: the plain versions and
 ops/grid's three functions (which take them on the CPU) against the JAX
 package, on tests/test_torch_grid.py's cloud (3,000 points in a 4 m cube,
 10% masked and parked at FAR, 500 queries, radius 0.35) and its grid cases;
@@ -23,8 +25,9 @@ squares otherwise, tests/test_torch_grid.py); moments within rtol 1e-5 /
 atol 1e-6 (tests/test_torch_grid.py's FLOAT_TOL: another summation order).
 
 The `cuda` cases hold the kernels against their plain versions (G and I bit
-for bit, H within MOMENTS_RTOL, bit for bit the model and repeating) and
-skip here; on a machine with a GPU: `python -m pytest
+for bit, H within MOMENTS_RTOL, bit for bit the model of the sweep's order
+and repeating), duplicated points and a bucket full at a cap above 128
+among them, and skip here; on a machine with a GPU: `python -m pytest
 tests/test_torch_grid_kernels.py -m cuda --noconftest`.
 """
 
@@ -462,7 +465,9 @@ def cuda():
 def card_case(case):
     """(grid, qg, q, n_p, r2) on the CPU: the fixture's cloud regenerated,
     lattice ties over wrapped dims, all-masked targets, a query bucket over
-    its cap, unmatched and parked queries."""
+    its cap, unmatched and parked queries, capped targets, duplicated
+    lattice points (some parked at FAR) over wrapped dims, one bucket full
+    at a cap of 160 among empty ones."""
     rng = np.random.default_rng(0)
     p = (rng.random((3000, 3)) * 4.0).astype(np.float32)
     mask = rng.random(3000) > 0.1
@@ -483,12 +488,26 @@ def card_case(case):
         q[1::4] = FAR
     elif case == "capped targets":
         cap = 8
+    elif case == "duplicated points":
+        p, mask, q, q_mask = lattice_case(5, 1500, 400, 0.2, 0.5)
+        p, mask = np.concatenate([p, p[:700]]), np.concatenate([mask, mask[:700]])
+        cell, dims, cap = 0.375, (4, 4, 2), 128
+    elif case == "a bucket full at a cap above 128":
+        rng = np.random.default_rng(5)
+        crowd = (rng.integers(0, 4, (300, 3)) * 0.125).astype(np.float32)
+        near = (rng.integers(-4, 8, (60, 3)) * 0.125).astype(np.float32)
+        p = np.concatenate([crowd, near])
+        mask = np.ones(len(p), bool)
+        q = np.concatenate([crowd[::3], near[::2]]).astype(np.float32)
+        q_mask = np.ones(len(q), bool)
+        cell, dims, cap = 0.5, (4, 4, 4), 160
     grid, qg, tq = _grids(p, mask, q, q_mask, cell, dims, cap)
     return grid, qg, tq, len(p), tg._f32(cell * cell)
 
 
 CARD_CASES = ["random", "wrapped lattice ties", "all masked", "query bucket over its cap",
-              "unmatched and parked", "capped targets"]
+              "unmatched and parked", "capped targets", "duplicated points",
+              "a bucket full at a cap above 128"]
 
 
 def _to(grid, dev):

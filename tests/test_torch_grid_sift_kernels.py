@@ -3,9 +3,10 @@
 package's grid_gaussian_smooth and the big-Q branch of
 grid_radius_neighbors.
 
-Both kernels take one CTA a query bucket and one thread a query slot, and
-visit the filled slots of the distinct wrapped neighbour buckets in
-ascending bucket id, then slot order, as G-I do. Here: the plain versions
+Both kernels answer a query slot from the filled slots of the distinct
+wrapped neighbour buckets in ascending bucket id, then slot order, as G-I
+do, and cull tiles of them exactly (tests/test_torch_grid_select.py and
+tests/test_torch_grid_radius_cull.py model their schedules). Here: the plain versions
 and ops/grid's two functions (which take them on the CPU) against the JAX
 package on the same seeded numpy inputs (tests/test_torch_grid.py's cloud:
 3,000 points in a 4 m cube, 10% masked and parked at FAR), on the big-Q
@@ -25,9 +26,10 @@ which is unspecified, so sets are compared. J within SCALE_SPACE_RTOL (1e-5)
 of the field's largest magnitude, kernel C's tolerance: the two packages
 round exp and add in other orders; the overflow exactly.
 
-The `cuda` cases hold J within SCALE_SPACE_RTOL of smooth_ref (repeating
-bit for bit, unanswered rows 0) and K bit for bit against knn_ref, on
-adversarial inputs, and skip here; on a machine with a GPU: `python -m
+The `cuda` cases hold J within SCALE_SPACE_RTOL of smooth_ref at 1, 6 and
+64 sigmas (repeating bit for bit, unanswered rows 0) and K bit for bit
+against knn_ref, on adversarial inputs (a bucket full at a cap above 128
+among them), and skip here; on a machine with a GPU: `python -m
 pytest tests/test_torch_grid_sift_kernels.py -m cuda --noconftest`.
 """
 
@@ -424,7 +426,8 @@ def card_case(case):
     ones parked at FAR, a bucket over its cap), duplicated lattice points
     over wrapped dims (ties within and across buckets), all-masked targets,
     a query bucket over its cap, unmatched and parked queries, capped
-    targets, a cloud too sparse for k candidates."""
+    targets, a cloud too sparse for k candidates, one bucket full at a cap
+    of 160 among empty ones."""
     p, mask, vals = card_cloud()
     q = p.copy()
     rng = np.random.default_rng(1)
@@ -447,23 +450,41 @@ def card_case(case):
         cap = 8
     elif case == "fewer than k candidates":
         p, mask, q, vals = p[:200], mask[:200], q[:200], vals[:200]
+    elif case == "a bucket full at a cap above 128":
+        crowd = (rng.integers(0, 4, (300, 3)) * 0.125).astype(np.float32)
+        near = (rng.integers(-4, 8, (60, 3)) * 0.125).astype(np.float32)
+        p = np.concatenate([crowd, near])
+        mask = np.ones(len(p), bool)
+        q = np.concatenate([crowd[::3], near[::2]]).astype(np.float32)
+        vals = (rng.random(len(p)) * 255.0).astype(np.float32)
+        cell, dims, cap = 0.5, (4, 4, 4), 160
     grid, qg, tq = _grids(p, mask, q, None, cell, dims, cap)
     return grid, qg, tq, torch.from_numpy(vals), len(p), cell
 
 
 CARD_CASES = ["the points", "lattice ties over wrapped dims", "all masked",
               "query bucket over its cap", "unmatched and parked", "capped targets",
-              "fewer than k candidates"]
+              "fewer than k candidates", "a bucket full at a cap above 128"]
+
+
+def card_sigmas(cell: float, n_sigma: int) -> list[float]:
+    """sigmas_for(cell) at 6, else n sigmas down from the same largest (3
+    sigma_max the cell) evenly to a quarter of it: J's 1 and 64."""
+    if n_sigma == 6:
+        return sigmas_for(cell)
+    top = cell / 3.0
+    return [top * (1.0 - 0.75 * s / max(n_sigma - 1, 1)) for s in range(n_sigma)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CARD_CASES)
-def test_smooth_kernel_within_tolerance_and_repeating(cuda, case):
-    """Kernel J: within SCALE_SPACE_RTOL of smooth_ref's field, the rows of
-    unanswered queries exactly 0, bit for bit again on a second launch, one
-    launch a call."""
+@pytest.mark.parametrize("n_sigma", [6, 1, 64])
+def test_smooth_kernel_within_tolerance_and_repeating(cuda, case, n_sigma):
+    """Kernel J at 1, 6 and 64 sigmas: within SCALE_SPACE_RTOL of
+    smooth_ref's field, the rows of unanswered queries exactly 0, bit for
+    bit again on a second launch, one launch a call."""
     grid, qg, q, vals, _, cell = card_case(case)
-    sigmas = sigmas_for(cell)
+    sigmas = card_sigmas(cell, n_sigma)
     r2 = tg._f32(cell * cell)
     want = kgrid.smooth_ref(grid, qg, q, vals, sigmas, r2)
     on_card = (_to(grid, cuda), _to(qg, cuda), q.to(cuda), vals.to(cuda))
