@@ -14,10 +14,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      C (scale space) and D (26-NN) at config #1's octave-0 shape, C within
      its tolerance and D exactly, D also on lattice ties and both on a small
      Q whose points they split; the dense radius sweeps, kernels E (count)
-     and F (moments), at config #1's width (Q = P = 32,768, 0.8 / 0.6 m), E
-     exactly and F within its tolerance, then on points exactly on the
+     and F (moments), at config #1's width (Q = P = 32,768, 0.8 / 0.6 m:
+     the streamed route, and its order pre-pass against order_ref), E
+     exactly and F within its tolerance, then either side of the resident
+     route's cutoff (naming each route) and on points exactly on the
      radius, ties, shuffled, all-masked, half-parked, one-tile clouds and
-     queries that are not the cloud's points; the grid sweeps, kernels G
+     queries that are not the cloud's points on both routes; the grid
+     sweeps, kernels G
      (bounded 1-NN), H (moments) and I (count), on a synthetic town of
      262,144 points at config #2's radii and caps, G and I bit for bit and
      H within its tolerance, then on wrapped lattice dims, ties across
@@ -178,10 +181,14 @@ torch.topk (knn_library); check_sift holds them on adversarial inputs too
 (sift_adversarial). C's and D's bounds count the work their inputs need
 (the pairs within C's radius, D's k a query), the dense sweep's beside.
 The dense radius sweeps (kernels E and F: the outlier pass, SC3D's
-density count and the normals) launch once a dense radius pass, each with
-its own pre-pass: E and F once a dense extraction, E once more on SC3D,
-neither on config #2, #3 or config5_big (require_radius); both are held on
-every dense path's first launch, E exactly and F within its tolerance, F's
+density count and the normals) launch once a dense radius pass, one C call
+each, their order pre-pass (radius_order) with them on the streamed route
+(above RESIDENT_MAX_POINTS) and on no other: E and F once a dense
+extraction, E once more on SC3D, neither on config #2, #3 or config5_big
+(require_radius); both are held on every dense path's first launch, with
+the route it took, the pairs its culling compares and its device time
+(torch.profiler) beside the time through the wrapper, E exactly and F
+within its tolerance, F's
 normals' valid flags equal to the plain version's (the ok flips and the
 largest angle logged, and what the angle comes from: moments_precision,
 which also holds TF32 and bfloat16 controls of F's sums to fail F's limit
@@ -214,10 +221,9 @@ launch the pre-pass grid_pack with them (require_grid_pack), and each is
 launched once more with its counters on (select_stats: pairs compared,
 tiles visited, units, the lanes' share; H's and J's members required to be
 the plain route's exactly).
-The tile pre-pass (kernels/tiles.pack, which C, D, E and F read) launches
-once a dense SIFT octave, for both C and D, and once a call of E or F,
-exactly (require_pack), and is held exactly on its first launch on every
-path.
+The tile pre-pass (kernels/tiles.pack, which C and D read) launches once
+a dense SIFT octave, for both, exactly (require_pack), and is held exactly
+on its first launch on every path.
 Config #1's merge is also timed stage by stage and profiled once
 (profile_merge: the device busy share), and config5_big's octave 0 (2^19
 points, on the grid) is timed through C and D beside the grid route, whole
@@ -229,8 +235,9 @@ sampled queries; config #1's octaves 1 and 2 give C's and D's bounds and
 D's knn_library (sift_octave_stats).
 The line before the last is a JSON object of the kernels (kernel
 A's one-pair and batched entries, kernel B, the pre-pass, kernels C, D, E,
-F, G, H, I, J and K): launches, times and bound on each kernel's main path
-(MAIN_PATH: config #1 for the batched entry, B, C, D, E and F, config #2
+F, E's and F's order pre-pass, G, H, I, J and K): launches, times and bound
+on each kernel's main path (MAIN_PATH: config #1 for the batched entry, B,
+C, D, E, F and their order pre-pass, config #2
 for G, H and I, config5_big for J and K, the incremental node on config
 #1's views for the one-pair entry), and the same for every path and for
 the synthetic shapes; the last
@@ -1113,20 +1120,127 @@ def _moments_compare(name, kradius, args):
     return err, rel, int(ref[0].sum()), normals_hold(got, ref, args)
 
 
+def device_us(fn, reps: int = 10) -> dict:
+    """The device time of one call of fn in µs: by kernel name (and memset)
+    torch.profiler's CUDA intervals over `reps` calls after a warm one,
+    summed by name, over reps ("total" their sum); and "queued": CUDA events
+    around `reps` calls that the host queued behind a device-side sleep
+    (torch.cuda._sleep, long enough to cover the host's issue time), so the
+    device runs them back to back, over reps. Over chip_smoke's many
+    profiler sessions in one process the profiler has dropped kernels
+    (totals falling to 0 on later paths), so "queued" is the one to read."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.sub(r"\(anonymous namespace\)::|^void ", "", e.name).split("(")[0]
+            by_name[name] = by_name.get(name, 0.0) + (e.time_range.end
+                                                      - e.time_range.start) / reps
+    by_name["total"] = sum(by_name.values())
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4 * reps * host_s * 2e9) + 1_000_000)  # cycles, ~2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    by_name["queued"] = start.elapsed_time(end) * 1e3 / reps
+    return by_name
+
+
+def radius_pairs(kradius, args) -> dict:
+    """What the culling of kernel E or F compares on its inputs `args`, by
+    the route their size takes (the boxes of the caller's order of tiles,
+    or of order_ref's): a query's pairs compared, the TILE points of each
+    tile whose clamped-box bound is within r2 of it; those of the tiles its
+    warp visits (the box of the warp's queries and one of its queries reach
+    the tile: what its lanes test); its members. Each a query, over the
+    queries not parked at FAR."""
+    from mapmerge_torch.core.cloud import FAR
+    from mapmerge_torch.kernels import tiles as ktiles
+
+    qc, pc, mask, r2 = args[:4]
+    route = kradius.route(pc.shape[0])
+    if route == "resident":
+        _, boxes = ktiles.pack_ref(pc, None, mask)
+    else:
+        _, boxes, _ = kradius.order_ref(pc, mask, r2)
+    lo, hi = boxes[:, 0, :3], boxes[:, 1, :3]
+    per_warp = kradius.TILE // kradius.LANES
+    live = qc.abs().amax(-1) < FAR / 2
+    own = warp = 0
+    for s in range(0, qc.shape[0], 4096):  # whole warps at a time
+        q = qc[s : s + 4096]
+        d = q[:, None] - torch.minimum(torch.maximum(q[:, None], lo), hi)
+        reach = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2] <= r2
+        pad = -q.shape[0] % per_warp
+        qw = torch.cat([q, q[-1:].expand(pad, 3)]).view(-1, per_warp, 3)
+        qlo, qhi = qw.amin(1)[:, None], qw.amax(1)[:, None]
+        gap = torch.where(qhi < lo, lo - qhi, torch.where(hi < qlo, qlo - hi, 0.0))
+        box = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]) + gap[..., 2] * gap[..., 2]
+        rw = torch.cat([reach, reach[:0].new_zeros((pad, reach.shape[1]))])
+        visit = (box <= r2) & rw.view(-1, per_warp, rw.shape[1]).any(1)
+        ok = live[s : s + 4096]
+        own += int(reach[ok].sum())
+        warp += int(visit.sum(1).repeat_interleave(per_warp)[: q.shape[0]][ok].sum())
+    n = max(int(live.sum()), 1)
+    members = int(kradius.count_ref(*args[:4])[live].sum())
+    return {"route": route, "pairs_compared_per_query": own * kradius.TILE / n,
+            "warp_pairs_per_query": warp * kradius.TILE / n, "members_per_query": members / n}
+
+
+def _order_compare(name, kradius, args) -> None:
+    """E's and F's order pre-pass against order_ref: the same values, NaN
+    where NaN."""
+    got, want = kradius.order(*args), kradius.order_ref(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        require(a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all()),
+                f"{name}: differs from order_ref")
+
+
+def order_bound(args) -> dict:
+    """The order pre-pass: the points (12 B) and the mask (1 B) read once,
+    the points (16 B) and the boxes (32 B a tile and a chunk) of P rounded
+    up to a chunk written once (kradius.work_floats); no arithmetic to
+    speak of."""
+    from mapmerge_torch.kernels import radius as kradius
+
+    np_ = args[0].shape[0]
+    return _bound(np_ * 13 + kradius.work_floats(np_) * 4, 0)
+
+
 def radius_stats(label: str, kradius, seen: dict) -> dict:
     """Kernels E and F on the inputs of their first launch on a path (the
     path's own shapes): held against their plain versions (_count_compare,
-    _moments_compare), then timed (CUDA events, warm, median), each with its
-    own pre-pass, as the path runs it, beside the bound on the members
-    (the dense sweep's beside it) and, for E, count_library."""
+    _moments_compare), then timed through the wrapper (CUDA events, warm,
+    median: one C call, the route's launches) and on the device (device_us:
+    torch.profiler, by kernel), beside the bound on the members (the dense
+    sweep's beside it) and, for E, count_library; the route each took and
+    the pairs its culling compares (radius_pairs). Where the path's first
+    streamed call recorded its points, the order pre-pass alone: held
+    exactly against order_ref and timed so."""
     stats = {}
     if "radius_count" in seen:
         args, _ = seen["radius_count"]
         in_bound = int(_count_compare(f"{label} radius_count", kradius, args).sum())
         stats["radius_count"] = {
             "shape": f"Q={args[0].shape[0]} P={args[1].shape[0]} r2={args[3]}",
-            "max_abs_err": 0.0, "pairs_in_bound": in_bound,
+            "max_abs_err": 0.0, "pairs_in_bound": in_bound, **radius_pairs(kradius, args),
             "ms": time_ms(lambda: kradius.count(*args)),
+            "device_us": device_us(lambda: kradius.count(*args)),
             "plain_ms": time_ms(lambda: kradius.count_ref(*args), reps=3, warmup=1),
             **count_library_stats(kradius, args), **radius_count_bound(args, in_bound),
         }
@@ -1137,12 +1251,23 @@ def radius_stats(label: str, kradius, seen: dict) -> dict:
         stats["radius_moments"] = {
             "shape": f"Q={args[0].shape[0]} P={args[1].shape[0]} r2={args[3]}",
             "max_abs_err": err, "err_of_second_moment": rel, "pairs_in_bound": in_bound,
-            "normals": normals,
+            **radius_pairs(kradius, args), "normals": normals,
             "precision": moments_precision(
                 kradius, args, controls_fail=label in ("synthetic", MAIN_PATH["radius_moments"])),
             "ms": time_ms(lambda: kradius.moments(*args)),
+            "device_us": device_us(lambda: kradius.moments(*args)),
             "plain_ms": time_ms(lambda: kradius.moments_ref(*args), reps=3, warmup=1),
             "library_ms": None, **radius_moments_bound(args, in_bound),
+        }
+    if "radius_order" in seen:
+        args, _ = seen["radius_order"]
+        _order_compare(f"{label} radius_order", kradius, args)
+        stats["radius_order"] = {
+            "shape": f"P={args[0].shape[0]} r2={args[2]}", "max_abs_err": 0.0,
+            "ms": time_ms(lambda: kradius.order(*args)),
+            "device_us": device_us(lambda: kradius.order(*args)),
+            "plain_ms": time_ms(lambda: kradius.order_ref(*args), reps=3, warmup=1),
+            "library_ms": None, **order_bound(args),
         }
     return stats
 
@@ -1178,19 +1303,39 @@ def radius_adversarial(g, qc, pc, mask) -> dict:
 
 def check_radius(dev, kradius) -> dict:
     """Kernels E and F against their plain versions at config #1's width
-    (sift_octave0's points: Q = P = 32,768, 20% padding at FAR; E at the
-    outlier radius, F at the normals'), E exactly and F within its
-    tolerance, both timed; then both on radius_adversarial's inputs."""
+    (sift_octave0's points: Q = P = 32,768, 20% padding at FAR, the
+    streamed route; E at the outlier radius, F at the normals'), E exactly
+    and F within its tolerance, both timed, and their order pre-pass on its
+    points; then at the first RESIDENT_MAX_POINTS of them and one more
+    (either side of the cutoff: the two routes), and on radius_adversarial's
+    inputs made from all of them and from the first 8,192 (the two routes)."""
     from mapmerge_torch.ops.neighbors import _f32
 
     g = torch.Generator(device=dev).manual_seed(15)
     qc, pc, _, mask = sift_octave0(g, dev)
-    e_args = (qc, pc, mask, _f32(OUTLIER_R ** 2))
-    f_args = (qc, pc, mask, _f32(NORMAL_R ** 2))
-    stats = radius_stats("synthetic", kradius,
-                         {"radius_count": (e_args, {}), "radius_moments": (f_args, {})})
+    r2e, r2f = _f32(OUTLIER_R ** 2), _f32(NORMAL_R ** 2)
+
+    def first(n: int) -> dict:
+        q, p, m = qc[:n].contiguous(), pc[:n].contiguous(), mask[:n].contiguous()
+        return {"radius_count": ((q, p, m, r2e), {}), "radius_moments": ((q, p, m, r2f), {}),
+                **({"radius_order": ((p, m, r2e), {})}
+                   if kradius.route(n) == "streamed" else {})}
+
+    stats = radius_stats("synthetic", kradius, first(qc.shape[0]))
+    cutoff = kradius.RESIDENT_MAX_POINTS
+    sides = {side: radius_stats(f"synthetic {side}", kradius, first(n))
+             for side, n in (("at the cutoff", cutoff), ("past the cutoff", cutoff + 1))}
+    for name in ("radius_count", "radius_moments"):
+        stats[name]["either_side_of_cutoff"] = {side: st[name] for side, st in sides.items()}
+        require([st[name]["route"] for st in sides.values()] == ["resident", "streamed"],
+                f"{name}: the routes either side of the cutoff are "
+                f"{[st[name]['route'] for st in sides.values()]}")
     worst = 0.0
-    adversarial = radius_adversarial(g, qc, pc, mask)
+    adversarial = {**{f"{name} ({kradius.route(pc.shape[0])})": case
+                      for name, case in radius_adversarial(g, qc, pc, mask).items()},
+                   **{f"{name} (resident)": case for name, case in radius_adversarial(
+                       g, qc[:8192].contiguous(), pc[:8192].contiguous(),
+                       mask[:8192].contiguous()).items()}}
     for name, (q, p, m, r2e, r2f) in adversarial.items():
         _count_compare(f"radius_count {name}", kradius, (q, p, m, r2e))
         _, rel, _, _ = _moments_compare(f"radius_moments {name}", kradius, (q, p, m, r2f))
@@ -1205,6 +1350,16 @@ def check_radius(dev, kradius) -> dict:
         f"kernel {f['ms']} ms, plain {f['plain_ms']} ms, bound {f['bound_ms']} ms")
     log(f"kernels radius_count and radius_moments held on {sorted(adversarial)} (largest "
         f"moments error {worst} of a second moment)")
+    for side, st in sides.items():
+        log(f"kernels radius_count and radius_moments {side} ({st['radius_count']['shape']}, "
+            f"{st['radius_count']['route']}): E {st['radius_count']['ms']} ms "
+            f"({st['radius_count']['device_us']['queued']} µs on the device), F "
+            f"{st['radius_moments']['ms']} ms ({st['radius_moments']['device_us']['queued']} "
+            f"µs), F off by {st['radius_moments']['err_of_second_moment']} of a second moment")
+    o = stats["radius_order"]
+    log(f"kernel radius_order {o['shape']}: exact; {o['ms']} ms "
+        f"({o['device_us']['queued']} µs on the device), plain {o['plain_ms']} ms, "
+        f"bound {o['bound_ms']} ms")
     return stats
 
 
@@ -1931,7 +2086,10 @@ def first_launch_inputs(nn, spfh):
     passes are counted (`seen["radius"]`): the outlier and normal stages
     (one each an extraction; the pipeline's and the debugger's calls) and
     SC3D's density count whose cloud resolves to the dense engine, and
-    those that resolve to the grid apart (`seen["grid_radius"]`)."""
+    those that resolve to the grid apart (`seen["grid_radius"]`); the calls
+    of E and F by the route their size takes (`seen["radius_routes"]`), and
+    the points of the first streamed one (`seen["radius_order"]`, the
+    order pre-pass's arguments)."""
     import inspect
     import threading
 
@@ -1955,6 +2113,7 @@ def first_launch_inputs(nn, spfh):
                   "sift": {"extractions": 0, "dense_octaves": 0, "grid_octaves": 0},
                   "radius": {"outliers": 0, "normals": 0, "SC3D density": 0},
                   "grid_radius": {"outliers": 0, "normals": 0, "SC3D density": 0},
+                  "radius_routes": {"resident": 0, "streamed": 0},
                   "grid_boxes": 0}
     lock = threading.Lock()
     caller = threading.local()  # which stage a grid 1-NN serves, per thread
@@ -2065,6 +2224,24 @@ def first_launch_inputs(nn, spfh):
 
         return make
 
+    def radius_call(name):
+        """Record kernel E's or F's first call, count each call's route, and
+        record the first streamed call's points for the order pre-pass."""
+        def make(fn):
+            recorded = record(name)(fn)
+
+            def wrapper(qc, pc, mask, r2, *args, **kwargs):
+                route = kradius.route(pc.shape[0])
+                with lock:
+                    seen["radius_routes"][route] += 1
+                    if route == "streamed" and "radius_order" not in seen:
+                        seen["radius_order"] = ([_copied(a) for a in (pc, mask, r2)], {})
+                return recorded(qc, pc, mask, r2, *args, **kwargs)
+
+            return wrapper
+
+        return make
+
     def serving(stage):
         """Mark the grid 1-NN calls made inside fn as `stage`'s."""
         def make(fn):
@@ -2092,8 +2269,8 @@ def first_launch_inputs(nn, spfh):
                   (ktiles, "pack"): record("tiles_pack"),
                   (ksift, "scale_space"): record("sift_scale_space"),
                   (ksift, "knn"): record("sift_knn"),
-                  (kradius, "count"): record("radius_count"),
-                  (kradius, "moments"): record("radius_moments"),
+                  (kradius, "count"): radius_call("radius_count"),
+                  (kradius, "moments"): radius_call("radius_moments"),
                   (features, "remove_outliers"): dense_pass("outliers", capacity),
                   (outliers_ops, "remove_outliers"): dense_pass("outliers", capacity),
                   (features, "compute_surface_normals"): dense_pass("normals", capacity),
@@ -2199,31 +2376,34 @@ def require_sift(label: str, seen: dict, launches: dict, per_extraction: int) ->
 
 def require_pack(label: str, seen: dict, launches: dict) -> None:
     """The tile pre-pass launched exactly once a dense SIFT octave (one
-    buffer for C and D) and once a dense radius pass (the outlier, normal
-    and SC3D density passes: one a call of E or F). Logged."""
+    buffer for C and D), and for nothing else: E and F take their own.
+    Logged."""
     dense = seen["sift"]["dense_octaves"]
-    radius_passes = sum(seen["radius"].values())
     packs = launches["tiles_pack"]
-    log(f"{label}: launches tiles_pack {packs} ({dense} dense SIFT octaves, "
-        f"{radius_passes} dense radius passes)")
-    require(packs == dense + radius_passes,
-            f"{label}: tiles_pack {packs} launches, expected {dense} dense SIFT octaves + "
-            f"{radius_passes} dense radius passes {seen['radius']}")
+    log(f"{label}: launches tiles_pack {packs} ({dense} dense SIFT octaves)")
+    require(packs == dense,
+            f"{label}: tiles_pack {packs} launches, expected {dense} dense SIFT octaves")
 
 
 def require_radius(label: str, seen: dict, launches: dict) -> None:
     """Kernel E launched once a dense outlier pass and once a dense SC3D
     density count, kernel F once a dense normal pass, and the outlier and
     normal passes alike (one each a dense extraction): so both once a dense
-    extraction, E once more on SC3D, neither on the grid paths. Logged."""
-    passes = seen["radius"]
+    extraction, E once more on SC3D, neither on the grid paths; their order
+    pre-pass once a call that took the streamed route, never on the
+    resident one. Logged."""
+    passes, routes = seen["radius"], seen["radius_routes"]
     e, f = launches["radius_count"], launches["radius_moments"]
+    order = launches["radius_order"]
     log(f"{label}: dense radius passes {passes}; launches radius_count {e}, "
-        f"radius_moments {f}")
+        f"radius_moments {f}, radius_order {order}; routes {routes}")
     require(passes["outliers"] == passes["normals"]
             and e == passes["outliers"] + passes["SC3D density"] and f == passes["normals"],
             f"{label}: radius_count {e} and radius_moments {f} launches for the dense "
             f"passes {passes}")
+    require(routes["resident"] + routes["streamed"] == e + f and order == routes["streamed"],
+            f"{label}: radius_order {order} launches for the routes {routes} of "
+            f"{e + f} calls of E and F")
 
 
 def require_grid_radius(label: str, seen: dict, launches: dict) -> None:
@@ -4695,7 +4875,8 @@ MAIN_PATH = {"nearest_neighbor": "node incremental",
              "nearest_neighbor_batched": "config #1", "spfh": "config #1",
              "tiles_pack": "config #1", "sift_scale_space": "config #1",
              "sift_knn": "config #1", "radius_count": "config #1",
-             "radius_moments": "config #1", "grid_nn": "config #2",
+             "radius_moments": "config #1", "radius_order": "config #1",
+             "grid_nn": "config #2",
              "grid_moments": "config #2", "grid_count": "config #2",
              "grid_smooth": "config5_big", "grid_knn": "config5_big",
              "grid_pack": "config #2"}
@@ -4703,8 +4884,8 @@ MAIN_PATH = {"nearest_neighbor": "node incremental",
 
 def all_kernels() -> tuple:
     """Every hand-written kernel, in the order of the `kernels` line: A's
-    one-pair and batched entries, B, the pre-pass, C, D, E, F, G, H, I, J,
-    K and the pre-pass of G and K."""
+    one-pair and batched entries, B, the pre-pass, C, D, E, F, E's and F's
+    order pre-pass, G, H, I, J, K and the pre-pass of G and K."""
     from mapmerge_torch.kernels import grid as kgrid
     from mapmerge_torch.kernels import nn, spfh
     from mapmerge_torch.kernels import radius as kradius
@@ -4713,7 +4894,7 @@ def all_kernels() -> tuple:
 
     return (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL, ktiles.PACK_KERNEL,
             ksift.SCALE_SPACE_KERNEL, ksift.KNN_KERNEL, kradius.COUNT_KERNEL,
-            kradius.MOMENTS_KERNEL, kgrid.NN_KERNEL, kgrid.MOMENTS_KERNEL,
+            kradius.MOMENTS_KERNEL, kradius.ORDER_KERNEL, kgrid.NN_KERNEL, kgrid.MOMENTS_KERNEL,
             kgrid.COUNT_KERNEL, kgrid.SMOOTH_KERNEL, kgrid.KNN_KERNEL, kgrid.PACK_KERNEL)
 
 

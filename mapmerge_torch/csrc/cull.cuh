@@ -5,7 +5,8 @@
 // (grid.cu: G and K) take the distance, the box bounds, the tile width,
 // the ring and the (d2, index) lists from here too.
 //
-// The points come from tiles.cu's pre-pass (mm_tiles_pack): float4 (x, y, z,
+// The points come from tiles.cu's pre-pass (mm_tiles_pack; radius.cu's
+// order pre-pass writes the same points and boxes, w = 0): float4 (x, y, z,
 // w) with x = NaN where masked, and for each tile of kT consecutive points
 // the box of its valid points (lo, hi), the tile's first masked index (lo.w)
 // and its first point index (hi.w), as int bits. sq_dist is the direct

@@ -1,7 +1,7 @@
 // The tile pre-pass for Hopper (sm_90a) that the culled dense-neighbourhood
-// kernels read: SIFT's kernels C and D (sift.cu) and the radius sweeps E
-// and F (radius.cu). Not a port of a Pallas kernel; its plain PyTorch
-// version is kernels/tiles.py: pack_ref.
+// kernels read: SIFT's kernels C and D (sift.cu); the radius sweeps E and F
+// (radius.cu) write this layout with their own. Not a port of a Pallas
+// kernel; its plain PyTorch version is kernels/tiles.py: pack_ref.
 //
 // What it writes (cull.cuh's Stage reads it). For np points p, optional
 // values and an optional mask, in tiles of kT = 32 consecutive points:

@@ -18,6 +18,7 @@ raises, and so does a build directory that cannot be created.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -88,8 +89,10 @@ SOURCES = {
         "mm_sift_knn": [_vp, _vp, _ci, _vp, _ci, _ci, _cf, _ci, _vp, _vp, _vp],
     },
     "radius.cu": {
-        "mm_radius_count": [_vp, _vp, _ci, _vp, _ci, _cf, _vp, _vp],
-        "mm_radius_moments": [_vp, _vp, _ci, _vp, _ci, _cf, _vp, _vp, _vp, _vp],
+        # the workspace: null on the resident route
+        "mm_radius_count": [_vp, _vp, _ci, _vp, _ci, _cf, _vp, _vp, _vp],
+        "mm_radius_moments": [_vp, _vp, _ci, _vp, _ci, _cf, _vp, _vp, _vp],
+        "mm_radius_order": [_vp, _vp, _ci, _cf, _vp, _vp],
     },
     "grid.cu": {
         # G and K: the pre-pass's buffers; the counters (null on the
@@ -293,4 +296,16 @@ def require(
 
 
 def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of PyTorch's current stream on `device`, the raw value of
+    torch.cuda.current_stream(device).cuda_stream without building a Stream
+    object (0.1 µs against 3-7 µs a call on an H100's host)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def device_guard(device: torch.device):
+    """torch.cuda.device(device) where `device` is not the current CUDA
+    device, else a context that does nothing (entering the guard costs 2-3
+    µs a call on an H100's host)."""
+    if device.type == "cuda" and device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

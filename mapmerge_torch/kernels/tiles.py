@@ -1,8 +1,9 @@
 """The tile pre-pass of the culled dense-neighbourhood kernels: the CUDA
 kernel of `csrc/tiles.cu` and its plain PyTorch version.
 
-SIFT's kernels C and D (kernels/sift.py) and the radius sweeps E and F
-(kernels/radius.py) read the points in tiles of TILE consecutive points:
+SIFT's kernels C and D (kernels/sift.py) read the points in tiles of TILE
+consecutive points (the radius sweeps E and F, kernels/radius.py, write
+the same layout with their own pre-pass):
 `pack` writes them as float4 (x, y, z, value) with x = NaN where masked,
 and the box of each tile's valid points, by which a kernel skips, exactly,
 the tiles no query of a warp can reach (`tile_bound` is the plain version
@@ -35,7 +36,7 @@ PACK_KERNEL = build.Kernel(
 def pack(
     p: torch.Tensor, vals: torch.Tensor | None, mask: torch.Tensor | None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The pre-pass of kernels C, D, E and F: (pts (n_tiles * TILE, 4),
+    """The pre-pass of kernels C and D: (pts (n_tiles * TILE, 4),
     boxes (n_tiles, 2, 4)) float32, as pack_ref defines them. A CPU tensor
     takes pack_ref; a CUDA tensor launches the kernel or raises."""
     if p.device.type == "cpu":

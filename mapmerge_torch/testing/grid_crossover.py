@@ -25,8 +25,11 @@ included) and how many queries it answers otherwise than the dense engine
 engine's radius lines add the members its queries count and the bound of
 kernel E or F on them (chip_smoke.py's radius_count_bound and
 radius_moments_bound: the bytes over 3.35 TB/s, 9 float32 operations a
-member and 16 more for F, over 67 TFLOP/s). The thresholds of
-ops/neighbors.py are not changed by it.
+member and 16 more for F, over 67 TFLOP/s), and the grid engine's 1-NN
+line the bound of kernel G: the pairs within the bound (kernel E's count
+of them) at 9 operations, each query and point read once and an index
+and a distance written a query. The thresholds of ops/neighbors.py are
+not changed by it.
 """
 
 from __future__ import annotations
@@ -73,12 +76,21 @@ def plain_versions(module, names):
     time)."""
     saved = {n: getattr(module, n) for n in names}
     for n in names:
-        setattr(module, n, getattr(module, f"{n}_ref"))
+        setattr(module, n, _without_boxes(getattr(module, f"{n}_ref")))
     try:
         yield
     finally:
         for n, fn in saved.items():
             setattr(module, n, fn)
+
+
+def _without_boxes(ref):
+    """A plain version called as its kernel's wrapper is: the target's
+    tile boxes that ICP's callers pass the grid 1-NN (`boxes=`) dropped."""
+    def call(*args, boxes=None, **kwargs):
+        return ref(*args, **kwargs)
+
+    return call
 
 
 #: engine -> (the engine ops/neighbors.py is asked for, the plain versions
@@ -92,7 +104,7 @@ ENGINES = {
 
 
 def _bound(n: int, members: int, row_bytes: int, member_ops: int) -> dict:
-    """Kernel E's or F's least time on n queries against n points: each
+    """Kernel E's, F's or G's least time on n queries against n points: each
     read once (12 B; the points' mask 1 B), the rows written once, the
     members' operations at the float32 rate."""
     t_bytes = (n * 25 + n * row_bytes) / 3.35e12 * 1e3
@@ -149,8 +161,9 @@ def main(sizes) -> int:
             "neighbor_moments r=0.6": (radius_op(neighbor_moments, 0.6), every, (52, 25)),
             "nearest_neighbor bound=1.0": (lambda asked: nearest_neighbor(
                 moved, p, p_mask=mask, bound=1.0, engine=asked, scan_cap=256,
-                q_mask=mask)[1], ("dense", "grid", "grid plain"), None),
+                q_mask=mask)[1], ("dense", "grid", "grid plain"), (8, 9)),
         }
+        within = radius_count(moved, p, 1.0, p_mask=mask, engine="dense")[0]
         for op, (fn, engines, cost) in calls.items():
             out = {e: engine(e, fn)() for e in engines}
             for e in engines:
@@ -161,7 +174,9 @@ def main(sizes) -> int:
                     differ = int((out["dense"] != out[e]).sum())
                 line = {"points": n, "op": op, "engine": e,
                         "ms": _ms(engine(e, fn)), "queries_differing": differ}
-                if cost is not None and e == "dense":
+                if op.startswith("nearest") and e == "grid":
+                    line.update(_bound(n, int(within.to(torch.int64).sum()), *cost))
+                elif not op.startswith("nearest") and e == "dense":
                     line.update(_bound(n, int(out[e].to(torch.int64).sum()), *cost))
                 print(json.dumps(line), flush=True)
     return 0

@@ -2,6 +2,7 @@
 inputs, on one card, for a before/after comparison.
 
     python3 mapmerge_torch/testing/kernel_ab.py record INPUTS.pt
+    python3 mapmerge_torch/testing/kernel_ab.py record-radius INPUTS.pt
     python3 mapmerge_torch/testing/kernel_ab.py time INPUTS.pt ROOT [PREFIX]
 
 `record` drives config #1 and the registry sweep's FPFH + SAC_IA path
@@ -18,7 +19,9 @@ pre-pass's (`tiles.pack`; `sift.pack` in a checkout before it moved) on
 each octave C packs, and the arguments of the dense radius
 sweeps, kernels E (`radius.count`, the outlier pass) and F
 (`radius.moments`, the normals), on the first extraction of config #1, the
-sweep's FPFH + SAC_IA path, config #4 and config5. `time` imports
+sweep's FPFH + SAC_IA path, config #4, config5 and the debugger
+(`registration_visualisation` on config #1's views at their own sizes);
+`record-radius` saves those of E and F alone. `time` imports
 `mapmerge_torch` from the checkout at ROOT (this one, or an earlier commit
 unpacked with `git archive` into a directory that .gitignore lists), holds
 each kernel against that checkout's plain version on every saved input
@@ -48,7 +51,8 @@ several prefixes, separated by commas.
 Compare in one process order on one card: parent, change, change, parent.
 C, D, E and F are timed through their
 wrappers with no `packed` buffer, so each time holds the pre-pass, as an
-earlier checkout's wrapper, which takes no such buffer, is timed.
+earlier checkout's wrapper, which takes no such buffer, is timed (E and F,
+where they take their own order pre-pass, on the streamed route).
 """
 
 from __future__ import annotations
@@ -120,6 +124,7 @@ def record(out: Path) -> None:
         if label == "config #1":
             inputs.update(sift)
     inputs.update(record_sift_paths(cs, dev))
+    inputs.update(record_debugger(cs, dev))
     g = torch.Generator(device=dev).manual_seed(11)
     q = torch.rand((cs.NN_Q, 3), generator=g, device=dev) * 16.0
     p = torch.rand((cs.NN_P, 3), generator=g, device=dev) * 16.0
@@ -190,6 +195,64 @@ def radius_first(cs, label: str):
     with cs.patched({(kradius, "count"): make("radius_count"),
                      (kradius, "moments"): make("radius_moments")}):
         yield kept
+
+
+def record_radius(out: Path) -> None:
+    """Kernels E's and F's arguments alone, on the first extraction of each
+    path that runs them: config #1, the sweep's FPFH + SAC_IA path, config
+    #4, config5 (record_sift_paths' runs) and the debugger."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from mapmerge_torch.core.cloud import PointCloud
+    from mapmerge_torch.pipeline.merging import estimate_maps_transforms
+    from mapmerge_torch.testing import scene
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    va, vb, cap, _ = scene.config1_scene()
+    xyz, rgb = scene.make_scene(
+        np.random.default_rng(7), n_boxes=12, extent=8.0, density=90.0
+    )
+    truth = scene.se3(scene.rotation_z(0.4), [1.5, -0.7, 0.2])
+    wa, wb, wcap = scene.overlapping_views(
+        np.random.default_rng(3), xyz, rgb, truth, overlap=0.6
+    )
+    inputs = {}
+    for label, views, c, params in (
+        ("config #1", (va, vb), cap, cs.config1_params()),
+        ("FPFH+SAC_IA", (wa, wb), wcap, cs.sweep_params("FPFH", "SAC_IA")),
+    ):
+        clouds = [PointCloud.from_numpy(*v, capacity=c, device=dev) for v in views]
+        with radius_first(cs, label) as radius:
+            estimate_maps_transforms(clouds, params, seed=0)
+        inputs.update(radius)
+    inputs.update({k: v for k, v in record_sift_paths(cs, dev).items()
+                   if k.startswith("radius")})
+    inputs.update(record_debugger(cs, dev))
+    torch.save(inputs, out)
+    print(f"recorded {sorted(inputs)} to {out}")
+
+
+def record_debugger(cs, dev) -> dict:
+    """Kernels E's and F's arguments on the debugger's first extraction
+    (tools/registration_visualisation on config #1's views as .pcd files,
+    each at its own size, as chip_smoke.run_offline_tools runs it)."""
+    import io
+    import tempfile
+
+    from mapmerge_torch.io.pcd import write_pcd
+    from mapmerge_torch.testing.scene import config1_scene
+    from mapmerge_torch.tools import registration_visualisation
+
+    va, vb, _, _ = config1_scene()
+    with tempfile.TemporaryDirectory() as d, radius_first(cs, "debugger") as radius:
+        a, b = str(Path(d) / "a.pcd"), str(Path(d) / "b.pcd")
+        write_pcd(a, va)
+        write_pcd(b, vb)
+        with contextlib.redirect_stdout(io.StringIO()):
+            registration_visualisation.main(
+                [a, b, "--dump-dir", str(Path(d) / "dump"), *cs.config1_argv()], device=dev)
+        torch.cuda.synchronize()
+    return radius
 
 
 def record_sift_paths(cs, dev) -> dict:
@@ -483,7 +546,8 @@ def time_radius(kradius, name: str, args, kwargs) -> dict:
     """Kernel E or F of the checkout on one saved input: held against its
     plain version (E bit for bit; F's count exactly, its mean and covariance
     within MOMENTS_RTOL), a digest of its output, three medians of 20 timed
-    calls."""
+    calls through the wrapper and the device time of a call by kernel name
+    (device_ms)."""
     if name.startswith("radius_count"):
         kernel = kradius.count
         got = kernel(*args, **kwargs)
@@ -498,6 +562,7 @@ def time_radius(kradius, name: str, args, kwargs) -> dict:
         "shape": f"Q={args[0].shape[0]} P={args[1].shape[0]}",
         "held": ok, "err_of_second_moment": err, "digest": _digest(got),
         "ms": [time_ms(lambda: kernel(*args, **kwargs)) for _ in range(3)],
+        "device_ms": device_ms(lambda: kernel(*args, **kwargs)),
     }
 
 
@@ -573,6 +638,8 @@ def main(argv: list[str]) -> int:
         raise SystemExit("kernel_ab: no CUDA device; this script needs a GPU")
     if len(argv) == 2 and argv[0] == "record":
         record(Path(argv[1]))
+    elif len(argv) == 2 and argv[0] == "record-radius":
+        record_radius(Path(argv[1]))
     elif len(argv) in (3, 4) and argv[0] == "time":
         time_root(Path(argv[1]), Path(argv[2]), *argv[3:])
     else:

@@ -11,10 +11,12 @@ parked rows; a hypothesis property that a plain model of the cull keeps
 exactly the dense members (shuffled and voxel-ordered clouds, lattice
 points exactly on the radius), and that a float32 model of F's summation
 order (each lane's members in point order, the lanes' parts in a fixed
-tree) stays within MOMENTS_RTOL of moments_ref; the wrappers' routes (on
-the card's path, stood in for by the meta device: the pre-pass, then the
-kernel, and a failure of either raises); the outlier and normal stages against the JAX package's on a small scene; the
-build key over the headers of csrc/.
+tree) stays within MOMENTS_RTOL of moments_ref (the resident route's
+schedule: tests/test_torch_radius_resident.py models both routes); the
+wrappers' card path (stood in for by the meta device: one C call that runs
+the order pre-pass and the kernel above the cutoff, and a failure raises);
+the outlier and normal stages against the JAX package's on a small scene;
+the build key over the headers of csrc/.
 
 The `cuda` cases hold the kernels against their plain versions (E bit for
 bit, F within MOMENTS_RTOL and bit for bit the model) and skip here; on a
@@ -44,7 +46,7 @@ from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 T = ktiles.TILE
 #: csrc/radius.cu: lanes that share a query, and so queries a warp
-LANES = 8
+LANES = kradius.LANES
 PER_WARP = 32 // LANES
 
 
@@ -177,18 +179,19 @@ def moments_model(qc, pc, mask, r2):
     visited, _ = cull_model(qc, pc, mask, r2)
     tile_of = torch.arange(pc.shape[0]) // T
     taken = (members(qc, pc, mask, r2) & visited[:, tile_of]).numpy()
-    p = pc.numpy()
+    pad = -pc.shape[0] % T  # the last tile's rows past P: never members
+    taken = np.pad(taken, ((0, 0), (0, pad)))
+    p = np.pad(pc.numpy(), ((0, pad), (0, 0)))
     x, y, z = p[:, 0], p[:, 1], p[:, 2]
     terms = (x, y, z, x * x, x * y, x * z, y * y, y * z, z * z)
-    lane = np.arange(p.shape[0]) % LANES
-    zero = np.float32(0.0)
-    parts = [[np.add.accumulate(np.where(taken & (lane == g)[None], v[None], zero),
-                                axis=1, dtype=np.float32)[:, -1] for v in terms]
-             for g in range(LANES)]
-    while len(parts) > 1:  # lane g adds lane g ^ o's part: o = 1, 2, 4
-        parts = [[a + b for a, b in zip(parts[i], parts[i + 1])]
-                 for i in range(0, len(parts), 2)]
-    s = parts[0]
+    # lane g's part: its points j = g (mod LANES), summed in order
+    nq, zero = taken.shape[0], np.float32(0.0)
+    shape = (nq, len(p) // LANES, LANES)
+    parts = [np.add.accumulate(np.where(taken, v[None], zero).reshape(shape), axis=1,
+                               dtype=np.float32)[:, -1] for v in terms]
+    while parts[0].shape[1] > 1:  # lane g adds lane g ^ o's part: o = 1, 2, 4, ...
+        parts = [a[:, 0::2] + a[:, 1::2] for a in parts]
+    s = [a[:, 0] for a in parts]
     n = taken.sum(1).astype(np.float32)
     denom = np.maximum(n, np.float32(1.0))
     m = np.stack([s[k] / denom for k in range(3)], 1)
@@ -327,42 +330,37 @@ def test_moments_error_takes_the_mean_over_the_root_of_the_second_moment():
     assert kradius.moments_error(got, ref) == (2.0**-14, 2.0**-15)
 
 
-def _never(*args):
-    raise AssertionError("launched after a failed pre-pass")
-
-
 @pytest.mark.parametrize("entry", ["count", "moments"])
 def test_card_path_packs_then_launches_and_raises_on_a_failure(monkeypatch, entry):
     """On the card's path (stood in for by the meta device, no data) a call
-    launches the tile pre-pass and then its kernel, once each; a pre-pass
-    that returns a CUDA error raises it under the pre-pass's name and the
-    kernel never launches; a kernel launch that fails raises under the
-    kernel's name; a failed build raises. No route gives the plain version."""
+    above the resident cutoff is one C call that runs E's and F's own order
+    pre-pass and then the kernel: one launch of each counted, none of SIFT's
+    tile pre-pass (tiles_pack); a C call that returns a CUDA error raises
+    under the kernel's name; a failed build raises. No route gives the
+    plain version."""
     meta = torch.device("meta")
+    n = kradius.RESIDENT_MAX_POINTS + 1
+    p = torch.empty((n, 3), device=meta)
     q = torch.empty((64, 3), device=meta)
-    mask = torch.ones((64,), dtype=torch.bool, device=meta)
+    mask = torch.ones((n,), dtype=torch.bool, device=meta)
     kernel = {"count": kradius.COUNT_KERNEL, "moments": kradius.MOMENTS_KERNEL}[entry]
     fn = f"mm_radius_{entry}"
 
     def call():
-        return getattr(kradius, entry)(q, q, mask, 0.36)
+        return getattr(kradius, entry)(q, p, mask, 0.36)
 
     monkeypatch.setattr(build, "cuda_device", lambda kernel, x: x.device)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(build, "stream_handle", lambda dev: 0)
     monkeypatch.setattr(build, "load", lambda *a: types.SimpleNamespace(
-        mm_tiles_pack=lambda *args: 0, **{fn: lambda *args: 0}))
-    before = (ktiles.PACK_KERNEL.launches, kernel.launches)
+        **{fn: lambda *args: 0}))
+    counts = (ktiles.PACK_KERNEL, kradius.ORDER_KERNEL, kernel)
+    before = [k.launches for k in counts]
     call()
-    assert (ktiles.PACK_KERNEL.launches, kernel.launches) == (before[0] + 1, before[1] + 1)
+    assert [k.launches for k in counts] == [before[0], before[1] + 1, before[2] + 1]
 
     monkeypatch.setattr(build, "load", lambda *a: types.SimpleNamespace(
-        mm_tiles_pack=lambda *args: 700, **{fn: _never}))
-    with pytest.raises(RuntimeError, match="tiles_pack: CUDA launch failed with error 700"):
-        call()
-    assert kernel.launches == before[1] + 1
-    monkeypatch.setattr(build, "load", lambda *a: types.SimpleNamespace(
-        mm_tiles_pack=lambda *args: 0, **{fn: lambda *args: 700}))
+        **{fn: lambda *args: 700}))
     with pytest.raises(RuntimeError, match=f"{kernel.name}: CUDA launch failed with error 700"):
         call()
 
@@ -420,7 +418,8 @@ def test_library_path_covers_the_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC", csrc)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     assert "radius.cu" in build.KERNEL_SOURCES
-    assert set(build.SOURCES["radius.cu"]) == {"mm_radius_count", "mm_radius_moments"}
+    assert set(build.SOURCES["radius.cu"]) == {"mm_radius_count", "mm_radius_moments",
+                                               "mm_radius_order"}
     sources = build.KERNEL_SOURCES + build.HOST_SOURCES
     before = {s: build.library_path(s) for s in sources}
     header = csrc / "cull.cuh"
@@ -473,15 +472,16 @@ CARD_CASES = ["voxel order", "shuffled", "all masked", "one tile", "other querie
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CARD_CASES)
 def test_count_kernel_equals_count_ref(cuda, case):
-    """Kernel E bit for bit count_ref (parked queries 0), one launch and one
-    pre-pass a call."""
+    """Kernel E bit for bit count_ref (parked queries 0), one launch a call
+    and no pre-pass (these clouds take the resident route)."""
     qc, pc, m, r2 = card_case(case)
     want = kradius.count_ref(qc, pc, m, r2)
     qc, pc, m = (a.to(cuda) for a in (qc, pc, m))
-    before = (kradius.COUNT_KERNEL.launches, ktiles.PACK_KERNEL.launches)
+    before = (kradius.COUNT_KERNEL.launches, ktiles.PACK_KERNEL.launches,
+              kradius.ORDER_KERNEL.launches)
     got = kradius.count(qc, pc, m, r2)
-    assert (kradius.COUNT_KERNEL.launches, ktiles.PACK_KERNEL.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert (kradius.COUNT_KERNEL.launches, ktiles.PACK_KERNEL.launches,
+            kradius.ORDER_KERNEL.launches) == (before[0] + 1, before[1], before[2])
     assert torch.equal(got.cpu(), want)
 
 
