@@ -216,11 +216,12 @@ every query count on the path (config5_big's octaves 0 and 1, in full), J
 within SCALE_SPACE_RTOL of the field and K bit for bit in every column,
 and timed beside its plain version and its bound (J the members at 9 + 5 a
 sigma, K the pairs visited at 9); K also beside torch.cdist + topk on 4,096
-sampled answered queries, scaled (grid_library_stats). G, H, J and K each
-launch the pre-pass grid_pack with them (require_grid_pack), and each is
-launched once more with its counters on (select_stats: pairs compared,
-tiles visited, units, the lanes' share; H's and J's members required to be
-the plain route's exactly).
+sampled answered queries, scaled (grid_library_stats). G, H, I, J and K
+each launch the pre-pass grid_pack with them (require_grid_pack), and each
+is launched once more with its counters on (select_stats: pairs compared,
+tiles visited, units, the lanes' share; H's, I's and J's members required
+to be the plain route's exactly; I's straddling pairs, warp steps and
+tiles counted a lane a query).
 The tile pre-pass (kernels/tiles.pack, which C and D read) launches once
 a dense SIFT octave, for both, exactly (require_pack), and is held exactly
 on its first launch on every path.
@@ -261,6 +262,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import math
 import os
@@ -1485,19 +1487,23 @@ def grid_library_stats(name: str, args, got) -> dict:
             "library_ms": ms * answered.numel() / sample.numel(), **share}
 
 
-#: the threads a CTA of the one-thread-a-slot sweep (csrc/grid.cu:
-#: grid_sweep_kernel, on which G took 256 and K, H and J 128 before their
-#: own kernels): one a query slot, a CTA a query bucket
-SWEEP_THREADS = {"grid_nn": 256, "grid_knn": 128, "grid_moments": 128, "grid_smooth": 128}
+#: the threads a CTA of the one-thread-a-slot sweep (csrc/grid.cu's
+#: grid_sweep_kernel until kernel I left it, on which G took 256 and K, H,
+#: I and J 128 before their own kernels): one a query slot, a CTA a query
+#: bucket
+SWEEP_THREADS = {"grid_nn": 256, "grid_knn": 128, "grid_moments": 128, "grid_smooth": 128,
+                 "grid_count": 128}
 
 
 def select_stats(name: str, kgrid, args, members: int | None = None) -> dict:
-    """What kernel G ("grid_nn"), K ("grid_knn"), H ("grid_moments") or J
-    ("grid_smooth") did on these inputs (kgrid.select_counters, a launch of
-    its own with the counters on): the (query, candidate) pairs compared,
-    the tiles visited, the units and the share of their lanes that answer
-    a query, and for H and J the members added, required to be `members`,
-    the plain route's (count_ref's), exactly; beside them the share the
+    """What kernel G ("grid_nn"), K ("grid_knn"), H ("grid_moments"), I
+    ("grid_count") or J ("grid_smooth") did on these inputs
+    (kgrid.select_counters, a launch of its own with the counters on): the
+    (query, candidate) pairs compared, the tiles visited, the units and the
+    share of their lanes that answer a query, for H, I and J the members
+    added, required to be `members`, the plain route's (count_ref's),
+    exactly, and for I its straddling (query, tile) pairs, warp steps and
+    tiles counted a lane a query; beside them the share the
     sweep's one-thread-a-slot CTAs gave (answered slots over the threads of
     the groups of SWEEP_THREADS slots the answered buckets launch), the
     pairs compared over the pairs the sweep visits, and for G `ms_kept`,
@@ -1717,8 +1723,8 @@ def grid_stats(label: str, kgrid, seen: dict) -> dict:
     also against float64 sums, with its TF32 and bfloat16 controls), then
     timed (CUDA events, warm, median), the plain version too, beside the
     bound on the members and, for G and I, the library call on a sample
-    (grid_library_stats); G's and H's counters (select_stats, H's members
-    exactly the plain route's). No single PyTorch call sums neighbourhood
+    (grid_library_stats); G's, H's and I's counters (select_stats, H's and
+    I's members exactly the plain route's). No single PyTorch call sums neighbourhood
     moments: H's library_ms is null."""
     dev = torch.device("cuda", torch.cuda.current_device())
     stats = {}
@@ -1745,7 +1751,8 @@ def grid_stats(label: str, kgrid, seen: dict) -> dict:
             members = int((ref.to(torch.int64) + sub).sum())
             entry = {"max_abs_err": 0.0, "fn": kgrid.count, "plain": kgrid.count_ref,
                      **grid_bound(name, grid, qg, q, members),
-                     **grid_library_stats(name, args, ref)}
+                     **grid_library_stats(name, args, ref),
+                     **select_stats(name, kgrid, args, members)}
         else:
             err, rel, members, normals = _grid_moments_compare(
                 f"{label} {key}", kgrid, args, flags_required=label != "synthetic")
@@ -1775,8 +1782,11 @@ def grid_adversarial(g, p, mask, q, q_mask) -> dict:
     lattice of cell corners queried at the cells' centres (eight points at
     one distance, in several buckets),
     every target masked, queries 30 m away (unmatched), 3,000 queries at one
-    point (a query bucket far over its cap), and half the targets and
-    queries parked at FAR."""
+    point (a query bucket far over its cap), half the targets and queries
+    parked at FAR, and queries on the sphere: each exactly 0.625 m (the
+    cell) from a point of a 1/8 m lattice, by an offset whose squares and
+    sums are exact in float32 (0.625 on an axis, or 0.375 and 0.5 on two),
+    every other one moved a float32 step in one coordinate."""
     from mapmerge_torch.core.cloud import FAR
 
     n = min(20_000, p.shape[0])
@@ -1787,6 +1797,16 @@ def grid_adversarial(g, p, mask, q, q_mask) -> dict:
     half = torch.arange(n, device=p.device) < n // 2
     one = q.clone()
     one[:3000] = q[0]
+    legs = torch.tensor([[0.625, 0.0, 0.0], [0.375, 0.5, 0.0]], device=p.device)
+    offsets = torch.cat([legs[:, perm] for perm in itertools.permutations(range(3))])
+    offsets = torch.cat([offsets * torch.tensor(signs, device=p.device)
+                         for signs in itertools.product((1.0, -1.0), repeat=3)])
+    row = torch.arange(n, device=p.device)
+    sphere = lattice + offsets[row % offsets.shape[0]]
+    odd = row[1::2]  # a step inwards or outwards on one axis
+    axis = (odd // 2) % 3
+    sphere[odd, axis] = torch.nextafter(
+        sphere[odd, axis], torch.where(odd % 4 == 1, -FAR, FAR).to(sphere))
     return {
         "wrapped lattice": (lattice, mask, lattice, q_mask, 0.375, 256, (4, 2, 1)),
         "centre ties": (quarter, mask, centres, q_mask, 0.25, 128, None),
@@ -1795,6 +1815,7 @@ def grid_adversarial(g, p, mask, q, q_mask) -> dict:
         "query bucket over its cap": (p, mask, one, q_mask, 0.5, 64, None),
         "half parked": (torch.where(half[:, None], p, FAR), mask & half,
                         torch.where(half[:, None], FAR, q), q_mask, 0.5, 128, None),
+        "on the sphere": (lattice, mask, sphere, q_mask, 0.625, 128, None),
     }
 
 
@@ -1834,9 +1855,12 @@ def check_grid(dev, kgrid, n: int = 1 << 18) -> dict:
             f"grid_moments {name}", kgrid, (grid, qg_all, tq, r2), flags_required=False)
         worst = max(worst, rel)
     for key, e in stats.items():
+        counters = {k: e[k] for k in ("pairs_compared", "compared_share", "tiles_visited",
+                                      "members", "straddling", "steps", "looped") if k in e}
         log(f"kernel {key} {e['shape']}: max err {e['max_abs_err']}, "
             f"{e['pairs_visited']} pairs visited, normals {e.get('normals')}; kernel "
-            f"{e['ms']} ms, plain {e['plain_ms']} ms, bound {e['bound_ms']} ms")
+            f"{e['ms']} ms, plain {e['plain_ms']} ms, bound {e['bound_ms']} ms "
+            f"({e['bound_by']}); counters {json.dumps(counters)}")
     log(f"kernels grid_nn (repeating, given its boxes), grid_pack, grid_count and "
         f"grid_moments held on {sorted(adversarial)} "
         f"(largest moments error {worst} of a second moment); normals' flags, "
@@ -2433,13 +2457,12 @@ def require_grid_sift(label: str, seen: dict, launches: dict) -> None:
 
 
 def require_grid_pack(label: str, seen: dict, launches: dict) -> None:
-    """The pre-pass of kernels G, H, J and K launched once with each of
-    them and once for each target grid whose boxes a caller had made apart
-    (kgrid.boxes: ICP's), no more of those than G's launches, and never
-    else. Logged."""
+    """The pre-pass of kernels G-K launched once with each of them and once
+    for each target grid whose boxes a caller had made apart (kgrid.boxes:
+    ICP's), no more of those than G's launches, and never else. Logged."""
     packs = launches["grid_pack"]
-    with_kernels = {k: launches[k] for k in ("grid_nn", "grid_moments", "grid_smooth",
-                                             "grid_knn")}
+    with_kernels = {k: launches[k] for k in ("grid_nn", "grid_moments", "grid_count",
+                                             "grid_smooth", "grid_knn")}
     made = seen["grid_boxes"]
     log(f"{label}: launches grid_pack {packs} ({with_kernels}, the boxes alone {made})")
     require(packs == sum(with_kernels.values()) + made and made <= launches["grid_nn"],

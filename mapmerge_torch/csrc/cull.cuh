@@ -1,9 +1,9 @@
 // The tile culling shared by the dense-neighbourhood kernels of sift.cu
 // (C and D) and radius.cu (E and F), and the tile shape of their pre-pass
 // (tiles.cu): the shape of a tile and of a warp's ring, the distance and its box bounds, and the cp.async ring that brings
-// the tiles a warp visits into shared memory. The grid's selection kernels
-// (grid.cu: G and K) take the distance, the box bounds, the tile width,
-// the ring and the (d2, index) lists from here too.
+// the tiles a warp visits into shared memory. The grid's kernels (grid.cu:
+// G-K) take the distance, the box bounds, the tile width, the ring and
+// (G and K) the (d2, index) lists from here too.
 //
 // The points come from tiles.cu's pre-pass (mm_tiles_pack; radius.cu's
 // order pre-pass writes the same points and boxes, w = 0): float4 (x, y, z,

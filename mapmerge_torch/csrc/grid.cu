@@ -63,27 +63,23 @@
 // sort of it). A sweep that compares every candidate is bound by latency,
 // not issue: a query's candidates are one dependent chain.
 //
-// I (grid_sweep_kernel): one CTA takes one query bucket (a bucket with no
-// query exits at once, so no host read picks the buckets), one thread one
-// query slot. The CTA stages its candidates, kChunk slots at a time, into
-// shared memory through a cp.async double buffer (4-byte copies) while it
-// scans the chunk before; every thread scans the staged chunk in candidate
-// order. A cap above the CTA's threads takes the query slots in groups.
-//
 // G and K (grid_select_kernel) need only the first member, or the first k
 // candidates, of each query, so they cull, exactly, as kernel D does
 // (csrc/sift.cu; cull.cuh's box bound and lists):
-// 1. A pre-pass (grid_pack_kernel, its own launch) writes the box of every
-//    run of kT = 32 consecutive slots of each target bucket (a tile). Slots
-//    lie in build_grid's stable order, so a run is compact in space; the
-//    box comes from the points, not from the bucket's cell, which wraps.
-//    The tiles themselves are read in place: kT slots of (x, y, z) are 384
-//    bytes, 16-byte aligned where cap % 4 == 0, so the ring copies them 16
-//    bytes a lane with no float4 copy of the grid. A caller that queries one
-//    target grid many times (ICP) has the boxes made once and passes them
-//    back (boxes_ready). The same launch lists the units of the query grid:
-//    groups of up to 32 answered slots of one bucket, the count first, so a
-//    persistent grid of warps takes them with no host read and no atomic.
+// 1. A pre-pass (grid_pack_kernel, its own launch, with nothing zeroed
+//    before it) writes the box of every run of kT = 32 consecutive slots of
+//    each target bucket (a tile), a thread a tile. Slots lie in
+//    build_grid's stable order, so a run is compact in space; the box comes
+//    from the points, not from the bucket's cell, which wraps. The tiles
+//    themselves are read in place: kT slots of (x, y, z) are 384 bytes,
+//    16-byte aligned where cap % 4 == 0, so the ring copies them 16 bytes a
+//    lane with no float4 copy of the grid. A caller that queries one target
+//    grid many times (ICP) has the boxes made once and passes them back
+//    (boxes_ready). The same launch lists the units of the query grid:
+//    groups of up to 32 answered slots of one bucket, the count first
+//    (runs of 1,024 buckets placed by an atomic ticket that the launch's
+//    last CTA returns to 0), so a grid of warps takes them with no host
+//    read.
 // 2. A unit sweeps its bucket's own tiles first, then the other distinct
 //    neighbours' tiles nearest first from the box of its queries. A tile is
 //    visited when its box bound (q clamped into the box, then sq_dist in
@@ -129,16 +125,33 @@
 // What bounds H and J is each query's chain of members, added in order:
 // a box test culls only non-members, and the tiles span most of a cell,
 // whose edge is the radius (PERF.md).
-// No FMA contraction (-fmad=false), no fast-math; the one atomic (the
-// pre-pass's) only hands out where a run of units goes.
+//
+// I (grid_count_kernel) adds one integer a member: exact in any order, so
+// it needs neither the sweep's order nor a lane a query at the compare.
+// 1. A warp takes one unit and walks its tiles as H and J do (the
+//    pre-pass's units and boxes; a tile is issued when its box lies within
+//    r2 of the box of the unit's queries).
+// 2. When a tile arrives each lane bounds its own query against the box
+//    (box_bound): beyond r2, the query takes nothing there; within, it
+//    straddles the radius. (A query whose far bound, the box's farthest
+//    corner, lies within r2 could take the tile's count whole; that saved
+//    7-9% of the compared pairs and no time on the card: PERF.md.)
+// 3. Where the tile's straddling queries are few against its filled
+//    slots, the warp takes one step a straddling query with its lanes on
+//    the tile's slots: the query read by every lane, each lane's slot
+//    tested (sq_dist <= r2, the plain version's d2), the ballot's popcount
+//    added by the query's lane; a tile then costs a step a straddling
+//    query, where H's loop costs the tile's filled slots whatever the
+//    ballot. Where they are many, each straddling lane loops over the
+//    slots, which costs less a pair than a step (PERF.md).
+// No FMA contraction (-fmad=false), no fast-math; the pre-pass's atomics
+// only hand out where a run of units goes and count its unit CTAs done.
 
 #include "cull.cuh"
 
 namespace {
 
 constexpr int kNbr = 27;           // neighbour buckets of a bucket
-constexpr int kChunk = 256;        // I: candidate slots a stage
-constexpr int kSweepThreads = 128; // I: up to cap 128 (larger caps in groups)
 constexpr float kBig = 1.0e12f;    // core/grid.py BIG
 constexpr int kSigLane = 8;        // J: sigmas a warp takes (blockIdx.y the group)
 constexpr int kMaxSigma = 64;      // J: sigmas a launch takes
@@ -159,16 +172,6 @@ struct alignas(16) GridStage {
 // consumed.
 struct alignas(16) ValStage : GridStage {
   long long idx[kT];
-};
-
-// The distinct wrapped neighbour buckets of one bucket, ascending, and the
-// flat candidate position of each one's first filled slot: candidate
-// position j lies in bucket id[k] for start[k] <= j < start[k + 1], and
-// start[n] (and every start past it) is the number of candidates.
-struct Nbrs {
-  int id[32];
-  int start[32];
-  int n;
 };
 
 // A warp, all lanes: the sorted distinct wrapped neighbours of bucket b
@@ -209,23 +212,6 @@ __device__ __forceinline__ int warp_scan(int v, int lane) {
     if (lane >= d) v += o;
   }
   return v;
-}
-
-// Warp 0, all lanes: the sorted distinct neighbours of bucket b and the
-// exclusive scan of their filled counts.
-__device__ __forceinline__ void neighbours(Nbrs& nb, int b, int gx, int gy, int gz,
-                                           const int* __restrict__ count, int lane) {
-  const int n = neighbour_ids(nb.id, b, gx, gy, gz, lane);
-  const int cnt = lane < n ? count[nb.id[lane]] : 0;
-  nb.start[lane] = warp_scan(cnt, lane) - cnt;
-  if (lane == 0) nb.n = n;
-}
-
-// the target grid slot of candidate position j (j < the candidate count),
-// k a hint at or below its bucket's rank, advanced
-__device__ __forceinline__ long long slot_of(const Nbrs& nb, int j, int& k, int cap) {
-  while (nb.start[k + 1] <= j) ++k;
-  return static_cast<long long>(nb.id[k]) * cap + (j - nb.start[k]);
 }
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
@@ -300,23 +286,6 @@ struct MomentsOp {
             __fsub_rn(__fdiv_rn(s2[3 * i + j], denom), __fmul_rn(m[i], m[j]));
       }
     }
-  }
-};
-
-// Kernel I's.
-struct CountOp {
-  int sub;
-  int* out;
-
-  using State = int;
-  __device__ __forceinline__ State init() const { return 0; }
-  __device__ __forceinline__ void visit(State& s, float qx, float qy, float qz, float4 p,
-                                        int, float r2) const {
-    s += sq_dist(qx, qy, qz, p.x, p.y, p.z) <= r2;
-  }
-  __device__ __forceinline__ void write(const State& s, long long row, float, float, float,
-                                        const Nbrs&, int) const {
-    out[row] = s - sub;
   }
 };
 
@@ -402,84 +371,6 @@ struct SmoothOp {
     }
   }
 };
-
-// Kernel I: one CTA a query bucket, its query slots (in groups of
-// blockDim.x) against the candidates of its distinct neighbour buckets,
-// staged kChunk at a time.
-template <class Op>
-__global__ void __launch_bounds__(kSweepThreads)
-grid_sweep_kernel(const float* __restrict__ t_xyz, const int* __restrict__ t_count,
-                  const float* __restrict__ q_xyz, const long long* __restrict__ q_idx,
-                  const unsigned char* __restrict__ q_ok, const int* __restrict__ q_count,
-                  int cap, int gx, int gy, int gz, float r2, Op op) {
-  __shared__ Nbrs nb;
-  __shared__ float4 stage[2][kChunk];
-
-  const int b = blockIdx.x;
-  if (q_count[b] == 0) return;  // CTA-uniform: no query slot here
-  const int tid = threadIdx.x;
-  if (tid < 32) neighbours(nb, b, gx, gy, gz, t_count, tid);
-  __syncthreads();
-  const int total = nb.start[nb.n];
-  const int chunks = (total + kChunk - 1) / kChunk;
-  const long long base = static_cast<long long>(b) * cap;
-
-  for (int g0 = 0; g0 < cap; g0 += blockDim.x) {
-    const int s = g0 + tid;
-    const bool ok = s < cap && q_ok[base + s];
-    if (!__syncthreads_or(ok)) continue;  // CTA-uniform
-    float qx = 0.f, qy = 0.f, qz = 0.f;
-    if (ok) {
-      qx = q_xyz[3 * (base + s)];
-      qy = q_xyz[3 * (base + s) + 1];
-      qz = q_xyz[3 * (base + s) + 2];
-    }
-    typename Op::State st = op.init();
-
-    int hint = 0;  // this thread's staged positions only grow
-    auto issue = [&](int c) {
-      float4* dst = stage[c & 1];
-      const int p0 = c * kChunk, n = min(kChunk, total - p0);
-      for (int j = tid; j < n; j += blockDim.x) {
-        const long long slot = slot_of(nb, p0 + j, hint, cap);
-        const float* src = t_xyz + 3 * slot;
-        cp_async4(&dst[j].x, src);
-        cp_async4(&dst[j].y, src + 1);
-        cp_async4(&dst[j].z, src + 2);
-      }
-    };
-    if (chunks > 0) issue(0);
-    cp_async_commit();
-    for (int c = 0; c < chunks; ++c) {
-      if (c + 1 < chunks) issue(c + 1);
-      cp_async_commit();
-      cp_async_wait<1>();  // chunk c, this thread's copies
-      __syncthreads();     // and everyone's
-      if (ok) {
-        const float4* pts = stage[c & 1];
-        const int p0 = c * kChunk, n = min(kChunk, total - p0);
-        for (int i = 0; i < n; ++i) op.visit(st, qx, qy, qz, pts[i], p0 + i, r2);
-      }
-      __syncthreads();  // the buffer is refilled next
-    }
-    if (ok) op.write(st, q_idx[base + s], qx, qy, qz, nb, cap);
-  }
-}
-
-template <class Op>
-int launch(const float* t_xyz, const int* t_count, const float* q_xyz,
-           const long long* q_idx, const unsigned char* q_ok, const int* q_count, int h,
-           int cap, int gx, int gy, int gz, float r2, Op op, void* stream) {
-  if (h < 1 || cap < 1 || gx < 1 || gy < 1 || gz < 1 ||
-      static_cast<long long>(gx) * gy * gz != h) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int fit = (cap + 31) / 32 * 32;
-  const int threads = fit < kSweepThreads ? fit : kSweepThreads;
-  grid_sweep_kernel<Op><<<h, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      t_xyz, t_count, q_xyz, q_idx, q_ok, q_count, cap, gx, gy, gz, r2, op);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---- kernels G and K: one warp a unit of one bucket's queries ----
 
@@ -907,6 +798,47 @@ __device__ __forceinline__ void candidate_directory(TileDir& d, int b, int gx, i
   __syncwarp();
 }
 
+// A unit's walk for H, J and I (cull.cuh's sweep: its next()): the tiles
+// of its directory in candidate order (ascending neighbour, then tile), 32
+// positions a batch, those whose box lies within r2 of the box `qb` of the
+// unit's queries (boxes_bound); {-1, 0} once none is left. The warp, all
+// lanes; `batch` the warp's 32 entries of shared memory.
+struct NearTiles {
+  int base = -32;
+  unsigned left = 0;  // the batch's positions within r2 of the queries' box, to issue
+
+  __device__ __forceinline__ int2 next(const TileDir& dir, int2* batch,
+                                       const float4* __restrict__ boxes, const Box& qb,
+                                       int tiles, float r2, int lane) {
+    const int total = dir.tstart[dir.n];
+    while (left == 0) {
+      base += 32;
+      if (base >= total) return make_int2(-1, 0);
+      const int p = base + lane;
+      int2 tile = make_int2(-1, 0);
+      bool near = false;
+      if (p < total) {
+        int lo = 0, hi = dir.n;  // tstart[lo] <= p < tstart[hi]
+        while (hi - lo > 1) {
+          const int mid = (lo + hi) / 2;
+          if (dir.tstart[mid] <= p) lo = mid; else hi = mid;
+        }
+        const int t = p - dir.tstart[lo];
+        tile = make_int2(dir.id[lo] * tiles + t, min(kT, dir.cnt[lo] - t * kT));
+        near = boxes_bound(qb, __ldg(boxes + 2LL * tile.x),
+                           __ldg(boxes + 2LL * tile.x + 1)) <= r2;
+      }
+      __syncwarp();  // the last batch's tiles are read
+      batch[lane] = tile;
+      left = __ballot_sync(kAll, near);
+      __syncwarp();
+    }
+    const int j = __ffs(static_cast<int>(left)) - 1;
+    left &= left - 1;
+    return batch[j];
+  }
+};
+
 // a warp's shared memory: its directory, its ring, the batch's tiles, the
 // tile being consumed as float4 points, the op's scratch and its unit's
 // slots
@@ -971,36 +903,9 @@ grid_radius_kernel(const float* __restrict__ t_xyz, const long long* __restrict_
   const Box qb = warp_box(active, qx, qy, qz);
   typename Op::State st = op.init();
 
-  const int total = sh.dir.tstart[sh.dir.n];
-  int base = -32;
-  unsigned left = 0;  // the batch's positions within r2 of the queries' box, to issue
-  sweep(sh.ring, [&]() -> int2 {
-    while (left == 0) {
-      base += 32;
-      if (base >= total) return make_int2(-1, 0);
-      const int p = base + lane;
-      int2 tile = make_int2(-1, 0);
-      bool near = false;
-      if (p < total) {
-        int lo = 0, hi = sh.dir.n;  // tstart[lo] <= p < tstart[hi]
-        while (hi - lo > 1) {
-          const int mid = (lo + hi) / 2;
-          if (sh.dir.tstart[mid] <= p) lo = mid; else hi = mid;
-        }
-        const int t = p - sh.dir.tstart[lo];
-        tile = make_int2(sh.dir.id[lo] * tiles + t, min(kT, sh.dir.cnt[lo] - t * kT));
-        near = boxes_bound(qb, __ldg(boxes + 2LL * tile.x),
-                           __ldg(boxes + 2LL * tile.x + 1)) <= r2;
-      }
-      __syncwarp();  // the last batch's tiles are read
-      sh.tile[lane] = tile;
-      left = __ballot_sync(kAll, near);
-      __syncwarp();
-    }
-    const int j = __ffs(static_cast<int>(left)) - 1;
-    left &= left - 1;
-    return sh.tile[j];
-  }, issue, [&](const Stage& s) {
+  NearTiles walk;
+  sweep(sh.ring, [&]() { return walk.next(sh.dir, sh.tile, boxes, qb, tiles, r2, lane); },
+        issue, [&](const Stage& s) {
     const GridStage& g = s;
     const bool reach = active && box_bound(qx, qy, qz, g.lo, g.hi) <= r2;
     const unsigned lanes = __ballot_sync(kAll, reach);
@@ -1035,74 +940,248 @@ grid_radius_kernel(const float* __restrict__ t_xyz, const long long* __restrict_
   }
 }
 
-// The pre-pass of G, H, J and K, one launch. CTAs 0 .. unit_ctas - 1 (where
-// units are asked for) list the units of the query grid, each for
-// kPackThreads buckets, a thread a bucket: ceil(min(q_count[b], cap) / 32)
-// units b * gmax + j (j the unit's group of 32 answered slots), a block
-// scan placing them after one another;
-// where the CTA's run goes in the list is handed out by an atomic on the
-// count (units[0], zeroed before the launch), so the runs lie in no fixed
-// order, which no result depends on (a unit writes its own rows only).
-// The CTAs after them (where boxes are asked for) take a warp a target
-// bucket: the box of each of its filled tiles (lo, hi: the least and
-// largest x, y, z of its filled slots; w 0); the boxes of empty tiles are
-// not written, as no kernel reads them. Min and max are exact in any
-// order, so the boxes repeat bit for bit (up to the sign of a zero).
+// ---- kernel I: one warp a unit, its lanes on a tile's slots ----
+
+constexpr int kCountCounters = 8;  // I: the counts a warp writes where asked
+// I: a tile whose straddling queries number more than kLoopTenths / 10 of
+// its filled slots is counted a lane a query over the slots, else a step a
+// query with the lanes on the slots
+constexpr int kLoopTenths = 7;
+
+// a warp's shared memory: its directory, its ring, its unit's queries, the
+// tile being counted a lane a query, the batch's tiles and its unit's
+// slots
+struct CountShared {
+  TileDir dir;
+  GridStage ring[kStages];
+  float4 q[32];   // the unit's queries, a lane each
+  float4 pt[kT];  // the tile being counted a lane a query, as float4 points
+  int2 tile[32];
+  int slots[32];
+};
+
+// Kernel I. Warp w of the grid takes unit w of the pre-pass's list (a warp
+// past the list's count exits), a lane a query, and walks its bucket's
+// tiles as H and J do (NearTiles). On each tile that arrives a lane whose
+// query straddles the radius (its box bound within r2) counts its members
+// there (sq_dist, the plain version's d2) in one of two ways, as
+// the tile's straddling queries and filled slots make cheaper
+// (kLoopTenths): a step a straddling query, four a pass, with the lanes on
+// the tile's slots (the query read by every lane from shared memory, the
+// ballot's popcount added by the query's lane), or each straddling lane
+// over the slots, the tile rewritten as float4 points. Each answered row
+// gets its count minus `sub`.
+// With kCount, `counters` receives per warp that takes a unit the (query,
+// point) pairs compared (a straddling query against the tile's filled
+// slots), the tiles visited, 1 (its unit), the queries answered, the
+// members counted, the straddling (query, tile) pairs, the warp's steps
+// (one a tile for its bounds, then one a straddling query, or one a filled
+// slot where the lanes loop) and the tiles counted a lane a query; without
+// it the kernel counts nothing.
+template <bool kCount>
+__global__ void __launch_bounds__(kThreads)
+grid_count_kernel(const float* __restrict__ t_xyz, const float4* __restrict__ boxes,
+                  const int* __restrict__ t_count, const float* __restrict__ q_xyz,
+                  const long long* __restrict__ q_idx, const unsigned char* __restrict__ q_ok,
+                  const int* __restrict__ units, int max_units, int cap, int gx, int gy,
+                  int gz, float r2, bool a16, int sub, int* __restrict__ out,
+                  long long* __restrict__ counters) {
+  __shared__ CountShared shared[kWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  CountShared& sh = shared[warp];
+  const int tiles = (cap + kT - 1) / kT, gmax = (cap + 31) / 32;
+  const float nan = __int_as_float(0x7fc00000);
+  const long long u = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (u >= min(units[0], max_units)) return;  // the whole warp
+  const int code = units[1 + u];
+  const int b = code / gmax;
+  candidate_directory(sh.dir, b, gx, gy, gz, t_count, cap, lane);
+  const int slot = unit_slot(q_ok + static_cast<long long>(b) * cap, cap, code % gmax * 32,
+                             sh.slots, lane);
+  const bool active = slot >= 0;
+  const long long qslot = static_cast<long long>(b) * cap + (active ? slot : 0);
+  const float qx = active ? q_xyz[3 * qslot] : nan;  // NaN: within no bound
+  const float qy = active ? q_xyz[3 * qslot + 1] : nan;
+  const float qz = active ? q_xyz[3 * qslot + 2] : nan;
+  const Box qb = warp_box(active, qx, qy, qz);
+  sh.q[lane] = make_float4(qx, qy, qz, 0.f);  // read by the steps after the ring's syncs
+  int n = 0;  // this lane's members
+  long long pairs = 0, visited = 0, straddling = 0, steps = 0, looped = 0;
+
+  NearTiles walk;
+  sweep(sh.ring, [&]() { return walk.next(sh.dir, sh.tile, boxes, qb, tiles, r2, lane); },
+        [&](GridStage& st, int2 t) { issue_tile(st, t_xyz, boxes, t, tiles, cap, a16, lane); },
+        [&](const GridStage& g) {
+    unsigned s = __ballot_sync(kAll, box_bound(qx, qy, qz, g.lo, g.hi) <= r2);
+    const bool loop = __popc(s) * 10 > g.n * kLoopTenths;  // warp-uniform
+    if constexpr (kCount) {
+      pairs += static_cast<long long>(__popc(s)) * g.n;
+      ++visited;
+      straddling += __popc(s);
+      steps += 1 + (s == 0 ? 0 : (loop ? g.n : __popc(s)));
+      looped += s != 0 && loop;
+    }
+    if (s == 0) return;  // warp-uniform
+    if (loop) {  // a lane a straddling query
+      if (lane < g.n) {
+        sh.pt[lane] = make_float4(g.pt[3 * lane], g.pt[3 * lane + 1], g.pt[3 * lane + 2], 0.f);
+      }
+      __syncwarp();
+      if ((s >> lane) & 1u) {
+#pragma unroll 4
+        for (int j = 0; j < g.n; ++j) {
+          const float4 p = sh.pt[j];
+          n += sq_dist(qx, qy, qz, p.x, p.y, p.z) <= r2;
+        }
+      }
+      return;  // the ring's __syncwarp comes before the next tile's writes
+    }
+    const bool mine = lane < g.n;  // this lane's slot; NaN past the filled ones
+    const float px = mine ? g.pt[3 * lane] : nan;
+    const float py = mine ? g.pt[3 * lane + 1] : nan;
+    const float pz = mine ? g.pt[3 * lane + 2] : nan;
+    // the next straddling query (-1 past the last) and the lanes' slots
+    // within r2 of it (query j read by every lane)
+    const auto next = [&s]() {
+      const int j = __ffs(static_cast<int>(s)) - 1;
+      s &= s - 1;
+      return j;
+    };
+    const auto step = [&](int j) {
+      const float4 a = sh.q[max(j, 0)];
+      return __ballot_sync(kAll, sq_dist(a.x, a.y, a.z, px, py, pz) <= r2);
+    };
+    do {  // four straddling queries a pass; past the last, j = -1 (no lane's)
+      const int j0 = next(), j1 = next(), j2 = next(), j3 = next();
+      const unsigned m0 = step(j0), m1 = step(j1), m2 = step(j2), m3 = step(j3);
+      n += lane == j0 ? __popc(m0) : 0;
+      n += lane == j1 ? __popc(m1) : 0;
+      n += lane == j2 ? __popc(m2) : 0;
+      n += lane == j3 ? __popc(m3) : 0;
+    } while (s != 0);
+  });
+
+  if (active) out[q_idx[qslot]] = n - sub;
+  if constexpr (kCount) {
+    const int answered = __popc(__ballot_sync(kAll, active));
+    long long members = n;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) members += __shfl_xor_sync(kAll, members, o);
+    if (lane == 0) {
+      long long* c = counters + kCountCounters * (static_cast<long long>(blockIdx.x) * kWarps +
+                                                  warp);
+      c[0] = pairs;
+      c[1] = visited;
+      c[2] = 1;
+      c[3] = answered;
+      c[4] = members;
+      c[5] = straddling;
+      c[6] = steps;
+      c[7] = looped;
+    }
+  }
+}
+
+// ---- the pre-pass of G-K ----
+
+static_assert(kPackThreads == 32 * 32, "pack_units scans a warp of warp sums");
+
+// Where the pre-pass's runs of units go: the next free row of the list
+// and the unit CTAs done. Both are 0 between launches (the last unit CTA of
+// a launch returns them to 0), so no memset comes before a launch. The
+// pre-pass's launches on one device therefore run one at a time, as they
+// do on one stream (every caller's: PyTorch's current stream).
+__device__ int g_unit_next = 0;
+__device__ unsigned g_unit_done = 0;
+
+// The unit CTAs of the pre-pass, all their threads, kPackThreads buckets
+// a CTA, a thread a bucket: ceil(min(q_count[b], cap) / 32) units b * gmax
+// + j (j the unit's group of 32 answered slots), placed after one another
+// by a block scan; where the CTA's run goes in the list is handed out by
+// an atomic on g_unit_next, so the runs lie in no fixed order, which no
+// result depends on (a unit writes its own rows only). The last CTA to
+// finish writes the list's length into units[0] (pack_ref's, up to
+// max_units) and sets both tickets back to 0.
+__device__ __forceinline__ void pack_units(const int* __restrict__ q_count, int h, int cap,
+                                           int unit_ctas, int* __restrict__ units,
+                                           int max_units) {
+  __shared__ int sums[kPackThreads / 32];
+  __shared__ int base;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gmax = (cap + 31) / 32;
+  const int b = blockIdx.x * kPackThreads + threadIdx.x;
+  const int mine = b < h ? (min(max(__ldg(q_count + b), 0), cap) + 31) / 32 : 0;
+  const int incl = warp_scan(mine, lane);
+  if (lane == 31) sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int all = warp_scan(sums[lane], lane);
+    sums[lane] = all;
+    if (lane == 31) base = atomicAdd(&g_unit_next, all);
+  }
+  __syncthreads();
+  const int off = base + incl - mine + (warp > 0 ? sums[warp - 1] : 0);
+  for (int j = 0; j < mine && off + j < max_units; ++j) units[1 + off + j] = b * gmax + j;
+  if (threadIdx.x == 0) {  // this CTA's run is placed (base came back before the sync)
+    __threadfence();
+    if (atomicAdd(&g_unit_done, 1u) == static_cast<unsigned>(unit_ctas) - 1) {
+      units[0] = min(atomicExch(&g_unit_next, 0), max_units);
+      atomicExch(&g_unit_done, 0u);
+    }
+  }
+}
+
+// The pre-pass of G-K, one launch with nothing zeroed before it: CTAs 0
+// .. unit_ctas - 1 (where units are asked for) list the units
+// (pack_units); the CTAs after them (where boxes are asked for) take a thread a tile of the target grid
+// (tile t of bucket b at b * tiles + t) and write a filled tile's box (lo,
+// hi: the least and largest x, y, z of its filled slots, a NaN left out;
+// w 0), folded by the one thread, 16 bytes a read where a16 (the tile starts 16-byte
+// aligned, and a group of four slots that holds a filled one ends inside
+// its bucket, as cap % 4 == 0). The boxes of empty tiles are not written,
+// as no kernel reads them. Min and max are exact in any order, so the
+// boxes repeat bit for bit (up to the sign of a zero).
 __global__ void __launch_bounds__(kPackThreads)
 grid_pack_kernel(const float* __restrict__ t_xyz, const int* __restrict__ t_count,
-                 const int* __restrict__ q_count, int h, int cap, int unit_ctas,
+                 const int* __restrict__ q_count, int h, int cap, int unit_ctas, bool a16,
                  float4* __restrict__ boxes, int* __restrict__ units, int max_units) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int tiles = (cap + kT - 1) / kT, gmax = (cap + 31) / 32;
-  if (blockIdx.x < unit_ctas) {
-    __shared__ int sums[kPackThreads / 32];
-    __shared__ int base;
-    const int b = blockIdx.x * kPackThreads + threadIdx.x;
-    const int mine = b < h ? (min(max(q_count[b], 0), cap) + 31) / 32 : 0;
-    const int incl = warp_scan(mine, lane);
-    if (lane == 31) sums[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      const int all = warp_scan(sums[lane], lane);
-      sums[lane] = all;
-      if (lane == 31) base = atomicAdd(units, all);
-    }
-    __syncthreads();
-    const int off = base + incl - mine + (warp > 0 ? sums[warp - 1] : 0);
-    for (int j = 0; j < mine && off + j < max_units; ++j) units[1 + off + j] = b * gmax + j;
+  if (static_cast<int>(blockIdx.x) < unit_ctas) {
+    pack_units(q_count, h, cap, unit_ctas, units, max_units);
     return;
   }
-  const int b = (blockIdx.x - unit_ctas) * (kPackThreads / 32) + warp;
-  if (b >= h) return;  // the whole warp
-  const int n = min(t_count[b], cap);
+  const int tiles = (cap + kT - 1) / kT;
+  const int t = (blockIdx.x - unit_ctas) * kPackThreads + threadIdx.x;
+  if (t >= h * tiles) return;
+  const int b = t / tiles, first = t % tiles * kT;
+  const int n = min(min(__ldg(t_count + b), cap) - first, kT);  // its filled slots
+  if (n <= 0) return;
+  const float* src = t_xyz + 3 * (static_cast<long long>(b) * cap + first);
   const float inf = __int_as_float(0x7f800000);
-  for (int t = 0; t * kT < n; ++t) {  // the filled tiles: no kernel reads another
-    const int s = t * kT + lane;
-    const bool in = s < n;
-    float x = 0.f, y = 0.f, z = 0.f;
-    if (in) {
-      const float* p = t_xyz + 3 * (static_cast<long long>(b) * cap + s);
-      x = p[0];
-      y = p[1];
-      z = p[2];
-    }
-    Box box{in ? x : inf, in ? y : inf, in ? z : inf, in ? x : -inf, in ? y : -inf,
-            in ? z : -inf};
+  Box box{inf, inf, inf, -inf, -inf, -inf};
+  const auto fold = [&box](float x, float y, float z) {
+    box.lx = fminf(box.lx, x);
+    box.ly = fminf(box.ly, y);
+    box.lz = fminf(box.lz, z);
+    box.hx = fmaxf(box.hx, x);
+    box.hy = fmaxf(box.hy, y);
+    box.hz = fmaxf(box.hz, z);
+  };
+  if (a16) {  // four slots (three float4) a step
+    const float4* v = reinterpret_cast<const float4*>(src);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      box.lx = fminf(box.lx, __shfl_xor_sync(kAll, box.lx, o));
-      box.ly = fminf(box.ly, __shfl_xor_sync(kAll, box.ly, o));
-      box.lz = fminf(box.lz, __shfl_xor_sync(kAll, box.lz, o));
-      box.hx = fmaxf(box.hx, __shfl_xor_sync(kAll, box.hx, o));
-      box.hy = fmaxf(box.hy, __shfl_xor_sync(kAll, box.hy, o));
-      box.hz = fmaxf(box.hz, __shfl_xor_sync(kAll, box.hz, o));
+    for (int g = 0; g < kT / 4; ++g) {
+      if (4 * g >= n) break;
+      const float4 a = __ldg(v + 3 * g), c = __ldg(v + 3 * g + 1), d = __ldg(v + 3 * g + 2);
+      fold(a.x, a.y, a.z);
+      if (4 * g + 1 < n) fold(a.w, c.x, c.y);
+      if (4 * g + 2 < n) fold(c.z, c.w, d.x);
+      if (4 * g + 3 < n) fold(d.y, d.z, d.w);
     }
-    if (lane == 0) {
-      const long long tile = static_cast<long long>(b) * tiles + t;
-      boxes[2 * tile] = make_float4(box.lx, box.ly, box.lz, 0.f);
-      boxes[2 * tile + 1] = make_float4(box.hx, box.hy, box.hz, 0.f);
-    }
+  } else {
+    for (int j = 0; j < n; ++j) fold(src[3 * j], src[3 * j + 1], src[3 * j + 2]);
   }
+  boxes[2LL * t] = make_float4(box.lx, box.ly, box.lz, 0.f);
+  boxes[2LL * t + 1] = make_float4(box.hx, box.hy, box.hz, 0.f);
 }
 
 // the grids' shape as the kernels index them: H = Gx Gy Gz buckets of cap
@@ -1113,18 +1192,21 @@ bool grid_shape_ok(int h, int cap, int gx, int gy, int gz) {
          static_cast<long long>(h) * cap < (1LL << 31);
 }
 
+// whether a grid's runs of slots can be read 16 bytes at a time
+bool aligned16(const float* t_xyz, int cap) {
+  return cap % 4 == 0 && reinterpret_cast<unsigned long long>(t_xyz) % 16 == 0;
+}
+
 int launch_pack(const float* t_xyz, const int* t_count, const int* q_count, int h, int cap,
                 float* boxes, int* units, int max_units, cudaStream_t stream) {
-  if (units != nullptr) {
-    const cudaError_t err = cudaMemsetAsync(units, 0, sizeof(int), stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const int unit_ctas = units == nullptr ? 0 : (h + kPackThreads - 1) / kPackThreads;
-  const int box_ctas = boxes == nullptr ? 0 : (h + kPackThreads / 32 - 1) / (kPackThreads / 32);
+  const long long tiles = static_cast<long long>(h) * ((cap + kT - 1) / kT);
+  const int box_ctas =
+      boxes == nullptr ? 0 : static_cast<int>((tiles + kPackThreads - 1) / kPackThreads);
   if (unit_ctas + box_ctas == 0) return static_cast<int>(cudaSuccess);
   grid_pack_kernel<<<unit_ctas + box_ctas, kPackThreads, 0, stream>>>(
-      t_xyz, t_count, q_count, h, cap, unit_ctas, reinterpret_cast<float4*>(boxes), units,
-      max_units);
+      t_xyz, t_count, q_count, h, cap, unit_ctas, aligned16(t_xyz, cap),
+      reinterpret_cast<float4*>(boxes), units, max_units);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1156,10 +1238,9 @@ int launch_select(const Op& op, const float* t_xyz, const float* boxes, const in
   if (counters != nullptr && counters_len < static_cast<long long>(kCounters) * blocks * kWarps) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool a16 = cap % 4 == 0 && reinterpret_cast<unsigned long long>(t_xyz) % 16 == 0;
   grid_select_kernel<Op><<<blocks, kThreads, 0, stream>>>(
       t_xyz, reinterpret_cast<const float4*>(boxes), t_count, q_xyz, q_idx, q_ok, units,
-      max_units, cap, gx, gy, gz, a16, counters, op);
+      max_units, cap, gx, gy, gz, aligned16(t_xyz, cap), counters, op);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1179,13 +1260,12 @@ int launch_radius_grid(const Op& op, int groups, const float* t_xyz, const long 
   }
   grid_radius_kernel<Op, kCount><<<dim3(blocks, groups), kThreads, 0, stream>>>(
       t_xyz, t_idx, reinterpret_cast<const float4*>(boxes), t_count, q_xyz, q_idx, q_ok, units,
-      max_units, cap, gx, gy, gz, r2,
-      cap % 4 == 0 && reinterpret_cast<unsigned long long>(t_xyz) % 16 == 0, counters, op);
+      max_units, cap, gx, gy, gz, r2, aligned16(t_xyz, cap), counters, op);
   return static_cast<int>(cudaGetLastError());
 }
 
-// H or J whole: the pre-pass (the target's boxes, the units after zeroing
-// their count), then the radius kernel.
+// H or J whole: the pre-pass (the target's boxes and the units), then the
+// radius kernel.
 template <class Op>
 int launch_radius(const Op& op, int groups, const float* t_xyz, const long long* t_idx,
                   const int* t_count, const float* q_xyz, const long long* q_idx,
@@ -1273,12 +1353,30 @@ extern "C" int mm_grid_moments(const float* t_xyz, const int* t_count, const flo
 }
 
 // Kernel I: out (nq,) i32 at the answered rows, the member count minus sub.
+// Two launches: the pre-pass (the target's boxes into `boxes`, the units
+// into `units` (1 + max_units,) i32), then the count kernel. counters:
+// null, or (counters_len,) i64 receiving 8 counts a warp
+// (grid_count_kernel).
 extern "C" int mm_grid_count(const float* t_xyz, const int* t_count, const float* q_xyz,
                              const long long* q_idx, const unsigned char* q_ok,
                              const int* q_count, int h, int cap, int gx, int gy, int gz,
-                             float r2, int sub, int* out, void* stream) {
-  return launch(t_xyz, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz, r2,
-                CountOp{sub, out}, stream);
+                             float r2, int sub, float* boxes, int* units, int max_units,
+                             int* out, long long* counters, long long counters_len,
+                             void* stream) {
+  const int blocks = max_units < 1 ? 0 : (max_units + kWarps - 1) / kWarps;
+  if (!grid_shape_ok(h, cap, gx, gy, gz) || max_units < 1 ||
+      (counters != nullptr &&
+       counters_len < static_cast<long long>(kCountCounters) * blocks * kWarps)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = launch_pack(t_xyz, t_count, q_count, h, cap, boxes, units, max_units, st);
+  if (err != 0) return err;
+  const auto kernel = counters != nullptr ? grid_count_kernel<true> : grid_count_kernel<false>;
+  kernel<<<blocks, kThreads, 0, st>>>(t_xyz, reinterpret_cast<const float4*>(boxes), t_count,
+                                      q_xyz, q_idx, q_ok, units, max_units, cap, gx, gy, gz,
+                                      r2, aligned16(t_xyz, cap), sub, out, counters);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Kernel J: values (P,) f32, the value of each target point, read in place

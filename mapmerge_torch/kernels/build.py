@@ -96,7 +96,7 @@ SOURCES = {
     },
     "grid.cu": {
         # G and K: the pre-pass's buffers; the counters (null on the
-        # package's calls) and their length; H and J take the same
+        # package's calls) and their length; H, I and J take the same
         "mm_grid_pack": [_vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _ci, _vp],
         "mm_grid_nn": [
             _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _ci, _vp,
@@ -107,7 +107,8 @@ SOURCES = {
             _vp, _vp, _vp, _cll, _vp,
         ],
         "mm_grid_count": [
-            _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _ci, _vp, _vp,
+            _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _ci, _vp, _vp, _ci,
+            _vp, _vp, _cll, _vp,
         ],
         # the reciprocals of 2 s^2 in host memory (a ctypes float array)
         "mm_grid_smooth": [

@@ -24,26 +24,28 @@ query grid's slots with cell_ok set are answered, the rows of the others
 (the queries the query-side cap dropped, masked queries) keep the plain
 version's defaults.
 
-I is one launch a call: one CTA a query bucket (a bucket with no query
-exits at once), one thread a query slot, every candidate in order. The
-others cull, on one pre-pass: a call of G, H, J or K launches the pre-pass
-(`pack`, counted as "grid_pack"), which writes the box of every run of TILE
-slots of each target bucket and lists the units of the query grid (up to
-32 answered slots of one bucket, a lane a query), then the kernel, whose
-warps take the units. G and K need only the first member, or the first k
-candidates, of a query, and skip, exactly, every tile whose box bound
-cannot come before a query's threshold in (d2, slot) order. H and J add
-every member, a point within the fixed radius: a unit walks its
-neighbours' tiles in candidate order and skips, exactly, every tile whose
-box lies beyond the radius of its queries' box, then of each lane's query,
-so each lane adds the sweep's members in the sweep's order (the bits of
-the one-thread-a-slot sweep they replaced). A caller that queries one
-target grid many times (ICP) makes its boxes once (`boxes`, also counted
-as "grid_pack") and passes them to `nn_query`, whose pre-pass then lists
-the units alone. `select_counters` launches G, K, H or J once more with its
-counters on: the pairs it compared, the tiles it visited, its units and the
-share of their lanes that answer a query, H and J also the members they
-added.
+All five cull, on one pre-pass: a call launches the pre-pass (`pack`,
+counted as "grid_pack"; one launch), which writes the box of every run of
+TILE slots of each target bucket and lists the units of the query grid (up
+to 32 answered slots of one bucket, a lane a query), then
+the kernel, whose warps take the units. G and K need only the first
+member, or the first k candidates, of a query, and skip, exactly, every
+tile whose box bound cannot come before a query's threshold in (d2, slot)
+order. H, I and J add every member, a point within the fixed radius: a
+unit walks its neighbours' tiles in candidate order and skips, exactly,
+every tile whose box lies beyond the radius of its queries' box, then of
+each lane's query. H and J add each lane's members in the sweep's order
+(the bits of the one-thread-a-slot sweep they replaced). I needs no order:
+where a tile's straddling queries are few, the warp's lanes test the
+tile's slots against one query a step, else each straddling lane loops
+over the slots. A
+caller that queries one target grid many times (ICP) makes its boxes once
+(`boxes`, also counted as "grid_pack") and passes them to `nn_query`, whose
+pre-pass then lists the units alone. `select_counters` launches G, K, H, I
+or J once more with its counters on: the pairs it compared, the tiles it
+visited, its units and the share of their lanes that answer a query; H, I
+and J also the members they added, I its straddling (query, tile) pairs,
+its warp steps and the tiles it counted a lane a query.
 
 - `nn_query` equals `nn_query_ref` bit for bit: idx and d2.
 - `count` equals `count_ref` bit for bit, the include_self subtraction
@@ -107,8 +109,8 @@ KNN_KERNEL = build.Kernel(
     source="mapmerge_torch/csrc/grid.cu",
     replaces="mapmerge_tpu/ops/grid.py:507",
 )
-#: the pre-pass of G, H, J and K (csrc/grid.cu: grid_pack_kernel), part of
-#: their port: launched with each of them, and alone by `pack` and `boxes`
+#: the pre-pass of G-K (csrc/grid.cu: grid_pack_kernel), part of their
+#: port: launched with each of them, and alone by `pack` and `boxes`
 PACK_KERNEL = build.Kernel(
     name="grid_pack",
     source="mapmerge_torch/csrc/grid.cu",
@@ -122,6 +124,12 @@ SIGMA_GROUP = 8
 MAX_K = 26
 #: slots a tile of the pre-pass's boxes (csrc/cull.cuh: kT)
 TILE = 32
+#: counts a warp of kernel I's counters (csrc/grid.cu: kCountCounters)
+COUNT_COUNTERS = 8
+#: kernel I counts a tile a lane a query over its slots where its
+#: straddling queries number more than LOOP_TENTHS / 10 of its filled
+#: slots, else a step a query (csrc/grid.cu: kLoopTenths)
+LOOP_TENTHS = 7
 
 
 def nn_query(
@@ -158,25 +166,11 @@ def count(
 ) -> torch.Tensor:
     """(Q,) int32: the target points with d2 <= r2 of each query, minus 1
     without include_self (0 - 1 for a query in no answered slot, as the
-    plain version). Operands and routes as `nn_query`'s; kernel I."""
+    plain version). Operands and routes as `nn_query`'s; the pre-pass and
+    kernel I."""
     if q.device.type == "cpu":
         return count_ref(grid, qg, q, r2, include_self)
-    kernel = COUNT_KERNEL
-    dev, nq, dims = _operands(kernel, grid, qg, q)
-    sub = 0 if include_self else 1
-    out = torch.full((nq,), -sub, dtype=torch.int32, device=dev)
-    if nq == 0:
-        return out
-    lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.mm_grid_count(
-            grid.cell_xyz.data_ptr(), grid.count.data_ptr(), qg.cell_xyz.data_ptr(),
-            qg.cell_idx.data_ptr(), qg.cell_ok.data_ptr(), qg.count.data_ptr(), *dims,
-            r2, sub, out.data_ptr(), build.stream_handle(dev),
-        )
-    kernel.launched()
-    build.check_launch(kernel, err)
-    return out
+    return _radius(COUNT_KERNEL, grid, qg, q, r2, sub=0 if include_self else 1)
 
 
 def smooth(
@@ -209,12 +203,13 @@ def knn(
 
 
 def pack(grid, qg, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The pre-pass of kernels G, H, J and K alone, on their operands (the target
+    """The pre-pass of kernels G-K alone, on their operands (the target
     grid, the query grid of the queries q): as `pack_ref` defines it,
     (boxes, units), but the boxes of empty tiles (outside `filled_tiles`)
     and the units' rows past units[0] + 1 are not written, and the units'
     runs of 1,024 buckets lie in an order of their own. A CPU tensor takes
-    pack_ref; a CUDA tensor launches the pre-pass or raises."""
+    pack_ref; a CUDA tensor launches the pre-pass (one launch, with nothing
+    zeroed before it) or raises."""
     if q.device.type == "cpu":
         return pack_ref(grid, qg, q)
     dev, nq, dims = _operands(PACK_KERNEL, grid, qg, q)
@@ -269,8 +264,7 @@ def units_max(nq: int, h: int) -> int:
 
 
 def pack_ref(grid, qg, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch pre-pass of kernels G, H, J and K: (boxes_ref(grid),
-    units).
+    """Plain PyTorch pre-pass of kernels G-K: (boxes_ref(grid), units).
     units (units_max(Q, H),) int32: their count n first, then, for each
     query bucket b in order and j < ceil(min(count_b, C) / 32), b ceil(C /
     32) + j: the j-th group of 32 answered slots of b, a warp's work; the
@@ -364,26 +358,29 @@ def _select(kernel: build.Kernel, grid, qg, q, n_p: int, *knn_args, boxes=None,
 
 
 def _radius(kernel: build.Kernel, grid, qg, q, r2: float, values=None, sigmas=None,
-            counters=None):
-    """Launch the pre-pass and kernel H (MOMENTS_KERNEL) or J
-    (SMOOTH_KERNEL, with `values` and `sigmas`) on the card: H's (count,
-    mean, cov) or J's field, their rows defaulted as the plain version's.
-    `counters`, an int64 tensor on the card, receives the kernel's per-warp
-    counts (select_counters); the package's calls pass none."""
+            sub: int = 0, counters=None):
+    """Launch the pre-pass and kernel H (MOMENTS_KERNEL), I (COUNT_KERNEL,
+    each count less `sub`) or J (SMOOTH_KERNEL, with `values` and
+    `sigmas`) on the card: H's (count, mean, cov), I's counts or J's field,
+    their rows defaulted as the plain version's. `counters`, an int64
+    tensor on the card, receives the kernel's per-warp counts
+    (select_counters); the package's calls pass none."""
     dev, nq, dims = _operands(kernel, grid, qg, q)
-    smooth = kernel is SMOOTH_KERNEL
+    smooth, count = kernel is SMOOTH_KERNEL, kernel is COUNT_KERNEL
     if smooth:
         ns = len(sigmas)
         build.require(f"{kernel.name}: values", values, torch.float32, (None,), dev)
         if not 1 <= ns <= MAX_SIGMAS:
             raise ValueError(f"{kernel.name}: unsupported sigma count {ns}")
         outs = (torch.zeros((nq, ns), dtype=torch.float32, device=dev),)
+    elif count:
+        outs = (torch.full((nq,), -sub, dtype=torch.int32, device=dev),)
     else:
         outs = (torch.zeros((nq,), dtype=torch.float32, device=dev),
                 torch.zeros((nq, 3), dtype=torch.float32, device=dev),
                 torch.zeros((nq, 3, 3), dtype=torch.float32, device=dev))
     if nq == 0:
-        return outs[0] if smooth else outs
+        return outs[0] if smooth or count else outs
     boxes = _empty_boxes(grid, dev)
     units = torch.empty((units_max(nq, dims[0]),), dtype=torch.int32, device=dev)
     work = (boxes.data_ptr(), units.data_ptr(), units.numel() - 1)
@@ -398,6 +395,10 @@ def _radius(kernel: build.Kernel, grid, qg, q, r2: float, values=None, sigmas=No
                 grid.cell_xyz.data_ptr(), grid.cell_idx.data_ptr(), grid.count.data_ptr(),
                 values.data_ptr(), *queries, recips, ns, *work, outs[0].data_ptr(), *extra,
                 build.stream_handle(dev))
+        elif count:
+            err = lib.mm_grid_count(
+                grid.cell_xyz.data_ptr(), grid.count.data_ptr(), *queries, sub, *work,
+                outs[0].data_ptr(), *extra, build.stream_handle(dev))
         else:
             err = lib.mm_grid_moments(
                 grid.cell_xyz.data_ptr(), grid.count.data_ptr(), *queries, *work,
@@ -405,7 +406,7 @@ def _radius(kernel: build.Kernel, grid, qg, q, r2: float, values=None, sigmas=No
     kernel.launched()
     PACK_KERNEL.launched()
     build.check_launch(kernel, err)
-    return outs[0] if smooth else outs
+    return outs[0] if smooth or count else outs
 
 
 #: the length of select_counters' buffer for G and K: 4 counts a warp of a
@@ -415,38 +416,48 @@ COUNTERS_LEN = 4 * 4 * 32 * 256
 
 
 def select_counters(name: str, grid, qg, q, *args) -> dict:
-    """Kernel G ("grid_nn"), K ("grid_knn"), H ("grid_moments") or J
-    ("grid_smooth") launched once more on these operands with its counters
-    on (not a path of the package; `args` those of its wrapper after q):
-    the (query, candidate) pairs it compared, the tiles it visited, its
-    units (warps' worth of queries) and the queries answered, summed over
-    its warps, and the share of the units' lanes that answer a query; H and
-    J also the members they added, each (query, point) within the radius
-    (J's counts summed over its sigma groups, each of which walks the units
-    again)."""
+    """Kernel G ("grid_nn"), K ("grid_knn"), H ("grid_moments"), I
+    ("grid_count") or J ("grid_smooth") launched once more on these
+    operands with its counters on (not a path of the package; `args` those
+    of its wrapper after q): the (query, candidate) pairs it compared, the
+    tiles it visited, its units (warps' worth of queries) and the queries
+    answered, summed over its warps, and the share of the units' lanes that
+    answer a query; H, I and J also the members they added, each (query,
+    point) within the radius (J's counts summed over its sigma groups, each
+    of which walks the units again); I also the straddling (query, tile)
+    pairs, its warp steps (one a tile visited for its bounds, then one a
+    straddling query, or one a filled slot where the lanes loop) and the
+    tiles counted a lane a query (`looped`)."""
+    smooth, count = name == "grid_smooth", name == "grid_count"
     if name in ("grid_nn", "grid_knn"):
         width = 4
         counters = torch.zeros((COUNTERS_LEN,), dtype=torch.int64, device=q.device)
         kernel = NN_KERNEL if name == "grid_nn" else KNN_KERNEL
         _select(kernel, grid, qg, q, *args, counters=counters)
     else:
-        # 5 counts a warp, a warp for each unit the buffer holds (rounded up
-        # to CTAs of 4), in each of J's sigma groups
-        width, smooth = 5, name == "grid_smooth"
+        # 5 counts a warp (I COUNT_COUNTERS), a warp for each unit the
+        # buffer holds (rounded up to CTAs of 4), in each of J's sigma groups
+        width = COUNT_COUNTERS if count else 5
         groups = -(-len(args[1]) // SIGMA_GROUP) if smooth else 1
         warps = -(-units_max(q.shape[0], grid.cell_idx.shape[0]) // 4) * 4
         counters = torch.zeros((width * warps * groups,), dtype=torch.int64, device=q.device)
         if smooth:
             values, sigmas, r2 = args
             _radius(SMOOTH_KERNEL, grid, qg, q, r2, values, sigmas, counters=counters)
+        elif count:
+            r2, include_self = (*args, True)[:2]
+            _radius(COUNT_KERNEL, grid, qg, q, r2, sub=0 if include_self else 1,
+                    counters=counters)
         else:
             _radius(MOMENTS_KERNEL, grid, qg, q, *args, counters=counters)
     sums = [int(v) for v in counters.view(-1, width).sum(dim=0)]
     pairs, tiles, units, answered = sums[:4]
     out = {"pairs_compared": pairs, "tiles_visited": tiles, "units": units,
            "answered": answered, "lane_share": answered / (32 * units) if units else None}
-    if width == 5:
+    if width >= 5:
         out["members"] = sums[4]
+    if count:
+        out.update(straddling=sums[5], steps=sums[6], looped=sums[7])
     return out
 
 

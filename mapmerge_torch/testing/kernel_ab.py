@@ -3,6 +3,7 @@ inputs, on one card, for a before/after comparison.
 
     python3 mapmerge_torch/testing/kernel_ab.py record INPUTS.pt
     python3 mapmerge_torch/testing/kernel_ab.py record-radius INPUTS.pt
+    python3 mapmerge_torch/testing/kernel_ab.py record-grid INPUTS.pt
     python3 mapmerge_torch/testing/kernel_ab.py time INPUTS.pt ROOT [PREFIX]
 
 `record` drives config #1 and the registry sweep's FPFH + SAC_IA path
@@ -41,12 +42,16 @@ them, held bit for bit against its plain version: each call whole (the
 pre-pass's boxes made in it) and, for G in a checkout whose `nn_query`
 takes the boxes made before (`boxes=`), given them as ICP gives them.
 Beside them the grid radius kernels' first calls: kernel H
-(`grid.moments`) on config #2's first cloud and on config5_big's first
-map, kernel J (`grid.smooth`) at config5_big's first map's octaves 0 and
-1, each timed whole, held against its plain version within its tolerance
-and repeating, with a digest of its output (equal digests: the checkouts
-agree bit for bit) and its device time by kernel name under
-torch.profiler, as the tile pre-pass's inputs also get. PREFIX may name
+(`grid.moments`) and kernel I (`grid.count`) on config #2's first cloud
+and on config5_big's first map, kernel J (`grid.smooth`) at config5_big's
+first map's octaves 0 and 1, each timed whole, held against its plain
+version (I bit for bit, H and J within their tolerances) and repeating,
+with a digest of its output (equal digests: the checkouts agree bit for
+bit) and its device time by kernel name under torch.profiler, as the tile
+pre-pass's inputs also get; I's inputs also time the grid pre-pass alone
+(`grid.pack`: "grid_pack config #2", "grid_pack config5_big"), held
+against pack_ref, with its device time by kernel name (and memset).
+`record-grid` saves the grid kernels' inputs alone. PREFIX may name
 several prefixes, separated by commas.
 Compare in one process order on one card: parent, change, change, parent.
 C, D, E and F are timed through their
@@ -327,16 +332,29 @@ def record_config2_sweep(cs, dev) -> tuple:
     return seen[0]
 
 
+def record_grid(out: Path) -> None:
+    """The grid kernels' arguments alone (record_grid_select)."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+
+    inputs = record_grid_select(cs, torch.device("cuda", torch.cuda.current_device()))
+    torch.save(inputs, out)
+    print(f"recorded {sorted(inputs)} to {out}")
+
+
 def record_grid_select(cs, dev) -> dict:
-    """The arguments of kernel G's first call from ICP and of kernel H's
-    first call on eval config #2 (chip_smoke.run_config2's merge of its
-    five views: the first cloud's normals), and of kernel K's first call,
-    H's first call and J's first calls at octaves 0 and 1 on config5_big's
-    first map (the incremental node's first tick), as
-    chip_smoke.first_launch_inputs records them, with each cell grid as a
-    dict of its fields ("grid_nn config #2", "grid_moments config #2",
-    "grid_knn config5_big", "grid_moments config5_big", "grid_smooth
-    config5_big octave 0" and "... octave 1")."""
+    """The arguments of kernel G's first call from ICP and of kernels H's
+    and I's first calls on eval config #2 (chip_smoke.run_config2's merge
+    of its five views: the first cloud's normals and outliers), and of
+    kernel K's first call, H's and I's first calls and J's first calls at
+    octaves 0 and 1 on config5_big's first map (the incremental node's
+    first tick), as chip_smoke.first_launch_inputs records them, with each
+    cell grid as a dict of its fields ("grid_nn config #2", "grid_moments
+    config #2", "grid_count config #2", "grid_knn config5_big",
+    "grid_moments config5_big", "grid_count config5_big", "grid_smooth
+    config5_big octave 0" and "... octave 1"); I's grids and queries again
+    for the pre-pass alone ("grid_pack config #2", "grid_pack
+    config5_big")."""
     from mapmerge_torch.core.cloud import PointCloud
     from mapmerge_torch.kernels import nn, spfh
     from mapmerge_torch.pipeline.merging import estimate_maps_transforms
@@ -353,6 +371,7 @@ def record_grid_select(cs, dev) -> dict:
         torch.cuda.synchronize()
     kept["grid_nn config #2"] = seen["grid_nn icp"]
     kept["grid_moments config #2"] = seen["grid_moments"]
+    kept["grid_count config #2"] = seen["grid_count"]
     del clouds, seen
     views, _ = town_views(cs.CONFIG5_MAPS, cs.CONFIG5_VIEW_TARGET, keep=0.8, seed=5)
     cap = 1 << int(np.ceil(np.log2(len(views[0][0]))))
@@ -365,10 +384,13 @@ def record_grid_select(cs, dev) -> dict:
     knn = [k for k in seen if k.startswith("grid_knn Q=")]
     kept["grid_knn config5_big"] = seen[max(knn, key=lambda k: int(k.split("=")[1]))]
     kept["grid_moments config5_big"] = seen["grid_moments"]
+    kept["grid_count config5_big"] = seen["grid_count"]
     smooth = sorted((k for k in seen if k.startswith("grid_smooth Q=")),
                     key=lambda k: -int(k.split("=")[1]))
     for octave, key in enumerate(smooth[:2]):
         kept[f"grid_smooth config5_big octave {octave}"] = seen[key]
+    for label in ("config #2", "config5_big"):  # the pre-pass on I's operands
+        kept[f"grid_pack {label}"] = (kept[f"grid_count {label}"][0][:3], {})
     # the positional arguments only: G's `boxes` from ICP are the change's,
     # and each checkout makes its own
     return {name: ([_grid_fields(a) for a in args], {}) for name, (args, _) in kept.items()}
@@ -453,6 +475,66 @@ def time_grid_radius(kgrid, name: str, args) -> dict:
         "held": held and all(torch.equal(a, b) for a, b in zip(got, again)), **error,
         "digest": _digest(got), "ms": [time_ms(lambda: kernel(*args)) for _ in range(3)],
         "device_ms": device_ms(lambda: kernel(*args)),
+    }
+
+
+def time_grid_count(kgrid, args) -> dict:
+    """Kernel I (`count`) of the checkout on one saved input: held bit for
+    bit against count_ref and against a second call, a digest of its
+    output, three medians of 20 timed calls, each whole (the pre-pass,
+    where the checkout has one, in it), the device time of a call by kernel
+    name (device_ms), and, where the checkout's I counts (select_counters
+    knows "grid_count"), its counters."""
+    args = [_as_grid(a) for a in args]
+    grid, q = args[0], args[2]
+    got, again = kgrid.count(*args), kgrid.count(*args)
+    held = torch.equal(got, kgrid.count_ref(*args)) and torch.equal(got, again)
+    counters = (kgrid.select_counters("grid_count", *args)
+                if hasattr(kgrid, "COUNT_COUNTERS") else None)
+    return {
+        "shape": f"Q={q.shape[0]} grid {tuple(grid.cell_idx.shape)} dims {grid.dims}",
+        "held": held, "digest": _digest((got,)),
+        "ms": [time_ms(lambda: kgrid.count(*args)) for _ in range(3)],
+        "device_ms": device_ms(lambda: kgrid.count(*args)), "counters": counters,
+    }
+
+
+def time_grid_pack(kgrid, args) -> dict:
+    """The grid pre-pass of the checkout alone (`pack`: the target's boxes
+    and the query grid's units) on one saved input: its boxes of the filled
+    tiles held equal to pack_ref's and its units the same set, three
+    medians of 20 timed calls through the wrapper and the device time of a
+    call by kernel name (a memset apart, where the checkout makes one);
+    beside it the device time of the boxes alone (`boxes`) and of the units
+    alone (the checkout's mm_grid_pack given no boxes buffer)."""
+    from mapmerge_torch.kernels import build
+
+    args = [_as_grid(a) for a in args]
+    grid, qg = args[:2]
+    dev = args[2].device
+
+    def units_alone():
+        h, cap = grid.cell_idx.shape
+        err = build.load().mm_grid_pack(
+            grid.cell_xyz.data_ptr(), grid.count.data_ptr(), qg.count.data_ptr(), h, cap,
+            *grid.dims, None, alone.data_ptr(), alone.numel() - 1,
+            torch.cuda.current_stream(dev).cuda_stream)
+        assert err == 0, err
+
+    boxes, units = kgrid.pack(*args)
+    alone = torch.empty_like(units)
+    rboxes, runits = kgrid.pack_ref(*args)
+    filled = kgrid.filled_tiles(args[0])
+    n = int(units[0])
+    held = bool((boxes[filled] == rboxes[filled]).all()) and n == int(runits[0]) and (
+        torch.equal(units[1 : n + 1].sort().values, runits[1 : n + 1].sort().values))
+    return {
+        "shape": f"grid {tuple(args[0].cell_idx.shape)}, {n} units, "
+                 f"{int(filled.sum())} filled tiles",
+        "held": held, "ms": [time_ms(lambda: kgrid.pack(*args)) for _ in range(3)],
+        "device_ms": device_ms(lambda: kgrid.pack(*args)),
+        "boxes_device_ms": device_ms(lambda: kgrid.boxes(grid)),
+        "units_device_ms": device_ms(units_alone),
     }
 
 
@@ -616,6 +698,12 @@ def time_root(inputs_path: Path, root: Path, prefix: str = "") -> None:
         if name.startswith(("grid_moments", "grid_smooth")):
             result["kernels"][name] = time_grid_radius(kgrid, name, args)
             continue
+        if name.startswith("grid_count"):
+            result["kernels"][name] = time_grid_count(kgrid, args)
+            continue
+        if name.startswith("grid_pack"):
+            result["kernels"][name] = time_grid_pack(kgrid, args)
+            continue
         kernel, ref = {
             "nn": (nn.nearest_neighbor, nn.nearest_neighbor_ref),
             "nn_batched": (nn.nearest_neighbor_batched, nn.nearest_neighbor_batched_ref),
@@ -640,6 +728,8 @@ def main(argv: list[str]) -> int:
         record(Path(argv[1]))
     elif len(argv) == 2 and argv[0] == "record-radius":
         record_radius(Path(argv[1]))
+    elif len(argv) == 2 and argv[0] == "record-grid":
+        record_grid(Path(argv[1]))
     elif len(argv) in (3, 4) and argv[0] == "time":
         time_root(Path(argv[1]), Path(argv[2]), *argv[3:])
     else:

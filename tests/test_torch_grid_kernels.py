@@ -3,9 +3,9 @@ kernels/grid.py, csrc/grid.cu) on their plain versions, against the JAX
 package's grid_nn_query, grid_neighbor_moments and grid_radius_count.
 
 Each kernel answers a query slot from the filled slots of the distinct
-wrapped neighbour buckets in ascending bucket id, then slot order (I sweeps
-them all; G and H cull tiles of them exactly:
-tests/test_torch_grid_select.py and tests/test_torch_grid_radius_cull.py
+wrapped neighbour buckets in ascending bucket id, then slot order (G, H
+and I cull tiles of them exactly: tests/test_torch_grid_select.py,
+tests/test_torch_grid_radius_cull.py and tests/test_torch_grid_count_cull.py
 model their schedules). Here: the plain versions and
 ops/grid's three functions (which take them on the CPU) against the JAX
 package, on tests/test_torch_grid.py's cloud (3,000 points in a 4 m cube,

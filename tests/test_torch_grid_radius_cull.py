@@ -318,16 +318,18 @@ class _Outputs(TorchDispatchMode):
         return out
 
 
-@pytest.mark.parametrize("entry", ["moments", "smooth"])
+@pytest.mark.parametrize("entry", ["moments", "smooth", "count"])
 def test_card_path_launches_the_pre_pass_with_the_kernel(card_path, entry):
-    """On the card's path a call of moments or smooth is one C call that
-    launches the pre-pass and the kernel, both counted once (the kernel's
-    name and "grid_pack"), with the boxes and units buffers and no
+    """On the card's path a call of moments, smooth or count is one C call
+    that launches the pre-pass and the kernel, both counted once (the
+    kernel's name and "grid_pack"), with the boxes and units buffers and no
     counters; smooth passes the values as given, no (h, cap) plane of
     values (no gather, no tensor of that shape is made); a failed launch
     raises under the kernel's name."""
-    fn = {"moments": "mm_grid_moments", "smooth": "mm_grid_smooth"}[entry]
-    kernel = {"moments": kgrid.MOMENTS_KERNEL, "smooth": kgrid.SMOOTH_KERNEL}[entry]
+    fn = {"moments": "mm_grid_moments", "smooth": "mm_grid_smooth",
+          "count": "mm_grid_count"}[entry]
+    kernel = {"moments": kgrid.MOMENTS_KERNEL, "smooth": kgrid.SMOOTH_KERNEL,
+              "count": kgrid.COUNT_KERNEL}[entry]
     seen = []
     card_path.setattr(build, "load", lambda *a: types.SimpleNamespace(
         **{fn: lambda *args: seen.append(args) or 0}))
@@ -337,6 +339,8 @@ def test_card_path_launches_the_pre_pass_with_the_kernel(card_path, entry):
     def call():
         if entry == "moments":
             return kgrid.moments(grid, qg, q, 0.25)
+        if entry == "count":
+            return kgrid.count(grid, qg, q, 0.25)
         return kgrid.smooth(grid, qg, q, vals, [0.1] * 6, 0.25)
 
     before = (kernel.launches, kgrid.PACK_KERNEL.launches)
