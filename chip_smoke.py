@@ -31,7 +31,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      scales (0.1 m: J's cell 3 sigma_max, K's 8 scales), J within its
      tolerance (rows of unanswered queries 0, a second launch the same bits)
      and K bit for bit, then both on the same adversarial inputs, K with
-     exclude_self both ways;
+     exclude_self both ways; the grid radius reduce, kernel L (Harris's
+     response, suppression and refinement on the grid), on the same town
+     queried at its own points at the Harris radius (0.6 m, cap 128): its
+     sweep route at C = 1, 9 and 12 channels, sum and max, and its list
+     route on 4,096 and on 1 query, the count and the max bit for bit and
+     the sum within REDUCE_RTOL of the members' sum of |v| (the TF32 and
+     bfloat16 controls failing it), then both routes on the adversarial
+     inputs, a NaN point and a full target bucket;
   4. eval config #1 (bench.py:49-77) through estimate_maps_transforms on the
      card: reset the kernels' launch counts, run once, require every kernel
      to have launched; gate the poses against the ground truth and against
@@ -68,7 +75,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      merge) and equal its plain version exactly on the first cloud's
      inputs; the stage-timed run logs each cloud's sweep: the buckets that
      hold a needed slot, the needed slots, the filled slots in those
-     buckets, the candidates staged and the pairs counted.
+     buckets, the candidates staged and the pairs counted, and splits each
+     Harris extraction by call (harris_split: the response, the
+     suppression and each refinement step, each call's `build_grid` sorts
+     apart). Kernel L launches twice on its sweep route and three times on
+     its list route a Harris extraction (10 / 15), and the first cloud's
+     Harris keypoints through L are held against those of its plain
+     versions (hold_harris_keypoints: at least 99% found within 1e-4 m,
+     response within 1e-3 relative; so on config #3 too).
   8. the online node, stateless (runtime/node.MapMergeNode over an
      InProcTransport) on config #1's views: one discovery, estimation and
      compositing tick; the poses bit for bit those of estimate_maps_transforms
@@ -234,12 +248,27 @@ map's outlier and normal passes through E and F beside the grid's, through
 I and H and through their plain versions (big_radius_stats), held on
 sampled queries; config #1's octaves 1 and 2 give C's and D's bounds and
 D's knn_library (sift_octave_stats).
+Kernel L (csrc/grid.cu: the grid's radius_reduce behind Harris, its
+sweep route `grid_reduce` on the pre-pass and the query grid, its list
+route `grid_reduce_list` for at most 4,096 queries) is required twice
+(sweep) and three times (list) a Harris extraction on the grid, so 10 / 15
+on config #2 and over its two ranks, 4 / 6 on config #3 and none elsewhere
+(require_grid_reduce); it is held on the first response, suppression and
+refinement step of each such path (the count and the max bit for bit, the
+sum within REDUCE_RTOL of the members' sum of |v|; on config #2 its TF32
+and bfloat16 controls must fail that limit), timed beside its plain
+version, its bound (the members at 9 + C against both grids' bytes and the
+values') and, for the sum, `(torch.cdist(q, p) <= r).float() @ values` on
+4,096 sampled answered queries, scaled (reduce_library_stats); the sweep
+route's counters too.
 The line before the last is a JSON object of the kernels (kernel
 A's one-pair and batched entries, kernel B, the pre-pass, kernels C, D, E,
-F, E's and F's order pre-pass, G, H, I, J and K): launches, times and bound
+F, E's and F's order pre-pass, G, H, I, J, K, the grid pre-pass and L's
+two routes): launches, times and bound
 on each kernel's main path (MAIN_PATH: config #1 for the batched entry, B,
 C, D, E, F and their order pre-pass, config #2
-for G, H and I, config5_big for J and K, the incremental node on config
+for G, H, I, L and the grid pre-pass, config5_big for J and K, the
+incremental node on config
 #1's views for the one-pair entry), and the same for every path and for
 the synthetic shapes; the last
 line is {"ok": true, "device": {...}}.
@@ -1413,7 +1442,7 @@ def grid_visit_counters(grid, qg) -> dict:
 GRID_ROW_BYTES = {"grid_nn": 8, "grid_moments": 52, "grid_count": 4}
 
 
-def grid_bound(name: str, grid, qg, q, members: int) -> dict:
+def grid_bound(name: str, grid, qg, q, members: int, values=None) -> dict:
     """A grid kernel's least time on these inputs: the distinct candidate
     points read once (12 B, and G the 8 B index of the one it keeps: counted
     for each), both grids' counts (4 B a bucket), the answered query slots
@@ -1423,13 +1452,20 @@ def grid_bound(name: str, grid, qg, q, members: int) -> dict:
     G within the bound: a kernel that culls need test no other pair), and
     MOMENTS_MEMBER_OPS more for H. Beside it `visited_bound_ms`, every pair
     the kernels visit (grid_visit_counters' pairs_visited) at
-    GRID_PAIR_OPS, as E's `dense_bound_ms` sits beside E's bound."""
+    GRID_PAIR_OPS, as E's `dense_bound_ms` sits beside E's bound. L
+    (`values` (P, C) given) reads the values of the distinct candidates
+    once (4 B a channel: it reads values only through the candidates'
+    cell_idx, never a padded or masked row), writes a count and C channels
+    a row and adds C a member."""
     c = grid_visit_counters(grid, qg)
     h, cap = grid.cell_idx.shape
+    row = GRID_ROW_BYTES[name] if values is None else 4 + 4 * values.shape[1]
     n_bytes = (c["distinct_candidates"] * (20 if name == "grid_nn" else 12) + 2 * h * 4
-               + c["answered"] * 20 + c["active_buckets"] * cap
-               + q.shape[0] * GRID_ROW_BYTES[name])
+               + c["answered"] * 20 + c["active_buckets"] * cap + q.shape[0] * row
+               + (0 if values is None else c["distinct_candidates"] * 4 * values.shape[1]))
     extra = members * MOMENTS_MEMBER_OPS if name == "grid_moments" else 0
+    if values is not None:
+        extra = members * values.shape[1]
     return {**c, "members": members, **_bound(n_bytes, members * GRID_PAIR_OPS + extra),
             "visited_bound_ms": _bound(
                 n_bytes, c["pairs_visited"] * GRID_PAIR_OPS + extra)["bound_ms"]}
@@ -1489,10 +1525,10 @@ def grid_library_stats(name: str, args, got) -> dict:
 
 #: the threads a CTA of the one-thread-a-slot sweep (csrc/grid.cu's
 #: grid_sweep_kernel until kernel I left it, on which G took 256 and K, H,
-#: I and J 128 before their own kernels): one a query slot, a CTA a query
-#: bucket
+#: I and J 128 before their own kernels; L's share is read at H's 128):
+#: one a query slot, a CTA a query bucket
 SWEEP_THREADS = {"grid_nn": 256, "grid_knn": 128, "grid_moments": 128, "grid_smooth": 128,
-                 "grid_count": 128}
+                 "grid_count": 128, "grid_reduce": 128}
 
 
 def select_stats(name: str, kgrid, args, members: int | None = None) -> dict:
@@ -1870,6 +1906,285 @@ def check_grid(dev, kgrid, n: int = 1 << 18) -> dict:
     return {**stats, **pack}
 
 
+# ---- kernel L: the grid radius reduce (Harris's response, suppression and
+# corner refinement on the grid) ----
+
+#: L's recorded first calls on a path: (key, Harris's call it serves)
+REDUCE_CALLS = (("grid_reduce sum", "response"), ("grid_reduce max", "suppression"),
+                ("grid_reduce_list sum", "refinement"))
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values, NaN where NaN (a zero's sign aside)."""
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def _reduce_values(args, list_route: bool, values=None):
+    """The values of L's arguments (sweep: grid, qg, q, values, r2, op;
+    list: grid, q, values, r2, op), or the arguments with `values` in
+    their place."""
+    at = 2 if list_route else 3
+    if values is None:
+        return args[at]
+    return (*args[:at], values, *args[at + 1 :])
+
+
+def _grid_reduce_compare(name, kgrid, args, list_route: bool, reduce_fn=None):
+    """Kernel L (or `reduce_fn`, a stand-in with its signature: the controls
+    of reduce_precision) against its plain version on the same inputs: the
+    count exactly, the max bit for bit (NaN where NaN), the sum within
+    REDUCE_RTOL of the members' sum of |v| (kgrid.reduce_error; over it
+    OutsideTolerance), a second call the same bits. Returns (the plain
+    version's output, the sum's max abs err, its share of that scale)."""
+    fn = reduce_fn or (kgrid.reduce_list if list_route else kgrid.reduce)
+    plain = kgrid.reduce_list_ref if list_route else kgrid.reduce_ref
+    got, ref, again = fn(*args), plain(*args), fn(*args)
+    torch.cuda.synchronize()
+    require(all(a.shape == b.shape for a, b in zip(got, ref)), f"{name}: shapes")
+    require(torch.equal(got[0], ref[0]),
+            f"{name}: {int((got[0] != ref[0]).sum())} counts differ from the plain version")
+    err = rel = 0.0
+    if args[-1] == "max":
+        require(_same_bits(got[1], ref[1]),
+                f"{name}: the max differs from the plain version; exact required")
+    else:
+        values = _reduce_values(args, list_route)
+        scale = plain(*_reduce_values((*args[:-1], "sum"), list_route, values.abs()))[1]
+        rel = kgrid.reduce_error(got[1], ref[1], scale)
+        err = float((got[1] - ref[1]).abs().max()) if got[1].numel() else 0.0
+        if not rel <= kgrid.REDUCE_RTOL:  # reduce_error is inf where one side is NaN
+            raise OutsideTolerance(f"chip_smoke: {name}: off by {err} ({rel} of the members' "
+                                   f"sum of |v|) > {kgrid.REDUCE_RTOL}", rel)
+    require(torch.equal(got[0], again[0]) and _same_bits(got[1], again[1]),
+            f"{name}: a second call gave other bits")
+    return ref, err, rel
+
+
+def reduce_precision(name, kgrid, args, list_route: bool) -> dict:
+    """Where L's sum limit stands, on L's sum inputs `args`: the plain
+    version with the values rounded to TF32 and to bfloat16 first put
+    through _grid_reduce_compare in L's place, each required to fail
+    REDUCE_RTOL."""
+    plain = kgrid.reduce_list_ref if list_route else kgrid.reduce_ref
+    values = _reduce_values(args, list_route)
+    out = {}
+    for control, rounded in (("tf32", _tf32(values)),
+                             ("bf16", values.to(torch.bfloat16).to(torch.float32))):
+        try:
+            _grid_reduce_compare(
+                f"{name} {control} control", kgrid, args, list_route,
+                reduce_fn=lambda *a, v=rounded: plain(*_reduce_values(a, list_route, v)))
+        except OutsideTolerance as e:
+            out[f"{control}_control"] = e.rel
+        else:
+            require(False, f"{name}: the {control} control passed _grid_reduce_compare: "
+                    "REDUCE_RTOL does not tell it from float32")
+    log(f"{name}: L's sum limit against its TF32 and bfloat16 controls: {json.dumps(out)}")
+    return out
+
+
+def reduce_nan_control(name, kgrid, args, list_route: bool) -> float:
+    """A self-check of _grid_reduce_compare's sum limit: kernel L's own
+    output with NaN written into the sum of one query that has members,
+    put through it in L's place, required to come out OutsideTolerance (a
+    NaN on one side must not compare within REDUCE_RTOL). Returns the
+    error it reported."""
+    fn = kgrid.reduce_list if list_route else kgrid.reduce
+
+    def stand_in(*a):
+        count, out = fn(*a)
+        out = out.clone()
+        out[int(count.argmax())] = float("nan")
+        return count, out
+
+    try:
+        _grid_reduce_compare(f"{name} NaN control", kgrid, args, list_route, reduce_fn=stand_in)
+    except OutsideTolerance as e:
+        return e.rel
+    require(False, f"{name}: a sum with a NaN row passed _grid_reduce_compare")
+
+
+def grid_list_bound(grid, q, values, members: int) -> dict:
+    """L's list route's least time on these inputs: the distinct candidate
+    points of the queries' buckets read once (12 B and their C values of 4
+    B), those buckets' counts (4 B), the queries (12 B), the rows written
+    (4 + 4 C B); each member's GRID_PAIR_OPS and an add a channel."""
+    from mapmerge_torch.core.grid import _bucket_of, _cells, _neighbor_buckets
+
+    cap, c = grid.cap, values.shape[1]
+    buckets = torch.unique(_bucket_of(_cells(q, grid.cell_size), grid.dims))
+    nbr = torch.unique(_neighbor_buckets(buckets, grid.dims))
+    distinct = int(grid.count[nbr].clamp(0, cap).to(torch.int64).sum())
+    n_bytes = (distinct * (12 + 4 * c) + nbr.numel() * 4 + q.shape[0] * (12 + 4 + 4 * c))
+    return {"distinct_candidates": distinct, "members": members,
+            **_bound(n_bytes, members * (GRID_PAIR_OPS + c))}
+
+
+def reduce_library_stats(args, list_route: bool, got) -> dict:
+    """For L's sum: `(torch.cdist(q, p) <= r).float() @ values` on
+    BIG_OCTAVE_SAMPLE queries sampled from the call's answered ones against
+    the points the target grid kept (its filled slots) and their values,
+    timed on the sample and scaled by the answered queries over the sample,
+    as grid_library_stats does (a Q x P plane of all of them would not fit);
+    beside it the share of sampled queries whose count under cdist's
+    rounding is L's. None for the max (no single call)."""
+    if list_route:
+        grid, q, values, r2, op = args
+        rows = torch.arange(q.shape[0], device=q.device)
+    else:
+        grid, qg, q, values, r2, op = args
+        rows = qg.cell_idx[qg.cell_ok]
+    if op != "sum" or rows.numel() == 0:
+        return {"library_ms": None}
+    pts = grid.cell_xyz[grid.cell_ok].contiguous()
+    vals = values[grid.cell_idx[grid.cell_ok]].contiguous()
+    g = torch.Generator(device=q.device).manual_seed(21)
+    pick = torch.randperm(rows.numel(), generator=g, device=q.device)
+    sample = rows[pick[:BIG_OCTAVE_SAMPLE]].sort().values
+    qs, r = q[sample].contiguous(), math.sqrt(r2)
+    ms = time_ms(lambda: (torch.cdist(qs, pts) <= r).float() @ vals)
+    agree = float(((torch.cdist(qs, pts) <= r).sum(dim=1) == got[0][sample]).double().mean())
+    torch.cuda.empty_cache()
+    return {"library_sample": int(sample.numel()), "library_sample_ms": ms,
+            "library_ms": ms * rows.numel() / sample.numel(),
+            "library_count_agreement": agree}
+
+
+def grid_reduce_stats(label: str, kgrid, seen: dict) -> dict:
+    """Kernel L on the inputs of its first calls on a path (REDUCE_CALLS:
+    the sweep route's first sum, Harris's response, and first max, the
+    suppression, and the list route's first sum, a refinement step), moved
+    back to the card: held against the plain versions (the count and the
+    max bit for bit, the sum within REDUCE_RTOL; on L's main path also its
+    TF32 and bfloat16 controls, required to fail), then timed (CUDA events,
+    warm, median), the plain version too, beside the bound on the members
+    (grid_bound with the values, grid_list_bound) and, for the sum, the
+    library call on a sample (reduce_library_stats); the sweep route's
+    counters (select_stats, its members exactly the plain route's). The
+    suppression's entry sits under the sweep's as "suppression"."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stats = {}
+    for key, call in REDUCE_CALLS:
+        if key not in seen:
+            continue
+        args = [_copied(a, dev) for a in seen[key][0]]
+        name, op = key.split()
+        list_route = name == "grid_reduce_list"
+        grid, q, values = args[0], args[1 if list_route else 2], _reduce_values(args, list_route)
+        shape = (f"{call}: Q={q.shape[0]}, C={values.shape[1]} {op}, grid "
+                 f"{tuple(grid.cell_idx.shape)} dims {grid.dims} cell {grid.cell_size}")
+        if not list_route:
+            shape += f", query overflow {int(args[1].overflow)}"
+        ref, err, rel = _grid_reduce_compare(f"{label} {key}", kgrid, args, list_route)
+        members = int(ref[0].to(torch.int64).sum())
+        fn = kgrid.reduce_list if list_route else kgrid.reduce
+        plain = kgrid.reduce_list_ref if list_route else kgrid.reduce_ref
+        entry = {"shape": shape, "max_abs_err": err, "err_of_members_abs": rel,
+                 **(grid_list_bound(grid, q, values, members) if list_route
+                    else grid_bound(name, grid, args[1], q, members, values)),
+                 **reduce_library_stats(args, list_route, ref)}
+        if not list_route:
+            entry.update(select_stats(name, kgrid, args, members))
+        if label == MAIN_PATH[name] and op == "sum":
+            entry["precision"] = reduce_precision(f"{label} {key}", kgrid, args, list_route)
+        entry["ms"] = time_ms(lambda: fn(*args))
+        entry["plain_ms"] = time_ms(lambda: plain(*args), reps=3, warmup=1)
+        if call == "suppression":
+            stats.setdefault(name, {})["suppression"] = entry
+        else:
+            stats[name] = {**stats.get(name, {}), **entry}
+        del args, grid, q, values
+        torch.cuda.empty_cache()
+    return stats
+
+
+def reduce_adversarial(g, p, mask, q) -> dict:
+    """Inputs on which kernel L must keep the plain versions' count and max
+    bits and its sum limit, beyond grid_adversarial's: name -> (p, mask, q,
+    cell, cap, dims). A point of every 997 with a NaN coordinate (kept by
+    the grid, a member of no query), and the first 3,000 targets at one
+    point (a target bucket far over its cap of 64)."""
+    n = min(20_000, p.shape[0])
+    p, mask, q = p[:n], mask[:n], q[:n]
+    nan = p.clone()
+    nan[::997, 1] = float("nan")
+    full = p.clone()
+    full[:3000] = p[0]
+    return {"a NaN point": (nan, torch.ones_like(mask), q, 0.5, 128, None),
+            "a full target bucket": (full, mask, q, 0.5, 64, None)}
+
+
+def check_grid_reduce(dev, kgrid, n: int = 1 << 18) -> dict:
+    """Kernel L against its plain versions on check_grid's synthetic town
+    (n = 262,144 points, 5% masked) queried at its own points at the
+    Harris radius (config #2's normal radius, 0.6 m, cap 128): the sweep
+    route at C = 1, 9 and 12 channels, sum and max, and the list route on
+    4,096 and on 1 of those queries; the values drawn from a seed, their
+    TF32 and bfloat16 controls failing the sum limit; then both routes on
+    grid_adversarial's and reduce_adversarial's inputs (on the sphere,
+    parked, masked, unmatched, a NaN point, a full target bucket). Returns
+    the synthetic entries (the sweep at C = 9 sum, its suppression at C = 1
+    max, the list route at C = 12 sum), timed beside their bounds."""
+    from mapmerge_torch.ops.neighbors import _f32
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    p = torch.rand((n, 3), generator=g, device=dev) * 64.0
+    p[:, 2] = torch.round(p[:, 2] / 3.0) * 3.0 + 0.02 * torch.rand((n,), generator=g, device=dev)
+    mask = torch.rand((n,), generator=g, device=dev) > 0.05
+    q = p + torch.tensor([0.05, -0.03, 0.02], device=dev)
+    q_mask = torch.rand((n,), generator=g, device=dev) > 0.1
+    r2 = _f32(NORMAL_R ** 2)
+    grid, qg, _, _ = grid_operands(p, mask, p, None, NORMAL_R, GRID_CAP)
+    worst = 0.0
+    for c in (1, 9, 12):
+        values = torch.randn((n, c), generator=g, device=dev)
+        for op in ("sum", "max"):
+            for args, list_route in (((grid, qg, p, values, r2, op), False),
+                                     ((grid, p[:4096].contiguous(), values, r2, op), True),
+                                     ((grid, p[:1].contiguous(), values, r2, op), True)):
+                name = f"grid_reduce{'_list' if list_route else ''} C={c} {op}"
+                worst = max(worst, _grid_reduce_compare(name, kgrid, args, list_route)[2])
+    log(f"kernel grid_reduce on the synthetic town: count and max bit for bit, the sum "
+        f"within {worst} of the members' sum of |v| (C = 1, 9, 12; both routes)")
+    nan_errs = [reduce_nan_control(f"synthetic {name}", kgrid, args, list_route)
+                for name, args, list_route in (
+                    ("grid_reduce", (grid, qg, p, values, r2, "sum"), False),
+                    ("grid_reduce_list", (grid, p[:4096].contiguous(), values, r2, "sum"), True))]
+    log(f"_grid_reduce_compare refused a sum with one NaN row on both routes (errors "
+        f"{nan_errs})")
+    values = torch.randn((n, 9), generator=g, device=dev)
+    first = {"grid_reduce sum": ((grid, qg, p, values, r2, "sum"), {}),
+             "grid_reduce max": ((grid, qg, p, values[:, :1].contiguous(), r2, "max"), {}),
+             "grid_reduce_list sum": ((grid, p[:1024].contiguous(),
+                                       torch.randn((n, 12), generator=g, device=dev), r2,
+                                       "sum"), {})}
+    stats = grid_reduce_stats("synthetic", kgrid, first)
+    stats["grid_reduce"]["precision"] = reduce_precision(
+        "synthetic grid_reduce sum", kgrid, first["grid_reduce sum"][0], False)
+    cases = {name: (ap, am, aq, cell, cap, dims) for name, (ap, am, aq, _, cell, cap, dims)
+             in grid_adversarial(g, p, mask, q, q_mask).items()}
+    cases.update(reduce_adversarial(g, p, mask, q))
+    worst = 0.0
+    for name, (ap, am, aq, cell, cap, dims) in cases.items():
+        agrid, aqg, _, _ = grid_operands(ap, am, aq, None, cell, cap, dims)
+        ar2 = _f32(cell * cell)
+        for c, op in ((9, "sum"), (1, "max"), (12, "sum"), (12, "max")):
+            values = torch.randn((ap.shape[0], c), generator=g, device=dev)
+            worst = max(worst, _grid_reduce_compare(
+                f"grid_reduce {name} C={c} {op}", kgrid, (agrid, aqg, aq, values, ar2, op),
+                False)[2])
+            worst = max(worst, _grid_reduce_compare(
+                f"grid_reduce_list {name} C={c} {op}", kgrid,
+                (agrid, aq[:4096].contiguous(), values, ar2, op), True)[2])
+    log(f"kernels grid_reduce and grid_reduce_list held on {sorted(cases)} (largest sum "
+        f"error {worst} of the members' sum of |v|)")
+    for key, e in stats.items():
+        log(f"kernel {key} {e['shape']}: max err {e['max_abs_err']}; kernel {e['ms']} ms, "
+            f"plain {e['plain_ms']} ms, bound {e['bound_ms']} ms ({e['bound_by']}), library "
+            f"{e.get('library_ms')} ms")
+    return stats
+
+
 #: SIFT's 26-NN on a grid octave: its radius in octave scales
 #: (ops/keypoints/sift._GRID_KNN_RADIUS_SCALES)
 GRID_KNN_SCALES = 8.0
@@ -2100,13 +2415,18 @@ def first_launch_inputs(nn, spfh):
     kernels' first calls are kept in host memory: G's first call from ICP
     and its first from the transform score apart ("grid_nn icp", "grid_nn
     score"), H's and I's, and J's and K's first at each query count
-    ("grid_smooth Q=n", "grid_knn Q=n": an octave each). The target grids
+    ("grid_smooth Q=n", "grid_knn Q=n": an octave each), and L's first
+    sweep of each op and first list call ("grid_reduce sum", "grid_reduce
+    max", "grid_reduce_list sum"). The target grids
     whose boxes a caller made apart for G (kgrid.boxes) are counted
     (`seen["grid_boxes"]`). SIFT's extractions and the octaves among them
     that resolve to the dense engine and to the grid are counted
     (`seen["sift"]`), and the first extraction's
     arguments kept
-    (`seen["sift_detect"]`, for hold_sift_keypoints). The dense radius
+    (`seen["sift_detect"]`, for hold_sift_keypoints); so are Harris's
+    extractions by the engine they resolve to (`seen["harris"]`) and the
+    first one's arguments (`seen["harris_detect"]`, for
+    hold_harris_keypoints). The dense radius
     passes are counted (`seen["radius"]`): the outlier and normal stages
     (one each an extraction; the pipeline's and the debugger's calls) and
     SC3D's density count whose cloud resolves to the dense engine, and
@@ -2123,6 +2443,7 @@ def first_launch_inputs(nn, spfh):
     from mapmerge_torch.kernels import sift as ksift
     from mapmerge_torch.kernels import tiles as ktiles
     from mapmerge_torch.ops import icp as icp_ops
+    from mapmerge_torch.ops import keypoints as keypoint_ops
     from mapmerge_torch.ops import normals as normals_ops
     from mapmerge_torch.ops import outliers as outliers_ops
     from mapmerge_torch.ops import score as score_ops
@@ -2138,7 +2459,7 @@ def first_launch_inputs(nn, spfh):
                   "radius": {"outliers": 0, "normals": 0, "SC3D density": 0},
                   "grid_radius": {"outliers": 0, "normals": 0, "SC3D density": 0},
                   "radius_routes": {"resident": 0, "streamed": 0},
-                  "grid_boxes": 0}
+                  "grid_boxes": 0, "harris": {"dense": 0, "grid": 0}}
     lock = threading.Lock()
     caller = threading.local()  # which stage a grid 1-NN serves, per thread
 
@@ -2266,6 +2587,23 @@ def first_launch_inputs(nn, spfh):
 
         return make
 
+    def harris(fn):
+        """Count Harris's extractions by the engine its radius_reduce calls
+        resolve to (the cloud's capacity), and keep the first one's
+        arguments."""
+        signature = inspect.signature(fn)
+
+        def wrapper(*args, **kwargs):
+            bound = signature.bind(*args, **kwargs).arguments
+            engine = _resolve_engine(bound.get("engine", "auto"), bound["cloud"].capacity)
+            with lock:
+                seen["harris"][engine] += 1
+                if "harris_detect" not in seen:
+                    seen["harris_detect"] = ([_copied(a) for a in args], dict(kwargs))
+            return fn(*args, **kwargs)
+
+        return wrapper
+
     def serving(stage):
         """Mark the grid 1-NN calls made inside fn as `stage`'s."""
         def make(fn):
@@ -2317,7 +2655,11 @@ def first_launch_inputs(nn, spfh):
                   # J and K: the first call at each query count (an octave)
                   (kgrid, "smooth"): record(
                       lambda *a: f"grid_smooth Q={a[2].shape[0]}", cpu),
-                  (kgrid, "knn"): record(lambda *a: f"grid_knn Q={a[2].shape[0]}", cpu)}):
+                  (kgrid, "knn"): record(lambda *a: f"grid_knn Q={a[2].shape[0]}", cpu),
+                  # L: the first sweep of each op, and the first list call
+                  (kgrid, "reduce"): record(lambda *a: f"grid_reduce {a[5]}", cpu),
+                  (kgrid, "reduce_list"): record(lambda *a: f"grid_reduce_list {a[4]}", cpu),
+                  (keypoint_ops, "detect_keypoints_harris"): harris}):
         counters = (native.GRAPH_SOLVE, native.LZF_DECOMPRESS)
         for c in counters:
             c.launches = 0
@@ -2456,13 +2798,27 @@ def require_grid_sift(label: str, seen: dict, launches: dict) -> None:
             f"{label}: grid_smooth {j} and grid_knn {k} launches for {octaves} grid octaves")
 
 
+def require_grid_reduce(label: str, seen: dict, launches: dict) -> None:
+    """Kernel L launched on its sweep route twice a Harris extraction on the
+    grid (the response and the suppression) and on its list route three
+    times (the refinement steps), none on any other path. Logged."""
+    n = seen["harris"]["grid"]
+    sweeps, lists = launches["grid_reduce"], launches["grid_reduce_list"]
+    log(f"{label}: Harris extractions {seen['harris']}; launches grid_reduce {sweeps}, "
+        f"grid_reduce_list {lists}")
+    require(sweeps == 2 * n and lists == 3 * n,
+            f"{label}: grid_reduce {sweeps} and grid_reduce_list {lists} launches for {n} "
+            "Harris extractions on the grid, expected 2 and 3 each")
+
+
 def require_grid_pack(label: str, seen: dict, launches: dict) -> None:
-    """The pre-pass of kernels G-K launched once with each of them and once
-    for each target grid whose boxes a caller had made apart (kgrid.boxes:
-    ICP's), no more of those than G's launches, and never else. Logged."""
+    """The pre-pass of kernels G-L launched once with each of them (L's
+    sweep route; its list route takes none) and once for each target grid
+    whose boxes a caller had made apart (kgrid.boxes: ICP's), no more of
+    those than G's launches, and never else. Logged."""
     packs = launches["grid_pack"]
     with_kernels = {k: launches[k] for k in ("grid_nn", "grid_moments", "grid_count",
-                                             "grid_smooth", "grid_knn")}
+                                             "grid_smooth", "grid_knn", "grid_reduce")}
     made = seen["grid_boxes"]
     log(f"{label}: launches grid_pack {packs} ({with_kernels}, the boxes alone {made})")
     require(packs == sum(with_kernels.values()) + made and made <= launches["grid_nn"],
@@ -2482,10 +2838,13 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
     its tolerance on every path (radius_stats); G and I bit for bit and H
     within its tolerance on every grid path (grid_stats); J within its
     tolerance and K bit for bit on every SIFT grid octave's first launch at
-    its query count, in full (grid_sift_stats). SIFT's, the radius sweeps',
-    the grid sweeps' and the pre-pass's launches are required first
-    (require_sift, require_radius, require_grid_radius, require_grid_sift,
-    require_pack).
+    its query count, in full (grid_sift_stats); L's count and max bit for
+    bit and its sum within its tolerance on the first response, suppression
+    and refinement step of a grid Harris path (grid_reduce_stats). SIFT's,
+    the radius sweeps', the grid sweeps', L's and the pre-pass's launches
+    are required first (require_sift, require_radius, require_grid_radius,
+    require_grid_sift, require_grid_reduce, require_pack,
+    require_grid_pack).
     These launches come after the path's counts were read."""
     from mapmerge_torch.kernels import grid as kgrid
     from mapmerge_torch.kernels import radius as kradius
@@ -2496,6 +2855,7 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
     require_radius(label, seen, launches)
     require_grid_radius(label, seen, launches)
     require_grid_sift(label, seen, launches)
+    require_grid_reduce(label, seen, launches)
     require_pack(label, seen, launches)
     require_grid_pack(label, seen, launches)
     stats = PATH_STATS[label] = {}
@@ -2574,6 +2934,7 @@ def hold_on_path_inputs(label: str, seen: dict, nn, spfh, launches: dict,
                         **radius_stats(label, kradius, seen),
                         **grid_stats(label, kgrid, seen),
                         **grid_sift_stats(label, kgrid, seen),
+                        **grid_reduce_stats(label, kgrid, seen),
                         **grid_pack_stats(label, kgrid, seen)}.items():
         stats[name] = {"launches": launches[name], **entry}
     require(stats, f"{label}: no kernel input was recorded")
@@ -2847,6 +3208,176 @@ def hold_sift_keypoints(label: str, seen: dict, plain_route=None) -> None:
         f"route's found ({share}), {n_plain - n_found} differ")
     require(n_plain > 0 and share >= KEYPOINT_AGREEMENT,
             f"{label}: {share} of the plain route's keypoints found, gate {KEYPOINT_AGREEMENT}")
+
+
+def plain_grid_reduce():
+    """Patches that send the grid's radius_reduce through the plain
+    versions of kernel L's two routes (the parent's route on the card), for
+    `patched`."""
+    from mapmerge_torch.kernels import grid as kgrid
+
+    return {(kgrid, "reduce"): lambda fn: kgrid.reduce_ref,
+            (kgrid, "reduce_list"): lambda fn: kgrid.reduce_list_ref}
+
+
+def _harris_traced(args, kwargs, routes: dict):
+    """One Harris extraction (`detect_keypoints_harris` on `args`, under
+    the patches `routes`) with its radius_reduce calls and refinement
+    steps recorded. Returns (the keypoints, the suppression's (response,
+    neighbourhood max, mask), a step's (keypoints in, keypoints out, the
+    step's sums, its member counts) each)."""
+    from mapmerge_torch.ops.keypoints import harris as harris_ops
+
+    calls, steps = [], []
+
+    def reduce(fn):
+        def wrapper(q, p, radius, values, *a, **k):
+            out = fn(q, p, radius, values, *a, **k)
+            calls.append((values, k, out))
+            return out
+
+        return wrapper
+
+    def refine(fn):
+        def wrapper(kp, *a, **k):
+            out = fn(kp, *a, **k)
+            steps.append((kp, out, calls[-1][2][1], calls[-1][2][0]))
+            return out
+
+        return wrapper
+
+    with patched({**routes, (harris_ops, "radius_reduce"): reduce,
+                  (harris_ops, "_refine_step"): refine}):
+        kps = harris_ops.detect_keypoints_harris(*args, **kwargs)
+    values, k, out = next(c for c in calls if c[1].get("reduce") == "max")
+    return kps, (values[:, 0], out[1][:, 0], k["p_mask"]), steps
+
+
+def _refine_guards(kp_in, kp_out, sums, r2: float):
+    """_refine_step's two guards on a step's sums, as it computes them: its
+    `well` test as a ratio (|det| over 1e-9 tr^3; above 1 passes), whether
+    the keypoint moved (both guards passed), moved2 / r2 (the move's own
+    length where it moved, else that of the solve in float64; at most 1
+    passes), and the condition number of sum(n n^T) in float64 (what the
+    solve multiplies a relative change of the sums by, at most)."""
+    from mapmerge_torch.ops.rigid import _det3
+
+    a, b = sums[:, :9].reshape(-1, 3, 3), sums[:, 9:]
+    trace = a[:, 0, 0] + a[:, 1, 1] + a[:, 2, 2]
+    well = _det3(a).abs() / (1e-9 * trace.clamp_min(1e-9) ** 3)
+    moved = (kp_out != kp_in).any(dim=-1)
+    x = torch.linalg.solve_ex(a.double(), b.double())[0]
+    moved2 = torch.where(moved, ((kp_out - kp_in) ** 2).sum(dim=-1).double(),
+                         ((x - kp_in.double()) ** 2).sum(dim=-1))
+    return well, moved, moved2 / r2, torch.linalg.cond(a.double())
+
+
+def harris_differences(args, kwargs, got, plain, rows_p, n_show: int = 8) -> dict:
+    """Why the plain route's keypoints `rows_p` (rows of its keypoints)
+    that kernel L's run did not find differ, from both runs' traces (_harris_traced): the points the
+    suppression kept on one route only (each with its response, its
+    neighbourhood max and the threshold on both), and for each missed
+    keypoint either "selection" (no keypoint of L's run starts where it
+    starts) or, step by step, both routes' guards (_refine_guards: moved,
+    the well ratio, moved2 / r2), the first step at which a guard differs
+    and which one ("well" or "radius") or else the first at which the
+    member counts differ (a point at the radius of keypoints that earlier
+    steps moved apart), and the step-0 sums' largest
+    difference over their largest magnitude (both routes then sum over
+    the same queries), with sum(n n^T)'s condition number, both routes'
+    member counts and the keypoints' distance after it a step."""
+    import inspect
+
+    from mapmerge_torch.ops.keypoints import harris as harris_ops
+    from mapmerge_torch.ops.neighbors import _f32
+
+    bound = inspect.signature(harris_ops.detect_keypoints_harris).bind(*args, **kwargs)
+    threshold, radius = bound.arguments["threshold"], bound.arguments["radius"]
+    r2 = _f32(radius * radius)
+    (kk, (resp_k, nmax_k, ok), steps_k), (pk, (resp_p, nmax_p, _), steps_p) = got, plain
+    keep_k = ok & (resp_k >= nmax_k) & (resp_k > threshold)
+    keep_p = ok & (resp_p >= nmax_p) & (resp_p > threshold)
+    one_side = (keep_k ^ keep_p).nonzero()[:, 0]
+    out = {"kept_on_one_route": [
+        {"point": int(i), "kept_by": "kernel" if bool(keep_k[i]) else "plain",
+         "kernel_resp_nmax": [float(resp_k[i]), float(nmax_k[i])],
+         "plain_resp_nmax": [float(resp_p[i]), float(nmax_p[i])], "threshold": threshold}
+        for i in one_side[:n_show].tolist()], "n_kept_on_one_route": int(one_side.numel())}
+    guards_k = [_refine_guards(a, b, c, r2) for a, b, c, _ in steps_k]
+    guards_p = [_refine_guards(a, b, c, r2) for a, b, c, _ in steps_p]
+    km = kk.mask
+    start_k = steps_k[0][0]
+    missed, causes = [], {}
+    for i in rows_p.tolist():
+        eq = (start_k == steps_p[0][0][i]).all(dim=-1) & km
+        entry = {"keypoint": i, "start": steps_p[0][0][i].tolist()}
+        if not bool(eq.any()):
+            entry["cause"] = "selection"
+        else:
+            j = int(eq.nonzero()[0, 0])
+            entry["distance_m"] = float((pk.xyz[i] - kk.xyz[j]).abs().max())
+            sums_p, sums_k = steps_p[0][2][i], steps_k[0][2][j]
+            entry["step0_sum_diff_rel"] = float(
+                (sums_k - sums_p).abs().max() / sums_p.abs().max().clamp_min(1e-30))
+            entry["steps"] = [
+                {"moved": [bool(gp[1][i]), bool(gk[1][j])],
+                 "well_ratio": [float(gp[0][i]), float(gk[0][j])],
+                 "moved2_over_r2": [float(gp[2][i]), float(gk[2][j])],
+                 "cond": [float(gp[3][i]), float(gk[3][j])],
+                 "members": [int(sp[3][i]), int(sk[3][j])],
+                 "gap_after_m": float((sp[1][i] - sk[1][j]).abs().max())}
+                for gp, gk, sp, sk in zip(guards_p, guards_k, steps_p, steps_k)]
+            flip = next((s for s, st in enumerate(entry["steps"])
+                         if st["moved"][0] != st["moved"][1]), None)
+            crossed = next((s for s, st in enumerate(entry["steps"])
+                            if st["members"][0] != st["members"][1]), None)
+            if flip is None and crossed is None:
+                entry["cause"] = "no guard flipped, the same members"
+            elif flip is None:
+                entry["cause"] = f"no guard flipped, the members differ from step {crossed}"
+            else:
+                wr = entry["steps"][flip]["well_ratio"]
+                guard = "well" if (wr[0] > 1) != (wr[1] > 1) else "radius"
+                entry["cause"] = f"{guard} guard flipped at step {flip}"
+        causes[entry["cause"]] = causes.get(entry["cause"], 0) + 1
+        missed.append(entry)
+    out["causes"] = causes
+    out["missed"] = missed[:n_show]
+    return out
+
+
+def hold_harris_keypoints(label: str, seen: dict) -> None:
+    """The path's first Harris extraction again on the same cloud, through
+    kernel L and through its plain versions (plain_grid_reduce), both
+    traced: at least KEYPOINT_AGREEMENT of the plain route's keypoints
+    found within 1e-4 m (the refined positions carry the sums' rounding)
+    with a response within 1e-3 relative; the keypoints that differ are
+    counted, and why they differ is logged (harris_differences). These
+    launches come after the path's counts were read."""
+    args, kwargs = seen["harris_detect"]
+    traced_k = _harris_traced(args, kwargs, {})
+    traced_p = _harris_traced(args, kwargs, plain_grid_reduce())
+    got, plain = traced_k[0], traced_p[0]
+    pm, km = plain.mask, got.mask
+    pxyz, kxyz = plain.xyz[pm], got.xyz[km]
+    pr, kr = plain.response[pm], got.response[km]
+    gap = (pxyz[:, None] - kxyz[None]).abs().amax(-1)
+    same = (gap <= 1e-4) & ((pr[:, None] - kr[None]).abs() <= 1e-3 * pr[:, None].abs())
+    found = same.any(dim=1)
+    n_plain, n_found = int(pm.sum()), int(found.sum())
+    share = n_found / max(n_plain, 1)
+    largest = float(gap.amin(dim=1).max()) if gap.numel() else None
+    log(f"{label}: Harris keypoints of the first cloud, kernel L against its plain "
+        f"versions: {int(km.sum())} and {n_plain} keypoints, {n_found} of the plain route's "
+        f"found ({share}), {n_plain - n_found} differ; the largest distance to the nearest "
+        f"of L's {largest} m")
+    if n_found < n_plain:
+        rows = pm.nonzero()[:, 0][~found]
+        log(f"{label}: why the Harris keypoints differ: "
+            f"{json.dumps(harris_differences(args, kwargs, traced_k, traced_p, rows))}")
+    require(n_plain > 0 and share >= KEYPOINT_AGREEMENT,
+            f"{label}: {share} of the plain route's Harris keypoints found, gate "
+            f"{KEYPOINT_AGREEMENT}")
 
 
 def sift_stages():
@@ -3351,6 +3882,90 @@ def stage_recorder(stages, features_at, pairs_at):
         yield rec
 
 
+@contextlib.contextmanager
+def harris_split():
+    """Host ms of each Harris extraction (`detect_keypoints_harris`, between
+    two synchronisations) split by its radius_reduce calls: the response (a
+    9-channel sum over every point), the suppression (a 1-channel max) and
+    each refinement step (a 12-channel sum over the keypoints), and inside
+    each call its `build_grid` sorts apart (the target grid's, built with
+    the point mask, and the query grid's), each between two
+    synchronisations; the rest of the extraction (the top-k, the solves)
+    as `other_ms`. One record a Harris extraction, in call order."""
+    from mapmerge_torch.ops import grid as grid_ops
+    from mapmerge_torch.ops import keypoints as keypoint_ops
+    from mapmerge_torch.ops.keypoints import harris as harris_ops
+
+    rec: list = []
+    state: dict = {"cloud": None, "call": None}
+
+    def timed(fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def detect(fn):
+        def wrapper(*args, **kwargs):
+            state["cloud"] = cloud = {"calls": []}
+            out, cloud["ms"] = timed(fn, *args, **kwargs)
+            state["cloud"] = None
+            cloud["other_ms"] = cloud["ms"] - sum(c["ms"] for c in cloud["calls"])
+            rec.append(cloud)
+            return out
+
+        return wrapper
+
+    def reduce(fn):
+        def wrapper(q, p, radius, values, *args, **kwargs):
+            if state["cloud"] is None:
+                return fn(q, p, radius, values, *args, **kwargs)
+            name = ("suppression" if kwargs.get("reduce", "sum") == "max"
+                    else "response" if values.shape[1] == 9 else "refinement")
+            state["call"] = call = {"call": name, "queries": q.shape[0],
+                                    "channels": values.shape[1], "sorts": []}
+            out, call["ms"] = timed(fn, q, p, radius, values, *args, **kwargs)
+            state["call"] = None
+            state["cloud"]["calls"].append(call)
+            return out
+
+        return wrapper
+
+    def sort(fn):
+        def wrapper(xyz, mask, *args, **kwargs):
+            if state["call"] is None:
+                return fn(xyz, mask, *args, **kwargs)
+            out, ms = timed(fn, xyz, mask, *args, **kwargs)
+            state["call"]["sorts"].append(
+                {"grid": "query" if mask is None else "target", "ms": ms})
+            return out
+
+        return wrapper
+
+    with patched({(keypoint_ops, "detect_keypoints_harris"): detect,
+                  (harris_ops, "radius_reduce"): reduce, (grid_ops, "build_grid"): sort}):
+        yield rec
+
+
+def log_harris_split(label: str, rec: list) -> None:
+    """The first Harris extraction's split by call (harris_split), and the
+    run's sums by call and by sort."""
+    if not rec:
+        return
+    sums: dict = {}
+    for cloud in rec:
+        for call in cloud["calls"]:
+            sums[call["call"]] = sums.get(call["call"], 0.0) + call["ms"]
+            for s in call["sorts"]:
+                key = f"{s['grid']} sorts"
+                sums[key] = sums.get(key, 0.0) + s["ms"]
+        sums["other"] = sums.get("other", 0.0) + cloud["other_ms"]
+    log(f"{label} Harris split of the first cloud (ms): {json.dumps(rec[0])}")
+    log(f"{label} Harris split summed over {len(rec)} extractions (ms, sorts inside "
+        f"their calls): {json.dumps(sums)}, Harris {sum(c['ms'] for c in rec)}")
+
+
 def run_config2(dev, kernels):
     """Eval config #2 on the cell-grid engine (phase 7). Returns (the views
     in host memory, truths, cold transforms, info_out of the cold run) for
@@ -3393,6 +4008,7 @@ def run_config2(dev, kernels):
     require_route("config #2", launches, "grid", seen["pairs"])
     hold_on_path_inputs("config #2", seen, nn, spfh, launches,
                         exact=True)
+    hold_harris_keypoints("config #2", seen)
     hold_graph("config #2", seen)
 
     require(len(cold) == CONFIG2_MAPS and all(
@@ -3427,7 +4043,7 @@ def run_config2(dev, kernels):
 
     recorder = stage_recorder(config2_stages(), (pair_shard, "extract_features"),
                               (merging, "estimate_transform"))
-    with recorder as rec, patched({(spfh, "spfh_grid"): keep}):
+    with recorder as rec, patched({(spfh, "spfh_grid"): keep}), harris_split() as split:
         staged = estimate_maps_transforms(clouds, params, seed=0)
     for label, out in (("warm", warm), ("stage-timed", staged)):
         require(all(np.array_equal(a, b) for a, b in zip(out, cold)),
@@ -3440,6 +4056,7 @@ def run_config2(dev, kernels):
         [grid_sweep_counters(a[0], a[1], out[1]) for a, out in sweeps]))
     log(f"config #2 stage ms of one run (5 clouds, 10 pairs summed): "
         f"{json.dumps(rec['ms'])}, sum {sum(rec['ms'].values())}")
+    log_harris_split("config #2", split)
     return views, truths, cold, info
 
 
@@ -4367,6 +4984,7 @@ def run_config3(dev, kernels) -> None:
             "(one a cloud) and nearest_neighbor 0")
     require_route("config #3", launches, "grid", seen["pairs"])
     hold_on_path_inputs("config #3", seen, nn, spfh, launches, exact=True)
+    hold_harris_keypoints("config #3", seen)
     hold_graph("config #3", seen, solves=False)
 
     require(cold.shape == (4, 4) and np.isfinite(cold).all() and bool(est.ok),
@@ -4380,7 +4998,7 @@ def run_config3(dev, kernels) -> None:
     warm_s = time.perf_counter() - t0
     recorder = stage_recorder(config2_stages(), (features, "extract_features"),
                               (registration, "estimate_transform"))
-    with recorder as rec:
+    with recorder as rec, harris_split() as split:
         staged = register()[2].transform.cpu().numpy()
     for label, out in (("warm", warm), ("stage-timed", staged)):
         require(np.array_equal(out, cold),
@@ -4389,6 +5007,7 @@ def run_config3(dev, kernels) -> None:
         "stage-timed run bitwise equal to the cold run")
     log(f"config #3 stage ms of one run (2 clouds, 1 pair): {json.dumps(rec['ms'])}, "
         f"sum {sum(rec['ms'].values())}")
+    log_harris_split("config #3", split)
 
 
 #: eval config #4 (bench_configs.py:351-369): 20 views of one town
@@ -4902,13 +5521,15 @@ MAIN_PATH = {"nearest_neighbor": "node incremental",
              "grid_nn": "config #2",
              "grid_moments": "config #2", "grid_count": "config #2",
              "grid_smooth": "config5_big", "grid_knn": "config5_big",
-             "grid_pack": "config #2"}
+             "grid_pack": "config #2", "grid_reduce": "config #2",
+             "grid_reduce_list": "config #2"}
 
 
 def all_kernels() -> tuple:
     """Every hand-written kernel, in the order of the `kernels` line: A's
     one-pair and batched entries, B, the pre-pass, C, D, E, F, E's and F's
-    order pre-pass, G, H, I, J, K and the pre-pass of G and K."""
+    order pre-pass, G, H, I, J, K, the pre-pass of G-L and L's sweep and
+    list routes."""
     from mapmerge_torch.kernels import grid as kgrid
     from mapmerge_torch.kernels import nn, spfh
     from mapmerge_torch.kernels import radius as kradius
@@ -4918,7 +5539,8 @@ def all_kernels() -> tuple:
     return (nn.KERNEL, nn.BATCHED_KERNEL, spfh.KERNEL, ktiles.PACK_KERNEL,
             ksift.SCALE_SPACE_KERNEL, ksift.KNN_KERNEL, kradius.COUNT_KERNEL,
             kradius.MOMENTS_KERNEL, kradius.ORDER_KERNEL, kgrid.NN_KERNEL, kgrid.MOMENTS_KERNEL,
-            kgrid.COUNT_KERNEL, kgrid.SMOOTH_KERNEL, kgrid.KNN_KERNEL, kgrid.PACK_KERNEL)
+            kgrid.COUNT_KERNEL, kgrid.SMOOTH_KERNEL, kgrid.KNN_KERNEL, kgrid.PACK_KERNEL,
+            kgrid.REDUCE_KERNEL, kgrid.REDUCE_LIST_KERNEL)
 
 
 def kernel_entry(k, stats: dict) -> dict:
@@ -4929,7 +5551,8 @@ def kernel_entry(k, stats: dict) -> dict:
     knn_library's on kernel D's and count_library's on kernel E's; for G,
     I and K nn_library's, count_library's and knn_library's time on 4,096
     of the answered queries, scaled to all of them (grid_library_stats: the
-    whole plane would not fit); null for kernel B (nothing in PyTorch bins
+    whole plane would not fit), for L's routes `(cdist <= r).float() @
+    values` so (reduce_library_stats); null for kernel B (nothing in PyTorch bins
     Darboux features), kernels C and J (no single call smooths over a
     radius), kernels F and H (none sums neighbourhood moments) and the
     pre-passes (no single call packs points and tile boxes, or boxes and
@@ -5019,7 +5642,7 @@ def main() -> int:
              "nearest_neighbor_batched": check_nn_batched(dev, nn),
              "spfh": check_spfh(dev, spfh), **check_sift(dev, ksift),
              **check_radius(dev, kradius), **check_grid(dev, kgrid),
-             **check_grid_sift(dev, kgrid)}
+             **check_grid_sift(dev, kgrid), **check_grid_reduce(dev, kgrid)}
     kernels = all_kernels()
     phase("4 (config #1)", run_main_path, dev, kernels)
     phase("5 (config1_pfh)", run_default_operating_point, dev, kernels)

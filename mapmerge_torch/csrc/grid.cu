@@ -1,20 +1,26 @@
 // The cell-grid engine's sweeps for Hopper (sm_90a): the bounded 1-NN
 // (kernel G), the radius moments (kernel H), the radius count (kernel I),
-// SIFT's Gaussian scale space (kernel J) and its k nearest neighbours
-// (kernel K) of every query slot of a query grid against the points of a
-// target grid, both grids read in place (core/grid.py: build_grid).
+// SIFT's Gaussian scale space (kernel J), its k nearest neighbours (kernel
+// K) and the radius reduce (kernel L) of every query slot of a query grid
+// against the points of a target grid, both grids read in place
+// (core/grid.py: build_grid); L also answers a few queries with no query
+// grid.
 //
-// None replaces a Pallas kernel: the JAX package leaves all five to XLA,
+// None replaces a Pallas kernel: the JAX package leaves all six to XLA,
 // through mapmerge_tpu/ops/grid.py `grid_query`. Kernel G replaces
 // `grid_nn_query` (:594; ICP every iteration, and the transform score through
 // `grid_nearest_neighbor`), kernel H `grid_neighbor_moments` (:754; the
 // surface normals), kernel I `grid_radius_count` (:397; outlier removal),
 // kernel J `grid_gaussian_smooth` (:813; SIFT's scale space on a grid
 // octave), kernel K the big-Q branch of `grid_radius_neighbors` (:507, its
-// two-stage top-k at :534-560; SIFT's 26-NN on a grid octave). Their plain
-// PyTorch versions are kernels/grid.py: nn_query_ref, moments_ref,
-// count_ref, smooth_ref and knn_ref, which run core/grid.grid_query's chunks
-// of (bucket, 27 x cap) distance planes.
+// two-stage top-k at :534-560; SIFT's 26-NN on a grid octave), kernel L
+// `grid_radius_reduce` (:701; Harris's response and non-max suppression,
+// its big-Q branch :721-740, and its corner refinement, the small-Q path
+// `_radius_reduce_smallq` :632). Their plain PyTorch versions are
+// kernels/grid.py: nn_query_ref, moments_ref, count_ref, smooth_ref,
+// knn_ref and reduce_ref, which run core/grid.grid_query's chunks of
+// (bucket, 27 x cap) distance planes, and reduce_list_ref, the small-Q
+// gather of each query's 27 neighbour blocks.
 //
 // What they compute. A query slot s of bucket b of the query grid (q_ok set)
 // is swept against its candidates: the filled slots (slot < count) of the
@@ -55,6 +61,18 @@
 //   candidate >= BIG away: the candidates of a query parked at FAR) is (0,
 //   BIG, BIG <= r2), else (its point index, d2, d2 <= r2). The plain
 //   version sorts stably and applies the same rule, so K is bit for bit.
+// - L (mm_grid_reduce, mm_grid_reduce_list): the member count, and per
+//   channel of the members' values (P, C <= 16), read in place through the
+//   target's cell_idx, their sum (__fadd_rn) or their max, a NaN kept as
+//   amax keeps it; where a query has fewer members than its 27 cap
+//   candidate positions the max also meets the plain version's -BIG of a
+//   non-member. The count and the max are bit for bit; the sum adds the
+//   same terms as the plain version's bmm in another order (the sweep
+//   route in candidate order, the list route a lane's slots in order, then
+//   a fixed shuffle tree), so the two agree to rounding (kernels/grid.py
+//   states the tolerance), and a launch repeats bit for bit. A non-member's
+//   value is never read: the plain bmm's 0 x v of a non-member with a NaN
+//   value has no counterpart.
 //
 // What bounds them. Each (query, candidate) pair costs the distance and a
 // compare (9 operations) on the CUDA cores, H 16 more for a member and J 5
@@ -144,6 +162,17 @@
 //    query, where H's loop costs the tile's filled slots whatever the
 //    ballot. Where they are many, each straddling lane loops over the
 //    slots, which costs less a pair than a step (PERF.md).
+// L's sweep route (grid_radius_kernel with ReduceOp) is H's: the same
+// pre-pass, units, walk and box tests, each lane adding its members in
+// slot order; a tile's C values a slot are loaded, through its staged
+// point indices, into registers before the members are marked and into
+// shared memory after. L's list route (grid_reduce_list_kernel, at most
+// 4,096 queries: Harris's refinement) needs no query grid and drops no
+// query: a warp a query, its lanes over the filled slots of the query's
+// distinct neighbours, with no culling (27 x cap candidates a query, ~3.5
+// million pairs a call at 1,024 queries and cap 128).
+// What bounds L is H's chain of members a query, each adding C values
+// where H adds ten sums; the values are read once a visited tile.
 // No FMA contraction (-fmad=false), no fast-math; the pre-pass's atomics
 // only hand out where a run of units goes and count its unit CTAs done.
 
@@ -367,6 +396,112 @@ struct SmoothOp {
     for (int i = 0; i < kSigLane; ++i) {
       if (s0 + i < n_sigma) {
         out[row * n_sigma + s0 + i] = __fdiv_rn(s.num[i], fmaxf(s.den[i], 1e-12f));
+      }
+    }
+  }
+};
+
+// Kernel L's sweep route: the count and the sum or the NaN-propagating max
+// (kMax) of each member's C <= kMaxChannels values, read in place through
+// the target's cell_idx (ValStage), a member being a target point within r2
+// (sq_dist, the plain version's d2).
+constexpr int kMaxChannels = 16;  // L: the widest value row a launch takes
+
+// the larger of a and b, NaN where either is NaN (amax's rule; fmaxf drops
+// a NaN): one max.NaN.f32 (sm_80 and up)
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// the values of the tile being consumed: slot j's channel c at j C + c
+struct ReduceScratch {
+  float val[kT * kMaxChannels];
+};
+
+// a lane's share of a tile's values, loaded before its members are marked
+struct TileVals {
+  float v[kMaxChannels];
+};
+
+template <bool kMax>
+struct ReduceOp {
+  static constexpr bool kValues = true;
+  using Stage = ValStage;
+  using Scratch = ReduceScratch;
+  const float* values;  // (P, channels): the values of each target point
+  int channels;
+  int candidates;       // a query slot's candidate positions, 27 cap
+  int* count_out;       // (nq,)
+  float* out;           // (nq, channels)
+
+  struct State {
+    int n;
+    float acc[kMaxChannels];
+  };
+  __device__ __forceinline__ State init() const {
+    State s;
+    s.n = 0;
+#pragma unroll
+    for (int c = 0; c < kMaxChannels; ++c) s.acc[c] = kMax ? -__int_as_float(0x7f800000) : 0.f;
+    return s;
+  }
+  // element lane + 32 i of the staged tile's n x channels values (0 past
+  // them), through its slots' point indices
+  __device__ __forceinline__ TileVals value(const Stage& st, int lane) const {
+    TileVals t;
+    const int total = st.n * channels;
+#pragma unroll
+    for (int i = 0; i < kMaxChannels; ++i) {
+      const int k = lane + 32 * i;
+      t.v[i] = k < total ? __ldg(values + st.idx[k / channels] * channels + k % channels) : 0.f;
+    }
+    return t;
+  }
+  // The warp, all lanes: this lane's members among the tile's n points
+  // (where `reach`) marked, the tile's values stored, then each member's
+  // values added (or maxed) in slot order. Returns how many.
+  __device__ __forceinline__ int tile(State& s, float qx, float qy, float qz, bool reach,
+                                      const float4* pt, int n, const TileVals& t, Scratch& x,
+                                      int lane, float r2) const {
+    unsigned m = 0;
+    if (reach) {
+      for (int j = 0; j < n; ++j) {
+        m |= static_cast<unsigned>(sq_dist(qx, qy, qz, pt[j].x, pt[j].y, pt[j].z) <= r2) << j;
+      }
+    }
+    const int total = n * channels;
+#pragma unroll
+    for (int i = 0; i < kMaxChannels; ++i) {
+      const int k = lane + 32 * i;
+      if (k < total) x.val[k] = t.v[i];
+    }
+    __syncwarp();
+    const int added = __popc(m);
+    s.n += added;
+    while (m != 0) {
+      const int j = __ffs(static_cast<int>(m)) - 1;
+      m &= m - 1;
+      const float* v = x.val + j * channels;
+#pragma unroll
+      for (int c = 0; c < kMaxChannels; ++c) {
+        if (c < channels) s.acc[c] = kMax ? nan_max(s.acc[c], v[c]) : __fadd_rn(s.acc[c], v[c]);
+      }
+    }
+    return added;
+  }
+  // the count, and each channel: the sum, or the max with the plain
+  // version's -BIG of a non-member where the query has one (fewer members
+  // than candidate positions)
+  __device__ __forceinline__ void write(const State& s, long long row, float, float,
+                                        float) const {
+    count_out[row] = s.n;
+#pragma unroll
+    for (int c = 0; c < kMaxChannels; ++c) {
+      if (c < channels) {
+        out[row * channels + c] =
+            kMax && s.n < candidates ? nan_max(s.acc[c], -kBig) : s.acc[c];
       }
     }
   }
@@ -852,8 +987,9 @@ struct RadiusShared {
   int slots[32];
 };
 
-// Kernels H and J. Warp w of the grid takes unit w of the pre-pass's list
-// (a warp past the list's count exits), a unit being up to 32 answered
+// Kernels H, J and L's sweep route. Warp w of the grid takes unit w of
+// the pre-pass's list (a warp past the list's count exits), a unit being
+// up to 32 answered
 // slots of one query bucket, a lane a query (blockIdx.y J's sigma group):
 // the grid covers the longest list the buffer holds, so the card's block
 // scheduler balances units of unequal work. A unit walks its bucket's
@@ -910,7 +1046,7 @@ grid_radius_kernel(const float* __restrict__ t_xyz, const long long* __restrict_
     const bool reach = active && box_bound(qx, qy, qz, g.lo, g.hi) <= r2;
     const unsigned lanes = __ballot_sync(kAll, reach);
     if (lanes == 0) return;  // warp-uniform
-    const float v = op.value(s, lane);  // J: in flight while the members are marked
+    const auto v = op.value(s, lane);  // J, L: in flight while the members are marked
     if (lane < g.n) {
       sh.pt[lane] = make_float4(g.pt[3 * lane], g.pt[3 * lane + 1], g.pt[3 * lane + 2], 0.f);
     }
@@ -1082,7 +1218,87 @@ grid_count_kernel(const float* __restrict__ t_xyz, const float4* __restrict__ bo
   }
 }
 
-// ---- the pre-pass of G-K ----
+// ---- kernel L's list route: a warp a query, no query grid ----
+
+// The wrapped bucket of a point: floor(x * inv) per axis as a 64-bit
+// integer (core/grid._cells: the float32 product, then the cast), taken
+// modulo each axis's cells (_bucket_of).
+__device__ __forceinline__ int bucket_of(float x, float y, float z, float inv, int gx, int gy,
+                                         int gz) {
+  const auto wrap = [inv](float v, int g) {
+    const long long c = static_cast<long long>(floorf(__fmul_rn(v, inv)));
+    return static_cast<int>(((c % g) + g) % g);
+  };
+  return (wrap(z, gz) * gy + wrap(y, gy)) * gx + wrap(x, gx);
+}
+
+// Kernel L's list route (the small-Q path's queries, each answered). Warp
+// w of the grid takes query w: its bucket (bucket_of), the distinct wrapped
+// neighbours of that bucket ascending (neighbour_ids, duplicates skipped as
+// core/grid._candidates masks them), and lane l the filled slots l, l + 32,
+// ... of each neighbour in turn: a member (sq_dist <= r2) adds 1 to the
+// lane's count and its values to the lane's sums (or maxes) in that order.
+// The lanes' parts are then combined by a fixed butterfly of shuffles (xor
+// 16, 8, 4, 2, 1; a + b == b + a, so every lane holds the same bits), and
+// lane 0 writes the count and the channels, the max with the plain
+// version's -BIG of a non-member where the query has one. A launch repeats
+// bit for bit.
+template <bool kMax>
+__global__ void __launch_bounds__(kThreads)
+grid_reduce_list_kernel(const float* __restrict__ t_xyz, const long long* __restrict__ t_idx,
+                        const int* __restrict__ t_count, const float* __restrict__ values,
+                        int channels, const float* __restrict__ q, int nq, int cap, int gx,
+                        int gy, int gz, float inv_cell, float r2, int* __restrict__ count_out,
+                        float* __restrict__ out) {
+  __shared__ int ids[kWarps][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long qi = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (qi >= nq) return;  // the whole warp
+  const float qx = q[3 * qi], qy = q[3 * qi + 1], qz = q[3 * qi + 2];
+  const int n = neighbour_ids(ids[warp], bucket_of(qx, qy, qz, inv_cell, gx, gy, gz), gx, gy,
+                              gz, lane);
+  int found = 0;
+  float acc[kMaxChannels];
+#pragma unroll
+  for (int c = 0; c < kMaxChannels; ++c) acc[c] = kMax ? -__int_as_float(0x7f800000) : 0.f;
+  for (int k = 0; k < n; ++k) {
+    const long long base = static_cast<long long>(ids[warp][k]) * cap;
+    const int filled = min(__ldg(t_count + ids[warp][k]), cap);
+    for (int s = lane; s < filled; s += 32) {
+      const float* p = t_xyz + 3 * (base + s);
+      if (sq_dist(qx, qy, qz, __ldg(p), __ldg(p + 1), __ldg(p + 2)) <= r2) {
+        ++found;
+        const float* v = values + __ldg(t_idx + base + s) * channels;
+#pragma unroll
+        for (int c = 0; c < kMaxChannels; ++c) {
+          if (c < channels) {
+            acc[c] = kMax ? nan_max(acc[c], __ldg(v + c)) : __fadd_rn(acc[c], __ldg(v + c));
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    found += __shfl_xor_sync(kAll, found, o);
+#pragma unroll
+    for (int c = 0; c < kMaxChannels; ++c) {
+      const float other = __shfl_xor_sync(kAll, acc[c], o);
+      acc[c] = kMax ? nan_max(acc[c], other) : __fadd_rn(acc[c], other);
+    }
+  }
+  if (lane == 0) {
+    count_out[qi] = found;
+#pragma unroll
+    for (int c = 0; c < kMaxChannels; ++c) {
+      if (c < channels) {
+        out[qi * channels + c] = kMax && found < kNbr * cap ? nan_max(acc[c], -kBig) : acc[c];
+      }
+    }
+  }
+}
+
+// ---- the pre-pass of G-L ----
 
 static_assert(kPackThreads == 32 * 32, "pack_units scans a warp of warp sums");
 
@@ -1425,4 +1641,52 @@ extern "C" int mm_grid_knn(const float* t_xyz, const long long* t_idx, const int
   return launch_select(KnnSel{t_idx, n_p, k, exclude_self, r2, idx_out, d2_out, valid_out},
                        t_xyz, boxes, t_count, q_xyz, q_idx, q_ok, units, max_units, cap, gx,
                        gy, gz, counters, counters_len, st);
+}
+
+// Kernel L's sweep route: values (P, channels) f32, 1 <= channels <= 16,
+// the values of each target point, read in place through t_idx (h, cap)
+// i64; is_max 0 (sum) or 1 (max); count_out (nq,) i32 and out (nq,
+// channels) f32 at the answered rows. The pre-pass and the radius kernel
+// (ReduceOp), boxes, units and counters as kernel H's.
+extern "C" int mm_grid_reduce(const float* t_xyz, const long long* t_idx, const int* t_count,
+                              const float* values, int channels, int is_max, const float* q_xyz,
+                              const long long* q_idx, const unsigned char* q_ok,
+                              const int* q_count, int h, int cap, int gx, int gy, int gz,
+                              float r2, float* boxes, int* units, int max_units,
+                              int* count_out, float* out, long long* counters,
+                              long long counters_len, void* stream) {
+  if (channels < 1 || channels > kMaxChannels || values == nullptr ||
+      static_cast<long long>(kNbr) * cap >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int candidates = kNbr * cap;
+  if (is_max) {
+    return launch_radius(ReduceOp<true>{values, channels, candidates, count_out, out}, 1, t_xyz,
+                         t_idx, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz, r2,
+                         boxes, units, max_units, counters, counters_len, stream);
+  }
+  return launch_radius(ReduceOp<false>{values, channels, candidates, count_out, out}, 1, t_xyz,
+                       t_idx, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz, r2,
+                       boxes, units, max_units, counters, counters_len, stream);
+}
+
+// Kernel L's list route: q (nq, 3) f32, each query answered (no query
+// grid); values, channels and is_max as mm_grid_reduce's; inv_cell the
+// float32 value of 1 / the target grid's cell edge; count_out (nq,) i32,
+// out (nq, channels) f32. One launch, a warp a query.
+extern "C" int mm_grid_reduce_list(const float* t_xyz, const long long* t_idx,
+                                   const int* t_count, const float* values, int channels,
+                                   int is_max, const float* q, int nq, int h, int cap, int gx,
+                                   int gy, int gz, float inv_cell, float r2, int* count_out,
+                                   float* out, void* stream) {
+  if (channels < 1 || channels > kMaxChannels || values == nullptr || nq < 1 ||
+      !grid_shape_ok(h, cap, gx, gy, gz) || static_cast<long long>(kNbr) * cap >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (nq + kWarps - 1) / kWarps;
+  const auto kernel = is_max ? grid_reduce_list_kernel<true> : grid_reduce_list_kernel<false>;
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      t_xyz, t_idx, t_count, values, channels, q, nq, cap, gx, gy, gz, inv_cell, r2, count_out,
+      out);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -119,6 +119,16 @@ SOURCES = {
             _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf, _ci, _ci, _ci,
             _vp, _vp, _ci, _vp, _vp, _vp, _vp, _cll, _vp,
         ],
+        # L: the values and their channels, 1 for the max, then H's operands
+        "mm_grid_reduce": [
+            _vp, _vp, _vp, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf,
+            _vp, _vp, _ci, _vp, _vp, _vp, _cll, _vp,
+        ],
+        # L's list route: no query grid, the cell edge's float32 reciprocal
+        "mm_grid_reduce_list": [
+            _vp, _vp, _vp, _vp, _ci, _ci, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _cf, _cf, _vp,
+            _vp, _vp,
+        ],
     },
     "mapmerge_native.cpp": {
         # the decoded size, or -1 for a malformed payload

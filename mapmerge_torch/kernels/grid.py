@@ -10,8 +10,12 @@ count (grid_radius_count: outlier removal). Kernel J, `smooth`: the
 Gaussian-weighted means of a value at every sigma (grid_gaussian_smooth:
 SIFT's scale space on a grid octave). Kernel K, `knn`: the k nearest
 candidates (the big-Q branch of grid_radius_neighbors: SIFT's 26-NN on a
-grid octave). None is a TPU kernel: the JAX package leaves all five to XLA
-(mapmerge_tpu/ops/grid.py `grid_query`).
+grid octave). Kernel L, `reduce` and `reduce_list`: the count and the sum
+or max of each query's members' values (grid_radius_reduce: Harris's
+response and suppression on its sweep route, its corner refinement's few
+queries on its list route). None is a TPU kernel: the JAX package leaves
+all six to XLA (mapmerge_tpu/ops/grid.py `grid_query`, and the small-Q
+gather `_radius_reduce_smallq`).
 
 Each takes the target grid and the query grid of core/grid.build_grid and
 reads both in place, with nothing read back to the host. The candidates of
@@ -24,28 +28,30 @@ query grid's slots with cell_ok set are answered, the rows of the others
 (the queries the query-side cap dropped, masked queries) keep the plain
 version's defaults.
 
-All five cull, on one pre-pass: a call launches the pre-pass (`pack`,
-counted as "grid_pack"; one launch), which writes the box of every run of
-TILE slots of each target bucket and lists the units of the query grid (up
-to 32 answered slots of one bucket, a lane a query), then
-the kernel, whose warps take the units. G and K need only the first
-member, or the first k candidates, of a query, and skip, exactly, every
-tile whose box bound cannot come before a query's threshold in (d2, slot)
-order. H, I and J add every member, a point within the fixed radius: a
-unit walks its neighbours' tiles in candidate order and skips, exactly,
-every tile whose box lies beyond the radius of its queries' box, then of
-each lane's query. H and J add each lane's members in the sweep's order
-(the bits of the one-thread-a-slot sweep they replaced). I needs no order:
+G-K and L's sweep route cull, on one pre-pass: a call launches the
+pre-pass (`pack`, counted as "grid_pack"; one launch), which writes the
+box of every run of TILE slots of each target bucket and lists the units
+of the query grid (up to 32 answered slots of one bucket, a lane a
+query), then the kernel, whose warps take the units. G and K need only
+the first member, or the first k candidates, of a query, and skip,
+exactly, every tile whose box bound cannot come before a query's
+threshold in (d2, slot) order. H, I, J and L add every member, a point
+within the fixed radius: a unit walks its neighbours' tiles in candidate
+order and skips, exactly, every tile whose box lies beyond the radius of
+its queries' box, then of each lane's query. H, J and L add each lane's
+members in the sweep's order (the bits of the one-thread-a-slot sweep H
+and J replaced). I needs no order:
 where a tile's straddling queries are few, the warp's lanes test the
 tile's slots against one query a step, else each straddling lane loops
 over the slots. A
 caller that queries one target grid many times (ICP) makes its boxes once
 (`boxes`, also counted as "grid_pack") and passes them to `nn_query`, whose
-pre-pass then lists the units alone. `select_counters` launches G, K, H, I
-or J once more with its counters on: the pairs it compared, the tiles it
-visited, its units and the share of their lanes that answer a query; H, I
-and J also the members they added, I its straddling (query, tile) pairs,
-its warp steps and the tiles it counted a lane a query.
+pre-pass then lists the units alone. `select_counters` launches G, K, H,
+I, J or L's sweep route once more with its counters on: the pairs it
+compared, the tiles it visited, its units and the share of their lanes
+that answer a query; H, I, J and L also the members they added, I its
+straddling (query, tile) pairs, its warp steps and the tiles it counted a
+lane a query.
 
 - `nn_query` equals `nn_query_ref` bit for bit: idx and d2.
 - `count` equals `count_ref` bit for bit, the include_self subtraction
@@ -66,6 +72,13 @@ its warp steps and the tiles it counted a lane a query.
 - `knn` equals `knn_ref` bit for bit: the k smallest d2 with ties to the
   first candidate position (knn_ref sorts stably), entries at BIG or beyond
   as (0, BIG, BIG <= r2).
+- `reduce` and `reduce_list` have `reduce_ref`'s and `reduce_list_ref`'s
+  counts and maxes bit for bit (NaN where NaN); their sums add the same
+  float32 terms in another order (candidate order; on the list route a
+  lane's slots, then a fixed shuffle tree), against the plain bmm's, and
+  agree within REDUCE_RTOL of the members' sum of |v| (`reduce_error`).
+  Both read each member's values in place through cell_idx; the list route
+  launches no pre-pass and builds no query grid.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. The wrappers copy nothing to the host and never synchronise (J's
@@ -78,6 +91,7 @@ wrappers.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -109,8 +123,19 @@ KNN_KERNEL = build.Kernel(
     source="mapmerge_torch/csrc/grid.cu",
     replaces="mapmerge_tpu/ops/grid.py:507",
 )
-#: the pre-pass of G-K (csrc/grid.cu: grid_pack_kernel), part of their
-#: port: launched with each of them, and alone by `pack` and `boxes`
+REDUCE_KERNEL = build.Kernel(
+    name="grid_reduce",
+    source="mapmerge_torch/csrc/grid.cu",
+    replaces="mapmerge_tpu/ops/grid.py:701",
+)
+REDUCE_LIST_KERNEL = build.Kernel(
+    name="grid_reduce_list",
+    source="mapmerge_torch/csrc/grid.cu",
+    replaces="mapmerge_tpu/ops/grid.py:632",
+)
+#: the pre-pass of G-L (csrc/grid.cu: grid_pack_kernel), part of their
+#: port: launched with each of them but L's list route, and alone by `pack`
+#: and `boxes`
 PACK_KERNEL = build.Kernel(
     name="grid_pack",
     source="mapmerge_torch/csrc/grid.cu",
@@ -124,6 +149,13 @@ SIGMA_GROUP = 8
 MAX_K = 26
 #: slots a tile of the pre-pass's boxes (csrc/cull.cuh: kT)
 TILE = 32
+#: the most channels of values kernel L takes (csrc/grid.cu: kMaxChannels)
+MAX_CHANNELS = 16
+#: kernel L's sum against its plain version: within REDUCE_RTOL of the sum
+#: of |v| over the query's members, per query and channel (the sums add the
+#: same float32 terms in another order: candidate order, or the list
+#: route's lanes and their tree, against the bmm's)
+REDUCE_RTOL = 1e-5
 #: counts a warp of kernel I's counters (csrc/grid.cu: kCountCounters)
 COUNT_COUNTERS = 8
 #: kernel I counts a tile a lane a query over its slots where its
@@ -202,8 +234,81 @@ def knn(
     return _select(KNN_KERNEL, grid, qg, q, n_p, k, r2, exclude_self)
 
 
+def reduce(
+    grid, qg, q: torch.Tensor, values: torch.Tensor, r2: float, op: str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Count (Q,) int32 and the sum (op "sum") or NaN-propagating max (op
+    "max") (Q, C) float32 of the values (P, C) of each query's members (the
+    target points with d2 <= r2; P the points the target grid was built
+    from); a query in no answered slot gets (0, 0) or (0, -BIG), and so
+    does the max of a query whose candidates are not all members where its
+    members' max is below -BIG, as the plain version's where() gives it.
+    Operands and routes as `nn_query`'s; the pre-pass and kernel L's sweep
+    route, which reads each member's values in place through the target
+    grid's cell_idx (1 <= C <= MAX_CHANNELS on the card)."""
+    if q.device.type == "cpu":
+        return reduce_ref(grid, qg, q, values, r2, op)
+    return _radius(REDUCE_KERNEL, grid, qg, q, r2, values, op=op)
+
+
+def reduce_list(
+    grid, q: torch.Tensor, values: torch.Tensor, r2: float, op: str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`reduce` for a few queries (the small-Q path): every query answered,
+    no query grid, its candidates the filled slots of the distinct wrapped
+    neighbours of the bucket its coordinates fall in. A CPU tensor takes
+    reduce_list_ref; a CUDA tensor launches kernel L's list route (one
+    launch, a warp a query, no pre-pass) or raises."""
+    if q.device.type == "cpu":
+        return reduce_list_ref(grid, q, values, r2, op)
+    kernel = REDUCE_LIST_KERNEL
+    dev = build.cuda_device(kernel, q)
+    nq = q.shape[0]
+    h, cap = grid.cell_idx.shape
+    gx, gy, gz = grid.dims
+    build.require(f"{kernel.name}: q", q, torch.float32, (None, 3), dev)
+    build.require(f"{kernel.name}: grid.cell_xyz", grid.cell_xyz, torch.float32, (h, cap, 3), dev)
+    build.require(f"{kernel.name}: grid.cell_idx", grid.cell_idx, torch.int64, (h, cap), dev)
+    build.require(f"{kernel.name}: grid.count", grid.count, torch.int32, (h,), dev)
+    channels = _reduce_channels(kernel, values, dev)
+    if gx * gy * gz != h or 27 * cap >= 2**31 or nq >= 2**31 - 4:
+        raise ValueError(f"{kernel.name}: unsupported grid H={h} C={cap} dims={grid.dims}, "
+                         f"Q={nq}")
+    count, out = _reduce_outputs(nq, channels, op, dev)
+    if nq == 0:
+        return count, out
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = lib.mm_grid_reduce_list(
+            grid.cell_xyz.data_ptr(), grid.cell_idx.data_ptr(), grid.count.data_ptr(),
+            values.data_ptr(), channels, int(op == "max"), q.data_ptr(), nq, h, cap, gx, gy, gz,
+            cgrid._f32(1.0 / grid.cell_size), r2, count.data_ptr(), out.data_ptr(),
+            build.stream_handle(dev))
+    kernel.launched()
+    build.check_launch(kernel, err)
+    return count, out
+
+
+def _reduce_channels(kernel: build.Kernel, values: torch.Tensor, dev) -> int:
+    """The channels of kernel L's values (P, C), checked: float32,
+    contiguous, on `dev`, 1 <= C <= MAX_CHANNELS, else a raise."""
+    build.require(f"{kernel.name}: values", values, torch.float32, (None, None), dev)
+    channels = values.shape[1]
+    if not 1 <= channels <= MAX_CHANNELS:
+        raise ValueError(f"{kernel.name}: unsupported channel count {channels}")
+    return channels
+
+
+def _reduce_outputs(nq: int, channels: int, op: str, dev):
+    """Kernel L's outputs with the rows of an unanswered query: count 0,
+    and 0 (sum) or -BIG (max)."""
+    count = torch.zeros((nq,), dtype=torch.int32, device=dev)
+    fill = 0.0 if op == "sum" else -cgrid.BIG
+    return count, torch.full((nq, channels), fill, dtype=torch.float32, device=dev)
+
+
 def pack(grid, qg, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The pre-pass of kernels G-K alone, on their operands (the target
+    """The pre-pass of kernels G-L alone, on their operands (the target
     grid, the query grid of the queries q): as `pack_ref` defines it,
     (boxes, units), but the boxes of empty tiles (outside `filled_tiles`)
     and the units' rows past units[0] + 1 are not written, and the units'
@@ -358,16 +463,21 @@ def _select(kernel: build.Kernel, grid, qg, q, n_p: int, *knn_args, boxes=None,
 
 
 def _radius(kernel: build.Kernel, grid, qg, q, r2: float, values=None, sigmas=None,
-            sub: int = 0, counters=None):
+            sub: int = 0, counters=None, op: str = "sum"):
     """Launch the pre-pass and kernel H (MOMENTS_KERNEL), I (COUNT_KERNEL,
-    each count less `sub`) or J (SMOOTH_KERNEL, with `values` and
-    `sigmas`) on the card: H's (count, mean, cov), I's counts or J's field,
-    their rows defaulted as the plain version's. `counters`, an int64
+    each count less `sub`), J (SMOOTH_KERNEL, with `values` and `sigmas`)
+    or L's sweep route (REDUCE_KERNEL, with `values` and `op`) on the card:
+    H's (count, mean, cov), I's counts, J's field or L's (count, sum or
+    max), their rows defaulted as the plain version's. `counters`, an int64
     tensor on the card, receives the kernel's per-warp counts
     (select_counters); the package's calls pass none."""
     dev, nq, dims = _operands(kernel, grid, qg, q)
     smooth, count = kernel is SMOOTH_KERNEL, kernel is COUNT_KERNEL
-    if smooth:
+    reduced = kernel is REDUCE_KERNEL
+    if reduced:
+        channels = _reduce_channels(kernel, values, dev)
+        outs = _reduce_outputs(nq, channels, op, dev)
+    elif smooth:
         ns = len(sigmas)
         build.require(f"{kernel.name}: values", values, torch.float32, (None,), dev)
         if not 1 <= ns <= MAX_SIGMAS:
@@ -379,8 +489,9 @@ def _radius(kernel: build.Kernel, grid, qg, q, r2: float, values=None, sigmas=No
         outs = (torch.zeros((nq,), dtype=torch.float32, device=dev),
                 torch.zeros((nq, 3), dtype=torch.float32, device=dev),
                 torch.zeros((nq, 3, 3), dtype=torch.float32, device=dev))
+    single = smooth or count
     if nq == 0:
-        return outs[0] if smooth or count else outs
+        return outs[0] if single else outs
     boxes = _empty_boxes(grid, dev)
     units = torch.empty((units_max(nq, dims[0]),), dtype=torch.int32, device=dev)
     work = (boxes.data_ptr(), units.data_ptr(), units.numel() - 1)
@@ -395,6 +506,11 @@ def _radius(kernel: build.Kernel, grid, qg, q, r2: float, values=None, sigmas=No
                 grid.cell_xyz.data_ptr(), grid.cell_idx.data_ptr(), grid.count.data_ptr(),
                 values.data_ptr(), *queries, recips, ns, *work, outs[0].data_ptr(), *extra,
                 build.stream_handle(dev))
+        elif reduced:
+            err = lib.mm_grid_reduce(
+                grid.cell_xyz.data_ptr(), grid.cell_idx.data_ptr(), grid.count.data_ptr(),
+                values.data_ptr(), values.shape[1], int(op == "max"), *queries, *work,
+                *(a.data_ptr() for a in outs), *extra, build.stream_handle(dev))
         elif count:
             err = lib.mm_grid_count(
                 grid.cell_xyz.data_ptr(), grid.count.data_ptr(), *queries, sub, *work,
@@ -406,7 +522,7 @@ def _radius(kernel: build.Kernel, grid, qg, q, r2: float, values=None, sigmas=No
     kernel.launched()
     PACK_KERNEL.launched()
     build.check_launch(kernel, err)
-    return outs[0] if smooth or count else outs
+    return outs[0] if single else outs
 
 
 #: the length of select_counters' buffer for G and K: 4 counts a warp of a
@@ -417,12 +533,13 @@ COUNTERS_LEN = 4 * 4 * 32 * 256
 
 def select_counters(name: str, grid, qg, q, *args) -> dict:
     """Kernel G ("grid_nn"), K ("grid_knn"), H ("grid_moments"), I
-    ("grid_count") or J ("grid_smooth") launched once more on these
+    ("grid_count"), J ("grid_smooth") or L's sweep route ("grid_reduce")
+    launched once more on these
     operands with its counters on (not a path of the package; `args` those
     of its wrapper after q): the (query, candidate) pairs it compared, the
     tiles it visited, its units (warps' worth of queries) and the queries
     answered, summed over its warps, and the share of the units' lanes that
-    answer a query; H, I and J also the members they added, each (query,
+    answer a query; H, I, J and L also the members they added, each (query,
     point) within the radius (J's counts summed over its sigma groups, each
     of which walks the units again); I also the straddling (query, tile)
     pairs, its warp steps (one a tile visited for its bounds, then one a
@@ -444,6 +561,9 @@ def select_counters(name: str, grid, qg, q, *args) -> dict:
         if smooth:
             values, sigmas, r2 = args
             _radius(SMOOTH_KERNEL, grid, qg, q, r2, values, sigmas, counters=counters)
+        elif name == "grid_reduce":
+            values, r2, op = args
+            _radius(REDUCE_KERNEL, grid, qg, q, r2, values, counters=counters, op=op)
         elif count:
             r2, include_self = (*args, True)[:2]
             _radius(COUNT_KERNEL, grid, qg, q, r2, sub=0 if include_self else 1,
@@ -570,6 +690,65 @@ def count_ref(
     if not include_self:
         counts = counts - 1
     return counts
+
+
+def _reduce(within: torch.Tensor, v: torch.Tensor, op: str) -> torch.Tensor:
+    """Sum (one bmm of the {0,1} matrix) or max (out-of-radius at -BIG) of
+    v (B, M, V) over within (B, Q, M)."""
+    if op == "sum":
+        return torch.bmm(within.to(torch.float32), v)
+    return torch.where(within[..., None], v[:, None], -cgrid.BIG).amax(dim=2)
+
+
+def reduce_ref(
+    grid, qg, q: torch.Tensor, values: torch.Tensor, r2: float, op: str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch reduce: core/grid.grid_query over the query buckets
+    with the values gathered into the cell layout, each chunk's (B, Cq, 27 C)
+    {0,1} member plane, its row sums (the count) and a bmm with the values
+    (sum) or their masked amax, non-members at -BIG (max)."""
+
+    def tile_fn(q_block, cand_xyz, cand_ok, cand_idx, v):
+        within = cand_ok[:, None, :] & (cgrid._d2(q_block, cand_xyz) <= r2)
+        return within.sum(dim=-1).to(torch.int32), _reduce(within, v, op)
+
+    default = 0.0 if op == "sum" else -cgrid.BIG
+    (count, out), _ = cgrid.grid_query(q, grid, tile_fn, (0, default), p_values=values, qg=qg)
+    return count, out
+
+
+def reduce_list_ref(
+    grid, q: torch.Tensor, values: torch.Tensor, r2: float, op: str, chunk: int = 256
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch reduce_list: each query's 27 neighbour blocks
+    gathered directly (core/grid._candidates of the bucket its coordinates
+    fall in), `chunk` queries at a time; the values of a chunk's candidates
+    gathered by index (an empty slot's index n reads a zero row), then the
+    count, and the bmm or the masked amax of `_reduce`."""
+    v_pad = cgrid._pad_rows(values)
+    bucket = cgrid._bucket_of(cgrid._cells(q, grid.cell_size), grid.dims)
+    counts, outs = [], []
+    for s in range(0, q.shape[0], chunk):
+        _, cand_xyz, cand_ok, cand_idx = cgrid._candidates(grid, bucket[s : s + chunk])
+        d2 = cgrid._d2(q[s : s + chunk, None, :], cand_xyz)  # (B, 1, M)
+        within = cand_ok[:, None, :] & (d2 <= r2)
+        counts.append(within.sum(dim=-1)[:, 0].to(torch.int32))
+        outs.append(_reduce(within, v_pad[cand_idx], op)[:, 0])
+    if not counts:
+        return _reduce_outputs(0, values.shape[1], op, q.device)
+    return torch.cat(counts), torch.cat(outs)
+
+
+def reduce_error(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor) -> float:
+    """The largest |got - want| of L's sums (Q, C) over `scale`, the sums
+    of |v| over each query's members (reduce_ref or reduce_list_ref of the
+    values' magnitudes): REDUCE_RTOL bounds it. A difference where the
+    scale is 0 is infinite, and so is an entry NaN on one side only (a NaN
+    never compares within the limit); entries equal or NaN on both sides
+    agree."""
+    same = (got == want) | (got.isnan() & want.isnan())
+    rel = torch.where(same, 0.0, (got - want).abs() / scale)
+    return float(torch.where(rel.isnan(), math.inf, rel).max()) if rel.numel() else 0.0
 
 
 def smooth_ref(

@@ -7,13 +7,14 @@ reference's), and every query of a bucket meets the candidates of the 27
 neighbour buckets of its own.
 
 The bounded 1-NN, the radius moments, the radius count, the Gaussian
-smoothing and the k nearest of a large query set (grid_nn_query,
-grid_neighbor_moments, grid_radius_count, grid_gaussian_smooth and the
-big-Q branch of grid_radius_neighbors) run kernels G, H, I, J and K
-(kernels/grid.py), which read both grids in place, one launch a call and no
-host read; FPFH's SPFH sweep reads the grid so too (kernels/spfh.spfh_grid).
-radius_reduce runs its plain tile_fn through core/grid.grid_query, and the
-small-Q paths gather each query's 27 neighbour blocks directly.
+smoothing, the k nearest of a large query set and the radius reduce
+(grid_nn_query, grid_neighbor_moments, grid_radius_count,
+grid_gaussian_smooth, the big-Q branch of grid_radius_neighbors and
+grid_radius_reduce) run kernels G, H, I, J, K and L (kernels/grid.py),
+which read both grids in place with no host read; FPFH's SPFH sweep reads
+the grid so too (kernels/spfh.spfh_grid). radius_reduce's small-Q path is
+L's list route, a warp a query over its 27 neighbour blocks; the small-Q
+path of radius_neighbors gathers them directly.
 
 The grid's own names (CellGrid, build_grid, grid_query, ...) are those of
 core/grid.py, taken in here so that this module offers the reference
@@ -32,7 +33,6 @@ from mapmerge_torch.core.grid import (
     _cells,
     _d2,
     _f32,
-    _pad_rows,
     build_grid,
     default_dims,
     grid_query,
@@ -180,39 +180,6 @@ def grid_nn_query(
     return idx, best, qg.overflow
 
 
-def _reduce(within: torch.Tensor, v: torch.Tensor, reduce: str) -> torch.Tensor:
-    """Sum (one bmm of the {0,1} matrix) or max (out-of-radius at -BIG) of
-    v (B, M, V) over within (B, Q, M)."""
-    if reduce == "sum":
-        return torch.bmm(within.to(torch.float32), v)
-    return torch.where(within[..., None], v[:, None], -BIG).amax(dim=2)
-
-
-def _radius_reduce_smallq(
-    q: torch.Tensor,
-    grid: CellGrid,
-    radius: float,
-    values: torch.Tensor,
-    reduce: str,
-    chunk: int = 256,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Query-centric radius_reduce for SMALL query sets (Harris corner
-    refinement): each query's 27 neighbour blocks gathered directly; the
-    values of a chunk's candidates are gathered by index (an empty slot's
-    index n reads a zero row)."""
-    r2 = _f32(radius * radius)
-    v_pad = _pad_rows(values)
-    bucket = _bucket_of(_cells(q, grid.cell_size), grid.dims)
-    counts, outs = [], []
-    for s in range(0, q.shape[0], chunk):
-        _, cand_xyz, cand_ok, cand_idx = _candidates(grid, bucket[s : s + chunk])
-        d2 = _d2(q[s : s + chunk, None, :], cand_xyz)  # (B, 1, M)
-        within = cand_ok[:, None, :] & (d2 <= r2)
-        counts.append(within.sum(dim=-1)[:, 0].to(torch.int32))
-        outs.append(_reduce(within, v_pad[cand_idx], reduce)[:, 0])
-    return torch.cat(counts), torch.cat(outs)
-
-
 def grid_radius_reduce(
     q: torch.Tensor,
     p: torch.Tensor,
@@ -225,24 +192,20 @@ def grid_radius_reduce(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Grid twin of neighbors.radius_reduce: (count, sum or max of values,
     query-overflow count). At most SMALL_Q_THRESHOLD queries take the
-    small-Q path (overflow 0 there)."""
+    small-Q path (every query answered, overflow 0 there: kernel L's list
+    route, kernels/grid.reduce_list); more take the query grid and kernel
+    L's sweep route (kernels/grid.reduce)."""
     if reduce not in ("sum", "max"):
         raise ValueError(f"unknown reduce: {reduce}")
     grid = build_grid(p, p_mask, radius, dims, scan_cap)
     r2 = _f32(radius * radius)
+    values = values.contiguous()
     if q.shape[0] <= SMALL_Q_THRESHOLD:
-        count, out = _radius_reduce_smallq(q, grid, radius, values, reduce)
+        count, out = grid_kernels.reduce_list(grid, q, values, r2, reduce)
         return count, out, torch.zeros((), dtype=torch.int32, device=q.device)
-
-    def tile_fn(q_block, cand_xyz, cand_ok, cand_idx, v):
-        within = cand_ok[:, None, :] & (_d2(q_block, cand_xyz) <= r2)
-        return within.sum(dim=-1).to(torch.int32), _reduce(within, v, reduce)
-
-    default = 0.0 if reduce == "sum" else -BIG
-    (count, out), overflow = grid_query(
-        q, grid, tile_fn, (0, default), p_values=values
-    )
-    return count, out, overflow
+    qg = build_grid(q, None, grid.cell_size, grid.dims, grid.cap)
+    count, out = grid_kernels.reduce(grid, qg, q, values, r2, reduce)
+    return count, out, qg.overflow
 
 
 def grid_neighbor_moments(

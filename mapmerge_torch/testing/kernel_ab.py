@@ -51,6 +51,11 @@ bit) and its device time by kernel name under torch.profiler, as the tile
 pre-pass's inputs also get; I's inputs also time the grid pre-pass alone
 (`grid.pack`: "grid_pack config #2", "grid_pack config5_big"), held
 against pack_ref, with its device time by kernel name (and memset).
+Kernel L's first calls on config #2's first cloud (Harris's response and
+suppression, `grid.reduce`, and a refinement step, `grid.reduce_list`)
+are timed so too, held against their plain versions (the count and the
+max bit for bit, the sum within REDUCE_RTOL), L's device time split from
+the pre-pass's by kernel name; a checkout without L reports them absent.
 `record-grid` saves the grid kernels' inputs alone. PREFIX may name
 several prefixes, separated by commas.
 Compare in one process order on one card: parent, change, change, parent.
@@ -354,7 +359,10 @@ def record_grid_select(cs, dev) -> dict:
     "grid_moments config5_big", "grid_count config5_big", "grid_smooth
     config5_big octave 0" and "... octave 1"); I's grids and queries again
     for the pre-pass alone ("grid_pack config #2", "grid_pack
-    config5_big")."""
+    config5_big"); and kernel L's first calls on config #2's first cloud,
+    Harris's response and suppression on its sweep route and a refinement
+    step on its list route ("grid_reduce config #2 response", "...
+    suppression", "grid_reduce_list config #2 refinement")."""
     from mapmerge_torch.core.cloud import PointCloud
     from mapmerge_torch.kernels import nn, spfh
     from mapmerge_torch.pipeline.merging import estimate_maps_transforms
@@ -372,6 +380,9 @@ def record_grid_select(cs, dev) -> dict:
     kept["grid_nn config #2"] = seen["grid_nn icp"]
     kept["grid_moments config #2"] = seen["grid_moments"]
     kept["grid_count config #2"] = seen["grid_count"]
+    for key, call in cs.REDUCE_CALLS:  # kernel L, where the checkout has it
+        if key in seen:
+            kept[f"{key.split()[0]} config #2 {call}"] = seen[key]
     del clouds, seen
     views, _ = town_views(cs.CONFIG5_MAPS, cs.CONFIG5_VIEW_TARGET, keep=0.8, seed=5)
     cap = 1 << int(np.ceil(np.log2(len(views[0][0]))))
@@ -496,6 +507,43 @@ def time_grid_count(kgrid, args) -> dict:
         "held": held, "digest": _digest((got,)),
         "ms": [time_ms(lambda: kgrid.count(*args)) for _ in range(3)],
         "device_ms": device_ms(lambda: kgrid.count(*args)), "counters": counters,
+    }
+
+
+def time_grid_reduce(kgrid, name: str, args) -> dict:
+    """Kernel L of the checkout on one saved input, its sweep route
+    (`reduce`) or its list route (`reduce_list`): held against its plain
+    version (the count exactly, the max bit for bit, the sum within
+    REDUCE_RTOL of the members' sum of |v|) and against a second call bit
+    for bit, a digest of its output, three medians of 20 timed calls
+    through the wrapper, the device time of a call by kernel name (L's and
+    the grid pre-pass's apart: device_ms) and, on the sweep route, its
+    counters. A checkout without L reports the input absent."""
+    if not hasattr(kgrid, "reduce"):
+        return {"absent": True}
+    args = [_as_grid(a) for a in args]
+    list_route = name.startswith("grid_reduce_list")
+    kernel = kgrid.reduce_list if list_route else kgrid.reduce
+    plain = kgrid.reduce_list_ref if list_route else kgrid.reduce_ref
+    grid, q, values = args[0], args[1 if list_route else 2], args[2 if list_route else 3]
+    got, want, again = kernel(*args), plain(*args), kernel(*args)
+    same = [bool(((a == b) | (a.isnan() & b.isnan())).all()) for a, b in zip(got, again)]
+    held = torch.equal(got[0], want[0]) and all(same)
+    err = 0.0
+    if args[-1] == "max":
+        held = held and bool(((got[1] == want[1]) | (got[1].isnan() & want[1].isnan())).all())
+    else:
+        magnitudes = [*args[:-1], "sum"]
+        magnitudes[2 if list_route else 3] = values.abs()
+        err = kgrid.reduce_error(got[1], want[1], plain(*magnitudes)[1])
+        held = held and err <= kgrid.REDUCE_RTOL
+    return {
+        "shape": f"Q={q.shape[0]} C={values.shape[1]} {args[-1]} grid "
+                 f"{tuple(grid.cell_idx.shape)} dims {grid.dims}",
+        "held": held, "err_of_members_abs": err, "digest": _digest(got),
+        "ms": [time_ms(lambda: kernel(*args)) for _ in range(3)],
+        "device_ms": device_ms(lambda: kernel(*args)),
+        "counters": None if list_route else kgrid.select_counters("grid_reduce", *args),
     }
 
 
@@ -700,6 +748,9 @@ def time_root(inputs_path: Path, root: Path, prefix: str = "") -> None:
             continue
         if name.startswith("grid_count"):
             result["kernels"][name] = time_grid_count(kgrid, args)
+            continue
+        if name.startswith("grid_reduce"):
+            result["kernels"][name] = time_grid_reduce(kgrid, name, args)
             continue
         if name.startswith("grid_pack"):
             result["kernels"][name] = time_grid_pack(kgrid, args)

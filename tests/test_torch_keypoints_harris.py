@@ -78,6 +78,28 @@ def test_keypoints_match_reference(surface, max_keypoints):
     assert (tk.xyz.numpy()[~tm] == 1e8).all() and not tk.response[~tk.mask].any()
 
 
+def test_grid_engine_keypoints_match_reference(surface):
+    """On the grid engine (the response and the suppression sweep the cell
+    grid, kernel L's sweep route on a card; the refinement's few queries
+    take the small-Q path, L's list route): the same keypoints as the
+    reference's grid engine, refined positions within 1e-5 m, responses to
+    rtol 1e-4."""
+    jc, jn, tc, tn = surface
+    jk = jh.detect_keypoints_harris(jc, jn, 1.0, RADIUS, 256, tile=512, engine="grid")
+    tk = th.detect_keypoints_harris(tc, tn, 1.0, RADIUS, 256, tile=512, engine="grid")
+    jm, tm = np.asarray(jk.mask), tk.mask.numpy()
+    assert tm.sum() == jm.sum() > 5
+    assert int(tk.truncated) == int(jk.truncated)
+    jx, tx = np.asarray(jk.xyz)[jm], tk.xyz.numpy()[tm]
+    gap = np.abs(jx[:, None, :] - tx[None, :, :]).max(axis=-1)
+    nearest = gap.argmin(axis=1)
+    assert gap.min(axis=1).max() <= 1e-5
+    assert len(set(nearest)) == len(nearest)  # one to one
+    np.testing.assert_allclose(
+        tk.response.numpy()[tm][nearest], np.asarray(jk.response)[jm], rtol=1e-4
+    )
+
+
 def test_refine_step_guards(surface):
     """A well-conditioned corner moves by the adjugate solve as in the
     reference; a point on a plane (singular system) and a solution further
