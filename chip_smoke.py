@@ -34,8 +34,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      exclude_self both ways; the grid radius reduce, kernel L (Harris's
      response, suppression and refinement on the grid), on the same town
      queried at its own points at the Harris radius (0.6 m, cap 128): its
-     sweep route at C = 1, 9 and 12 channels, sum and max, and its list
-     route on 4,096 and on 1 query, the count and the max bit for bit and
+     sweep route at C = 1, 6, 9 and 12 channels (each width it is built
+     for, and its generic one), sum and max, and its list route on 4,096
+     and on 1 query, the count and the max bit for bit and
      the sum within REDUCE_RTOL of the members' sum of |v| (the TF32 and
      bfloat16 controls failing it), then both routes on the adversarial
      inputs, a NaN point and a full target bucket;
@@ -76,13 +77,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      inputs; the stage-timed run logs each cloud's sweep: the buckets that
      hold a needed slot, the needed slots, the filled slots in those
      buckets, the candidates staged and the pairs counted, and splits each
-     Harris extraction by call (harris_split: the response, the
-     suppression and each refinement step, each call's `build_grid` sorts
-     apart). Kernel L launches twice on its sweep route and three times on
-     its list route a Harris extraction (10 / 15), and the first cloud's
-     Harris keypoints through L are held against those of its plain
-     versions (hold_harris_keypoints: at least 99% found within 1e-4 m,
-     response within 1e-3 relative; so on config #3 too).
+     Harris extraction (harris_split: its two `build_grid` sorts, required
+     two, its target's boxes, the response, the suppression and each
+     refinement step, and its launches of grid_pack and L). Kernel L
+     launches twice on its sweep route and three times on its list route a
+     Harris extraction (10 / 15), and the first cloud's Harris keypoints
+     through L are held against those of its plain versions
+     (hold_harris_keypoints: at least 99% found within 1e-4 m, response
+     within 1e-3 relative), its 6-channel response's mirrored sums against
+     the 9-channel sweep's bit for bit, and its threshold-masked
+     suppression's `keep` against the full one's bit for bit
+     (hold_harris_route; so on config #3 too).
   8. the online node, stateless (runtime/node.MapMergeNode over an
      InProcTransport) on config #1's views: one discovery, estimation and
      compositing tick; the poses bit for bit those of estimate_maps_transforms
@@ -253,14 +258,18 @@ sweep route `grid_reduce` on the pre-pass and the query grid, its list
 route `grid_reduce_list` for at most 4,096 queries) is required twice
 (sweep) and three times (list) a Harris extraction on the grid, so 10 / 15
 on config #2 and over its two ranks, 4 / 6 on config #3 and none elsewhere
-(require_grid_reduce); it is held on the first response, suppression and
-refinement step of each such path (the count and the max bit for bit, the
-sum within REDUCE_RTOL of the members' sum of |v|; on config #2 its TF32
-and bfloat16 controls must fail that limit), timed beside its plain
-version, its bound (the members at 9 + C against both grids' bytes and the
-values') and, for the sum, `(torch.cdist(q, p) <= r).float() @ values` on
-4,096 sampled answered queries, scaled (reduce_library_stats); the sweep
-route's counters too.
+(require_grid_reduce); it is held on the first response (6 channels),
+suppression (over the queries above the threshold) and refinement step (9
+channels) of each such path (the count and the max bit for bit, the sum
+within REDUCE_RTOL of the members' sum of |v|; on config #2 its TF32 and
+bfloat16 controls must fail that limit), timed beside its plain version
+(the list route given the target's boxes, as Harris calls it), its bound
+(the members at 9 + C against both grids' bytes and the values'; the list
+route's on the tiles within the radius of a query) and, for the sum,
+`(torch.cdist(q, p) <= r).float() @ values` on 4,096 sampled answered
+queries, scaled (reduce_library_stats); the sweep route's counters too
+(the max's are I's). The ptxas report of each of L's instantiations is
+logged apart (reduce_ptxas).
 The line before the last is a JSON object of the kernels (kernel
 A's one-pair and batched entries, kernel B, the pre-pass, kernels C, D, E,
 F, E's and F's order pre-pass, G, H, I, J, K, the grid pre-pass and L's
@@ -2004,19 +2013,42 @@ def reduce_nan_control(name, kgrid, args, list_route: bool) -> float:
     require(False, f"{name}: a sum with a NaN row passed _grid_reduce_compare")
 
 
-def grid_list_bound(grid, q, values, members: int) -> dict:
-    """L's list route's least time on these inputs: the distinct candidate
-    points of the queries' buckets read once (12 B and their C values of 4
-    B), those buckets' counts (4 B), the queries (12 B), the rows written
-    (4 + 4 C B); each member's GRID_PAIR_OPS and an add a channel."""
+def grid_list_bound(grid, q, values, members: int, r2: float) -> dict:
+    """L's list route's least time on these inputs: the queries (12 B)
+    and the rows written (4 + 4 C B); the counts (4 B) and the tile boxes
+    (32 B) of the neighbour buckets of the queries' buckets; the distinct
+    slots of the tiles whose box lies within r2 of some query (box_bound in
+    the kernel's rounded operations: a tile beyond it holds no member),
+    read once (12 B and their C values of 4 B); each member's
+    GRID_PAIR_OPS and an add a channel. Beside them the distinct
+    candidates of those buckets, which the route read whole before it
+    culled."""
     from mapmerge_torch.core.grid import _bucket_of, _cells, _neighbor_buckets
+    from mapmerge_torch.kernels import grid as kgrid
 
     cap, c = grid.cap, values.shape[1]
-    buckets = torch.unique(_bucket_of(_cells(q, grid.cell_size), grid.dims))
-    nbr = torch.unique(_neighbor_buckets(buckets, grid.dims))
-    distinct = int(grid.count[nbr].clamp(0, cap).to(torch.int64).sum())
-    n_bytes = (distinct * (12 + 4 * c) + nbr.numel() * 4 + q.shape[0] * (12 + 4 + 4 * c))
-    return {"distinct_candidates": distinct, "members": members,
+    tiles = -(-cap // kgrid.TILE)
+    bucket = _bucket_of(_cells(q, grid.cell_size), grid.dims)
+    nbr = _neighbor_buckets(bucket, grid.dims)  # (Q, 27)
+    count = grid.count[nbr].clamp(0, cap).to(torch.int64)
+    t = torch.arange(tiles, device=q.device)
+    code = nbr[..., None] * tiles + t  # (Q, 27, T)
+    filled = (t * kgrid.TILE < count[..., None])
+    box = kgrid.boxes_ref(grid)[code]  # (Q, 27, T, 2, 4)
+    lo, hi = box[..., 0, :3], box[..., 1, :3]
+    near = q[:, None, None, :].clamp(min=lo, max=hi)
+    d = q[:, None, None, :] - near
+    bound = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    reached = torch.unique(code[filled & (bound <= r2)])
+    slots = int((count.new_zeros(grid.count.shape[0] * tiles).index_put_(
+        (code[filled].reshape(-1),), (count[..., None] - t * kgrid.TILE).clamp(0, kgrid.TILE)
+        [filled].reshape(-1)))[reached].sum())
+    buckets = torch.unique(nbr)
+    distinct = int(grid.count[buckets].clamp(0, cap).to(torch.int64).sum())
+    n_bytes = (q.shape[0] * (12 + 4 + 4 * c) + buckets.numel() * (4 + 32 * tiles)
+               + slots * (12 + 4 * c))
+    return {"distinct_candidates": distinct, "reached_slots": slots,
+            "reached_tiles": int(reached.numel()), "members": members,
             **_bound(n_bytes, members * (GRID_PAIR_OPS + c))}
 
 
@@ -2078,9 +2110,12 @@ def grid_reduce_stats(label: str, kgrid, seen: dict) -> dict:
         ref, err, rel = _grid_reduce_compare(f"{label} {key}", kgrid, args, list_route)
         members = int(ref[0].to(torch.int64).sum())
         fn = kgrid.reduce_list if list_route else kgrid.reduce
+        if list_route:  # timed as the path calls it, given the target's boxes
+            boxes = kgrid.boxes(grid)
+            fn = lambda *a, boxes=boxes: kgrid.reduce_list(*a, boxes=boxes)  # noqa: E731
         plain = kgrid.reduce_list_ref if list_route else kgrid.reduce_ref
         entry = {"shape": shape, "max_abs_err": err, "err_of_members_abs": rel,
-                 **(grid_list_bound(grid, q, values, members) if list_route
+                 **(grid_list_bound(grid, q, values, members, args[3]) if list_route
                     else grid_bound(name, grid, args[1], q, members, values)),
                  **reduce_library_stats(args, list_route, ref)}
         if not list_route:
@@ -2118,13 +2153,15 @@ def check_grid_reduce(dev, kgrid, n: int = 1 << 18) -> dict:
     """Kernel L against its plain versions on check_grid's synthetic town
     (n = 262,144 points, 5% masked) queried at its own points at the
     Harris radius (config #2's normal radius, 0.6 m, cap 128): the sweep
-    route at C = 1, 9 and 12 channels, sum and max, and the list route on
+    route at C = 1, 6, 9 and 12 channels (every instantiation: the widths
+    REDUCE_WIDTHS and the generic one), sum and max, and the list route on
     4,096 and on 1 of those queries; the values drawn from a seed, their
     TF32 and bfloat16 controls failing the sum limit; then both routes on
     grid_adversarial's and reduce_adversarial's inputs (on the sphere,
     parked, masked, unmatched, a NaN point, a full target bucket). Returns
-    the synthetic entries (the sweep at C = 9 sum, its suppression at C = 1
-    max, the list route at C = 12 sum), timed beside their bounds."""
+    the synthetic entries (the sweep at C = 6 sum, its suppression at C = 1
+    max, the list route at C = 9 sum: Harris's widths), timed beside their
+    bounds."""
     from mapmerge_torch.ops.neighbors import _f32
 
     g = torch.Generator(device=dev).manual_seed(16)
@@ -2136,7 +2173,7 @@ def check_grid_reduce(dev, kgrid, n: int = 1 << 18) -> dict:
     r2 = _f32(NORMAL_R ** 2)
     grid, qg, _, _ = grid_operands(p, mask, p, None, NORMAL_R, GRID_CAP)
     worst = 0.0
-    for c in (1, 9, 12):
+    for c in (1, 6, 9, 12):
         values = torch.randn((n, c), generator=g, device=dev)
         for op in ("sum", "max"):
             for args, list_route in (((grid, qg, p, values, r2, op), False),
@@ -2145,18 +2182,18 @@ def check_grid_reduce(dev, kgrid, n: int = 1 << 18) -> dict:
                 name = f"grid_reduce{'_list' if list_route else ''} C={c} {op}"
                 worst = max(worst, _grid_reduce_compare(name, kgrid, args, list_route)[2])
     log(f"kernel grid_reduce on the synthetic town: count and max bit for bit, the sum "
-        f"within {worst} of the members' sum of |v| (C = 1, 9, 12; both routes)")
+        f"within {worst} of the members' sum of |v| (C = 1, 6, 9, 12; both routes)")
     nan_errs = [reduce_nan_control(f"synthetic {name}", kgrid, args, list_route)
                 for name, args, list_route in (
                     ("grid_reduce", (grid, qg, p, values, r2, "sum"), False),
                     ("grid_reduce_list", (grid, p[:4096].contiguous(), values, r2, "sum"), True))]
     log(f"_grid_reduce_compare refused a sum with one NaN row on both routes (errors "
         f"{nan_errs})")
-    values = torch.randn((n, 9), generator=g, device=dev)
+    values = torch.randn((n, 6), generator=g, device=dev)
     first = {"grid_reduce sum": ((grid, qg, p, values, r2, "sum"), {}),
              "grid_reduce max": ((grid, qg, p, values[:, :1].contiguous(), r2, "max"), {}),
              "grid_reduce_list sum": ((grid, p[:1024].contiguous(),
-                                       torch.randn((n, 12), generator=g, device=dev), r2,
+                                       torch.randn((n, 9), generator=g, device=dev), r2,
                                        "sum"), {})}
     stats = grid_reduce_stats("synthetic", kgrid, first)
     stats["grid_reduce"]["precision"] = reduce_precision(
@@ -2813,15 +2850,17 @@ def require_grid_reduce(label: str, seen: dict, launches: dict) -> None:
 
 def require_grid_pack(label: str, seen: dict, launches: dict) -> None:
     """The pre-pass of kernels G-L launched once with each of them (L's
-    sweep route; its list route takes none) and once for each target grid
-    whose boxes a caller had made apart (kgrid.boxes: ICP's), no more of
-    those than G's launches, and never else. Logged."""
+    sweep route; its list route is given its boxes) and once for each
+    target grid whose boxes a caller had made apart (kgrid.boxes: ICP's,
+    one a grid Harris extraction), no more of those than G's launches and
+    the grid Harris extractions, and never else. Logged."""
     packs = launches["grid_pack"]
     with_kernels = {k: launches[k] for k in ("grid_nn", "grid_moments", "grid_count",
                                              "grid_smooth", "grid_knn", "grid_reduce")}
     made = seen["grid_boxes"]
     log(f"{label}: launches grid_pack {packs} ({with_kernels}, the boxes alone {made})")
-    require(packs == sum(with_kernels.values()) + made and made <= launches["grid_nn"],
+    require(packs == sum(with_kernels.values()) + made
+            and made <= launches["grid_nn"] + seen["harris"]["grid"],
             f"{label}: grid_pack {packs} launches for {with_kernels} + the boxes alone "
             f"{made}")
 
@@ -3216,24 +3255,33 @@ def plain_grid_reduce():
     `patched`."""
     from mapmerge_torch.kernels import grid as kgrid
 
-    return {(kgrid, "reduce"): lambda fn: kgrid.reduce_ref,
-            (kgrid, "reduce_list"): lambda fn: kgrid.reduce_list_ref}
+    def plain_list(fn):
+        def wrapper(grid, q, values, r2, op, boxes=None):
+            return kgrid.reduce_list_ref(grid, q, values, r2, op)
+
+        return wrapper
+
+    return {(kgrid, "reduce"): lambda fn: kgrid.reduce_ref, (kgrid, "reduce_list"): plain_list}
 
 
 def _harris_traced(args, kwargs, routes: dict):
-    """One Harris extraction (`detect_keypoints_harris` on `args`, under
-    the patches `routes`) with its radius_reduce calls and refinement
-    steps recorded. Returns (the keypoints, the suppression's (response,
-    neighbourhood max, mask), a step's (keypoints in, keypoints out, the
-    step's sums, its member counts) each)."""
+    """One Harris extraction on the grid (`detect_keypoints_harris` on
+    `args`, under the patches `routes`) with its kernel L calls
+    (grid_reduce_query) and refinement steps recorded. Returns (the
+    keypoints, the suppression's (response, neighbourhood max, the valid
+    mask), a step's (keypoints in, keypoints out, the step's sums as 9 + 3
+    channels: the mirrored sum(n n^T), then sum(n n^T p), its member counts)
+    each)."""
+    import inspect
+
     from mapmerge_torch.ops.keypoints import harris as harris_ops
 
     calls, steps = [], []
 
     def reduce(fn):
-        def wrapper(q, p, radius, values, *a, **k):
-            out = fn(q, p, radius, values, *a, **k)
-            calls.append((values, k, out))
+        def wrapper(grid, q, values, reduce="sum", **k):
+            out = fn(grid, q, values, reduce, **k)
+            calls.append((values, reduce, out))
             return out
 
         return wrapper
@@ -3241,16 +3289,20 @@ def _harris_traced(args, kwargs, routes: dict):
     def refine(fn):
         def wrapper(kp, *a, **k):
             out = fn(kp, *a, **k)
-            steps.append((kp, out, calls[-1][2][1], calls[-1][2][0]))
+            count, sums = calls[-1][2][:2]
+            full = torch.cat([harris_ops._mirror(sums[:, :6]).reshape(-1, 9), sums[:, 6:]], 1)
+            steps.append((kp, out, full, count))
             return out
 
         return wrapper
 
-    with patched({**routes, (harris_ops, "radius_reduce"): reduce,
+    with patched({**routes, (harris_ops, "grid_reduce_query"): reduce,
                   (harris_ops, "_refine_step"): refine}):
         kps = harris_ops.detect_keypoints_harris(*args, **kwargs)
-    values, k, out = next(c for c in calls if c[1].get("reduce") == "max")
-    return kps, (values[:, 0], out[1][:, 0], k["p_mask"]), steps
+    bound = inspect.signature(harris_ops.detect_keypoints_harris).bind(*args, **kwargs)
+    ok = bound.arguments["cloud"].mask & bound.arguments["normals"].valid
+    values, _, out = next(c for c in calls if c[1] == "max")
+    return kps, (values[:, 0], out[1][:, 0], ok), steps
 
 
 def _refine_guards(kp_in, kp_out, sums, r2: float):
@@ -3378,6 +3430,57 @@ def hold_harris_keypoints(label: str, seen: dict) -> None:
     require(n_plain > 0 and share >= KEYPOINT_AGREEMENT,
             f"{label}: {share} of the plain route's Harris keypoints found, gate "
             f"{KEYPOINT_AGREEMENT}")
+
+
+def hold_harris_route(label: str, seen: dict) -> None:
+    """The path's first Harris extraction's grids again (GridRoute), on the
+    card through kernel L: the response's 6 channels (the upper triangle of
+    n n^T) against all 9 through the same sweep, each mirrored entry
+    required bit for bit (the sweep adds each channel on its own, in
+    candidate order), the counts equal; and the suppression over the
+    queries above the threshold against the suppression over every
+    answered query, `keep` required bit for bit, the maxes of the queries
+    swept too. Logs the share of the answered queries swept. These
+    launches come after the path's counts were read."""
+    import inspect
+
+    from mapmerge_torch.ops import grid as grid_ops
+    from mapmerge_torch.ops.keypoints import harris as harris_ops
+
+    args, kwargs = seen["harris_detect"]
+    bound = inspect.signature(harris_ops.detect_keypoints_harris).bind(*args, **kwargs)
+    bound.apply_defaults()
+    a = bound.arguments
+    cloud, normals, threshold = a["cloud"], a["normals"], a["threshold"]
+    ok = cloud.mask & normals.valid
+    route = harris_ops.GridRoute(cloud, ok, a["radius"], a["scan_cap"])
+    outer = harris_ops._outer(normals).reshape(-1, 9)
+    six = grid_ops.grid_reduce_query(route.grid, route.q, outer[:, list(harris_ops.UPPER)],
+                                     "sum", qg=route.qg)
+    nine = grid_ops.grid_reduce_query(route.grid, route.q, outer, "sum", qg=route.qg)
+    mirrored = harris_ops._mirror(six[1]).reshape(-1, 9)
+    require(torch.equal(six[0], nine[0]) and _same_bits(mirrored, nine[1]),
+            f"{label}: the 6-channel response's mirrored sums differ from the 9-channel "
+            f"sweep's in {int((mirrored != nine[1]).sum())} entries; bit for bit required")
+    resp = harris_ops._response(nine[1].reshape(-1, 3, 3), ok)
+    masked = route.suppression(resp, threshold)
+    full = grid_ops.grid_reduce_query(route.grid, route.q, resp[:, None], "max",
+                                      qg=route.qg)[1][:, 0]
+    keep_m = ok & (resp >= masked) & (resp > threshold)
+    keep_f = ok & (resp >= full) & (resp > threshold)
+    above = resp > threshold
+    answered = int(route.qg.cell_ok.sum())
+    swept = int(grid_ops.masked_query_grid(route.qg, above, resp.shape[0]).cell_ok.sum())
+    require(torch.equal(keep_m, keep_f) and _same_bits(masked[above], full[above]),
+            f"{label}: the threshold-masked suppression keeps {int(keep_m.sum())} points, the "
+            f"full one {int(keep_f.sum())}; bit for bit required")
+    log(f"{label}: Harris through L on the first cloud: the 6-channel response's mirrored "
+        f"sums bit for bit the 9-channel sweep's ({mirrored.shape[0]} queries); the "
+        f"suppression swept {swept} of {answered} answered queries ({swept / answered}, "
+        f"response above {threshold}), its keep ({int(keep_m.sum())} points) bit for bit the "
+        f"full suppression's")
+    del route, six, nine, outer
+    torch.cuda.empty_cache()
 
 
 def sift_stages():
@@ -3884,20 +3987,24 @@ def stage_recorder(stages, features_at, pairs_at):
 
 @contextlib.contextmanager
 def harris_split():
-    """Host ms of each Harris extraction (`detect_keypoints_harris`, between
-    two synchronisations) split by its radius_reduce calls: the response (a
-    9-channel sum over every point), the suppression (a 1-channel max) and
-    each refinement step (a 12-channel sum over the keypoints), and inside
-    each call its `build_grid` sorts apart (the target grid's, built with
-    the point mask, and the query grid's), each between two
-    synchronisations; the rest of the extraction (the top-k, the solves)
-    as `other_ms`. One record a Harris extraction, in call order."""
-    from mapmerge_torch.ops import grid as grid_ops
+    """Host ms of each Harris extraction on the grid
+    (`detect_keypoints_harris`, between two synchronisations) split into
+    its `build_grid` sorts (the target grid, built with the valid mask, and
+    the query grid: two an extraction), its target's tile boxes, its kernel
+    L calls (grid_reduce_query: the response, a 6-channel sum over every
+    point; the suppression, a 1-channel max over the points above the
+    threshold; each refinement step, a 9-channel sum over the keypoints),
+    each between two synchronisations, and the rest of the extraction (the
+    top-k, the solves) as `other_ms`; beside them the extraction's launches
+    of grid_pack, grid_reduce and grid_reduce_list. One record a Harris
+    extraction, in call order."""
+    from mapmerge_torch.kernels import grid as kgrid
     from mapmerge_torch.ops import keypoints as keypoint_ops
     from mapmerge_torch.ops.keypoints import harris as harris_ops
 
     rec: list = []
-    state: dict = {"cloud": None, "call": None}
+    state: dict = {"cloud": None}
+    counted = (kgrid.PACK_KERNEL, kgrid.REDUCE_KERNEL, kgrid.REDUCE_LIST_KERNEL)
 
     def timed(fn, *args, **kwargs):
         torch.cuda.synchronize()
@@ -3908,25 +4015,28 @@ def harris_split():
 
     def detect(fn):
         def wrapper(*args, **kwargs):
-            state["cloud"] = cloud = {"calls": []}
+            state["cloud"] = cloud = {"sorts": [], "boxes_ms": 0.0, "calls": []}
+            before = [k.launches for k in counted]
             out, cloud["ms"] = timed(fn, *args, **kwargs)
+            cloud["launches"] = {k.name: k.launches - b for k, b in zip(counted, before)}
             state["cloud"] = None
-            cloud["other_ms"] = cloud["ms"] - sum(c["ms"] for c in cloud["calls"])
+            cloud["other_ms"] = (cloud["ms"] - sum(c["ms"] for c in cloud["calls"])
+                                 - sum(s["ms"] for s in cloud["sorts"]) - cloud["boxes_ms"])
             rec.append(cloud)
             return out
 
         return wrapper
 
     def reduce(fn):
-        def wrapper(q, p, radius, values, *args, **kwargs):
+        def wrapper(grid, q, values, reduce="sum", **kwargs):
             if state["cloud"] is None:
-                return fn(q, p, radius, values, *args, **kwargs)
-            name = ("suppression" if kwargs.get("reduce", "sum") == "max"
-                    else "response" if values.shape[1] == 9 else "refinement")
-            state["call"] = call = {"call": name, "queries": q.shape[0],
-                                    "channels": values.shape[1], "sorts": []}
-            out, call["ms"] = timed(fn, q, p, radius, values, *args, **kwargs)
-            state["call"] = None
+                return fn(grid, q, values, reduce, **kwargs)
+            name = ("suppression" if reduce == "max"
+                    else "response" if values.shape[1] == 6 else "refinement")
+            qg = kwargs.get("qg")
+            call = {"call": name, "queries": q.shape[0], "channels": values.shape[1],
+                    "answered": q.shape[0] if qg is None else int(qg.cell_ok.sum())}
+            out, call["ms"] = timed(fn, grid, q, values, reduce, **kwargs)
             state["cloud"]["calls"].append(call)
             return out
 
@@ -3934,36 +4044,59 @@ def harris_split():
 
     def sort(fn):
         def wrapper(xyz, mask, *args, **kwargs):
-            if state["call"] is None:
+            if state["cloud"] is None:
                 return fn(xyz, mask, *args, **kwargs)
             out, ms = timed(fn, xyz, mask, *args, **kwargs)
-            state["call"]["sorts"].append(
-                {"grid": "query" if mask is None else "target", "ms": ms})
+            state["cloud"]["sorts"].append({"grid": "query" if mask is None else "target",
+                                            "ms": ms})
+            return out
+
+        return wrapper
+
+    def boxes(fn):
+        def wrapper(grid):
+            if state["cloud"] is None:
+                return fn(grid)
+            out, ms = timed(fn, grid)
+            state["cloud"]["boxes_ms"] += ms
             return out
 
         return wrapper
 
     with patched({(keypoint_ops, "detect_keypoints_harris"): detect,
-                  (harris_ops, "radius_reduce"): reduce, (grid_ops, "build_grid"): sort}):
+                  (harris_ops, "grid_reduce_query"): reduce, (harris_ops, "build_grid"): sort,
+                  (harris_ops.grid_kernels, "boxes"): boxes}):
         yield rec
 
 
 def log_harris_split(label: str, rec: list) -> None:
-    """The first Harris extraction's split by call (harris_split), and the
-    run's sums by call and by sort."""
+    """The first Harris extraction's split (harris_split), and the run's
+    sums by call and by sort; each extraction is required to sort twice
+    (one target grid, one query grid) and to launch L twice on its sweep
+    route and three times on its list route."""
     if not rec:
         return
     sums: dict = {}
     for cloud in rec:
         for call in cloud["calls"]:
             sums[call["call"]] = sums.get(call["call"], 0.0) + call["ms"]
-            for s in call["sorts"]:
-                key = f"{s['grid']} sorts"
-                sums[key] = sums.get(key, 0.0) + s["ms"]
+        for s in cloud["sorts"]:
+            key = f"{s['grid']} sorts"
+            sums[key] = sums.get(key, 0.0) + s["ms"]
+        sums["boxes"] = sums.get("boxes", 0.0) + cloud["boxes_ms"]
         sums["other"] = sums.get("other", 0.0) + cloud["other_ms"]
+    kinds = [sorted(s["grid"] for s in cloud["sorts"]) for cloud in rec]
     log(f"{label} Harris split of the first cloud (ms): {json.dumps(rec[0])}")
-    log(f"{label} Harris split summed over {len(rec)} extractions (ms, sorts inside "
-        f"their calls): {json.dumps(sums)}, Harris {sum(c['ms'] for c in rec)}")
+    log(f"{label} Harris split summed over {len(rec)} extractions (ms): {json.dumps(sums)}, "
+        f"Harris {sum(c['ms'] for c in rec)}; sorts an extraction "
+        f"{[len(k) for k in kinds]}; launches an extraction "
+        f"{[c['launches'] for c in rec]}")
+    require(all(k == ["query", "target"] for k in kinds),
+            f"{label}: Harris extractions sorted {kinds}, expected one target and one query "
+            "grid each")
+    require(all(c["launches"]["grid_reduce"] == 2 and c["launches"]["grid_reduce_list"] == 3
+                for c in rec), f"{label}: L's launches an extraction "
+            f"{[c['launches'] for c in rec]}, expected 2 sweeps and 3 list calls")
 
 
 def run_config2(dev, kernels):
@@ -4009,6 +4142,7 @@ def run_config2(dev, kernels):
     hold_on_path_inputs("config #2", seen, nn, spfh, launches,
                         exact=True)
     hold_harris_keypoints("config #2", seen)
+    hold_harris_route("config #2", seen)
     hold_graph("config #2", seen)
 
     require(len(cold) == CONFIG2_MAPS and all(
@@ -4985,6 +5119,7 @@ def run_config3(dev, kernels) -> None:
     require_route("config #3", launches, "grid", seen["pairs"])
     hold_on_path_inputs("config #3", seen, nn, spfh, launches, exact=True)
     hold_harris_keypoints("config #3", seen)
+    hold_harris_route("config #3", seen)
     hold_graph("config #3", seen, solves=False)
 
     require(cold.shape == (4, 4) and np.isfinite(cold).all() and bool(est.ok),
@@ -5575,6 +5710,49 @@ def kernel_entry(k, stats: dict) -> dict:
     }
 
 
+def reduce_ptxas(build) -> dict:
+    """The ptxas report of each of kernel L's instantiations in grid.cu's
+    build log (its sum's grid_radius_kernel<ReduceOp<C>>, its max's
+    grid_max_kernel<C>, its list route's grid_reduce_list_kernel<max, C>;
+    C = 0 the generic width): registers a thread, spill stores and loads,
+    stack frame and static shared memory, by the demangled name where
+    c++filt is found."""
+    import re
+    import shutil
+    import subprocess
+
+    report = build.library_path("grid.cu").with_suffix(".log")
+    if not report.exists():
+        return {}
+    out, name = {}, None
+    for line in report.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1) if re.search(
+                r"ReduceOp|grid_max_kernel|grid_reduce_list_kernel", m.group(1)) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(name, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(name, {}).update(registers=int(m.group(1)),
+                                            smem=int(smem.group(1)) if smem else 0)
+    filt = shutil.which("c++filt")
+    if filt and out:
+        names = subprocess.run([filt], input="\n".join(out), capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        if len(names) == len(out):
+            out = {re.sub(r"\(anonymous namespace\)::", "", n).split("(")[0]: v
+                   for n, v in zip(names, out.values())}
+    return out
+
+
 def phase(label: str, fn, *args):
     """fn(*args), its wall time printed."""
     t0 = time.perf_counter()
@@ -5637,6 +5815,7 @@ def main() -> int:
         report = build.library_path(source).with_suffix(".log")
         if report.exists():
             log(report.read_text().strip())
+    log(f"kernel L's instantiations (ptxas -v): {json.dumps(reduce_ptxas(build))}")
 
     stats = {"nearest_neighbor": check_nn(dev, nn),
              "nearest_neighbor_batched": check_nn_batched(dev, nn),

@@ -68,8 +68,9 @@
 //   candidate positions the max also meets the plain version's -BIG of a
 //   non-member. The count and the max are bit for bit; the sum adds the
 //   same terms as the plain version's bmm in another order (the sweep
-//   route in candidate order, the list route a lane's slots in order, then
-//   a fixed shuffle tree), so the two agree to rounding (kernels/grid.py
+//   route in candidate order, each channel on its own, so a channel's sum
+//   does not depend on C; the list route a lane's slots in order, then a
+//   fixed shuffle tree), so the two agree to rounding (kernels/grid.py
 //   states the tolerance), and a launch repeats bit for bit. A non-member's
 //   value is never read: the plain bmm's 0 x v of a non-member with a NaN
 //   value has no counterpart.
@@ -162,16 +163,22 @@
 //    query, where H's loop costs the tile's filled slots whatever the
 //    ballot. Where they are many, each straddling lane loops over the
 //    slots, which costs less a pair than a step (PERF.md).
-// L's sweep route (grid_radius_kernel with ReduceOp) is H's: the same
-// pre-pass, units, walk and box tests, each lane adding its members in
-// slot order; a tile's C values a slot are loaded, through its staged
-// point indices, into registers before the members are marked and into
-// shared memory after. L's list route (grid_reduce_list_kernel, at most
-// 4,096 queries: Harris's refinement) needs no query grid and drops no
-// query: a warp a query, its lanes over the filled slots of the query's
-// distinct neighbours, with no culling (27 x cap candidates a query, ~3.5
-// million pairs a call at 1,024 queries and cap 128).
-// What bounds L is H's chain of members a query, each adding C values
+// L's sum on the sweep route (grid_radius_kernel with ReduceOp) is H's: the
+// same pre-pass, units, walk and box tests, each lane adding its members in
+// slot order; a tile's C values a slot are loaded, through its staged point
+// indices, into registers before the members are marked and into shared
+// memory after. L's max on the sweep route (grid_max_kernel) is I's: a max
+// is exact in any order, so a tile's straddling queries are maxed a step a
+// query with the lanes on the slots (a warp max of an order-preserving
+// integer key of each member's value) or a lane a query over the slots, as
+// kLoopTenths decides. Both are instantiated for the widths on the paths (C
+// = 1, 6 and 9, their arrays, registers and scratch that wide) and once for
+// any C up to 16. L's list route (grid_reduce_list_kernel, at most 4,096
+// queries: Harris's refinement) needs no query grid and drops no query: a
+// warp a query, its lanes over the filled slots of the query's distinct
+// neighbours, a tile of 32 slots skipped where its box (the pre-pass's)
+// lies beyond the radius of the query.
+// What bounds L's sum is H's chain of members a query, each adding C values
 // where H adds ten sums; the values are read once a visited tile.
 // No FMA contraction (-fmad=false), no fast-math; the pre-pass's atomics
 // only hand out where a run of units goes and count its unit CTAs done.
@@ -401,11 +408,18 @@ struct SmoothOp {
   }
 };
 
-// Kernel L's sweep route: the count and the sum or the NaN-propagating max
-// (kMax) of each member's C <= kMaxChannels values, read in place through
-// the target's cell_idx (ValStage), a member being a target point within r2
-// (sq_dist, the plain version's d2).
+// Kernel L's sweep route for the sum: the count and the sum of each
+// member's values, read in place through the target's cell_idx (ValStage),
+// a member being a target point within r2 (sq_dist, the plain version's
+// d2). The width is fixed at compile time where kC > 0 (1, 6 or 9: the
+// widths on the paths), so C = 1 carries one float a lane; kC = 0 takes any
+// C <= kMaxChannels at run time, its arrays kMaxChannels wide. The max has
+// a kernel of its own (grid_max_kernel).
 constexpr int kMaxChannels = 16;  // L: the widest value row a launch takes
+
+// the arrays' width of a kernel of width kC (0: any, up to kMaxChannels)
+template <int kC>
+constexpr int kWidth = kC > 0 ? kC : kMaxChannels;
 
 // the larger of a and b, NaN where either is NaN (amax's rule; fmaxf drops
 // a NaN): one max.NaN.f32 (sm_80 and up)
@@ -416,64 +430,68 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 }
 
 // the values of the tile being consumed: slot j's channel c at j C + c
+template <int kW>
 struct ReduceScratch {
-  float val[kT * kMaxChannels];
+  float val[kT * kW];
 };
 
 // a lane's share of a tile's values, loaded before its members are marked
+template <int kW>
 struct TileVals {
-  float v[kMaxChannels];
+  float v[kW];
 };
 
-template <bool kMax>
+template <int kC>
 struct ReduceOp {
   static constexpr bool kValues = true;
+  static constexpr int kW = kWidth<kC>;
   using Stage = ValStage;
-  using Scratch = ReduceScratch;
+  using Scratch = ReduceScratch<kW>;
   const float* values;  // (P, channels): the values of each target point
-  int channels;
-  int candidates;       // a query slot's candidate positions, 27 cap
+  int channels;         // kC where kC > 0
   int* count_out;       // (nq,)
   float* out;           // (nq, channels)
 
+  __device__ __forceinline__ int width() const { return kC > 0 ? kC : channels; }
+
   struct State {
     int n;
-    float acc[kMaxChannels];
+    float acc[kW];
   };
   __device__ __forceinline__ State init() const {
     State s;
     s.n = 0;
 #pragma unroll
-    for (int c = 0; c < kMaxChannels; ++c) s.acc[c] = kMax ? -__int_as_float(0x7f800000) : 0.f;
+    for (int c = 0; c < kW; ++c) s.acc[c] = 0.f;
     return s;
   }
-  // element lane + 32 i of the staged tile's n x channels values (0 past
-  // them), through its slots' point indices
-  __device__ __forceinline__ TileVals value(const Stage& st, int lane) const {
-    TileVals t;
-    const int total = st.n * channels;
+  // element lane + 32 i of the staged tile's n x C values (0 past them),
+  // through its slots' point indices
+  __device__ __forceinline__ TileVals<kW> value(const Stage& st, int lane) const {
+    TileVals<kW> t;
+    const int w = width(), total = st.n * w;
 #pragma unroll
-    for (int i = 0; i < kMaxChannels; ++i) {
+    for (int i = 0; i < kW; ++i) {
       const int k = lane + 32 * i;
-      t.v[i] = k < total ? __ldg(values + st.idx[k / channels] * channels + k % channels) : 0.f;
+      t.v[i] = k < total ? __ldg(values + st.idx[k / w] * w + k % w) : 0.f;
     }
     return t;
   }
   // The warp, all lanes: this lane's members among the tile's n points
   // (where `reach`) marked, the tile's values stored, then each member's
-  // values added (or maxed) in slot order. Returns how many.
+  // values added in slot order, each channel on its own. Returns how many.
   __device__ __forceinline__ int tile(State& s, float qx, float qy, float qz, bool reach,
-                                      const float4* pt, int n, const TileVals& t, Scratch& x,
-                                      int lane, float r2) const {
+                                      const float4* pt, int n, const TileVals<kW>& t,
+                                      Scratch& x, int lane, float r2) const {
     unsigned m = 0;
     if (reach) {
       for (int j = 0; j < n; ++j) {
         m |= static_cast<unsigned>(sq_dist(qx, qy, qz, pt[j].x, pt[j].y, pt[j].z) <= r2) << j;
       }
     }
-    const int total = n * channels;
+    const int w = width(), total = n * w;
 #pragma unroll
-    for (int i = 0; i < kMaxChannels; ++i) {
+    for (int i = 0; i < kW; ++i) {
       const int k = lane + 32 * i;
       if (k < total) x.val[k] = t.v[i];
     }
@@ -483,29 +501,40 @@ struct ReduceOp {
     while (m != 0) {
       const int j = __ffs(static_cast<int>(m)) - 1;
       m &= m - 1;
-      const float* v = x.val + j * channels;
+      const float* v = x.val + j * w;
 #pragma unroll
-      for (int c = 0; c < kMaxChannels; ++c) {
-        if (c < channels) s.acc[c] = kMax ? nan_max(s.acc[c], v[c]) : __fadd_rn(s.acc[c], v[c]);
+      for (int c = 0; c < kW; ++c) {
+        if (c < w) s.acc[c] = __fadd_rn(s.acc[c], v[c]);
       }
     }
     return added;
   }
-  // the count, and each channel: the sum, or the max with the plain
-  // version's -BIG of a non-member where the query has one (fewer members
-  // than candidate positions)
+  // the count and each channel's sum
   __device__ __forceinline__ void write(const State& s, long long row, float, float,
                                         float) const {
+    const int w = width();
     count_out[row] = s.n;
 #pragma unroll
-    for (int c = 0; c < kMaxChannels; ++c) {
-      if (c < channels) {
-        out[row * channels + c] =
-            kMax && s.n < candidates ? nan_max(s.acc[c], -kBig) : s.acc[c];
-      }
+    for (int c = 0; c < kW; ++c) {
+      if (c < w) out[row * w + c] = s.acc[c];
     }
   }
 };
+
+// L's max, order-free: a member's value enters through its key, an
+// unsigned integer in the float's order (a larger float, a larger key),
+// every NaN the largest key, so an integer max is amax's NaN-propagating
+// max; 0 stands for no member (below every float's key).
+__device__ __forceinline__ unsigned max_key(float v) {
+  const unsigned u = __float_as_uint(v);
+  return v != v ? 0xffffffffu : ((u & 0x80000000u) ? ~u : (u | 0x80000000u));
+}
+
+// the float of a key other than 0 (a NaN for the NaN key)
+__device__ __forceinline__ float key_value(unsigned k) {
+  return k == 0xffffffffu ? __int_as_float(0x7fffffff)
+                          : __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
 
 // ---- kernels G and K: one warp a unit of one bucket's queries ----
 
@@ -1218,6 +1247,186 @@ grid_count_kernel(const float* __restrict__ t_xyz, const float4* __restrict__ bo
   }
 }
 
+// ---- kernel L's max: I's schedule, the values' keys maxed ----
+
+// a warp's shared memory: its directory, its ring (tiles with their slots'
+// point indices), its unit's queries, the tile being maxed a lane a query
+// and its values' keys, the batch's tiles and its unit's slots
+template <int kW>
+struct MaxShared {
+  TileDir dir;
+  ValStage ring[kStages];
+  float4 q[32];          // the unit's queries, a lane each
+  float4 pt[kT];         // the tile, as float4 points, where the lanes loop
+  unsigned key[kT * kW]; // and its slot j's channel c key at j kW + c
+  int2 tile[32];
+  int slots[32];
+};
+
+// Kernel L's max on the sweep route: I's kernel with each member's values
+// maxed. Warp w of the grid takes unit w of the pre-pass's list, a lane a
+// query, walks its bucket's tiles (NearTiles) and on each tile that arrives
+// takes the lanes whose query straddles the radius (box_bound within r2).
+// Each lane loads its slot's values (through the staged point indices) as
+// keys (max_key). Where the straddling queries are few against the tile's
+// filled slots (kLoopTenths) the warp takes a step a straddling query, four
+// a pass, lanes on the slots: a ballot of the slots within r2 of the query
+// (sq_dist, the plain version's d2), its popcount added to the query's
+// count, and a warp max (__reduce_max_sync) a channel of the keys of those
+// slots, maxed into the query's lane; else each straddling lane loops over
+// the slots, its keys and points in shared memory. A max is exact in any
+// order, so the result is the plain version's whatever the order: per
+// answered row the member count and, per channel, the value of the largest
+// key, with the plain version's -BIG of a non-member where the query has
+// fewer members than its `candidates` positions (27 cap); NaN where a
+// member's value is NaN. With kCount, `counters` receives I's 8 counts a
+// warp that takes a unit (grid_count_kernel's).
+template <int kC, bool kCount>
+__global__ void __launch_bounds__(kThreads)
+grid_max_kernel(const float* __restrict__ t_xyz, const long long* __restrict__ t_idx,
+                const float4* __restrict__ boxes, const int* __restrict__ t_count,
+                const float* __restrict__ values, int channels, int candidates,
+                const float* __restrict__ q_xyz, const long long* __restrict__ q_idx,
+                const unsigned char* __restrict__ q_ok, const int* __restrict__ units,
+                int max_units, int cap, int gx, int gy, int gz, float r2, bool a16,
+                int* __restrict__ count_out, float* __restrict__ out,
+                long long* __restrict__ counters) {
+  constexpr int kW = kWidth<kC>;
+  __shared__ MaxShared<kW> shared[kWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  MaxShared<kW>& sh = shared[warp];
+  const int w = kC > 0 ? kC : channels;
+  const int tiles = (cap + kT - 1) / kT, gmax = (cap + 31) / 32;
+  const float nan = __int_as_float(0x7fc00000);
+  const long long u = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (u >= min(units[0], max_units)) return;  // the whole warp
+  const int code = units[1 + u];
+  const int b = code / gmax;
+  candidate_directory(sh.dir, b, gx, gy, gz, t_count, cap, lane);
+  const int slot = unit_slot(q_ok + static_cast<long long>(b) * cap, cap, code % gmax * 32,
+                             sh.slots, lane);
+  const bool active = slot >= 0;
+  const long long qslot = static_cast<long long>(b) * cap + (active ? slot : 0);
+  const float qx = active ? q_xyz[3 * qslot] : nan;  // NaN: within no bound
+  const float qy = active ? q_xyz[3 * qslot + 1] : nan;
+  const float qz = active ? q_xyz[3 * qslot + 2] : nan;
+  const Box qb = warp_box(active, qx, qy, qz);
+  sh.q[lane] = make_float4(qx, qy, qz, 0.f);  // read by the steps after the ring's syncs
+  int n = 0;  // this lane's members
+  unsigned acc[kW];  // and the largest key of each channel
+#pragma unroll
+  for (int c = 0; c < kW; ++c) acc[c] = 0u;
+  long long pairs = 0, visited = 0, straddling = 0, steps = 0, looped = 0;
+
+  NearTiles walk;
+  sweep(sh.ring, [&]() { return walk.next(sh.dir, sh.tile, boxes, qb, tiles, r2, lane); },
+        [&](ValStage& st, int2 t) {
+          issue_tile(st, t_xyz, boxes, t, tiles, cap, a16, lane);
+          const long long g0 = static_cast<long long>(t.x / tiles) * cap + t.x % tiles * kT;
+          if (lane < t.y) cp_async8_ca(&st.idx[lane], t_idx + g0 + lane);
+        },
+        [&](const ValStage& g) {
+    const bool mine = lane < g.n;  // this lane's slot
+    unsigned key[kW];  // its values' keys, 0 past the filled slots
+#pragma unroll
+    for (int c = 0; c < kW; ++c) {
+      key[c] = mine && c < w ? max_key(__ldg(values + g.idx[lane] * w + c)) : 0u;
+    }
+    unsigned s = __ballot_sync(kAll, box_bound(qx, qy, qz, g.lo, g.hi) <= r2);
+    const bool loop = __popc(s) * 10 > g.n * kLoopTenths;  // warp-uniform
+    if constexpr (kCount) {
+      pairs += static_cast<long long>(__popc(s)) * g.n;
+      ++visited;
+      straddling += __popc(s);
+      steps += 1 + (s == 0 ? 0 : (loop ? g.n : __popc(s)));
+      looped += s != 0 && loop;
+    }
+    if (s == 0) return;  // warp-uniform
+    if (loop) {  // a lane a straddling query
+      if (mine) {
+        sh.pt[lane] = make_float4(g.pt[3 * lane], g.pt[3 * lane + 1], g.pt[3 * lane + 2], 0.f);
+#pragma unroll
+        for (int c = 0; c < kW; ++c) sh.key[lane * kW + c] = key[c];
+      }
+      __syncwarp();
+      if ((s >> lane) & 1u) {
+        for (int j = 0; j < g.n; ++j) {
+          const float4 p = sh.pt[j];
+          if (sq_dist(qx, qy, qz, p.x, p.y, p.z) <= r2) {
+            ++n;
+#pragma unroll
+            for (int c = 0; c < kW; ++c) acc[c] = max(acc[c], sh.key[j * kW + c]);
+          }
+        }
+      }
+      return;  // the ring's __syncwarp comes before the next tile's writes
+    }
+    const float px = mine ? g.pt[3 * lane] : nan;  // NaN past the filled slots
+    const float py = mine ? g.pt[3 * lane + 1] : nan;
+    const float pz = mine ? g.pt[3 * lane + 2] : nan;
+    // the next straddling query (-1 past the last) and the lanes' slots
+    // within r2 of it (query j read by every lane)
+    const auto next = [&s]() {
+      const int j = __ffs(static_cast<int>(s)) - 1;
+      s &= s - 1;
+      return j;
+    };
+    const auto step = [&](int j) {
+      const float4 a = sh.q[max(j, 0)];
+      return __ballot_sync(kAll, sq_dist(a.x, a.y, a.z, px, py, pz) <= r2);
+    };
+    // the members' largest key of each channel into query j's lane
+    const auto take = [&](int j, unsigned m) {
+      if (j < 0 || m == 0) return;  // warp-uniform
+      const bool in = (m >> lane) & 1u;
+#pragma unroll
+      for (int c = 0; c < kW; ++c) {
+        if (c < w) {
+          const unsigned top = __reduce_max_sync(kAll, in ? key[c] : 0u);
+          if (lane == j) acc[c] = max(acc[c], top);
+        }
+      }
+      if (lane == j) n += __popc(m);
+    };
+    do {  // four straddling queries a pass; past the last, j = -1 (no lane's)
+      const int j0 = next(), j1 = next(), j2 = next(), j3 = next();
+      const unsigned m0 = step(j0), m1 = step(j1), m2 = step(j2), m3 = step(j3);
+      take(j0, m0);
+      take(j1, m1);
+      take(j2, m2);
+      take(j3, m3);
+    } while (s != 0);
+  });
+
+  if (active) {
+    const long long row = q_idx[qslot];
+    count_out[row] = n;
+    const unsigned floor = n < candidates ? max_key(-kBig) : 0u;  // a non-member's -BIG
+#pragma unroll
+    for (int c = 0; c < kW; ++c) {
+      if (c < w) out[row * w + c] = key_value(max(acc[c], floor));
+    }
+  }
+  if constexpr (kCount) {
+    const int answered = __popc(__ballot_sync(kAll, active));
+    long long members = n;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) members += __shfl_xor_sync(kAll, members, o);
+    if (lane == 0) {
+      long long* c = counters + kCountCounters * (static_cast<long long>(blockIdx.x) * kWarps +
+                                                  warp);
+      c[0] = pairs;
+      c[1] = visited;
+      c[2] = 1;
+      c[3] = answered;
+      c[4] = members;
+      c[5] = straddling;
+      c[6] = steps;
+      c[7] = looped;
+    }
+  }
+}
+
 // ---- kernel L's list route: a warp a query, no query grid ----
 
 // The wrapped bucket of a point: floor(x * inv) per axis as a 64-bit
@@ -1238,42 +1447,69 @@ __device__ __forceinline__ int bucket_of(float x, float y, float z, float inv, i
 // core/grid._candidates masks them), and lane l the filled slots l, l + 32,
 // ... of each neighbour in turn: a member (sq_dist <= r2) adds 1 to the
 // lane's count and its values to the lane's sums (or maxes) in that order.
-// The lanes' parts are then combined by a fixed butterfly of shuffles (xor
-// 16, 8, 4, 2, 1; a + b == b + a, so every lane holds the same bits), and
-// lane 0 writes the count and the channels, the max with the plain
-// version's -BIG of a non-member where the query has one. A launch repeats
-// bit for bit.
-template <bool kMax>
+// Slots t * 32 .. t * 32 + 31 of a neighbour are its tile t, whose box the
+// pre-pass wrote: the lanes bound 32 of the query's tiles at once, and the
+// warp skips a tile whose box bound from the query (box_bound: <= the d2
+// of every point in the box, in the same rounded operations) lies beyond
+// r2, which holds no member, so the lanes add the same members in the same
+// order as with no culling. The lanes' parts are
+// then combined by a fixed butterfly of shuffles (xor 16, 8, 4, 2, 1; a + b
+// == b + a, so every lane holds the same bits), and lane 0 writes the count
+// and the channels, the max with the plain version's -BIG of a non-member
+// where the query has one. The width is fixed at compile time where kC > 0,
+// else `channels` <= kMaxChannels. A launch repeats bit for bit.
+template <bool kMax, int kC>
 __global__ void __launch_bounds__(kThreads)
 grid_reduce_list_kernel(const float* __restrict__ t_xyz, const long long* __restrict__ t_idx,
-                        const int* __restrict__ t_count, const float* __restrict__ values,
-                        int channels, const float* __restrict__ q, int nq, int cap, int gx,
-                        int gy, int gz, float inv_cell, float r2, int* __restrict__ count_out,
+                        const int* __restrict__ t_count, const float4* __restrict__ boxes,
+                        const float* __restrict__ values, int channels,
+                        const float* __restrict__ q, int nq, int cap, int gx, int gy, int gz,
+                        float inv_cell, float r2, int* __restrict__ count_out,
                         float* __restrict__ out) {
+  constexpr int kW = kWidth<kC>;
   __shared__ int ids[kWarps][32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long qi = static_cast<long long>(blockIdx.x) * kWarps + warp;
   if (qi >= nq) return;  // the whole warp
+  const int w = kC > 0 ? kC : channels;
+  const int tiles = (cap + kT - 1) / kT;
   const float qx = q[3 * qi], qy = q[3 * qi + 1], qz = q[3 * qi + 2];
   const int n = neighbour_ids(ids[warp], bucket_of(qx, qy, qz, inv_cell, gx, gy, gz), gx, gy,
                               gz, lane);
   int found = 0;
-  float acc[kMaxChannels];
+  float acc[kW];
 #pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c) acc[c] = kMax ? -__int_as_float(0x7f800000) : 0.f;
-  for (int k = 0; k < n; ++k) {
-    const long long base = static_cast<long long>(ids[warp][k]) * cap;
-    const int filled = min(__ldg(t_count + ids[warp][k]), cap);
-    for (int s = lane; s < filled; s += 32) {
-      const float* p = t_xyz + 3 * (base + s);
-      if (sq_dist(qx, qy, qz, __ldg(p), __ldg(p + 1), __ldg(p + 2)) <= r2) {
+  for (int c = 0; c < kW; ++c) acc[c] = kMax ? -__int_as_float(0x7f800000) : 0.f;
+  // the query's tiles, position k tiles + t for tile t of neighbour k: 32
+  // positions a pass, each lane bounding one, then the positions within r2
+  // in order (candidate order), lane l on slot t kT + l of each
+  for (int base = 0; base < n * tiles; base += 32) {
+    const int p = base + lane;
+    int nb = 0, filled = 0;
+    bool near = false;
+    if (p < n * tiles) {
+      nb = ids[warp][p / tiles];
+      filled = min(__ldg(t_count + nb), cap);
+      const int t = p % tiles;
+      if (t * kT < filled) {
+        const long long box = 2LL * (static_cast<long long>(nb) * tiles + t);
+        near = box_bound(qx, qy, qz, __ldg(boxes + box), __ldg(boxes + box + 1)) <= r2;
+      }
+    }
+    unsigned left = __ballot_sync(kAll, near);
+    while (left != 0) {  // warp-uniform
+      const int j = __ffs(static_cast<int>(left)) - 1;
+      left &= left - 1;
+      const int tnb = __shfl_sync(kAll, nb, j), tfilled = __shfl_sync(kAll, filled, j);
+      const int s = (base + j) % tiles * kT + lane;
+      const long long slot = static_cast<long long>(tnb) * cap + s;
+      const float* pt = t_xyz + 3 * slot;
+      if (s < tfilled && sq_dist(qx, qy, qz, __ldg(pt), __ldg(pt + 1), __ldg(pt + 2)) <= r2) {
         ++found;
-        const float* v = values + __ldg(t_idx + base + s) * channels;
+        const float* v = values + __ldg(t_idx + slot) * w;
 #pragma unroll
-        for (int c = 0; c < kMaxChannels; ++c) {
-          if (c < channels) {
-            acc[c] = kMax ? nan_max(acc[c], __ldg(v + c)) : __fadd_rn(acc[c], __ldg(v + c));
-          }
+        for (int c = 0; c < kW; ++c) {
+          if (c < w) acc[c] = kMax ? nan_max(acc[c], __ldg(v + c)) : __fadd_rn(acc[c], __ldg(v + c));
         }
       }
     }
@@ -1282,7 +1518,7 @@ grid_reduce_list_kernel(const float* __restrict__ t_xyz, const long long* __rest
   for (int o = 16; o > 0; o >>= 1) {
     found += __shfl_xor_sync(kAll, found, o);
 #pragma unroll
-    for (int c = 0; c < kMaxChannels; ++c) {
+    for (int c = 0; c < kW; ++c) {
       const float other = __shfl_xor_sync(kAll, acc[c], o);
       acc[c] = kMax ? nan_max(acc[c], other) : __fadd_rn(acc[c], other);
     }
@@ -1290,10 +1526,8 @@ grid_reduce_list_kernel(const float* __restrict__ t_xyz, const long long* __rest
   if (lane == 0) {
     count_out[qi] = found;
 #pragma unroll
-    for (int c = 0; c < kMaxChannels; ++c) {
-      if (c < channels) {
-        out[qi * channels + c] = kMax && found < kNbr * cap ? nan_max(acc[c], -kBig) : acc[c];
-      }
+    for (int c = 0; c < kW; ++c) {
+      if (c < w) out[qi * w + c] = kMax && found < kNbr * cap ? nan_max(acc[c], -kBig) : acc[c];
     }
   }
 }
@@ -1646,8 +1880,12 @@ extern "C" int mm_grid_knn(const float* t_xyz, const long long* t_idx, const int
 // Kernel L's sweep route: values (P, channels) f32, 1 <= channels <= 16,
 // the values of each target point, read in place through t_idx (h, cap)
 // i64; is_max 0 (sum) or 1 (max); count_out (nq,) i32 and out (nq,
-// channels) f32 at the answered rows. The pre-pass and the radius kernel
-// (ReduceOp), boxes, units and counters as kernel H's.
+// channels) f32 at the answered rows. The pre-pass, then the sum on the
+// radius kernel (ReduceOp) or the max on grid_max_kernel, each of width 1,
+// 6 or 9 where channels is one of them, else of any width up to 16; boxes
+// and units as kernel H's; counters: null, or (counters_len,) i64
+// receiving 5 counts a warp (the sum, grid_radius_kernel's) or 8 (the max,
+// grid_max_kernel's).
 extern "C" int mm_grid_reduce(const float* t_xyz, const long long* t_idx, const int* t_count,
                               const float* values, int channels, int is_max, const float* q_xyz,
                               const long long* q_idx, const unsigned char* q_ok,
@@ -1659,34 +1897,75 @@ extern "C" int mm_grid_reduce(const float* t_xyz, const long long* t_idx, const 
       static_cast<long long>(kNbr) * cap >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int candidates = kNbr * cap;
-  if (is_max) {
-    return launch_radius(ReduceOp<true>{values, channels, candidates, count_out, out}, 1, t_xyz,
-                         t_idx, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz, r2,
-                         boxes, units, max_units, counters, counters_len, stream);
+  if (!is_max) {
+    const auto sum = [&](auto op) {
+      return launch_radius(op, 1, t_xyz, t_idx, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx,
+                           gy, gz, r2, boxes, units, max_units, counters, counters_len, stream);
+    };
+    switch (channels) {
+      case 1: return sum(ReduceOp<1>{values, channels, count_out, out});
+      case 6: return sum(ReduceOp<6>{values, channels, count_out, out});
+      case 9: return sum(ReduceOp<9>{values, channels, count_out, out});
+      default: return sum(ReduceOp<0>{values, channels, count_out, out});
+    }
   }
-  return launch_radius(ReduceOp<false>{values, channels, candidates, count_out, out}, 1, t_xyz,
-                       t_idx, t_count, q_xyz, q_idx, q_ok, q_count, h, cap, gx, gy, gz, r2,
-                       boxes, units, max_units, counters, counters_len, stream);
+  const int blocks = max_units < 1 ? 0 : (max_units + kWarps - 1) / kWarps;
+  if (!grid_shape_ok(h, cap, gx, gy, gz) || max_units < 1 ||
+      (counters != nullptr &&
+       counters_len < static_cast<long long>(kCountCounters) * blocks * kWarps)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = launch_pack(t_xyz, t_count, q_count, h, cap, boxes, units, max_units, st);
+  if (err != 0) return err;
+  const auto launch_max = [&](auto counted, auto plain) {
+    const auto kernel = counters != nullptr ? counted : plain;
+    kernel<<<blocks, kThreads, 0, st>>>(t_xyz, t_idx, reinterpret_cast<const float4*>(boxes),
+                                        t_count, values, channels, kNbr * cap, q_xyz, q_idx,
+                                        q_ok, units, max_units, cap, gx, gy, gz, r2,
+                                        aligned16(t_xyz, cap), count_out, out, counters);
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (channels) {
+    case 1: return launch_max(grid_max_kernel<1, true>, grid_max_kernel<1, false>);
+    case 6: return launch_max(grid_max_kernel<6, true>, grid_max_kernel<6, false>);
+    case 9: return launch_max(grid_max_kernel<9, true>, grid_max_kernel<9, false>);
+    default: return launch_max(grid_max_kernel<0, true>, grid_max_kernel<0, false>);
+  }
 }
 
 // Kernel L's list route: q (nq, 3) f32, each query answered (no query
-// grid); values, channels and is_max as mm_grid_reduce's; inv_cell the
-// float32 value of 1 / the target grid's cell edge; count_out (nq,) i32,
-// out (nq, channels) f32. One launch, a warp a query.
+// grid); values, channels and is_max as mm_grid_reduce's; boxes the
+// pre-pass's tile boxes of the target grid (mm_grid_pack's, for its filled
+// tiles); inv_cell the float32 value of 1 / the target grid's cell edge;
+// count_out (nq,) i32, out (nq, channels) f32. One launch, a warp a query,
+// of width 1, 6 or 9 where channels is one of them, else of any width up
+// to 16.
 extern "C" int mm_grid_reduce_list(const float* t_xyz, const long long* t_idx,
-                                   const int* t_count, const float* values, int channels,
-                                   int is_max, const float* q, int nq, int h, int cap, int gx,
-                                   int gy, int gz, float inv_cell, float r2, int* count_out,
-                                   float* out, void* stream) {
-  if (channels < 1 || channels > kMaxChannels || values == nullptr || nq < 1 ||
-      !grid_shape_ok(h, cap, gx, gy, gz) || static_cast<long long>(kNbr) * cap >= (1LL << 31)) {
+                                   const int* t_count, const float* boxes, const float* values,
+                                   int channels, int is_max, const float* q, int nq, int h,
+                                   int cap, int gx, int gy, int gz, float inv_cell, float r2,
+                                   int* count_out, float* out, void* stream) {
+  if (channels < 1 || channels > kMaxChannels || values == nullptr || boxes == nullptr ||
+      nq < 1 || !grid_shape_ok(h, cap, gx, gy, gz) ||
+      static_cast<long long>(kNbr) * cap >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int blocks = (nq + kWarps - 1) / kWarps;
-  const auto kernel = is_max ? grid_reduce_list_kernel<true> : grid_reduce_list_kernel<false>;
-  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      t_xyz, t_idx, t_count, values, channels, q, nq, cap, gx, gy, gz, inv_cell, r2, count_out,
-      out);
-  return static_cast<int>(cudaGetLastError());
+  const auto run = [&](auto kernel) {
+    kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        t_xyz, t_idx, t_count, reinterpret_cast<const float4*>(boxes), values, channels, q, nq,
+        cap, gx, gy, gz, inv_cell, r2, count_out, out);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (is_max) {
+    return channels == 1 ? run(grid_reduce_list_kernel<true, 1>)
+                         : run(grid_reduce_list_kernel<true, 0>);
+  }
+  switch (channels) {
+    case 1: return run(grid_reduce_list_kernel<false, 1>);
+    case 6: return run(grid_reduce_list_kernel<false, 6>);
+    case 9: return run(grid_reduce_list_kernel<false, 9>);
+    default: return run(grid_reduce_list_kernel<false, 0>);
+  }
 }

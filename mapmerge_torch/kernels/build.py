@@ -124,10 +124,11 @@ SOURCES = {
             _vp, _vp, _vp, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _cf,
             _vp, _vp, _ci, _vp, _vp, _vp, _cll, _vp,
         ],
-        # L's list route: no query grid, the cell edge's float32 reciprocal
+        # L's list route: the target's tile boxes, no query grid, the cell
+        # edge's float32 reciprocal
         "mm_grid_reduce_list": [
-            _vp, _vp, _vp, _vp, _ci, _ci, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _cf, _cf, _vp,
-            _vp, _vp,
+            _vp, _vp, _vp, _vp, _vp, _ci, _ci, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _cf, _cf,
+            _vp, _vp, _vp,
         ],
     },
     "mapmerge_native.cpp": {

@@ -38,20 +38,22 @@ exactly, every tile whose box bound cannot come before a query's
 threshold in (d2, slot) order. H, I, J and L add every member, a point
 within the fixed radius: a unit walks its neighbours' tiles in candidate
 order and skips, exactly, every tile whose box lies beyond the radius of
-its queries' box, then of each lane's query. H, J and L add each lane's
-members in the sweep's order (the bits of the one-thread-a-slot sweep H
-and J replaced). I needs no order:
-where a tile's straddling queries are few, the warp's lanes test the
-tile's slots against one query a step, else each straddling lane loops
-over the slots. A
-caller that queries one target grid many times (ICP) makes its boxes once
-(`boxes`, also counted as "grid_pack") and passes them to `nn_query`, whose
-pre-pass then lists the units alone. `select_counters` launches G, K, H,
+its queries' box, then of each lane's query. H, J and L's sum add each
+lane's members in the sweep's order (the bits of the one-thread-a-slot
+sweep H and J replaced). I and L's max need no order: where a tile's
+straddling queries are few, the warp's lanes test the tile's slots against
+one query a step (L's max a warp max of its members' values), else each
+straddling lane loops over the slots. L is built for the widths
+REDUCE_WIDTHS and once for any other C. A caller that queries one target
+grid many times (ICP, Harris) makes its boxes once (`boxes`, also counted
+as "grid_pack") and passes them to `nn_query`, whose pre-pass then lists
+the units alone, or to `reduce_list`, whose warps skip a tile whose box
+lies beyond the radius of their query. `select_counters` launches G, K, H,
 I, J or L's sweep route once more with its counters on: the pairs it
 compared, the tiles it visited, its units and the share of their lanes
-that answer a query; H, I, J and L also the members they added, I its
-straddling (query, tile) pairs, its warp steps and the tiles it counted a
-lane a query.
+that answer a query; H, I, J and L also the members they added, I and L's
+max their straddling (query, tile) pairs, warp steps and tiles done a lane
+a query.
 
 - `nn_query` equals `nn_query_ref` bit for bit: idx and d2.
 - `count` equals `count_ref` bit for bit, the include_self subtraction
@@ -74,11 +76,13 @@ lane a query.
   as (0, BIG, BIG <= r2).
 - `reduce` and `reduce_list` have `reduce_ref`'s and `reduce_list_ref`'s
   counts and maxes bit for bit (NaN where NaN); their sums add the same
-  float32 terms in another order (candidate order; on the list route a
-  lane's slots, then a fixed shuffle tree), against the plain bmm's, and
-  agree within REDUCE_RTOL of the members' sum of |v| (`reduce_error`).
-  Both read each member's values in place through cell_idx; the list route
-  launches no pre-pass and builds no query grid.
+  float32 terms in another order (candidate order, each channel on its
+  own, so a channel's sum does not depend on C; on the list route a lane's
+  slots, then a fixed shuffle tree), against the plain bmm's, and agree
+  within REDUCE_RTOL of the members' sum of |v| (`reduce_error`). Both
+  read each member's values in place through cell_idx; the list route
+  builds no query grid and, given the target's boxes, launches no
+  pre-pass.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. The wrappers copy nothing to the host and never synchronise (J's
@@ -151,6 +155,9 @@ MAX_K = 26
 TILE = 32
 #: the most channels of values kernel L takes (csrc/grid.cu: kMaxChannels)
 MAX_CHANNELS = 16
+#: the widths kernel L is built for, its arrays that wide; any other C up to
+#: MAX_CHANNELS takes its generic instantiation (csrc/grid.cu: kWidth)
+REDUCE_WIDTHS = (1, 6, 9)
 #: kernel L's sum against its plain version: within REDUCE_RTOL of the sum
 #: of |v| over the query's members, per query and channel (the sums add the
 #: same float32 terms in another order: candidate order, or the list
@@ -252,13 +259,18 @@ def reduce(
 
 
 def reduce_list(
-    grid, q: torch.Tensor, values: torch.Tensor, r2: float, op: str
+    grid, q: torch.Tensor, values: torch.Tensor, r2: float, op: str,
+    boxes: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """`reduce` for a few queries (the small-Q path): every query answered,
     no query grid, its candidates the filled slots of the distinct wrapped
-    neighbours of the bucket its coordinates fall in. A CPU tensor takes
-    reduce_list_ref; a CUDA tensor launches kernel L's list route (one
-    launch, a warp a query, no pre-pass) or raises."""
+    neighbours of the bucket its coordinates fall in. `boxes`: `boxes(grid)`
+    made earlier for this grid, as it still is (Harris's target), or None
+    to make them in the call. A CPU tensor takes reduce_list_ref (which
+    needs no boxes); a CUDA tensor launches kernel L's list route (one
+    launch, a warp a query, each tile of 32 slots skipped where its box lies
+    beyond r2 of the query; the pre-pass's boxes first where none are
+    given) or raises."""
     if q.device.type == "cpu":
         return reduce_list_ref(grid, q, values, r2, op)
     kernel = REDUCE_LIST_KERNEL
@@ -274,16 +286,21 @@ def reduce_list(
     if gx * gy * gz != h or 27 * cap >= 2**31 or nq >= 2**31 - 4:
         raise ValueError(f"{kernel.name}: unsupported grid H={h} C={cap} dims={grid.dims}, "
                          f"Q={nq}")
+    if boxes is not None:
+        build.require(f"{kernel.name}: boxes", boxes, torch.float32, (h * -(-cap // TILE), 2, 4),
+                      dev)
     count, out = _reduce_outputs(nq, channels, op, dev)
     if nq == 0:
         return count, out
+    if boxes is None:
+        boxes = _tile_boxes(grid)
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.mm_grid_reduce_list(
             grid.cell_xyz.data_ptr(), grid.cell_idx.data_ptr(), grid.count.data_ptr(),
-            values.data_ptr(), channels, int(op == "max"), q.data_ptr(), nq, h, cap, gx, gy, gz,
-            cgrid._f32(1.0 / grid.cell_size), r2, count.data_ptr(), out.data_ptr(),
-            build.stream_handle(dev))
+            boxes.data_ptr(), values.data_ptr(), channels, int(op == "max"), q.data_ptr(), nq,
+            h, cap, gx, gy, gz, cgrid._f32(1.0 / grid.cell_size), r2, count.data_ptr(),
+            out.data_ptr(), build.stream_handle(dev))
     kernel.launched()
     build.check_launch(kernel, err)
     return count, out
@@ -326,12 +343,17 @@ def pack(grid, qg, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def boxes(grid) -> torch.Tensor:
     """The pre-pass's tile boxes of a target grid alone, for a caller that
-    queries the grid many times (ICP) and passes them to `nn_query`: as
-    `boxes_ref`, but the boxes of empty tiles are not written. A CPU grid
-    takes boxes_ref; a CUDA grid launches the pre-pass (counted as
-    "grid_pack") or raises."""
+    queries the grid many times (ICP, Harris) and passes them to `nn_query`
+    or `reduce_list`: as `boxes_ref`, but the boxes of empty tiles are not
+    written. A CPU grid takes boxes_ref; a CUDA grid launches the pre-pass
+    (counted as "grid_pack") or raises."""
     if grid.cell_xyz.device.type == "cpu":
         return boxes_ref(grid)
+    return _tile_boxes(grid)
+
+
+def _tile_boxes(grid) -> torch.Tensor:
+    """`boxes` of a grid on the card."""
     # the grid stands as its own query grid: only its shape is checked
     dev, _, dims = _operands(PACK_KERNEL, grid, grid, grid.cell_xyz.new_empty((0, 3)))
     out = _empty_boxes(grid, dev)
@@ -544,16 +566,20 @@ def select_counters(name: str, grid, qg, q, *args) -> dict:
     of which walks the units again); I also the straddling (query, tile)
     pairs, its warp steps (one a tile visited for its bounds, then one a
     straddling query, or one a filled slot where the lanes loop) and the
-    tiles counted a lane a query (`looped`)."""
-    smooth, count = name == "grid_smooth", name == "grid_count"
+    tiles counted a lane a query (`looped`), and so does L's max, which runs
+    on I's schedule."""
+    smooth = name == "grid_smooth"
+    # L's max runs on I's schedule and gives I's counts
+    count = name == "grid_count" or (name == "grid_reduce" and args[-1] == "max")
     if name in ("grid_nn", "grid_knn"):
         width = 4
         counters = torch.zeros((COUNTERS_LEN,), dtype=torch.int64, device=q.device)
         kernel = NN_KERNEL if name == "grid_nn" else KNN_KERNEL
         _select(kernel, grid, qg, q, *args, counters=counters)
     else:
-        # 5 counts a warp (I COUNT_COUNTERS), a warp for each unit the
-        # buffer holds (rounded up to CTAs of 4), in each of J's sigma groups
+        # 5 counts a warp (COUNT_COUNTERS for I and L's max), a warp for
+        # each unit the buffer holds (rounded up to CTAs of 4), in each of
+        # J's sigma groups
         width = COUNT_COUNTERS if count else 5
         groups = -(-len(args[1]) // SIGMA_GROUP) if smooth else 1
         warps = -(-units_max(q.shape[0], grid.cell_idx.shape[0]) // 4) * 4
@@ -564,7 +590,7 @@ def select_counters(name: str, grid, qg, q, *args) -> dict:
         elif name == "grid_reduce":
             values, r2, op = args
             _radius(REDUCE_KERNEL, grid, qg, q, r2, values, counters=counters, op=op)
-        elif count:
+        elif name == "grid_count":
             r2, include_self = (*args, True)[:2]
             _radius(COUNT_KERNEL, grid, qg, q, r2, sub=0 if include_self else 1,
                     counters=counters)

@@ -10,11 +10,14 @@ The bounded 1-NN, the radius moments, the radius count, the Gaussian
 smoothing, the k nearest of a large query set and the radius reduce
 (grid_nn_query, grid_neighbor_moments, grid_radius_count,
 grid_gaussian_smooth, the big-Q branch of grid_radius_neighbors and
-grid_radius_reduce) run kernels G, H, I, J, K and L (kernels/grid.py),
-which read both grids in place with no host read; FPFH's SPFH sweep reads
-the grid so too (kernels/spfh.spfh_grid). radius_reduce's small-Q path is
-L's list route, a warp a query over its 27 neighbour blocks; the small-Q
-path of radius_neighbors gathers them directly.
+grid_radius_reduce and grid_reduce_query) run kernels G, H, I, J, K and L
+(kernels/grid.py), which read both grids in place with no host read;
+FPFH's SPFH sweep reads the grid so too (kernels/spfh.spfh_grid).
+radius_reduce's small-Q path is L's list route, a warp a query over its 27
+neighbour blocks; the small-Q path of radius_neighbors gathers them
+directly. grid_nn_query and grid_reduce_query take a target grid built
+before, so that a caller that queries one grid many times (ICP, Harris)
+sorts its points once.
 
 The grid's own names (CellGrid, build_grid, grid_query, ...) are those of
 core/grid.py, taken in here so that this module offers the reference
@@ -45,7 +48,7 @@ __all__ = [
     "BIG", "SMALL_Q_THRESHOLD", "CellGrid", "build_grid",
     "default_dims", "grid_query", "masked_query_grid", "max_bucket_count",
     "grid_radius_count", "grid_radius_neighbors", "grid_nearest_neighbor",
-    "grid_nn_query", "grid_radius_reduce", "grid_neighbor_moments",
+    "grid_nn_query", "grid_radius_reduce", "grid_reduce_query", "grid_neighbor_moments",
     "grid_gaussian_smooth",
 ]
 
@@ -191,19 +194,38 @@ def grid_radius_reduce(
     dims: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Grid twin of neighbors.radius_reduce: (count, sum or max of values,
-    query-overflow count). At most SMALL_Q_THRESHOLD queries take the
-    small-Q path (every query answered, overflow 0 there: kernel L's list
-    route, kernels/grid.reduce_list); more take the query grid and kernel
-    L's sweep route (kernels/grid.reduce)."""
+    query-overflow count). Builds the target grid, then grid_reduce_query."""
     if reduce not in ("sum", "max"):
         raise ValueError(f"unknown reduce: {reduce}")
     grid = build_grid(p, p_mask, radius, dims, scan_cap)
-    r2 = _f32(radius * radius)
+    return grid_reduce_query(grid, q, values, reduce)
+
+
+def grid_reduce_query(
+    grid: CellGrid,
+    q: torch.Tensor,
+    values: torch.Tensor,
+    reduce: str = "sum",
+    qg: CellGrid | None = None,
+    boxes: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """radius_reduce against a PREBUILT target grid whose cell edge is the
+    radius (Harris builds its grids once an extraction): (count, sum or
+    max of `values` (P, C) of each query's members, query-overflow count).
+    At most SMALL_Q_THRESHOLD queries take the small-Q path (every query
+    answered, overflow 0 there: kernel L's list route, kernels/grid.
+    reduce_list, given the target's tile boxes `boxes` where made before);
+    more take the query grid `qg` (build_grid(q, None, the grid's cell,
+    dims and cap) where None, or a grid of its slots, e.g.
+    masked_query_grid's: the rows of the others keep the defaults, count 0
+    and 0 or -BIG) and kernel L's sweep route (kernels/grid.reduce)."""
+    r2 = _f32(grid.cell_size * grid.cell_size)
     values = values.contiguous()
     if q.shape[0] <= SMALL_Q_THRESHOLD:
-        count, out = grid_kernels.reduce_list(grid, q, values, r2, reduce)
+        count, out = grid_kernels.reduce_list(grid, q, values, r2, reduce, boxes=boxes)
         return count, out, torch.zeros((), dtype=torch.int32, device=q.device)
-    qg = build_grid(q, None, grid.cell_size, grid.dims, grid.cap)
+    if qg is None:
+        qg = build_grid(q, None, grid.cell_size, grid.dims, grid.cap)
     count, out = grid_kernels.reduce(grid, qg, q, values, r2, reduce)
     return count, out, qg.overflow
 

@@ -4,6 +4,7 @@ inputs, on one card, for a before/after comparison.
     python3 mapmerge_torch/testing/kernel_ab.py record INPUTS.pt
     python3 mapmerge_torch/testing/kernel_ab.py record-radius INPUTS.pt
     python3 mapmerge_torch/testing/kernel_ab.py record-grid INPUTS.pt
+    python3 mapmerge_torch/testing/kernel_ab.py record-harris INPUTS.pt
     python3 mapmerge_torch/testing/kernel_ab.py time INPUTS.pt ROOT [PREFIX]
 
 `record` drives config #1 and the registry sweep's FPFH + SAC_IA path
@@ -51,13 +52,19 @@ bit) and its device time by kernel name under torch.profiler, as the tile
 pre-pass's inputs also get; I's inputs also time the grid pre-pass alone
 (`grid.pack`: "grid_pack config #2", "grid_pack config5_big"), held
 against pack_ref, with its device time by kernel name (and memset).
-Kernel L's first calls on config #2's first cloud (Harris's response and
-suppression, `grid.reduce`, and a refinement step, `grid.reduce_list`)
-are timed so too, held against their plain versions (the count and the
-max bit for bit, the sum within REDUCE_RTOL), L's device time split from
-the pre-pass's by kernel name; a checkout without L reports them absent.
-`record-grid` saves the grid kernels' inputs alone. PREFIX may name
-several prefixes, separated by commas.
+Kernel L's calls of the first Harris extraction of eval config #2 and of
+eval config #3 are made from that extraction's arguments with the plain
+versions (harris_reduce_inputs: the response on 9 and on 6 channels, the
+suppression over every query and over those above the threshold,
+`grid.reduce`; the first refinement step on 12 and on 9 channels,
+`grid.reduce_list`), so every checkout is timed on the same operands
+through its own signature; they are held against the checkout's plain
+versions (the count and the max bit for bit, the sum within
+REDUCE_RTOL), L's device time split from the pre-pass's by kernel name;
+a checkout without L reports them absent. `record-grid` saves the grid
+kernels' inputs alone, `record-harris` L's alone (and prints the share of
+the answered queries above Harris's threshold). PREFIX may name several
+prefixes, separated by commas.
 Compare in one process order on one card: parent, change, change, parent.
 C, D, E and F are timed through their
 wrappers with no `packed` buffer, so each time holds the pre-pass, as an
@@ -380,9 +387,6 @@ def record_grid_select(cs, dev) -> dict:
     kept["grid_nn config #2"] = seen["grid_nn icp"]
     kept["grid_moments config #2"] = seen["grid_moments"]
     kept["grid_count config #2"] = seen["grid_count"]
-    for key, call in cs.REDUCE_CALLS:  # kernel L, where the checkout has it
-        if key in seen:
-            kept[f"{key.split()[0]} config #2 {call}"] = seen[key]
     del clouds, seen
     views, _ = town_views(cs.CONFIG5_MAPS, cs.CONFIG5_VIEW_TARGET, keep=0.8, seed=5)
     cap = 1 << int(np.ceil(np.log2(len(views[0][0]))))
@@ -404,7 +408,134 @@ def record_grid_select(cs, dev) -> dict:
         kept[f"grid_pack {label}"] = (kept[f"grid_count {label}"][0][:3], {})
     # the positional arguments only: G's `boxes` from ICP are the change's,
     # and each checkout makes its own
-    return {name: ([_grid_fields(a) for a in args], {}) for name, (args, _) in kept.items()}
+    kept = {name: ([_grid_fields(a) for a in args], {}) for name, (args, _) in kept.items()}
+    kept.update(record_harris_reduce(cs, dev))
+    return kept
+
+
+def record_harris(out: Path) -> None:
+    """Kernel L's Harris inputs alone (record_harris_reduce)."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+
+    inputs = record_harris_reduce(cs, torch.device("cuda", torch.cuda.current_device()))
+    torch.save(inputs, out)
+    print(f"recorded {sorted(inputs)} to {out}")
+
+
+#: Harris's distinct channels of n n^T in its row-major 3 x 3: the upper
+#: triangle xx, xy, xz, yy, yz, zz (ops/keypoints/harris.UPPER)
+UPPER = (0, 1, 2, 4, 5, 8)
+
+
+def harris_arguments(cs, cloud, params) -> dict:
+    """The arguments, defaults applied, of the first Harris extraction of
+    the feature stage of `cloud` under `params` (detect_keypoints_harris,
+    as pipeline/features calls it)."""
+    import inspect
+
+    from mapmerge_torch.ops import keypoints as keypoint_ops
+    from mapmerge_torch.pipeline.features import extract_features
+
+    seen: list = []
+
+    def make(fn):
+        signature = inspect.signature(fn)
+
+        def wrapper(*args, **kwargs):
+            if not seen:
+                bound = signature.bind(*args, **kwargs)
+                bound.apply_defaults()
+                seen.append(dict(bound.arguments))
+            return fn(*args, **kwargs)
+
+        return wrapper
+
+    with cs.patched({(keypoint_ops, "detect_keypoints_harris"): make}):
+        extract_features(cloud, params)
+    return seen[0]
+
+
+def harris_reduce_inputs(label: str, args: dict) -> tuple[dict, dict]:
+    """Kernel L's calls of one Harris extraction on the grid, made here
+    from its arguments with the plain versions, so that every checkout is
+    timed on the same operands whatever its own Harris route: the target
+    grid (the points valid in the mask and the normals) and the query grid
+    of every point, built once; the response on all 9 channels of n n^T
+    ("grid_reduce LABEL response") and on their upper triangle ("...
+    response C=6"); the suppression, a max of the response, over every
+    answered query ("... suppression") and over those whose response is
+    above the threshold ("... suppression masked": the query grid's slots
+    and-ed with it, core/grid.masked_query_grid); the first refinement step
+    on the list route, on the 9 + 3 channels ("grid_reduce_list LABEL
+    refinement") and on 6 + 3 ("... refinement C=9"). Returns (the inputs,
+    the share of the answered queries above the threshold and their
+    counts)."""
+    from mapmerge_torch.core.grid import BIG, _f32, build_grid, masked_query_grid
+    from mapmerge_torch.kernels import grid as kgrid
+    from mapmerge_torch.ops.rigid import _det3
+
+    cloud, normals, radius = args["cloud"], args["normals"], args["radius"]
+    q = cloud.xyz.contiguous()
+    ok = cloud.mask & normals.valid
+    grid = build_grid(q, ok, radius, None, args["scan_cap"])
+    qg = build_grid(q, None, grid.cell_size, grid.dims, grid.cap)
+    r2 = _f32(radius * radius)
+    n = torch.where(normals.valid[:, None], normals.normals, 0.0)
+    outer = (n[:, :, None] * n[:, None, :]).reshape(-1, 9).contiguous()
+    c = kgrid.reduce_ref(grid, qg, q, outer, r2, "sum")[1].reshape(-1, 3, 3)
+    trace = c[:, 0, 0] + c[:, 1, 1] + c[:, 2, 2]
+    resp = torch.where(ok, _det3(c) - 0.04 * trace * trace, -BIG)[:, None].contiguous()
+    nmax = kgrid.reduce_ref(grid, qg, q, resp, r2, "max")[1][:, 0]
+    above = resp[:, 0] > args["threshold"]
+    keep = ok & (resp[:, 0] >= nmax) & above
+    k = min(args["max_keypoints"], q.shape[0])
+    kp = q[torch.topk(torch.where(keep, resp[:, 0], -BIG), k)[1]].contiguous()
+    nntp = (outer.reshape(-1, 3, 3) * q[:, None, :]).sum(dim=-1)
+    upper = outer[:, list(UPPER)].contiguous()
+    mqg = masked_query_grid(qg, above, q.shape[0])
+    answered, swept = int(qg.cell_ok.sum()), int(mqg.cell_ok.sum())
+    share = {"answered": answered, "above_threshold": swept,
+             "share": swept / max(answered, 1), "threshold": args["threshold"],
+             "keypoints": int(keep.sum())}
+    inputs = {
+        f"grid_reduce {label} response": (grid, qg, q, outer, r2, "sum"),
+        f"grid_reduce {label} response C=6": (grid, qg, q, upper, r2, "sum"),
+        f"grid_reduce {label} suppression": (grid, qg, q, resp, r2, "max"),
+        f"grid_reduce {label} suppression masked": (grid, mqg, q, resp, r2, "max"),
+        f"grid_reduce_list {label} refinement": (
+            grid, kp, torch.cat([outer, nntp], dim=-1).contiguous(), r2, "sum"),
+        f"grid_reduce_list {label} refinement C=9": (
+            grid, kp, torch.cat([upper, nntp], dim=-1).contiguous(), r2, "sum"),
+    }
+    return {name: ([_grid_fields(a) for a in a_], {}) for name, a_ in inputs.items()}, share
+
+
+def record_harris_reduce(cs, dev) -> dict:
+    """Kernel L's inputs on the first cloud of eval config #2 and of eval
+    config #3 (harris_reduce_inputs on the arguments of its first Harris
+    extraction, at chip_smoke.py's sizes and parameters), with the share of
+    the answered queries whose response lies above the threshold, printed
+    as one JSON line."""
+    from mapmerge_torch.core.cloud import PointCloud
+    from mapmerge_torch.testing.scene import town_views
+
+    kept, shares = {}, {}
+    for label, (maps, target, kw), cap, params in (
+        ("config #2", (cs.CONFIG2_MAPS, cs.CONFIG2_VIEW_TARGET, {}), cs.CONFIG2_CAP,
+         cs.config2_params()),
+        ("config #3", (2, 800_000, {"keep": 0.75, "seed": 9}), cs.CONFIG3_CAP,
+         cs.config3_params()),
+    ):
+        views, _ = town_views(maps, target, **kw)
+        cloud = PointCloud.from_numpy(*views[0], capacity=cap, device=dev)
+        del views
+        inputs, shares[label] = harris_reduce_inputs(label, harris_arguments(cs, cloud, params))
+        kept.update(inputs)
+        del cloud
+        torch.cuda.synchronize()
+    print(json.dumps({"harris_above_threshold": shares}))
+    return kept
 
 
 def _grid_fields(a):
@@ -512,13 +643,18 @@ def time_grid_count(kgrid, args) -> dict:
 
 def time_grid_reduce(kgrid, name: str, args) -> dict:
     """Kernel L of the checkout on one saved input, its sweep route
-    (`reduce`) or its list route (`reduce_list`): held against its plain
-    version (the count exactly, the max bit for bit, the sum within
-    REDUCE_RTOL of the members' sum of |v|) and against a second call bit
-    for bit, a digest of its output, three medians of 20 timed calls
-    through the wrapper, the device time of a call by kernel name (L's and
-    the grid pre-pass's apart: device_ms) and, on the sweep route, its
-    counters. A checkout without L reports the input absent."""
+    (`reduce`) or its list route (`reduce_list`), through the checkout's
+    own signature: held against its plain version (the count exactly, the
+    max bit for bit, the sum within REDUCE_RTOL of the members' sum of |v|)
+    and against a second call bit for bit, a digest of its output, three
+    medians of 20 timed calls through the wrapper, the device time of a call
+    by kernel name (L's and the grid pre-pass's apart: device_ms) and, on
+    the sweep route, its counters. Where the checkout's list route takes the
+    target's tile boxes made before (`boxes=`, as Harris gives them), three
+    more medians and the device time given them (`kept_ms`,
+    `kept_device_ms`). A checkout without L reports the input absent."""
+    import inspect
+
     if not hasattr(kgrid, "reduce"):
         return {"absent": True}
     args = [_as_grid(a) for a in args]
@@ -537,12 +673,21 @@ def time_grid_reduce(kgrid, name: str, args) -> dict:
         magnitudes[2 if list_route else 3] = values.abs()
         err = kgrid.reduce_error(got[1], want[1], plain(*magnitudes)[1])
         held = held and err <= kgrid.REDUCE_RTOL
+    kept = kept_device = None
+    if list_route and "boxes" in inspect.signature(kernel).parameters:
+        boxes = kgrid.boxes(grid)
+        given = kernel(*args, boxes=boxes)
+        held = held and all(torch.equal(a, b) for a, b in zip(given, got))
+        kept = [time_ms(lambda: kernel(*args, boxes=boxes)) for _ in range(3)]
+        kept_device = device_ms(lambda: kernel(*args, boxes=boxes))
+    answered = int(args[1].cell_ok.sum()) if not list_route else q.shape[0]
     return {
-        "shape": f"Q={q.shape[0]} C={values.shape[1]} {args[-1]} grid "
+        "shape": f"Q={q.shape[0]} ({answered} answered) C={values.shape[1]} {args[-1]} grid "
                  f"{tuple(grid.cell_idx.shape)} dims {grid.dims}",
         "held": held, "err_of_members_abs": err, "digest": _digest(got),
         "ms": [time_ms(lambda: kernel(*args)) for _ in range(3)],
         "device_ms": device_ms(lambda: kernel(*args)),
+        "kept_ms": kept, "kept_device_ms": kept_device,
         "counters": None if list_route else kgrid.select_counters("grid_reduce", *args),
     }
 
@@ -781,6 +926,8 @@ def main(argv: list[str]) -> int:
         record_radius(Path(argv[1]))
     elif len(argv) == 2 and argv[0] == "record-grid":
         record_grid(Path(argv[1]))
+    elif len(argv) == 2 and argv[0] == "record-harris":
+        record_harris(Path(argv[1]))
     elif len(argv) in (3, 4) and argv[0] == "time":
         time_root(Path(argv[1]), Path(argv[2]), *argv[3:])
     else:

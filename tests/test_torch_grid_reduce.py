@@ -9,28 +9,33 @@ lane a query): a unit walks the tiles of its bucket's distinct neighbours
 in candidate order (ascending neighbour id, then tile), skips a tile whose
 box lies beyond r2 of the box of its queries, and on each tile it visits
 every lane whose own box bound is within r2 adds its members' values in
-slot order (sum), or takes their NaN-propagating max. The list route (at
-most SMALL_Q_THRESHOLD queries, each answered) is a warp a query: lane l
-takes the filled slots l, l + 32, ... of each distinct neighbour in turn,
-and the lanes' parts meet in a fixed butterfly (xor 16, 8, 4, 2, 1).
+slot order (the sum, each channel on its own); the max runs on kernel I's
+schedule (order-free: its counters are I's, `count_model`'s). The list
+route (at most SMALL_Q_THRESHOLD queries, each answered) is a warp a query:
+lane l takes the filled slots l, l + 32, ... of each distinct neighbour in
+turn, skipping a tile of 32 slots whose box lies beyond r2 of the query,
+and the lanes' parts meet in a fixed butterfly (xor 16, 8, 4, 2, 1). Both
+are built for 1, 6 and 9 channels (REDUCE_WIDTHS) and for any C up to 16.
 
 Here: numpy float32 models of both routes (`sweep_model`, `list_model`),
 held under hypothesis (1-2-cell dims, caps of 32-256, masked targets,
 parked queries, queries exactly at the radius and a float32 step either
-side, 1, 9 and 12 channels, sum and max): the count and the max bit for bit
-the plain versions (reduce_ref, reduce_list_ref), the sum within
-REDUCE_RTOL of the members' sum of |v|, and the sweep model's culled
-schedule bit for bit the same adds in candidate order unculled; the plain
-versions against the JAX package's grid_radius_reduce on both branches;
-the wrappers' card path (the meta device stands in for the card: one C
-call, the sweep route's pre-pass counted as "grid_pack" with it, no
-gather of the values into the grid's layout, the counters' buffer, a
-raise on an unsupported channel count or a failed launch).
+side, a masked subset of the query grid's slots, 1, 6, 9 and 12 channels,
+sum and max): the count and the max bit for bit the plain versions
+(reduce_ref, reduce_list_ref), the sum within REDUCE_RTOL of the members'
+sum of |v|, and each model's culled schedule bit for bit the same adds in
+candidate order unculled; the plain versions against the JAX package's
+grid_radius_reduce on both branches; the wrappers' card path (the meta
+device stands in for the card: one C call, the sweep route's pre-pass
+counted as "grid_pack" with it, the list route's only where it is given no
+boxes, no gather of the values into the grid's layout, the counters'
+buffer, a raise on an unsupported channel count or a failed launch).
 
-The `cuda` cases hold both routes bit for bit against the models (sum) or
-the plain versions (count, max), repeating, and the sweep route's counters
-equal to the model's; they skip here. On a machine with a GPU: `python -m
-pytest tests/test_torch_grid_reduce.py -m cuda --noconftest`.
+The `cuda` cases hold both routes at each width bit for bit against the
+models (sum) or the plain versions (count, max), repeating, and the sweep
+route's counters equal to the model's (the max's to count_model's); they
+skip here. On a machine with a GPU: `python -m pytest
+tests/test_torch_grid_reduce.py -m cuda --noconftest`.
 """
 
 import math
@@ -49,7 +54,9 @@ from mapmerge_torch.kernels import build
 from mapmerge_torch.kernels import grid as kgrid
 from mapmerge_torch.ops import grid as tg
 
-from test_torch_grid_count_cull import CARD_CASES, CELLS, card_count_case, on_the_sphere
+from test_torch_grid_count_cull import (
+    CARD_CASES, CELLS, card_count_case, count_model, on_the_sphere,
+)
 from test_torch_grid_kernels import (  # noqa: F401 (card_path: a fixture)
     _grids, _meta_grid, _to, card_path, neighbours,
 )
@@ -157,15 +164,19 @@ def sweep_model(grid, qg, q, values, r2: float, op: str, cull: bool = True):
     return torch.from_numpy(count), torch.from_numpy(out), counts
 
 
-def list_model(grid, q, values, r2: float, op: str):
+def list_model(grid, q, values, r2: float, op: str, cull: bool = True):
     """csrc/grid.cu's L on its list route in numpy float32, a query at a
     time: (count, out). Lane l adds (or maxes) the members among the filled
     slots l, l + 32, ... of each distinct neighbour of the query's bucket
-    in turn; then at each step of the butterfly (o = 16, 8, 4, 2, 1) lane l
-    meets lane l ^ o; lane 0's result is the row's."""
+    in turn, a tile of 32 slots skipped where its box (boxes_ref) lies
+    beyond r2 of the query (`cull` False: none skipped, the same adds);
+    then at each step of the butterfly (o = 16, 8, 4, 2, 1) lane l meets
+    lane l ^ o; lane 0's result is the row's."""
     t_xyz, t_idx, t_count = (a.numpy() for a in (grid.cell_xyz, grid.cell_idx, grid.count))
+    boxes = kgrid.boxes_ref(grid).numpy()
     vals = values.numpy()
     cap = t_idx.shape[1]
+    n_tiles = -(-cap // TILE)
     r2 = np.float32(r2)
     c = vals.shape[1]
     combine = _combine(op)
@@ -178,10 +189,15 @@ def list_model(grid, q, values, r2: float, op: str):
         found = [0] * 32
         for nb in neighbours(int(b), grid.dims):
             filled = min(int(t_count[nb]), cap)
-            hit = np.flatnonzero(sq_dist(qn[i], t_xyz[nb, :filled]) <= r2)
-            for s in hit:
-                found[s % 32] += 1
-                acc[s % 32] = combine(acc[s % 32], vals[t_idx[nb, s]])
+            for t in range(-(-filled // TILE)):
+                lo, hi = boxes[nb * n_tiles + t, 0, :3], boxes[nb * n_tiles + t, 1, :3]
+                if cull and not box_bound(qn[i], lo, hi) <= r2:
+                    continue  # no member of this query in the tile
+                first = t * TILE
+                pts = t_xyz[nb, first : min(filled, first + TILE)]
+                for j in np.flatnonzero(sq_dist(qn[i], pts) <= r2):
+                    found[j] += 1
+                    acc[j] = combine(acc[j], vals[t_idx[nb, first + j]])
         for o in (16, 8, 4, 2, 1):
             acc = [combine(acc[lane], acc[lane ^ o]) for lane in range(32)]
             found = [found[lane] + found[lane ^ o] for lane in range(32)]
@@ -218,7 +234,10 @@ def make_values(seed: int, n: int, c: int, ties: bool = False) -> torch.Tensor:
 
 def hold_sweep(grid, qg, tq, values, r2, op):
     """The sweep model against reduce_ref, and its culled schedule bit for
-    bit its unculled adds. Returns the model's counters."""
+    bit its unculled adds. Returns the model's (count, out) and the
+    kernel's counters as the models give them: the sum's the sweep
+    model's, the max's count_model's (I's schedule, whose members are the
+    count's)."""
     count, out, counts = sweep_model(grid, qg, tq, values, r2, op)
     want = kgrid.reduce_ref(grid, qg, tq, values, r2, op)
     scale = kgrid.reduce_ref(grid, qg, tq, values.abs(), r2, "sum")[1]
@@ -226,15 +245,21 @@ def hold_sweep(grid, qg, tq, values, r2, op):
     full = sweep_model(grid, qg, tq, values, r2, op, cull=False)
     assert torch.equal(full[0], count) and same_bits(full[1], out)
     assert counts["members"] == int(want[0].long().sum())
-    return counts
+    if op == "max":
+        counted, counts = count_model(grid, qg, tq, r2)
+        assert torch.equal(counted, count)
+    return count, out, counts
 
 
 def hold_list(grid, tq, values, r2, op):
-    """The list model against reduce_list_ref."""
+    """The list model against reduce_list_ref, its culled tiles the
+    unculled adds' bits."""
     got = list_model(grid, tq, values, r2, op)
     want = kgrid.reduce_list_ref(grid, tq, values, r2, op)
     scale = kgrid.reduce_list_ref(grid, tq, values.abs(), r2, "sum")[1]
     hold(got, want, scale, op)
+    full = list_model(grid, tq, values, r2, op, cull=False)
+    assert torch.equal(full[0], got[0]) and same_bits(full[1], got[1])
 
 
 @settings(max_examples=40, deadline=None, suppress_health_check=[HealthCheck.too_slow])
@@ -242,18 +267,24 @@ def hold_list(grid, tq, values, r2, op):
        cap=st.sampled_from([32, 40, 64, 128, 256]), cell=st.sampled_from(CELLS),
        n=st.integers(1, 140), nq=st.integers(2, 50), dup=st.sampled_from([0.0, 0.5]),
        masked=st.sampled_from([0.0, 0.3, 1.0]), tall=st.booleans(), sphere=st.booleans(),
-       channels=st.sampled_from([1, 9, 12]), op=st.sampled_from(["sum", "max"]))
+       channels=st.sampled_from([1, 6, 9, 12]), op=st.sampled_from(["sum", "max"]),
+       subset=st.sampled_from([0.0, 0.5]))
 def test_sweep_model_against_reduce_ref(seed, dims, cap, cell, n, nq, dup, masked, tall,
-                                        sphere, channels, op):
+                                        sphere, channels, op, subset):
     """L's sweep route adds each query's members, and only them, in
     candidate order: reduce_ref's counts and maxes bit for bit, its sums
     within REDUCE_RTOL, the culled schedule the unculled adds' bits; on
     wrapped dims, duplicated lattice points, empty and all-masked targets,
-    parked queries and queries exactly at the radius."""
+    parked queries, queries exactly at the radius, and a query grid of a
+    subset of the slots (masked_query_grid, as Harris's suppression sweeps
+    the queries above its threshold)."""
     p, mask, q = select_case(seed, n, nq, dup, masked, tall)
     if sphere:
         q = on_the_sphere(p, q, cell, seed)
     grid, qg, tq = _grids(p, mask, q, None, cell, dims, cap)
+    if subset:
+        keep = np.random.default_rng(seed + 2).random(len(q)) >= subset
+        qg = tg.masked_query_grid(qg, torch.from_numpy(keep), len(q))
     values = make_values(seed, len(p), channels, ties=op == "max")
     hold_sweep(grid, qg, tq, values, tg._f32(cell * cell), op)
 
@@ -263,11 +294,12 @@ def test_sweep_model_against_reduce_ref(seed, dims, cap, cell, n, nq, dup, maske
        cap=st.sampled_from([32, 40, 64, 128, 256]), cell=st.sampled_from(CELLS),
        n=st.integers(1, 140), nq=st.integers(1, 40), dup=st.sampled_from([0.0, 0.5]),
        masked=st.sampled_from([0.0, 0.3, 1.0]), tall=st.booleans(), sphere=st.booleans(),
-       channels=st.sampled_from([1, 9, 12]), op=st.sampled_from(["sum", "max"]))
+       channels=st.sampled_from([1, 6, 9, 12]), op=st.sampled_from(["sum", "max"]))
 def test_list_model_against_reduce_list_ref(seed, dims, cap, cell, n, nq, dup, masked, tall,
                                             sphere, channels, op):
     """L's list route answers every query: reduce_list_ref's counts and
-    maxes bit for bit, its sums within REDUCE_RTOL, on the same inputs."""
+    maxes bit for bit, its sums within REDUCE_RTOL, on the same inputs; the
+    tiles it skips by their boxes change no bit."""
     p, mask, q = select_case(seed, n, max(nq, 2), dup, masked, tall)
     if sphere:
         q = on_the_sphere(p, q, cell, seed)
@@ -289,7 +321,7 @@ def test_models_hold_a_full_bucket_and_a_nan_point(cap, op):
     assert int(grid.count.max()) == cap and int(grid.overflow) > 0
     values = make_values(3, len(p), 9, ties=op == "max")
     r2 = tg._f32(0.25)
-    counts = hold_sweep(grid, qg, tq, values, r2, op)
+    counts = hold_sweep(grid, qg, tq, values, r2, op)[2]
     assert counts["members"] > 0
     hold_list(grid, tq, values, r2, op)
 
@@ -374,13 +406,17 @@ def test_card_path_passes_the_pre_pass_buffers_and_counters(card_path):
     as "grid_reduce" and "grid_pack", with the values as given (no gather
     into the grid's layout), their channels, the max flag, the boxes and
     units buffers and no counters; select_counters passes a buffer of 5
-    counts a warp; reduce_list() is one call of mm_grid_reduce_list,
-    counted as "grid_reduce_list" alone; an unsupported channel count or a
-    failed launch raises under the kernel's name."""
-    seen = []
+    counts a warp for the sum, of 8 for the max (I's schedule);
+    reduce_list() is one call of mm_grid_reduce_list, counted as
+    "grid_reduce_list" alone where it is given the target's boxes, with the
+    pre-pass's boxes first (mm_grid_pack, "grid_pack") where it is not; an
+    unsupported channel count or a failed launch raises under the kernel's
+    name."""
+    seen, packs = [], []
     card_path.setattr(build, "load", lambda *a: types.SimpleNamespace(
         mm_grid_reduce=lambda *args: seen.append(args) or 0,
-        mm_grid_reduce_list=lambda *args: seen.append(args) or 0))
+        mm_grid_reduce_list=lambda *args: seen.append(args) or 0,
+        mm_grid_pack=lambda *args: packs.append(args) or 0))
     grid, q = _meta_grid(), torch.empty((64, 3), device="meta")
     values = torch.empty((100, 9), device="meta")
     kernels = (kgrid.REDUCE_KERNEL, kgrid.REDUCE_LIST_KERNEL, kgrid.PACK_KERNEL)
@@ -392,15 +428,25 @@ def test_card_path_passes_the_pre_pass_buffers_and_counters(card_path):
     assert len(args) == 24 and args[3] == values.data_ptr() and args[4:6] == (9, 1)
     assert args[18] == kgrid.units_max(64, 8) - 1  # the units' capacity
     assert args[-3:-1] == (None, 0)  # no counters
-    counters = torch.empty((5 * 4 * 5,), dtype=torch.int64, device="meta")
-    kgrid._radius(kgrid.REDUCE_KERNEL, grid, _meta_grid(), q, 0.25, values,
-                  counters=counters)
-    assert seen[-1][-3:-1] == (counters.data_ptr(), 5 * 4 * 5) and seen[-1][5] == 0
-    count, out = kgrid.reduce_list(grid, q, values, 0.25, "sum")
-    assert [k.launches for k in kernels] == [before[0] + 2, before[1] + 1, before[2] + 2]
+    for op, width in (("sum", 5), ("max", 8)):
+        counters = torch.empty((width * 4 * 5,), dtype=torch.int64, device="meta")
+        kgrid._radius(kgrid.REDUCE_KERNEL, grid, _meta_grid(), q, 0.25, values,
+                      counters=counters, op=op)
+        assert seen[-1][-3:-1] == (counters.data_ptr(), width * 4 * 5)
+        assert seen[-1][5] == int(op == "max")
+    boxes = torch.empty((8, 2, 4), device="meta")
+    before = [k.launches for k in kernels]
+    count, out = kgrid.reduce_list(grid, q, values, 0.25, "sum", boxes=boxes)
+    assert [k.launches for k in kernels] == [before[0], before[1] + 1, before[2]] and not packs
     args = seen[-1]
-    assert len(args) == 18 and args[3:8] == (values.data_ptr(), 9, 0, q.data_ptr(), 64)
-    assert args[13] == cgrid._f32(1.0 / grid.cell_size) and out.shape == (64, 9)
+    assert len(args) == 19 and args[3:9] == (boxes.data_ptr(), values.data_ptr(), 9, 0,
+                                             q.data_ptr(), 64)
+    assert args[14] == cgrid._f32(1.0 / grid.cell_size) and out.shape == (64, 9)
+    kgrid.reduce_list(grid, q, values, 0.25, "sum")
+    assert [k.launches for k in kernels] == [before[0], before[1] + 2, before[2] + 1]
+    assert len(packs) == 1 and seen[-1][3] is not None
+    with pytest.raises(ValueError, match="grid_reduce_list: boxes has shape"):
+        kgrid.reduce_list(grid, q, values, 0.25, "sum", boxes=boxes[:4])
     for wide in (torch.empty((100, 17), device="meta"), torch.empty((100, 0), device="meta")):
         with pytest.raises(ValueError, match="grid_reduce: unsupported channel count"):
             kgrid.reduce(grid, _meta_grid(), q, wide, 0.25, "sum")
@@ -411,7 +457,7 @@ def test_card_path_passes_the_pre_pass_buffers_and_counters(card_path):
     with pytest.raises(RuntimeError, match="grid_reduce: CUDA launch failed"):
         kgrid.reduce(grid, _meta_grid(), q, values, 0.25, "sum")
     with pytest.raises(RuntimeError, match="grid_reduce_list: CUDA launch failed"):
-        kgrid.reduce_list(grid, q, values, 0.25, "sum")
+        kgrid.reduce_list(grid, q, values, 0.25, "sum", boxes=boxes)
 
 
 def test_wrappers_take_the_plain_versions_on_the_cpu():
@@ -471,18 +517,19 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CARD_CASES)
-@pytest.mark.parametrize("channels", [1, 9, 12])
+@pytest.mark.parametrize("channels", [1, 6, 9, 12])
 @pytest.mark.parametrize("op", ["sum", "max"])
 def test_sweep_route_follows_the_model_and_repeats(cuda, case, channels, op):
-    """L's sweep route: the count and the max bit for bit reduce_ref, the
-    sum bit for bit the model (and within REDUCE_RTOL of reduce_ref), a
-    second call the same bits; one launch of L and one of the pre-pass; its
-    counters equal the model's."""
+    """L's sweep route at each width it is built for (12: the generic
+    instantiation): the count and the max bit for bit reduce_ref, the sum
+    bit for bit the model (and within REDUCE_RTOL of reduce_ref), a second
+    call the same bits; one launch of L and one of the pre-pass; its
+    counters equal the model's (the max's count_model's: I's schedule)."""
     grid, qg, q, cell = card_count_case(case)
     r2 = tg._f32(cell * cell)
     values = make_values(channels, grid.cell_idx.numel(), channels, ties=op == "max")
     values = values[: int(grid.cell_idx.max()) + 1].contiguous()
-    count, out, counts = sweep_model(grid, qg, q, values, r2, op)
+    count, out, counts = hold_sweep(grid, qg, q, values, r2, op)
     on_card = (_to(grid, cuda), _to(qg, cuda), q.to(cuda), values.to(cuda))
     before = (kgrid.REDUCE_KERNEL.launches, kgrid.PACK_KERNEL.launches)
     got = [a.cpu() for a in kgrid.reduce(*on_card, r2, op)]
@@ -495,30 +542,34 @@ def test_sweep_route_follows_the_model_and_repeats(cuda, case, channels, op):
     scale = kgrid.reduce_ref(grid, qg, q, values.abs(), r2, "sum")[1]
     hold(got, want, scale, op)
     card = kgrid.select_counters("grid_reduce", *on_card, r2, op)
-    assert {k: card[k] for k in COUNTERS} == counts
+    assert {k: card[k] for k in counts} == counts
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CARD_CASES)
-@pytest.mark.parametrize("channels", [1, 9, 12])
+@pytest.mark.parametrize("channels", [1, 6, 9, 12])
 @pytest.mark.parametrize("op", ["sum", "max"])
 def test_list_route_follows_the_model_and_repeats(cuda, case, channels, op):
-    """L's list route on the case's first 4,096 queries and on its first
-    one: the count and the max bit for bit reduce_list_ref, the sum bit for
-    bit the model, a second call the same bits, one launch a call and no
-    pre-pass."""
+    """L's list route at each width on the case's first 4,096 queries and
+    on its first one: the count and the max bit for bit reduce_list_ref,
+    the sum bit for bit the model, a second call the same bits; given the
+    target's boxes one launch a call and no pre-pass, given none the
+    pre-pass's boxes first, the same bits."""
     grid, _, q, cell = card_count_case(case)
     r2 = tg._f32(cell * cell)
     values = make_values(channels, grid.cell_idx.numel(), channels, ties=op == "max")
     values = values[: int(grid.cell_idx.max()) + 1].contiguous()
+    card_grid = _to(grid, cuda)
+    boxes = kgrid.boxes(card_grid)
     for tq in (q[:4096].contiguous(), q[:1].contiguous()):
         count, out = list_model(grid, tq, values, r2, op)
-        on_card = (_to(grid, cuda), tq.to(cuda), values.to(cuda))
+        on_card = (card_grid, tq.to(cuda), values.to(cuda))
         before = (kgrid.REDUCE_LIST_KERNEL.launches, kgrid.PACK_KERNEL.launches)
-        got = [a.cpu() for a in kgrid.reduce_list(*on_card, r2, op)]
+        got = [a.cpu() for a in kgrid.reduce_list(*on_card, r2, op, boxes=boxes)]
         assert (kgrid.REDUCE_LIST_KERNEL.launches, kgrid.PACK_KERNEL.launches) == (
             before[0] + 1, before[1])
         again = [a.cpu() for a in kgrid.reduce_list(*on_card, r2, op)]
+        assert kgrid.PACK_KERNEL.launches == before[1] + 1
         assert torch.equal(got[0], count) and same_bits(got[1], out)
         assert torch.equal(again[0], got[0]) and same_bits(again[1], got[1])
         want = kgrid.reduce_list_ref(grid, tq, values, r2, op)

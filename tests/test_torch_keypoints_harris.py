@@ -1,6 +1,11 @@
 """Harris3D parity: the response, non-max suppression, the top-K cut with
 its `truncated` count and the refinement, against mapmerge_tpu on the same
-cloud and normals, and the keypoint dispatch of both detectors."""
+cloud and normals, and the keypoint dispatch of both detectors. On the grid
+engine, an extraction's two grids (GridRoute: one target grid, one query
+grid) against the per-call composition they replace (every radius_reduce
+call building its own grids): the same keypoints bit for bit, 2 sorts in
+place of 7, the 6-channel response within REDUCE_RTOL of the 9-channel
+one, and the threshold-masked suppression's `keep` the full one's."""
 
 import numpy as np
 import pytest
@@ -12,9 +17,13 @@ from mapmerge_tpu.ops.keypoints import harris as jh
 from mapmerge_tpu.ops.normals import compute_surface_normals as j_normals
 from mapmerge_tpu.ops.outliers import remove_outliers as j_outliers
 from mapmerge_torch import convert
-from mapmerge_torch.ops.keypoints import detect_keypoints
+from mapmerge_torch.core.cloud import FAR
+from mapmerge_torch.kernels import grid as kgrid
+from mapmerge_torch.ops import grid as tg
+from mapmerge_torch.ops.keypoints import Keypoints, detect_keypoints
 from mapmerge_torch.ops.keypoints import harris as th
 from mapmerge_torch.ops.keypoints.sift import detect_keypoints_sift
+from mapmerge_torch.ops.neighbors import BIG, radius_reduce
 from mapmerge_torch.ops.normals import SurfaceNormals
 
 from torch_parity import SLICE_PARAMS, both_clouds, small_scene, t
@@ -131,3 +140,120 @@ def test_dispatch(surface):
     assert torch.equal(sift.xyz, direct.xyz) and torch.equal(sift.mask, direct.mask)
     with pytest.raises(ValueError, match="keypoint type"):
         detect_keypoints(tc, tn, "ISS", 1.0, RADIUS, 0.1, 64)
+
+
+# ---- the grid engine's one grid an extraction ----
+
+
+def per_call_harris(cloud, normals, threshold, radius, max_keypoints, scan_cap=128):
+    """The grid extraction as each radius_reduce call composed it before
+    GridRoute: the response on all 9 channels, the suppression over every
+    query and the refinement on 12 channels, each call building its own
+    target grid (and, above SMALL_Q_THRESHOLD queries, its query grid)."""
+    ok = cloud.mask & normals.valid
+    _, sums, _ = radius_reduce(cloud.xyz, cloud.xyz, radius, th._outer(normals).reshape(-1, 9),
+                               p_mask=ok, engine="grid", scan_cap=scan_cap)
+    resp = th._response(sums.reshape(-1, 3, 3), ok)
+    _, nmax, _ = radius_reduce(cloud.xyz, cloud.xyz, radius, resp[:, None], p_mask=ok,
+                               reduce="max", engine="grid", scan_cap=scan_cap)
+    keep = ok & (resp >= nmax[:, 0]) & (resp > threshold)
+    score = torch.where(keep, resp, -BIG)
+    k = min(max_keypoints, score.shape[0])
+    top_scores, top_idx = torch.topk(score, k)
+    kp_mask = top_scores > -BIG / 2
+    kp_xyz = cloud.xyz[top_idx]
+    for _ in range(th._REFINE_ITERS):
+        kp_xyz = th._refine_step(kp_xyz, cloud, normals, radius, 1024, "grid", scan_cap)
+    return Keypoints(
+        xyz=torch.where(kp_mask[:, None], kp_xyz, FAR),
+        response=torch.where(kp_mask, top_scores, 0.0),
+        mask=kp_mask,
+        truncated=(keep.sum().to(torch.int32) - k).clamp_min(0),
+    ), resp
+
+
+def counting_sorts(monkeypatch):
+    """Count build_grid calls, by grid kind, wherever Harris's grids are
+    built: GridRoute (ops/keypoints/harris) and each radius_reduce call
+    (ops/grid)."""
+    seen = []
+
+    def make(fn):
+        def wrapper(xyz, mask, *args, **kwargs):
+            seen.append("query" if mask is None else "target")
+            return fn(xyz, mask, *args, **kwargs)
+
+        return wrapper
+
+    monkeypatch.setattr(th, "build_grid", make(th.build_grid))
+    monkeypatch.setattr(tg, "build_grid", make(tg.build_grid))
+    return seen
+
+
+@pytest.mark.parametrize("max_keypoints", [256, 8])
+def test_grid_extraction_sorts_twice_and_keeps_the_per_call_bits(surface, monkeypatch,
+                                                                 max_keypoints):
+    """A grid Harris extraction of the slice cloud (4,568 slots: the
+    response and the suppression take the query grid) builds one target
+    grid and one query grid, where the per-call composition built seven
+    (five target grids, two query grids); its keypoints, responses and
+    `truncated` are that composition's, bit for bit, on the CPU."""
+    _, _, tc, tn = surface
+    assert tc.xyz.shape[0] > tg.SMALL_Q_THRESHOLD
+    sorts = counting_sorts(monkeypatch)
+    got = th.detect_keypoints_harris(tc, tn, 1.0, RADIUS, max_keypoints, engine="grid")
+    assert sorted(sorts) == ["query", "target"]
+    sorts.clear()
+    want, _ = per_call_harris(tc, tn, 1.0, RADIUS, max_keypoints)
+    assert sorts.count("target") == 5 and sorts.count("query") == 2
+    assert int(got.mask.sum()) > 5 and (int(got.truncated) > 0) == (max_keypoints == 8)
+    for field in ("xyz", "response", "mask", "truncated"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+
+
+def test_six_channel_response_is_within_the_sum_limit_of_nine(surface):
+    """The response sums the upper triangle of n n^T (6 channels) and
+    mirrors it: each entry within REDUCE_RTOL of the 9-channel sum of that
+    entry (the members' sum of |v| the scale), and so the same response."""
+    _, _, tc, tn = surface
+    ok = tc.mask & tn.valid
+    route = th.GridRoute(tc, ok, RADIUS, 128)
+    outer = th._outer(tn).reshape(-1, 9)
+    upper = outer[:, list(th.UPPER)]
+    _, six, _ = tg.grid_reduce_query(route.grid, tc.xyz, upper, "sum", qg=route.qg)
+    _, nine, _ = tg.grid_reduce_query(route.grid, tc.xyz, outer, "sum", qg=route.qg)
+    _, scale, _ = tg.grid_reduce_query(route.grid, tc.xyz, outer.abs(), "sum", qg=route.qg)
+    mirrored = th._mirror(six).reshape(-1, 9)
+    assert int((scale > 0).sum()) > 1000
+    assert kgrid.reduce_error(mirrored, nine, scale) <= kgrid.REDUCE_RTOL
+    assert torch.equal(route.response(tn, ok), th._response(nine.reshape(-1, 3, 3), ok))
+
+
+@pytest.mark.parametrize("scan_cap", [128, 8])
+def test_threshold_masked_suppression_keeps_what_the_full_one_keeps(surface, scan_cap):
+    """The suppression over the queries above the threshold gives `keep`
+    bit for bit as the suppression over every query: with a NaN response
+    at some points and the query grid dropping valid queries (caps 128 and
+    8); the maxes of the queries swept are the full sweep's, bit for bit
+    (NaN where NaN)."""
+    _, _, tc, tn = surface
+    ok = tc.mask & tn.valid
+    route = th.GridRoute(tc, ok, RADIUS, scan_cap)
+    # the query grid drops valid queries at both caps (the town's buckets
+    # hold more than 128 points), more of them at 8
+    answered = torch.zeros_like(ok)
+    answered[route.qg.cell_idx[route.qg.cell_ok]] = True
+    assert int(route.qg.overflow) > 0 and bool((ok & ~answered).any())
+    resp = route.response(tn, ok)
+    resp[torch.arange(0, resp.shape[0], 997)] = float("nan")
+    threshold = float(resp[ok & ~resp.isnan()].quantile(0.25))
+    masked = route.suppression(resp, threshold)
+    _, full, _ = tg.grid_reduce_query(route.grid, tc.xyz, resp[:, None], "max", qg=route.qg)
+    full = full[:, 0]
+    keep_masked = ok & (resp >= masked) & (resp > threshold)
+    keep_full = ok & (resp >= full) & (resp > threshold)
+    assert torch.equal(keep_masked, keep_full) and int(keep_full.sum()) > 5
+    swept = resp > threshold
+    a, b = masked[swept], full[swept]
+    assert bool(((a == b) | (a.isnan() & b.isnan())).all()) and bool(a.isnan().any())
+    assert bool((masked[~swept] == -BIG).all())
